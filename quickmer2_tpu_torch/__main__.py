@@ -1,0 +1,3 @@
+from quickmer2_tpu_torch.cli import main
+
+raise SystemExit(main())

@@ -1,0 +1,161 @@
+"""Command-line interface of the PyTorch/CUDA port, mirroring the JAX
+package's (quickmer2_tpu/cli.py) for the ported subcommands:
+
+  python -m quickmer2_tpu_torch search [-k N] [-s SIZE] [-e N] [-d N] [-w N]
+                                       [-c ctrl.bed] [--device cuda|cpu] ref.fa
+  python -m quickmer2_tpu_torch count  [--batch-bases N] [--json]
+                                       [--device cuda|cpu] ref.fa sample out
+  python -m quickmer2_tpu_torch est    [--json] [--device cuda|cpu]
+                                       ref.fa sample_prefix out.bed
+
+--device defaults to cuda and the run fails where there is no card;
+--device cpu runs the kernels' plain PyTorch versions. The JAX CLI's
+other subcommands and options are accepted and fail with "not yet
+ported".
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from quickmer2_tpu_torch.config import SearchConfig, parse_size_suffix
+
+_LATER = ("cohort", "sparse", "index", "colortrack", "colorkey")
+
+
+def _device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the kernels run (default cuda; no fallback)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="quickmer2_tpu_torch",
+        description="k-mer copy-number engine, PyTorch/CUDA port")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("search", help="build a unique-k-mer dictionary from a genome")
+    s.add_argument("-k", type=int, default=30, help="k-mer size (3-32, default 30)")
+    s.add_argument("-t", type=int, default=1, help="threads (CLI parity; unused)")
+    s.add_argument("-s", type=str, default="32M", help="hash size (K/M/G suffix ok)")
+    s.add_argument("-e", type=int, default=2, help="edit distance 0-2")
+    s.add_argument("-d", type=int, default=100, help="edit depth threshold")
+    s.add_argument("-w", type=int, default=1000, help="k-mers per window")
+    s.add_argument("-c", type=str, default=None, help="control region bed")
+    s.add_argument("--quirk-editdist", action="store_true",
+                   help="(not yet ported)")
+    s.add_argument("--out-prefix", type=str, default=None)
+    s.add_argument("--json", action="store_true",
+                   help="print structured per-phase stats as one JSON line")
+    s.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="(not yet ported)")
+    s.add_argument("--emit-devices", type=int, default=None,
+                   help="(not yet ported)")
+    _device_arg(s)
+    s.add_argument("fasta")
+
+    c = sub.add_parser("count", help="count k-mer depth from sample reads")
+    c.add_argument("-t", type=int, default=1, help="threads (CLI parity)")
+    c.add_argument("--batch-bases", type=int, default=1 << 24)
+    c.add_argument("--mode", choices=["flat", "anchored"], default="flat",
+                   help="flat (anchored: not yet ported)")
+    c.add_argument("--read-len", type=int, default=None,
+                   help="(anchored mode; not yet ported)")
+    c.add_argument("--data-devices", type=int, default=None,
+                   help="(not yet ported)")
+    c.add_argument("--dict-devices", type=int, default=None,
+                   help="(not yet ported)")
+    c.add_argument("--checkpoint", type=str, default=None, metavar="PATH",
+                   help="(not yet ported)")
+    c.add_argument("--checkpoint-every", type=parse_size_suffix,
+                   default=None, metavar="BYTES", help="(not yet ported)")
+    c.add_argument("--engine", choices=["mono", "packed", "sortjoin",
+                                       "linear", "auto"], default="mono",
+                   help="flat-path exact engine (only mono is ported)")
+    c.add_argument("--json", action="store_true",
+                   help="print the run's structured stats as one JSON "
+                        "line on stdout")
+    c.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="(not yet ported)")
+    _device_arg(c)
+    c.add_argument("fasta", help="reference FASTA path or .qm path")
+    c.add_argument("sample", help="FASTA/FASTQ reads ('-' for stdin)")
+    c.add_argument("out_prefix")
+
+    e = sub.add_parser("est", help="GC-corrected copy-number estimation")
+    e.add_argument("--plot", action="store_true", help="(not yet ported)")
+    e.add_argument("--json", action="store_true",
+                   help="print structured per-phase stats as one JSON line")
+    _device_arg(e)
+    e.add_argument("fasta", help="reference FASTA path (for .qgc/.bed)")
+    e.add_argument("sample_prefix")
+    e.add_argument("out_bed")
+
+    for name in _LATER:
+        later = sub.add_parser(name, help="(not yet ported)")
+        later.add_argument("rest", nargs=argparse.REMAINDER)
+    return p
+
+
+def _reject(parser: argparse.ArgumentParser, args, options) -> None:
+    """Exit with a clear error for options this slice does not run."""
+    for flag, attr, default in options:
+        if getattr(args, attr) != default:
+            parser.error(f"{args.cmd} {flag} is not yet ported to "
+                         f"quickmer2_tpu_torch")
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    if args.cmd in _LATER:
+        parser.error(f"the {args.cmd} subcommand is not yet ported to "
+                     f"quickmer2_tpu_torch")
+
+    if args.cmd == "search":
+        _reject(parser, args, [("--quirk-editdist", "quirk_editdist", False),
+                               ("--emit-devices", "emit_devices", None),
+                               ("--profile", "profile", None)])
+        from quickmer2_tpu_torch.pipelines.search import run_search
+        cfg = SearchConfig(kmer_size=args.k, threads=args.t,
+                           hash_size=parse_size_suffix(args.s),
+                           edit_distance=args.e, edit_depth_threshold=args.d,
+                           window_size=args.w, control_bed=args.c)
+        stats = {}
+        run_search(args.fasta, cfg, out_prefix=args.out_prefix,
+                   verbose=not args.json, stats=stats, device=args.device)
+        if args.json:
+            print(json.dumps(stats))
+
+    elif args.cmd == "count":
+        _reject(parser, args, [("--mode anchored", "mode", "flat"),
+                               ("--read-len", "read_len", None),
+                               ("--data-devices", "data_devices", None),
+                               ("--dict-devices", "dict_devices", None),
+                               ("--checkpoint", "checkpoint", None),
+                               ("--checkpoint-every", "checkpoint_every", None),
+                               ("--engine", "engine", "mono"),
+                               ("--profile", "profile", None)])
+        from quickmer2_tpu_torch.pipelines.count import run_count
+        qm = args.fasta if args.fasta.endswith(".qm") else args.fasta + ".qm"
+        stats = run_count(qm, args.sample, args.out_prefix,
+                          batch_bases=args.batch_bases,
+                          verbose=not args.json, device=args.device)
+        if args.json:
+            print(json.dumps(stats))
+
+    elif args.cmd == "est":
+        _reject(parser, args, [("--plot", "plot", False)])
+        from quickmer2_tpu_torch.pipelines.est import run_est
+        res = run_est(args.fasta, args.sample_prefix, args.out_bed,
+                      verbose=not args.json, device=args.device)
+        if args.json:
+            print(json.dumps({k: v for k, v in res.items()
+                              if k != "factors"}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,82 @@
+"""Fused mono-table count step: the CUDA kernel csrc/count_mono.cu and
+its plain PyTorch version.
+
+`count_mono_step` replaces quickmer2_tpu/pipelines/count.py::
+count_step_mono_pk. It takes one batch of `n_bases` 2-bit codes (the
+ops.rowpack layout, one row = the batch), adds 1 to depth[slot] for
+every valid window whose canonical k-mer sits in the mono table, and
+returns the unresolved-lane mask (valid & nonzero & miss & bucket full)
+as LSB-first u32 words: lane i is bit i & 31 of word i >> 5.
+
+A tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernel, or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from quickmer2_tpu_torch.device import store
+from quickmer2_tpu_torch.kernels import build
+from quickmer2_tpu_torch.ops import codec, monotable, rowpack
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_longlong, ctypes.c_void_p]
+
+
+def pack_lanes(flags: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """bool[n] → LSB-first u32 words [ceil(n/32)] in word storage dtype."""
+    n = flags.shape[0]
+    padded = torch.zeros(-(-n // 32) * 32, dtype=torch.int64,
+                         device=flags.device)
+    padded[:n] = flags.to(torch.int64)
+    shifts = torch.arange(32, device=flags.device)
+    return store((padded.view(-1, 32) << shifts).sum(1), dtype)
+
+
+def count_mono_step_plain(pk, bits, rows, depth, *, k: int, n_buckets: int,
+                          n_bases: int) -> torch.Tensor:
+    """Plain PyTorch version: unpack, kmerize, probe, add, pack."""
+    codes = rowpack.unpack_rows(pk[None], bits[None], read_len=n_bases)[0]
+    chi, clo, valid = codec.sliding_kmers(codes, k)
+    found, slot, unresolved = monotable.probe_mono(rows, chi, clo, n_buckets)
+    hit = slot[valid & found]
+    depth.index_add_(0, hit, torch.ones(hit.shape, dtype=depth.dtype,
+                                        device=depth.device))
+    return pack_lanes(valid & unresolved, depth.dtype)
+
+
+def count_mono_step(pk: torch.Tensor, bits: torch.Tensor, rows: torch.Tensor,
+                    depth: torch.Tensor, *, k: int, n_buckets: int,
+                    n_bases: int) -> torch.Tensor:
+    """One batch into `depth` (slot order, updated in place); returns the
+    unresolved-lane mask words."""
+    if pk.device.type == "cpu":
+        return count_mono_step_plain(pk, bits, rows, depth, k=k,
+                                     n_buckets=n_buckets, n_bases=n_bases)
+    n = n_bases - k + 1
+    build.check_tensors("count_mono_step", pk.device, [
+        ("pk", pk, torch.uint8, (-(-n_bases // 4),)),
+        ("bits", bits, torch.uint8, (-(-n_bases // 8),)),
+        ("rows", rows, torch.int32, (n_buckets, 2 * monotable.ENTRIES)),
+        ("depth", depth, torch.int32, (n_buckets * monotable.ENTRIES + 1,))])
+    if not 1 <= k <= 32 or n <= 0:
+        raise ValueError(f"count_mono_step: bad k={k} for {n_bases} bases")
+    mask = torch.empty(-(-n // 32), dtype=torch.int32, device=pk.device)
+    lib = build.load("count_mono")
+    lib.qm2t_count_mono.argtypes = _ARGTYPES
+    with torch.cuda.device(pk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qm2t_count_mono(pk.data_ptr(), bits.data_ptr(),
+                                 rows.data_ptr(), depth.data_ptr(),
+                                 mask.data_ptr(), n_bases, k, n_buckets,
+                                 stream)
+    build.check(lib, rc, "count_mono")
+    count_mono_step.launches += 1
+    return mask
+
+
+count_mono_step.launches = 0
+

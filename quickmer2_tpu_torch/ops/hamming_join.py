@@ -1,0 +1,414 @@
+"""Edit-distance filter as a blocked Hamming join — the search phase's
+flagship kernel (port of quickmer2_tpu/ops/hamming_join.py).
+
+Reference semantics (Recurse_edit, QuicKmer.c:687-736): for each unique
+k-mer u, sum the occurrence counts of every substitution neighbor at
+Hamming distance 1..e (e ≤ 2), probing neighbors in canonical form. This
+module inverts the enumeration into a weighted JOIN of dense compares:
+
+  sum(u) = Σ_{w ∈ W, 1 ≤ H(w,u) ≤ e} occ(w)
+
+where W = all distinct genome k-mers ∪ their reverse complements
+(palindrome duplicates dropped) — every neighbor WORD of u that can
+probe successfully is such a w, exactly once.
+
+Pigeonhole: split the k bases into 3 contiguous parts; any pair with
+H ≤ 2 agrees exactly on ≥ 1 part. For each part, group W and the
+queries by the part's value into padded bucket layouts (plain PyTorch
+scatter, `_bucket_layouts`) and compare every query against its
+bucket's members (the CUDA kernel csrc/hamming_join.cu through
+kernels.hamming_join.join_compare). A pair with m exact parts is found
+by exactly the m part-joins whose bucket is intact, so each join
+contributes occ·(6/m) and the total is divided by 6.
+
+Exactness under bucket overflow: buckets larger than `cpad` are
+truncated, so any query whose OWN part value lands in an overflowed
+bucket (for any part) is routed to the host slow path
+(`_slow_sums_sorted_np` — enumeration + searchsorted); for the
+remaining fast queries every exact-part join of every relevant pair is
+intact, because the pair's bucket in an exact part IS the query's
+bucket.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from quickmer2_tpu_torch.device import (
+    U32, resolve_device, store, to_numpy_u32, u32, word_dtype, words)
+from quickmer2_tpu_torch.kernels.hamming_join import join_compare
+from quickmer2_tpu_torch.ops import codec
+from quickmer2_tpu_torch.ops.editdist import edit_table
+
+CHUNK_W = 12_000_000    # words per word chunk
+CHUNK_Q = 4_000_000     # queries per query chunk
+
+
+def part_ranges(k: int) -> list[tuple[int, int]]:
+    """Three contiguous base ranges covering [0, k) (bit offsets are
+    2x). First part takes the remainder."""
+    p = k // 3
+    first = k - 2 * p
+    return [(0, first), (first, first + p), (first + p, k)]
+
+
+def _extract_part_np(hi: np.ndarray, lo: np.ndarray, lo_base: int,
+                     hi_base: int) -> np.ndarray:
+    """Bits [2*lo_base, 2*hi_base) of the 2k-bit (hi,lo) code as u32
+    (part width ≤ 16 bases = 32 bits; base 16 is the lo/hi word seam)."""
+    a, b = 2 * lo_base, 2 * hi_base
+    width = b - a
+    assert width <= 32
+    full = (np.asarray(lo, np.uint64)
+            | (np.asarray(hi, np.uint64) << np.uint64(32)))
+    v = (full >> np.uint64(a)) & np.uint64((1 << width) - 1)
+    return v.astype(np.uint32)
+
+
+def _part_masks(k: int):
+    """(hi_mask, lo_mask) u32 pairs for each of the 3 parts."""
+    masks = []
+    for (s, e) in part_ranges(k):
+        a, b = 2 * s, 2 * e
+        m = ((1 << b) - 1) ^ ((1 << a) - 1)
+        masks.append((np.uint32((m >> 32) & 0xFFFFFFFF),
+                      np.uint32(m & 0xFFFFFFFF)))
+    return masks
+
+
+def _part_key(hi: torch.Tensor, lo: torch.Tensor, lo_bit: int,
+              width: int) -> torch.Tensor:
+    """Bits [lo_bit, lo_bit+width) of the (hi, lo) code (int64 u32
+    values) as int64."""
+    return (((hi << 32) | lo) >> lo_bit) & ((1 << width) - 1)
+
+
+def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
+                    width: int, n_buckets: int, cpad: int, cpad_q: int):
+    """Scatter one word chunk and the query chunk into padded bucket
+    layouts (the first half of quickmer2_tpu _part_chunk_join,
+    hamming_join.py:126-149): word lane key*cpad + slot, query lane
+    key*cpad_q + slot; entries whose slot reaches the pad stay out.
+    Returns (dh, dl, docc, qh, ql, qidx) — word tensors of
+    B*cpad + 1 / B*cpad_q + 1 lanes (the last lane is the hole) and
+    int32 qidx, nq on holes."""
+    dtype = whi.dtype
+    nq = qhi.shape[0]
+    hole_d = n_buckets * cpad
+    hole_q = n_buckets * cpad_q
+    dev = whi.device
+    wsel = wslot.to(torch.int64) < cpad
+    keyw = _part_key(u32(whi[wsel]), u32(wlo[wsel]), lo_bit, width)
+    wf = keyw * cpad + wslot[wsel].to(torch.int64)
+    dh = torch.zeros(hole_d + 1, dtype=dtype, device=dev)
+    dl = torch.zeros_like(dh)
+    docc = torch.zeros_like(dh)
+    dh[wf] = whi[wsel]
+    dl[wf] = wlo[wsel]
+    docc[wf] = wocc[wsel].to(dtype)
+    qsel = qslot.to(torch.int64) < cpad_q
+    keyq = _part_key(u32(qhi[qsel]), u32(qlo[qsel]), lo_bit, width)
+    qf = keyq * cpad_q + qslot[qsel].to(torch.int64)
+    qh = torch.zeros(hole_q + 1, dtype=dtype, device=dev)
+    ql = torch.zeros_like(qh)
+    qidx = torch.full((hole_q + 1,), nq, dtype=torch.int32, device=dev)
+    qh[qf] = qhi[qsel]
+    ql[qf] = qlo[qsel]
+    qidx[qf] = torch.nonzero(qsel).flatten().to(torch.int32)
+    return dh, dl, docc, qh, ql, qidx
+
+
+def _slots_u8(keys: np.ndarray) -> np.ndarray:
+    """Per-entry in-bucket slot (rank among equal keys), in ORIGINAL
+    entry order, saturated to u8."""
+    order = np.argsort(keys, kind="stable")
+    ks = keys[order]
+    first = np.ones(len(ks), bool)
+    first[1:] = ks[1:] != ks[:-1]
+    start = np.maximum.accumulate(np.where(first, np.arange(len(ks)), 0))
+    slot_sorted = np.arange(len(ks)) - start
+    slot = np.empty(len(ks), np.int64)
+    slot[order] = slot_sorted
+    return np.minimum(slot, 255).astype(np.uint8)
+
+
+class _JoinPlan:
+    """Chunking and slow-path routing of one hamming_neighbor_sums call,
+    and the bucket layouts of each (part, word chunk, query chunk) it
+    joins.
+
+    The word side W = [uniq, rc(uniq)] goes to the device once, on first
+    use, and the rc half is computed there (_build_w_device); per
+    (part, word chunk) only 1-byte in-bucket slots follow. W is cut into
+    chunks of at most `chunk_w` words and the queries into chunks of at
+    most `chunk_q`, so bucket loads stay under the pads at any genome
+    size (a pair is found in exactly the (query chunk, word chunk) cell
+    holding both ends).
+
+    Chunks are INTERLEAVED (chunk c = every n-th element from c), where
+    the JAX package cuts contiguous slices. Both arrays are sorted by
+    code, so a contiguous slice covers a narrow range of the top part's
+    keys and piles its bucket loads past the pads; on a 12 Mb realistic
+    genome that sent so many queries to the host slow path that search
+    ran past 20 minutes on an H100 host without finishing. The sums are
+    the same either way.
+
+    Routing: a query is slow when any part's word bucket, in any word
+    chunk, holds more than `cpad` live words (stage 1, on construction),
+    or when its bucket within its query chunk holds more than
+    min(cpad_q, cpad) queries (stage 2, query_chunk). The query layout
+    holds min(cpad_q, cpad) lanes per bucket, so that is the bound
+    stage 2 checks; the JAX package checks cpad_q, which drops queries
+    from the join when cpad < cpad_q.
+    """
+
+    def __init__(self, unique_kmers: np.ndarray, uniq: np.ndarray,
+                 occ: np.ndarray, k: int, *, cpad: int, cpad_q: int,
+                 device: torch.device, chunk_w: int = CHUNK_W,
+                 chunk_q: int = CHUNK_Q):
+        if not (1 <= cpad <= 255 and 1 <= cpad_q <= 255):
+            raise ValueError("pads must lie in 1..255 (in-bucket slots are u8)")
+        self.k, self.cpad, self.cpad_q = k, cpad, min(cpad_q, cpad)
+        self.device = device
+        self.uniq, self.occ = uniq, occ
+        # database W = [uniq, rc(uniq)] (static 2n shape), palindromic rc
+        # lanes DEAD via slot 255
+        rc_db = _rc_np(uniq, k)
+        self.w_live = np.concatenate([np.ones(len(uniq), bool),
+                                      rc_db != uniq])
+        whi, wlo = codec.split_u64(np.concatenate([uniq, rc_db]))
+        self.qhi, self.qlo = codec.split_u64(
+            np.asarray(unique_kmers, np.uint64))
+        self.ranges = part_ranges(k)
+        self.part_keys_w = [_extract_part_np(whi, wlo, s, t)
+                            for (s, t) in self.ranges]
+        self.part_keys_q = [_extract_part_np(self.qhi, self.qlo, s, t)
+                            for (s, t) in self.ranges]
+        self.n_bkts = [1 << (2 * (t - s)) for (s, t) in self.ranges]
+        n_w = len(whi)
+        n_wchunks = max(1, -(-n_w // chunk_w))
+        self.chunks = [slice(c, n_w, n_wchunks) for c in range(n_wchunks)]
+
+        # stage 1 (word side): the overflowed-bucket set unions over
+        # chunks first, then all queries route with one gather per part
+        self.slow = np.zeros(len(self.qhi), bool)
+        for i in range(3):
+            over_w = np.zeros(self.n_bkts[i], bool)
+            for c in self.chunks:
+                hw = np.bincount(self.part_keys_w[i][c][self.w_live[c]],
+                                 minlength=self.n_bkts[i])
+                over_w |= hw > cpad
+            self.slow |= over_w[self.part_keys_q[i]]
+        self.fast = np.flatnonzero(~self.slow)
+        self.n_qchunks = -(-len(self.fast) // chunk_q)
+        self._w_d = None
+        self._wslots: dict = {}
+
+    def query_chunk(self, qc: int) -> np.ndarray:
+        """Indices of query chunk `qc` (every n_qchunks-th stage-1 fast
+        query from qc) that the join takes; the chunk's queries whose
+        bucket overflows the query pad are marked slow (stage 2)."""
+        qsel = self.fast[qc::self.n_qchunks]
+        chunk_slow = np.zeros(len(qsel), bool)
+        for i in range(3):
+            hq = np.bincount(self.part_keys_q[i][qsel],
+                             minlength=self.n_bkts[i])
+            chunk_slow |= hq[self.part_keys_q[i][qsel]] > self.cpad_q
+        self.slow[qsel[chunk_slow]] = True
+        return qsel[~chunk_slow]
+
+    def _words(self):
+        if self._w_d is None:
+            uhi, ulo = codec.split_u64(self.uniq)
+            whi_d, wlo_d = _build_w_device(words(uhi, self.device),
+                                           words(ulo, self.device), k=self.k)
+            occ_d = torch.from_numpy(np.asarray(self.occ, np.uint8)).to(
+                self.device)
+            self._w_d = (whi_d, wlo_d, torch.cat([occ_d, occ_d]))
+        return self._w_d
+
+    def _w_slots(self, i: int, ci: int) -> torch.Tensor:
+        if (i, ci) not in self._wslots:
+            c = self.chunks[ci]
+            live = self.w_live[c]
+            s8 = np.full(len(live), 255, np.uint8)
+            s8[live] = _slots_u8(self.part_keys_w[i][c][live])
+            self._wslots[(i, ci)] = torch.from_numpy(s8).to(self.device)
+        return self._wslots[(i, ci)]
+
+    def queries(self, qsel: np.ndarray) -> dict:
+        """The device side of one query chunk: codes and, per part, the
+        in-bucket slots (built on first use)."""
+        return {"sel": qsel, "hi": words(self.qhi[qsel], self.device),
+                "lo": words(self.qlo[qsel], self.device), "slots": {}}
+
+    def layouts(self, i: int, ci: int, q: dict):
+        """Bucket layouts of part i, word chunk ci and query chunk q
+        (from queries()): (dh, dl, docc, qh, ql, qidx), see
+        _bucket_layouts."""
+        if i not in q["slots"]:
+            q["slots"][i] = torch.from_numpy(
+                _slots_u8(self.part_keys_q[i][q["sel"]])).to(self.device)
+        whi_d, wlo_d, wocc_d = self._words()
+        c = self.chunks[ci]
+        s, t = self.ranges[i]
+        return _bucket_layouts(
+            whi_d[c], wlo_d[c], wocc_d[c], self._w_slots(i, ci), q["hi"],
+            q["lo"], q["slots"][i], lo_bit=2 * s, width=2 * (t - s),
+            n_buckets=self.n_bkts[i], cpad=self.cpad, cpad_q=self.cpad_q)
+
+    def release(self) -> None:
+        """Free the device word side."""
+        self._w_d = None
+        self._wslots = {}
+
+
+def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
+                          occ: np.ndarray, k: int, e: int,
+                          cpad: int = 64, cpad_q: int = 32,
+                          chunk_w: int = CHUNK_W,
+                          chunk_q: int = CHUNK_Q,
+                          device: str | torch.device = "cuda",
+                          stats: dict | None = None) -> np.ndarray:
+    """Neighbor-occurrence sums for `unique_kmers` (queries) against the
+    distinct-genome-k-mer multiset (`uniq` canonical u64, `occ` u8/u32
+    saturated counts). Exact: identical to brute-force enumeration and to
+    the JAX package's hamming_neighbor_sums. Chunking and routing are
+    _JoinPlan's.
+
+    stats: optional dict filled with the routing counts (queries in
+    total, joined on the device, sent to the slow path; join calls).
+    """
+    device = resolve_device(device)
+    if not 1 <= e <= 2:
+        raise ValueError("edit distance must be 1 or 2")
+    n = len(unique_kmers)
+    if n == 0:
+        return np.zeros(0, np.uint32)
+    if cpad == 64 and len(uniq) > 20_000_000:
+        # repeat-family bucket loads scale with W: past ~20 M distinct
+        # k-mers wider pads shrink the slow set (exactness is
+        # pad-independent)
+        cpad, cpad_q = 128, 64
+    plan = _JoinPlan(unique_kmers, uniq, occ, k, cpad=cpad, cpad_q=cpad_q,
+                     chunk_w=chunk_w, chunk_q=chunk_q, device=device)
+    masks = _part_masks(k)
+    sums = np.zeros(n, np.uint64)
+    join_compare_calls = 0
+    for qc in range(plan.n_qchunks):
+        qsel = plan.query_chunk(qc)
+        if len(qsel) == 0:
+            continue
+        q = plan.queries(qsel)
+        scaled_d = torch.zeros(len(qsel) + 1, dtype=word_dtype(device),
+                               device=device)
+        for i in range(3):
+            for ci in range(len(plan.chunks)):
+                layouts = plan.layouts(i, ci, q)
+                join_compare(*layouts, scaled_d, e=e, masks=masks,
+                             n_buckets=plan.n_bkts[i], cpad=plan.cpad,
+                             cpad_q=plan.cpad_q)
+                join_compare_calls += 1
+                del layouts
+        scaled = to_numpy_u32(scaled_d).astype(np.uint64)
+        part_sums, rem = divmod(scaled[:len(qsel)], 6)
+        if rem.any():
+            raise RuntimeError("hamming join scale invariant violated")
+        sums[qsel] = part_sums
+        del q, scaled_d
+    plan.release()
+
+    slow_idx = np.flatnonzero(plan.slow)
+    if stats is not None:
+        stats.update({"n_queries": n, "n_slow": len(slow_idx),
+                      "n_joined": n - len(slow_idx),
+                      "join_calls": join_compare_calls})
+    if len(slow_idx):
+        # host path: enumerate neighbors vectorized and binary-search the
+        # SORTED distinct array (np.unique output)
+        sq = np.asarray(unique_kmers, np.uint64)[slow_idx]
+        sums[slow_idx] = _slow_sums_sorted_np(sq, uniq, occ, k, e)
+
+    return np.minimum(sums, np.iinfo(np.uint32).max).astype(np.uint32)
+
+
+def _build_w_device(dhi: torch.Tensor, dlo: torch.Tensor, *, k: int):
+    """Word-side device arrays [dict, rc(dict)] as word tensors — only the
+    dict codes cross the link; the rc half is computed on the device."""
+    rh, rl = _rc_device(u32(dhi), u32(dlo), k=k)
+    return (torch.cat([dhi, store(rh, dhi.dtype)]),
+            torch.cat([dlo, store(rl, dlo.dtype)]))
+
+
+def _rev2bit32(x: torch.Tensor) -> torch.Tensor:
+    """Reverse the 16 2-bit symbols of u32 values (log-step swaps)."""
+    x = ((x & 0x33333333) << 2) | ((x >> 2) & 0x33333333)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x >> 4) & 0x0F0F0F0F)
+    x = ((x & 0x00FF00FF) << 8) | ((x >> 8) & 0x00FF00FF)
+    return ((x << 16) | (x >> 16)) & U32
+
+
+def _rc_device(hi: torch.Tensor, lo: torch.Tensor, *, k: int):
+    """Exact reverse complement of 2k-bit codes given as int64 u32 pairs:
+    complement = per-symbol XOR 0b10, then reverse the 32 symbols of the
+    u64 and realign to the low 2k bits (matches _rc_np bit for bit)."""
+    two_k = 2 * k
+    hi_bits = max(two_k - 32, 0)
+    ch = hi ^ (0xAAAAAAAA & ((1 << hi_bits) - 1))
+    cl = lo ^ (0xAAAAAAAA & ((1 << min(two_k, 32)) - 1))
+    rhi = _rev2bit32(cl)
+    rlo = _rev2bit32(ch)
+    sh = 64 - two_k
+    if sh == 0:
+        return rhi, rlo
+    if sh < 32:
+        return rhi >> sh, ((rlo >> sh) | (rhi << (32 - sh))) & U32
+    return torch.zeros_like(rhi), rhi >> (sh - 32)
+
+
+def _slow_sums_sorted_np(queries: np.ndarray, uniq_sorted: np.ndarray,
+                         occ: np.ndarray, k: int, e: int,
+                         batch: int = 512) -> np.ndarray:
+    """Neighbor-occurrence sums by vectorized enumeration + searchsorted
+    into the sorted distinct array. Exact-math semantics identical to
+    the join (edit_table enumeration, canonical min)."""
+    p1, d1, p2, d2 = edit_table(k, e)
+    p1 = p1.astype(np.uint64)[None, :]
+    d1 = d1.astype(np.uint64)[None, :]
+    p2m = np.maximum(p2, 0).astype(np.uint64)[None, :]
+    d2m = (d2 * (p2 >= 0)).astype(np.uint64)[None, :]   # delta 0 = no-op
+    occ64 = np.asarray(occ, np.uint64)
+    out = np.zeros(len(queries), np.uint64)
+    rc_all = _rc_np(queries, k)
+
+    def mutate(f, r, pos, delta):
+        base = (f >> (np.uint64(2) * pos)) & np.uint64(3)
+        nb = (base + delta) & np.uint64(3)
+        x = base ^ nb
+        f = f ^ (x << (np.uint64(2) * pos))
+        r = r ^ (x << (np.uint64(2) * (np.uint64(k - 1) - pos)))
+        return f, r
+
+    for off in range(0, len(queries), batch):
+        f = queries[off: off + batch, None]
+        r = rc_all[off: off + batch, None]
+        f1, r1 = mutate(f, r, p1, d1)
+        f2, r2 = mutate(f1, r1, p2m, d2m)
+        canon = np.minimum(f2, r2)
+        idx = np.searchsorted(uniq_sorted, canon)
+        inb = idx < len(uniq_sorted)
+        idc = np.minimum(idx, len(uniq_sorted) - 1)
+        hit = inb & (uniq_sorted[idc] == canon)
+        out[off: off + batch] = np.sum(
+            np.where(hit, occ64[idc], np.uint64(0)), axis=1)
+    return out
+
+
+def _rc_np(kmers: np.ndarray, k: int) -> np.ndarray:
+    rc = np.zeros_like(kmers)
+    tmp = np.asarray(kmers, np.uint64).copy()
+    for _ in range(k):
+        rc = (rc << np.uint64(2)) | ((tmp - np.uint64(2)) & np.uint64(3))
+        tmp >>= np.uint64(2)
+    return rc & np.uint64((1 << (2 * k)) - 1)

@@ -1,0 +1,110 @@
+"""The port stands alone: it imports neither jax nor the JAX package,
+and its entry points run on the card unless asked for the CPU — on a
+box without a card they raise instead of falling back."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_COUNT_ON_CPU = r"""
+import sys
+import numpy as np
+from quickmer2_tpu_torch.dictionary import Dictionary
+from quickmer2_tpu_torch.ops import codec
+from quickmer2_tpu_torch.pipelines.count import run_count
+from quickmer2_tpu_torch.io import formats
+
+rng = np.random.default_rng(0)
+g = rng.integers(0, 4, 5000).astype(np.uint8)
+canon, valid = codec.sliding_kmers_np(g, 25)
+kmers = np.unique(canon[valid & (canon != 0)])
+Dictionary.from_kmers_in_order(kmers, 1 << 14, 25).to_qm("d.qm")
+lut = np.frombuffer(b"ACTG", np.uint8)
+with open("r.fa", "w") as f:
+    for s in rng.integers(0, 4900, 200):
+        f.write(">r\n" + lut[g[s:s + 100]].tobytes().decode() + "\n")
+stats = run_count("d.qm", "r.fa", "out", batch_bases=1 << 13,
+                  verbose=False, device="cpu")
+assert formats.read_u16("out.bin").sum() > 0, stats
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "quickmer2_tpu"
+             or m.startswith("quickmer2_tpu."))
+print("LEAKED", bad)
+assert not bad, bad
+"""
+
+
+def test_port_never_imports_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _COUNT_ON_CPU],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the no-card refusal is moot")
+
+
+def _entry(name, tmp_path):
+    from quickmer2_tpu_torch.config import SearchConfig
+    from quickmer2_tpu_torch.dictionary import Dictionary
+    from quickmer2_tpu_torch.pipelines import count, est, search
+    d = str(tmp_path)
+    if name == "run_search":
+        return lambda: search.run_search(os.path.join(d, "g.fa"),
+                                         SearchConfig())
+    if name == "run_count":
+        return lambda: count.run_count(os.path.join(d, "g.qm"),
+                                       os.path.join(d, "r.fa"),
+                                       os.path.join(d, "o"))
+    if name == "run_est":
+        return lambda: est.run_est(os.path.join(d, "g"), os.path.join(d, "o"),
+                                   os.path.join(d, "cn.bed"))
+    dic = Dictionary.from_kmers_in_order(np.arange(1, 50, dtype=np.uint64),
+                                         1 << 8, 15)
+    return lambda: count.DepthCounter(dic)
+
+
+@pytest.mark.parametrize("name", ["run_search", "run_count", "run_est",
+                                  "DepthCounter"])
+def test_default_device_refuses_cpu_fallback(tmp_path, name):
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry(name, tmp_path)()
+
+
+def test_cli_default_device_refuses_cpu_fallback(tmp_path):
+    _no_card()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-m", "quickmer2_tpu_torch", "est",
+                          "g.fa", "smp", "cn.bed"], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("args", [
+    ["search", "--quirk-editdist", "g.fa"],
+    ["search", "--emit-devices", "2", "g.fa"],
+    ["count", "--mode", "anchored", "g.fa", "r.fq", "o"],
+    ["count", "--engine", "packed", "g.fa", "r.fq", "o"],
+    ["count", "--checkpoint", "ck", "g.fa", "r.fq", "o"],
+    ["sparse", "100", "g.fa"],
+    ["cohort", "g.fa", "r.fq:o"]])
+def test_cli_rejects_unported(args, capsys):
+    from quickmer2_tpu_torch.cli import main
+    with pytest.raises(SystemExit) as exc:
+        main(args + (["--device", "cpu"] if args[0] in ("search", "count")
+                     else []))
+    assert exc.value.code != 0
+    assert "not yet ported" in capsys.readouterr().err
