@@ -1,27 +1,38 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py                # the full run (needs one card)
-    python3 chip_smoke.py --check-only   # build + kernel checks only
+    python3 chip_smoke.py --check-only   # build, search, kernel checks
 
 Phases:
-  1. build   — nvcc builds every kernel of the path (csrc/*.cu), one
-               process per source, in parallel;
-  2. kernels — each kernel against its plain PyTorch version on the card,
-               at the main path's shapes; integer outputs, so the
-               tolerance is exact equality; CUDA-event times of both;
-  3. main    — search (k=30, e=2, d=100, w=1000, control bed) → count
-               (flat, mono) → est on a 12 Mb realistic genome
-               (tools/realistic_genome.py, S. cerevisiae scale) with
-               ~20x simulated 150 bp reads; the launch counters are reset
-               just before and read just after; CN is checked on the
-               baseline windows (2 ± 0.1) and on a segment with 3x extra
-               read depth (6 ± 0.5);
-  4. cpu     — a 50 k-read subset counted with device="cuda" and with
-               device="cpu" gives byte-identical .bin files;
-  5. card    — name and power limit from nvidia-smi.
-Prints the kernel table as one JSON line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Any failure raises (non-zero exit). With
-no CUDA card it exits non-zero before doing anything.
+  1. build    — nvcc builds every kernel of the paths (csrc/*.cu), one
+                process per source, in parallel;
+  2. kernels  — each kernel against its plain PyTorch version on the
+                card, at the main paths' shapes; integer outputs, so the
+                tolerance is exact equality; CUDA-event times of both.
+                K2 (flat mono count) and K1 (Hamming join) first; the
+                anchored path's kernels (K4 neighbor sweep, K3 anchored
+                read pass in tier 1 and tier 2, K2r exact row recount)
+                need the search's dictionary and run after the flat path;
+  3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
+                bed) → count (flat, mono) → est on a 12 Mb realistic
+                genome (tools/realistic_genome.py, S. cerevisiae scale)
+                with ~20x simulated 150 bp reads; then the anchored path:
+                count --mode anchored (its .qai built on the card) → est
+                on the same reads. The launch counters are reset just
+                before each path and read just after; each path's kernels
+                must have launched; the anchored .bin must equal the flat
+                .bin byte for byte; CN is checked on the baseline windows
+                (2 ± 0.1) and on a segment with 3x extra read depth
+                (6 ± 0.5), for both paths;
+  4. cpu      — a 50 k-read subset counted with device="cuda" and with
+                device="cpu" gives byte-identical .bin files, in flat and
+                in anchored mode;
+  5. card     — name and power limit from nvidia-smi.
+`--check-only` stops after the kernel checks (it still runs the search,
+whose dictionary the anchored checks need). Prints the kernel table as
+one JSON line, the nvidia-smi line, and last {"ok": true, "device":
+{...}}. Any failure raises (non-zero exit). With no CUDA card it exits
+non-zero before doing anything.
 """
 
 from __future__ import annotations
@@ -273,6 +284,234 @@ def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+# -- phase 2, anchored path: K4, K3 (tier 1, tier 2), K2r -------------------
+
+ANCHOR_READ_LEN = 160          # the row width the count autodetects at 150 bp
+K4_CHUNK = 1 << 23             # build_neighbor_bits_device's chunk
+
+
+def anchored_setup(fa, dev):
+    """The smoke genome's anchored index from its search's dictionary,
+    built on the card without a .qai (K4 sweeps its neighbor bits), and
+    a counter with the main path's options (row width, batch, tiers)."""
+    from quickmer2_tpu_torch.dictionary import Dictionary
+    from quickmer2_tpu_torch.ops import anchored
+    dic = Dictionary.from_qm(fa + ".qm")
+    stream, pos = anchored._genome_stream_and_positions(dic, fa)
+    index = anchored.AnchoredIndex.build(stream, pos, dic.kmers_in_order,
+                                         dic.kmer_size, device=dev)
+    counter = anchored.AnchoredDepthCounter(index, dic.kmer_size,
+                                            ANCHOR_READ_LEN,
+                                            prefetch_puts=False, device=dev)
+    return stream, index, counter
+
+
+def rows_of(reads):
+    """Read codes u8[R, 150] → the count's SEP-padded rows u8[R, 160]."""
+    from quickmer2_tpu_torch.ops import codec
+    rows = np.full((len(reads), ANCHOR_READ_LEN), codec.SEP, np.uint8)
+    rows[:, :reads.shape[1]] = reads
+    return rows
+
+
+def packed_on(rows, dev):
+    from quickmer2_tpu_torch.ops import rowpack
+    fmt, pk, aux = rowpack.pack_batch(rows)
+    return (fmt, torch.from_numpy(pk).to(dev),
+            rowpack.aux_tensor(fmt, aux).to(dev), pk.nbytes + aux.nbytes)
+
+
+def check_neighbor_bits(stream, index, k, dev):
+    """K4 on the first K4_CHUNK windows of the genome stream."""
+    from quickmer2_tpu_torch.kernels.neighbor_bits import (
+        neighbor_bits, neighbor_bits_plain)
+    seg = torch.from_numpy(np.ascontiguousarray(
+        stream[:K4_CHUNK + k - 1])).to(dev)
+    kw = dict(n_buckets=index.n_buckets, k=k)
+    out_k = neighbor_bits(seg, index.rows, **kw)
+    trace = {}
+    out_p = neighbor_bits_plain(seg, index.rows, trace=trace, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(out_k, out_p)
+    log(f"  neighbor_bits k={k}: {seg.numel()} bases, {trace['probes']} "
+        f"probes, {trace['rows_touched']} of {index.n_buckets} table rows "
+        f"touched, {int((out_k != 0).sum())} flagged bases, "
+        f"max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError("neighbor_bits disagrees with its plain version")
+    ms = cuda_ms(lambda: neighbor_bits(seg, index.rows, **kw), 3)
+    plain_ms = cuda_ms(lambda: neighbor_bits_plain(seg, index.rows, **kw),
+                       1, warm=0)
+    # least traffic: the chunk in, one byte out per base, each touched
+    # 32-B table row once; least work: ~60 int ops per probe (mutate,
+    # canonical min, DJB, 4 entry compares) and ~4 per window offset
+    n_bytes = 2 * seg.numel() + 32 * trace["rows_touched"]
+    n_ops = 60 * trace["probes"] + 4 * k * seg.numel()
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    log(f"  neighbor_bits time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+        f"{n_ops / 1e9:.2f} G ops)")
+    return {"name": "neighbor_bits", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/neighbor_bits.cu",
+            "replaces": "quickmer2_tpu/ops/anchored.py:388",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def spill_batches(index, counter, reads, dev):
+    """Tier-1 spill codes of the main path's reads, batch by batch,
+    until a full tier-2 batch (code 1 rows) and a full exact batch (code
+    2 rows) are in hand: the batches the main path sends to K3 tier 2
+    and to K2r (padded with SEP rows to a full batch if the reads run
+    out first). Returns them with the first batch's code counts."""
+    from quickmer2_tpu_torch.kernels.anchored import anchored_count
+    from quickmer2_tpu_torch.ops import codec
+    B = counter.batch_reads
+    diff = torch.zeros(index.n_kmers + 2, dtype=torch.int32, device=dev)
+    got = {1: [], 2: []}
+    first = None
+    for off in range(0, len(reads), B):
+        rows = rows_of(reads[off:off + B])
+        fmt, pk, aux, _ = packed_on(rows, dev)
+        code = anchored_count(pk, aux, index.rows, index.genome_tiles,
+                              index.dblock, diff, fmt=fmt,
+                              **counter._tier_kw(1)).cpu().numpy()
+        if first is None:
+            first = np.bincount(code, minlength=3)
+        for c in (1, 2):
+            got[c].append(rows[code == c])
+        if min(sum(map(len, got[c])) for c in (1, 2)) >= B:
+            break
+    out = []
+    for c in (1, 2):
+        rows = np.concatenate(got[c])[:B]
+        pad = np.full((B - len(rows), ANCHOR_READ_LEN), codec.SEP, np.uint8)
+        out.append(np.concatenate([rows, pad]))
+    return out[0], out[1], first
+
+
+def check_anchored(index, counter, rows, tier, dev):
+    """K3 in tier `tier` (the counter's own options) on one batch."""
+    from quickmer2_tpu_torch.kernels.anchored import (
+        anchored_count, anchored_count_plain, branch_of)
+    fmt, pk, aux, in_bytes = packed_on(rows, dev)
+    kw = dict(fmt=fmt, **counter._tier_kw(tier))
+    tab = (index.rows, index.genome_tiles, index.dblock)
+
+    def zero():
+        return torch.zeros(index.n_kmers + 2, dtype=torch.int32, device=dev)
+    d_kernel, d_plain = zero(), zero()
+    c_kernel = anchored_count(pk, aux, *tab, d_kernel, **kw)
+    trace = {}
+    c_plain = anchored_count_plain(pk, aux, *tab, d_plain, trace=trace, **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(d_kernel, d_plain), max_abs_err(c_kernel, c_plain))
+    branch = branch_of(kw["max_dirty"], kw.get("dirty_run_width", 0),
+                       kw.get("neighbor_mode", False))
+    codes = np.bincount(c_kernel.cpu().numpy(), minlength=3)
+    log(f"  anchored tier {tier} ({branch}, {fmt}): {len(rows)} rows of "
+        f"{rows.shape[1]}, codes 0/1/2 = {codes.tolist()}, "
+        f"{trace['probes']} probes, {int((d_kernel != 0).sum())} diff words "
+        f"set, max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError(
+            f"anchored tier {tier} disagrees with its plain version")
+    ms = cuda_ms(lambda: anchored_count(pk, aux, *tab, d_kernel, **kw), 10)
+    plain_ms = cuda_ms(
+        lambda: anchored_count_plain(pk, aux, *tab, d_plain, **kw), 1, warm=0)
+    # least traffic: the packed rows in and a code out per row; each
+    # touched 32-B table row, 64-B genome tile and 16-B dblock row read
+    # once; each changed diff word read and written once. Least work:
+    # ~16 int ops per base (unpack, two strand compares, window bits)
+    # and ~60 per probe
+    uniq = {name: int(torch.unique(trace[name]).numel())
+            for name in ("probe_rows", "tiles", "dblock_rows")}
+    n_bytes = (in_bytes + len(rows) + 32 * uniq["probe_rows"]
+               + 64 * uniq["tiles"] + 16 * uniq["dblock_rows"]
+               + 8 * trace["diff_words"].numel())
+    n_ops = 16 * rows.size + 60 * trace["probes"]
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    log(f"  anchored tier {tier} time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+        f"{n_ops / 1e9:.3f} G ops; {uniq})")
+    return {"name": f"anchored_tier{tier}", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/anchored.cu",
+            "replaces": "quickmer2_tpu/ops/anchored.py:512",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_count_mono_rows(counter, rows, dev):
+    """K2r on one exact batch against the counter's mono table."""
+    from quickmer2_tpu_torch.kernels.count_mono import (
+        count_mono_rows, count_mono_rows_plain)
+    from quickmer2_tpu_torch.ops import codec, rowpack
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    mono, k, L = counter._mono, counter.k, counter.read_len
+    fmt, pk, aux, in_bytes = packed_on(rows, dev)
+    kw = dict(fmt=fmt, k=k, n_buckets=mono.n_buckets, read_len=L)
+
+    def zero():
+        return torch.zeros(mono.n_slots + 1, dtype=torch.int32, device=dev)
+    d_kernel, d_plain = zero(), zero()
+    m_kernel = count_mono_rows(pk, aux, counter._mono_rows, d_kernel, **kw)
+    m_plain = count_mono_rows_plain(pk, aux, counter._mono_rows, d_plain,
+                                    **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(d_kernel[:-1], d_plain[:-1]),
+              max_abs_err(m_kernel, m_plain))
+    n_unres = int(np.unpackbits(m_kernel.cpu().numpy().view(np.uint8)).sum())
+    log(f"  count_mono_rows ({fmt}): {len(rows)} rows of {L}, "
+        f"{int(d_kernel[:-1].sum())} hits, {n_unres} unresolved lanes, "
+        f"max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError("count_mono_rows disagrees with its plain version")
+    ms = cuda_ms(lambda: count_mono_rows(pk, aux, counter._mono_rows,
+                                         d_kernel, **kw), 10)
+    plain_ms = cuda_ms(lambda: count_mono_rows_plain(
+        pk, aux, counter._mono_rows, d_plain, **kw), 2)
+    # least traffic and work as K2's: packed rows in, each touched 64-B
+    # mono row read once, each touched slot read and written once, the
+    # mask out; ~52 int ops per valid window
+    reads = rowpack.unpack_batch(fmt, pk, aux, read_len=L)
+    chi, clo, ok = codec.sliding_kmers(reads.reshape(-1), k)
+    lane = torch.arange(chi.numel(), device=dev)
+    ok = ok & (lane % L < L - k + 1)
+    bucket = djb_pair(chi[ok], clo[ok]) & (mono.n_buckets - 1)
+    rows_touched = int(torch.unique(bucket).numel())
+    slots_touched = int((d_plain[:-1] != 0).sum())
+    n_bytes = (in_bytes + 64 * rows_touched + 8 * slots_touched
+               + 4 * m_kernel.numel())
+    b_ms, b_by = bound_ms(n_bytes, 52 * int(ok.sum()))
+    log(f"  count_mono_rows time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+        f"{rows_touched} rows touched)")
+    return {"name": "count_mono_rows", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/count_mono.cu",
+            "replaces": "quickmer2_tpu/ops/anchored.py:942",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_anchored_kernels(world, reads, dev):
+    t = time.time()
+    stream, index, counter = anchored_setup(world["fa"], dev)
+    log(f"  anchored index: {index.n_kmers} k-mers, {index.n_buckets} "
+        f"buckets, genome {index.genome_len} bases, built on the card in "
+        f"{time.time() - t:.1f} s")
+    k = counter.k
+    rows = [check_neighbor_bits(stream, index, k, dev)]
+    B = counter.batch_reads
+    rows.append(check_anchored(index, counter, rows_of(reads[:B]), 1, dev))
+    tier2, exact, first = spill_batches(index, counter, reads, dev)
+    log(f"  tier-1 codes 0/1/2 of the first batch: {first.tolist()}")
+    rows.append(check_anchored(index, counter, tier2, 2, dev))
+    rows.append(check_count_mono_rows(counter, exact, dev))
+    del stream, index, counter
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 3: the main path ------------------------------------------------
 
 def median_cn(cn_bed, excl, seg):
@@ -286,6 +525,26 @@ def median_cn(cn_bed, excl, seg):
             float(np.median(cn[in_seg, 2])), int(in_seg.sum()))
 
 
+def cn_check(world, cn_bed, label):
+    base_cn, n_base, seg_cn, n_seg = median_cn(cn_bed, world["excl"],
+                                               world["seg"])
+    log(f"CN ({label}): baseline median {base_cn:.4f} over {n_base} "
+        f"windows, CNV segment median {seg_cn:.4f} over {n_seg} windows")
+    if not abs(base_cn - 2.0) <= 0.1:
+        raise AssertionError(f"{label} baseline CN {base_cn} not in 2 ± 0.1")
+    if not abs(seg_cn - 6.0) <= 0.5:
+        raise AssertionError(f"{label} CNV segment CN {seg_cn} not in 6 ± 0.5")
+
+
+def count_phase(label, count_s, cstats, n_windows):
+    """Log a count's wall and its rate: the reads' k-mer windows over
+    stream + finish (the same numerator for both modes)."""
+    wall = cstats["phases"]["stream_s"] + cstats["phases"]["finish_s"]
+    log(f"phase {label}: {count_s:.1f} s, {n_windows} read windows, "
+        f"{n_windows / wall:.0f} k-mers/s (stream + finish) "
+        f"{json.dumps(cstats)}")
+
+
 def main() -> int:
     check_only = "--check-only" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -294,8 +553,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from quickmer2_tpu_torch.config import SearchConfig
     from quickmer2_tpu_torch.kernels import build
-    from quickmer2_tpu_torch.kernels.count_mono import count_mono_step
+    from quickmer2_tpu_torch.kernels.anchored import anchored_count
+    from quickmer2_tpu_torch.kernels.count_mono import (
+        count_mono_rows, count_mono_step)
     from quickmer2_tpu_torch.kernels.hamming_join import join_compare
+    from quickmer2_tpu_torch.kernels.neighbor_bits import neighbor_bits
     from quickmer2_tpu_torch.pipelines.count import run_count
     from quickmer2_tpu_torch.pipelines.est import run_est
     from quickmer2_tpu_torch.pipelines.search import (
@@ -307,8 +569,26 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}; native host parser "
         f"{'built' if native.available() else 'UNAVAILABLE'}")
+
+    def reset_counts():
+        for fn in (count_mono_step, join_compare, anchored_count,
+                   count_mono_rows, neighbor_bits):
+            fn.launches = 0
+        anchored_count.branch_launches = dict.fromkeys(
+            anchored_count.branch_launches, 0)
+
+    def read_counts():
+        return {"count_mono": count_mono_step.launches,
+                "hamming_join": join_compare.launches,
+                "anchored_tier1": anchored_count.branch_launches["neighbor"],
+                "anchored_tier2": anchored_count.branch_launches["runs"],
+                "anchored_point": anchored_count.branch_launches["point"],
+                "count_mono_rows": count_mono_rows.launches,
+                "neighbor_bits": neighbor_bits.launches}
+
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    t_all = time.time()
     try:
         # -- 1. build --------------------------------------------------
         t = time.time()
@@ -317,8 +597,8 @@ def main() -> int:
             + ", ".join(f"{n} {b['s']:.2f} s" for n, b in built.items()))
         for name, b in built.items():
             for line in b["log"].splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+                if any(w in line for w in ("registers", "spill", "warning")):
+                    log(f"  nvcc {name}: {line.strip()}")
 
         # -- inputs ------------------------------------------------------
         rng = np.random.default_rng(2024)
@@ -326,7 +606,7 @@ def main() -> int:
         world = make_world(rng)
         log(f"genome: {len(world['g'])} bases in {time.time() - t:.1f} s")
 
-        # -- 2. kernels against their plain versions --------------------
+        # -- 2. kernels against their plain versions (flat path) --------
         t = time.time()
         rows = [check_count_mono(rng, 30, 11_000_000, 1 << 24, dev, True)]
         check_count_mono(rng, 32, 2_000_000, 1 << 22, dev, False)
@@ -335,84 +615,118 @@ def main() -> int:
         check_hamming_join(uniq, occ, 30, 128, 64, dev, False)
         del uniq, occ
         torch.cuda.empty_cache()
-        log(f"phase kernels: {time.time() - t:.1f} s (tolerance: exact "
-            f"equality, integer outputs)")
-        launches = {"count_mono": 0, "hamming_join": 0}
+        log(f"phase kernels (flat path): {time.time() - t:.1f} s (tolerance: "
+            f"exact equality, integer outputs)")
 
+        g = world["g"]
+        t = time.time()
+        n_reads = COVERAGE * len(g) // READ_LEN
+        reads = simulate_reads(rng, g, n_reads, READ_LEN, ERR)
+        seg = g[world["seg"][0]:world["seg"][1]]
+        extra = simulate_reads(rng, seg, 2 * COVERAGE * len(seg) // READ_LEN,
+                               READ_LEN, ERR)
+        fq = os.path.join(WORK, "r.fq")
+        write_fastq(fq, np.concatenate([reads, extra]))
+        n_windows = (n_reads + len(extra)) * (READ_LEN - 30 + 1)
+        log(f"reads: {n_reads} + {len(extra)} extra over the CNV "
+            f"segment, {READ_LEN} bp, {ERR} subs/bp, in "
+            f"{time.time() - t:.1f} s")
+
+        # -- 3. the flat path: search → count → est ----------------------
+        reset_counts()
+        sstats = {}
+        t = time.time()
+        run_search(world["fa"], SearchConfig(
+            kmer_size=30, edit_distance=2, edit_depth_threshold=100,
+            window_size=1000, control_bed=world["ctrl"]),
+            verbose=False, stats=sstats, device="cuda")
+        log(f"phase search: {time.time() - t:.1f} s {json.dumps(sstats)}")
+        launches = {}
         if not check_only:
-            # -- 3. main path: search → count → est ----------------------
-            g = world["g"]
-            t = time.time()
-            n_reads = COVERAGE * len(g) // READ_LEN
-            reads = simulate_reads(rng, g, n_reads, READ_LEN, ERR)
-            seg = g[world["seg"][0]:world["seg"][1]]
-            extra = simulate_reads(rng, seg, 2 * COVERAGE * len(seg) // READ_LEN,
-                                   READ_LEN, ERR)
-            fq = os.path.join(WORK, "r.fq")
-            write_fastq(fq, np.concatenate([reads, extra]))
-            log(f"reads: {n_reads} + {len(extra)} extra over the CNV "
-                f"segment, {READ_LEN} bp, {ERR} subs/bp, in "
-                f"{time.time() - t:.1f} s")
-
-            count_mono_step.launches = 0
-            join_compare.launches = 0
-            sstats = {}
-            t = time.time()
-            run_search(world["fa"], SearchConfig(
-                kmer_size=30, edit_distance=2, edit_depth_threshold=100,
-                window_size=1000, control_bed=world["ctrl"]),
-                verbose=False, stats=sstats, device="cuda")
-            search_s = time.time() - t
             t = time.time()
             cstats = run_count(world["fa"] + ".qm", fq,
                                os.path.join(WORK, "s"), verbose=False,
                                device="cuda")
-            count_s = time.time() - t
+            count_phase("count (flat)", time.time() - t, cstats, n_windows)
             t = time.time()
             cn_bed = os.path.join(WORK, "s.CN.bed")
             estats = run_est(world["fa"], os.path.join(WORK, "s"), cn_bed,
                              verbose=False, device="cuda")
-            est_s = time.time() - t
-            launches = {"count_mono": count_mono_step.launches,
-                        "hamming_join": join_compare.launches}
-            log(f"phase search: {search_s:.1f} s {json.dumps(sstats)}")
-            windows = cstats["total_windows"]
-            wall = cstats["phases"]["stream_s"] + cstats["phases"]["finish_s"]
-            log(f"phase count: {count_s:.1f} s, {windows} windows, "
-                f"{windows / wall:.0f} k-mers/s (stream + finish) "
-                f"{json.dumps(cstats)}")
-            log(f"phase est: {est_s:.2f} s "
+            log(f"phase est: {time.time() - t:.2f} s "
                 f"{json.dumps({k: v for k, v in estats.items() if k != 'factors'})}")
-            log(f"launches on the main path: {launches}")
-            base_cn, n_base, seg_cn, n_seg = median_cn(
-                cn_bed, world["excl"], world["seg"])
-            log(f"CN: baseline median {base_cn:.4f} over {n_base} windows, "
-                f"CNV segment median {seg_cn:.4f} over {n_seg} windows")
-            if not (launches["count_mono"] > 0 and launches["hamming_join"] > 0):
-                raise AssertionError(f"a kernel never launched: {launches}")
-            if not abs(base_cn - 2.0) <= 0.1:
-                raise AssertionError(f"baseline CN {base_cn} not in 2 ± 0.1")
-            if not abs(seg_cn - 6.0) <= 0.5:
-                raise AssertionError(f"CNV segment CN {seg_cn} not in 6 ± 0.5")
+            flat = read_counts()
+            log(f"launches on the flat path: {flat}")
+            if not (flat["count_mono"] > 0 and flat["hamming_join"] > 0):
+                raise AssertionError(f"a kernel never launched: {flat}")
+            cn_check(world, cn_bed, "flat")
+            launches.update({k: flat[k] for k in ("count_mono",
+                                                  "hamming_join")})
+
+        # -- 2, anchored path: kernels against their plain versions -----
+        t = time.time()
+        rows += check_anchored_kernels(world, reads, dev)
+        log(f"phase kernels (anchored path): {time.time() - t:.1f} s "
+            f"(tolerance: exact equality, integer outputs)")
+
+        if not check_only:
+            # -- 3. the anchored path: count --mode anchored → est -------
+            qai = world["fa"] + ".qai"
+            if os.path.exists(qai):
+                raise AssertionError("a .qai exists before the anchored count")
+            reset_counts()
+            t = time.time()
+            astats = run_count(world["fa"] + ".qm", fq,
+                               os.path.join(WORK, "a"), verbose=False,
+                               mode="anchored", device="cuda")
+            count_phase("count (anchored)", time.time() - t, astats,
+                        n_windows)
+            n_rows = astats["n_reads"]
+            log(f"  .qai build (index_s) {astats['phases']['index_s']:.2f} s; "
+                f"tier-1 spills {astats['n_spilled']} of {n_rows} rows "
+                f"({astats['n_spilled'] / n_rows:.4%}), exact recounts "
+                f"{astats['n_spilled2']} ({astats['n_spilled2'] / n_rows:.4%})")
+            t = time.time()
+            cn_bed = os.path.join(WORK, "a.CN.bed")
+            run_est(world["fa"], os.path.join(WORK, "a"), cn_bed,
+                    verbose=False, device="cuda")
+            log(f"phase est (anchored): {time.time() - t:.2f} s")
+            anch = read_counts()
+            log(f"launches on the anchored path: {anch}")
+            need = ("anchored_tier1", "anchored_tier2", "count_mono_rows",
+                    "neighbor_bits")
+            if not all(anch[k] > 0 for k in need):
+                raise AssertionError(f"a kernel never launched: {anch}")
+            with open(os.path.join(WORK, "s.bin"), "rb") as f, \
+                    open(os.path.join(WORK, "a.bin"), "rb") as h:
+                if f.read() != h.read():
+                    raise AssertionError("anchored and flat .bin files differ")
+            log("anchored .bin identical to flat .bin")
+            cn_check(world, cn_bed, "anchored")
+            launches.update({k: anch[k] for k in need})
 
             # -- 4. the card against the port's own CPU path --------------
             t = time.time()
             sub = os.path.join(WORK, "sub.fq")
             write_fastq(sub, reads[:50_000])
-            bins = []
-            for device in ("cuda", "cpu"):
-                out = os.path.join(WORK, "sub_" + device)
-                run_count(world["fa"] + ".qm", sub, out, batch_bases=1 << 22,
-                          verbose=False, device=device)
-                with open(out + ".bin", "rb") as f:
-                    bins.append(f.read())
-            if bins[0] != bins[1]:
-                raise AssertionError("cuda and cpu .bin files differ")
-            log(f"phase cpu: 50000 reads, cuda and cpu .bin identical "
-                f"({len(bins[0])} bytes) in {time.time() - t:.1f} s")
+            for mode in ("flat", "anchored"):
+                bins = []
+                for device in ("cuda", "cpu"):
+                    out = os.path.join(WORK, f"sub_{mode}_{device}")
+                    run_count(world["fa"] + ".qm", sub, out,
+                              batch_bases=1 << 22, verbose=False, mode=mode,
+                              device=device)
+                    with open(out + ".bin", "rb") as f:
+                        bins.append(f.read())
+                if bins[0] != bins[1]:
+                    raise AssertionError(f"{mode}: cuda and cpu .bin differ")
+                log(f"phase cpu ({mode}): 50000 reads, cuda and cpu .bin "
+                    f"identical ({len(bins[0])} bytes) in "
+                    f"{time.time() - t:.1f} s")
+                t = time.time()
 
         for row in rows:
-            row["launches"] = launches[row["name"]]
+            row["launches"] = launches.get(row["name"], 0)
+        log(f"smoke total: {time.time() - t_all:.1f} s")
         # -- 5. the card ------------------------------------------------
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -3,7 +3,8 @@ package's (quickmer2_tpu/cli.py) for the ported subcommands:
 
   python -m quickmer2_tpu_torch search [-k N] [-s SIZE] [-e N] [-d N] [-w N]
                                        [-c ctrl.bed] [--device cuda|cpu] ref.fa
-  python -m quickmer2_tpu_torch count  [--batch-bases N] [--json]
+  python -m quickmer2_tpu_torch count  [--batch-bases N] [--mode flat|anchored]
+                                       [--read-len N] [--json]
                                        [--device cuda|cpu] ref.fa sample out
   python -m quickmer2_tpu_torch est    [--json] [--device cuda|cpu]
                                        ref.fa sample_prefix out.bed
@@ -59,9 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("-t", type=int, default=1, help="threads (CLI parity)")
     c.add_argument("--batch-bases", type=int, default=1 << 24)
     c.add_argument("--mode", choices=["flat", "anchored"], default="flat",
-                   help="flat (anchored: not yet ported)")
+                   help="anchored = genome-anchored fast path (needs the "
+                        "reference FASTA next to the .qm); bit-identical "
+                        "output to flat")
     c.add_argument("--read-len", type=int, default=None,
-                   help="(anchored mode; not yet ported)")
+                   help="fixed read length for anchored mode (autodetected)")
     c.add_argument("--data-devices", type=int, default=None,
                    help="(not yet ported)")
     c.add_argument("--dict-devices", type=int, default=None,
@@ -130,9 +133,7 @@ def main(argv=None) -> int:
             print(json.dumps(stats))
 
     elif args.cmd == "count":
-        _reject(parser, args, [("--mode anchored", "mode", "flat"),
-                               ("--read-len", "read_len", None),
-                               ("--data-devices", "data_devices", None),
+        _reject(parser, args, [("--data-devices", "data_devices", None),
                                ("--dict-devices", "dict_devices", None),
                                ("--checkpoint", "checkpoint", None),
                                ("--checkpoint-every", "checkpoint_every", None),
@@ -140,9 +141,12 @@ def main(argv=None) -> int:
                                ("--profile", "profile", None)])
         from quickmer2_tpu_torch.pipelines.count import run_count
         qm = args.fasta if args.fasta.endswith(".qm") else args.fasta + ".qm"
-        stats = run_count(qm, args.sample, args.out_prefix,
-                          batch_bases=args.batch_bases,
-                          verbose=not args.json, device=args.device)
+        stats = run_count(
+            qm, args.sample, args.out_prefix, batch_bases=args.batch_bases,
+            mode=args.mode,
+            ref_fasta=args.fasta if args.mode == "anchored" else None,
+            read_len=args.read_len, verbose=not args.json,
+            device=args.device)
         if args.json:
             print(json.dumps(stats))
 

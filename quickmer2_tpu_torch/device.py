@@ -65,6 +65,27 @@ def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
     return a.view(np.uint32) if a.dtype == np.int32 else a.astype(np.uint32)
 
 
+def start_fetch(t: torch.Tensor) -> tuple:
+    """Start t's device-to-host copy into pinned memory behind the work
+    that writes it; `fetched` waits on that copy alone, not on later
+    launches."""
+    if t.device.type == "cpu":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def fetched(handle: tuple) -> torch.Tensor:
+    """The host tensor of a start_fetch handle, once its copy is done."""
+    host, done = handle
+    if done is not None:
+        done.synchronize()
+    return host
+
+
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """SWAR popcount of int64 tensors holding u32 values (torch has no
     popcount)."""

@@ -11,11 +11,14 @@ All layouts empirically verified in SURVEY.md section 4 (little-endian):
   .bin      per-k-mer u16 depth in chain order (QuicKmer.c:498-517)
   .txt      401-line depth-vs-GC curve (QuicKmer.c:529-537)
   CN bed    4 text columns, CN printed with %f (QuicKmer.c:668-671)
+  .qai      anchored-index companion (no reference counterpart; layout
+             below, byte-identical to the JAX package's)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import struct
 
 import numpy as np
@@ -172,3 +175,66 @@ def read_cn_bed(path: str):
                 chroms.append(p[0])
                 vals.append([int(p[1]), int(p[2]), float(p[3])])
     return chroms, np.array(vals, dtype=np.float64).reshape(-1, 3)
+
+
+# -- .qai anchored-index companion -----------------------------------------
+#
+# Persists the two expensive products of ops.anchored.AnchoredIndex so a
+# count never re-scans the reference FASTA or rebuilds the neighbor-hit
+# bitmap:
+#   * genome tiles  u8[T, 64] — code stream in bits 0-2, neighbor-hit
+#     flags in bits 3-6 (ops.anchored.genome_tiles_np layout);
+#   * dict_end_pos  u32[n]    — global genome END position of each
+#     dictionary k-mer in rank order.
+# The cheap derivations (dblock, packed-table rows) are rebuilt at load.
+#
+#   offset size  field
+#   0      4     magic "QAI2"
+#   4      1     kmer_size
+#   5      1     flags (bit 0: neighbor bits present)
+#   6      2     reserved (0)
+#   8      8     genome_len G (bases incl. inter-chromosome separators)
+#   16     8     n_kmers n
+#   24     8     n_tiles T (= ceil(G/64))
+#   32     8     dictionary content fingerprint
+#                (dictionary.content_fingerprint)
+#   40     64*T  tiles
+#   40+64T 4*n   dict_end_pos
+
+QAI_MAGIC = b"QAI2"
+_QAI_HEADER = 40
+
+
+def write_qai(path: str, k: int, genome_len: int, tiles: np.ndarray,
+              dict_end_pos: np.ndarray, has_neighbor_bits: bool,
+              fingerprint: int) -> None:
+    tiles = np.ascontiguousarray(tiles, np.uint8)
+    pos = np.ascontiguousarray(dict_end_pos, np.uint32)
+    header = (QAI_MAGIC
+              + struct.pack("<BBH", k, int(bool(has_neighbor_bits)), 0)
+              + struct.pack("<QQQQ", genome_len, len(pos), tiles.shape[0],
+                            fingerprint))
+    # process-unique tmp + atomic rename: racing builders each land a
+    # complete file, and readers never see a torn one
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(header)
+        tiles.tofile(f)
+        pos.tofile(f)
+    os.replace(tmp, path)
+
+
+def read_qai(path: str):
+    """Returns (k, genome_len, tiles u8[T,64], dict_end_pos u32[n],
+    has_neighbor_bits, fingerprint); tiles and pos are memory-mapped."""
+    with open(path, "rb") as f:
+        head = f.read(_QAI_HEADER)
+    if head[:4] != QAI_MAGIC:
+        raise ValueError(f"{path}: bad magic {head[:4]!r}, expected QAI2")
+    k, flags, _ = struct.unpack("<BBH", head[4:8])
+    genome_len, n, n_tiles, fingerprint = struct.unpack("<QQQQ", head[8:40])
+    off = _QAI_HEADER
+    tiles = np.memmap(path, np.uint8, "r", offset=off, shape=(n_tiles, 64))
+    pos = np.memmap(path, np.uint32, "r", offset=off + 64 * n_tiles,
+                    shape=(n,))
+    return k, genome_len, tiles, pos, bool(flags & 1), fingerprint

@@ -6,8 +6,9 @@ C interface, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an
-edited source rebuilds and a stale library is never loaded. Builds go
+The library name carries a hash of the source, the shared headers
+(csrc/*.cuh) and the flags, so an edited source rebuilds and a stale
+library is never loaded. Builds go
 into quickmer2_tpu_torch/_build/kernels/ (listed in .gitignore) at
 first use; `build_all` starts one nvcc per source, all at once. A
 missing nvcc is an error: the card path has no fallback.
@@ -27,7 +28,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build", "kernels")
-SOURCES = ("count_mono", "hamming_join")
+SOURCES = ("count_mono", "hamming_join", "anchored", "neighbor_bits")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,8 +45,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    tag = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            tag.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{tag.hexdigest()[:12]}.so")
 
 

@@ -1,5 +1,6 @@
-"""Fused mono-table count step: the CUDA kernel csrc/count_mono.cu and
-its plain PyTorch version.
+"""Fused mono-table count steps: the CUDA kernels of csrc/count_mono.cu
+(K2 over a flat batch, K2r over read rows) and their plain PyTorch
+versions.
 
 `count_mono_step` replaces quickmer2_tpu/pipelines/count.py::
 count_step_mono_pk. It takes one batch of `n_bases` 2-bit codes (the
@@ -7,6 +8,13 @@ ops.rowpack layout, one row = the batch), adds 1 to depth[slot] for
 every valid window whose canonical k-mer sits in the mono table, and
 returns the unresolved-lane mask (valid & nonzero & miss & bucket full)
 as LSB-first u32 words: lane i is bit i & 31 of word i >> 5.
+
+`count_mono_rows` replaces quickmer2_tpu/ops/anchored.py::
+exact_count_rows_mono_packed, the anchored path's exact recount: the same
+step over R read rows of width read_len (ops.rowpack.pack_batch layout,
+"lens" or "mask"), windows that cross a row end masked, the unresolved
+mask over the R*W window lanes (W = read_len - k + 1), LSB-first u32
+words.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel, or raises.
@@ -24,6 +32,9 @@ from quickmer2_tpu_torch.ops import codec, monotable, rowpack
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_void_p]
+_ROWS_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                  + [ctypes.c_longlong, ctypes.c_void_p])
 
 
 def pack_lanes(flags: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -80,3 +91,59 @@ def count_mono_step(pk: torch.Tensor, bits: torch.Tensor, rows: torch.Tensor,
 
 count_mono_step.launches = 0
 
+
+def count_mono_rows_plain(pk, aux, rows, depth, *, fmt: str, k: int,
+                          n_buckets: int, read_len: int) -> torch.Tensor:
+    """Plain PyTorch version: unpack the rows, kmerize the flat stream,
+    keep the windows inside a row, probe, add, pack."""
+    reads = rowpack.unpack_batch(fmt, pk, aux, read_len=read_len)
+    R, L = reads.shape
+    W = L - k + 1
+    chi, clo, valid = codec.sliding_kmers(reads.reshape(-1), k)
+
+    def rowwise(a):
+        out = a.new_zeros(R * L)
+        out[:a.shape[0]] = a
+        return out.view(R, L)[:, :W].reshape(-1)
+    chi, clo, valid = rowwise(chi), rowwise(clo), rowwise(valid)
+    found, slot, unresolved = monotable.probe_mono(rows, chi, clo, n_buckets)
+    hit = slot[valid & found]
+    depth.index_add_(0, hit, torch.ones(hit.shape, dtype=depth.dtype,
+                                        device=depth.device))
+    return pack_lanes(valid & unresolved, depth.dtype)
+
+
+def count_mono_rows(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
+                    depth: torch.Tensor, *, fmt: str, k: int, n_buckets: int,
+                    read_len: int) -> torch.Tensor:
+    """One batch of read rows into `depth` (slot order, updated in
+    place); returns the unresolved-lane mask words over the R*W lanes."""
+    if pk.device.type == "cpu":
+        return count_mono_rows_plain(pk, aux, rows, depth, fmt=fmt, k=k,
+                                     n_buckets=n_buckets, read_len=read_len)
+    R, L = pk.shape[0], read_len
+    W = L - k + 1
+    aux_shape, aux_dtype = rowpack.aux_layout(fmt, R, L)
+    build.check_tensors("count_mono_rows", pk.device, [
+        ("pk", pk, torch.uint8, (R, -(-L // 4))),
+        ("aux", aux, aux_dtype, aux_shape),
+        ("rows", rows, torch.int32, (n_buckets, 2 * monotable.ENTRIES)),
+        ("depth", depth, torch.int32, (n_buckets * monotable.ENTRIES + 1,))])
+    if fmt not in ("lens", "mask") or not 1 <= k <= 32 or W < 1 or R < 1:
+        raise ValueError(f"count_mono_rows: bad fmt={fmt!r} k={k} "
+                         f"read_len={read_len} rows={R}")
+    mask = torch.empty(-(-(R * W) // 32), dtype=torch.int32, device=pk.device)
+    lib = build.load("count_mono")
+    lib.qm2t_count_mono_rows.argtypes = _ROWS_ARGTYPES
+    with torch.cuda.device(pk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qm2t_count_mono_rows(
+            pk.data_ptr(), aux.data_ptr(), int(fmt == "lens"),
+            rows.data_ptr(), depth.data_ptr(), mask.data_ptr(), R, L, k,
+            n_buckets, stream)
+    build.check(lib, rc, "count_mono_rows")
+    count_mono_rows.launches += 1
+    return mask
+
+
+count_mono_rows.launches = 0

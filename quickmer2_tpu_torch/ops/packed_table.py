@@ -1,9 +1,10 @@
-"""Packed bucketized two-choice dictionary table — host build.
+"""Packed bucketized two-choice dictionary table.
 
-The port uses this layout as the mono table's SIDE table (ops.monotable):
-the ~1% of keys that overflow their mono bucket live here and are probed
-on the host for the rare unresolved lanes. Layout, placement and probe
-semantics are the JAX package's (quickmer2_tpu/ops/packed_table.py):
+Two uses in the port: the mono table's SIDE table (ops.monotable), probed
+on the host for the rare unresolved lanes, and the anchored path's
+dictionary (ops.anchored), whose entries carry each k-mer's genome end
+position. Layout, placement and probe semantics are the JAX package's
+(quickmer2_tpu/ops/packed_table.py):
 
   * B buckets of C=2 entries; each bucket is one contiguous 32-B row of
     8 u32: [hi, lo, rank, pos] x 2;
@@ -13,7 +14,8 @@ semantics are the JAX package's (quickmer2_tpu/ops/packed_table.py):
   * empty entries are (0,0) — k-mer code 0 is reserved (quirk Q3), so a
     query of 0 is masked and can never false-match an empty entry.
 
-The device probe (probe_packed) is not on the port's path yet.
+`probe_packed` is the plain PyTorch probe; the CUDA kernels inline the
+same probe from csrc/packed_probe.cuh.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from quickmer2_tpu_torch.device import U32, u32
 
 # 2 entries x (hi, lo, rank, pos) = 8 u32 = 32 B per bucket row;
 # two-choice placement at load 0.5 with C=2 succeeds w.h.p. (doubling
@@ -37,6 +42,15 @@ def bucket_hashes(h: np.ndarray, n_buckets: int):
     h1 = h & np.uint32(n_buckets - 1)
     h2 = ((h * _H2_MULT) >> np.uint32(7)) & np.uint32(n_buckets - 1)
     return h1, h2
+
+
+def bucket_hashes_t(h: torch.Tensor, n_buckets: int):
+    """bucket_hashes on int64 tensors of u32 values. The product
+    h * 2654435761 would pass 2^63, so its low 32 bits are formed from
+    16-bit halves of the multiplier."""
+    m = int(_H2_MULT)
+    prod = (h * (m & 0xFFFF) + (((h * (m >> 16)) & 0xFFFF) << 16)) & U32
+    return h & (n_buckets - 1), (prod >> 7) & (n_buckets - 1)
 
 
 @dataclasses.dataclass
@@ -161,3 +175,26 @@ def probe_packed_np(rows: np.ndarray, khi: np.ndarray, klo: np.ndarray,
             found |= (r[:, 4 * e] == khi) & (r[:, 4 * e + 1] == klo)
     found &= (khi | klo) != 0
     return found
+
+
+def probe_packed(rows: torch.Tensor, khi: torch.Tensor, klo: torch.Tensor,
+                 n_buckets: int, miss_rank: int):
+    """Plain PyTorch probe: two row gathers. rows: word tensor [B, 8];
+    khi/klo: int64 u32 values. Returns (found bool[N], rank int64[N],
+    pos int64[N]); misses get miss_rank and pos 0. A query of 0 never
+    matches (quirk Q3: empty entries are (0, 0))."""
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    i1, i2 = bucket_hashes_t(djb_pair(khi, klo), n_buckets)
+    nonzero_q = (khi | klo) != 0
+    found = torch.zeros(khi.shape, dtype=torch.bool, device=khi.device)
+    rank = torch.full(khi.shape, miss_rank, dtype=torch.int64,
+                      device=khi.device)
+    pos = torch.zeros(khi.shape, dtype=torch.int64, device=khi.device)
+    for idx in (i1, i2):
+        r = u32(rows[idx])
+        for e in range(ENTRIES_PER_BUCKET):
+            m = nonzero_q & (r[:, 4 * e] == khi) & (r[:, 4 * e + 1] == klo)
+            found = found | m
+            rank = torch.where(m, r[:, 4 * e + 2], rank)
+            pos = torch.where(m, r[:, 4 * e + 3], pos)
+    return found, rank, pos

@@ -2,7 +2,8 @@
 
 Reference: QuicKmer.c:304-545 (single-threaded parser feeding a pthread
 FIFO worker pool doing atomic u16 increments). Port of
-quickmer2_tpu/pipelines/count.py, flat mode with the mono engine:
+quickmer2_tpu/pipelines/count.py, single device, in two modes with the
+same output bytes. Flat mode, the mono engine:
 
   host:   chunked file reads → native streaming parser (2-bit codes with
           separators; per-line reset semantics = SURVEY.md Q4) → batches
@@ -17,8 +18,14 @@ quickmer2_tpu/pipelines/count.py, flat mode with the mono engine:
   finish: slot → rank permutation + side counts (u32 wrap); the .bin
           wraps to u16 (SURVEY.md Q8)
 
-With device="cpu" the same stream runs through the kernel's plain
-PyTorch version.
+Anchored mode (ops.anchored): the code stream becomes fixed-width read
+rows (RowStreamer; long reads in k-1-overlap segments), each batch runs
+the anchored read pass (kernel K3), and spilled reads are recounted
+through tier 2 (K3 again) and the mono table (K2r); the row width is
+autodetected from the first chunk unless given.
+
+With device="cpu" the same stream runs through the kernels' plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import numpy as np
 import torch
 
 from quickmer2_tpu_torch.device import (
-    resolve_device, to_numpy_u32, word_dtype, words)
+    fetched, resolve_device, start_fetch, to_numpy_u32, word_dtype, words)
 from quickmer2_tpu_torch.dictionary import Dictionary
 from quickmer2_tpu_torch.io import formats
 from quickmer2_tpu_torch.kernels.count_mono import count_mono_step
@@ -213,7 +220,7 @@ class DepthCounter:
         ub = count_mono_step(pk_d, bits_d, self.rows, self.depth, k=self.k,
                              n_buckets=self._mono.n_buckets,
                              n_bases=self.batch_bases)
-        self._pending_masks.append((batch, self._start_fetch(ub)))
+        self._pending_masks.append((batch, start_fetch(ub)))
         self.phase_s["dispatch"] += time.time() - t1
         # drain masks one batch behind so the D2H never stalls the next
         # launch; ~0.1% of lanes at load 0.5 end up unresolved
@@ -221,18 +228,6 @@ class DepthCounter:
             self._drain_mask(*self._pending_masks.pop(0))
         self.total_kmer_windows += len(batch) - self.k + 1
         self._carry = batch[-(self.k - 1):].copy()
-
-    def _start_fetch(self, ub: torch.Tensor) -> tuple:
-        """Start the mask's D2H copy into pinned memory behind the launch
-        that writes it; the drain waits on its event, not on later
-        launches."""
-        if ub.device.type == "cpu":
-            return ub, None
-        host = torch.empty(ub.shape, dtype=ub.dtype, pin_memory=True)
-        host.copy_(ub, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
 
     def finish(self) -> np.ndarray:
         """Flush the tail (padded to full batch shape with separators) and
@@ -254,7 +249,7 @@ class DepthCounter:
         out += self._side_counts
         return out.astype(np.uint32)          # u32 wrap (Q8 parity)
 
-    def _drain_mask(self, batch: np.ndarray, fetched: tuple) -> None:
+    def _drain_mask(self, batch: np.ndarray, handle: tuple) -> None:
         """Recount this batch's unresolved lanes against the side
         table. Host cost is O(lanes), not O(batch): only the k-mer
         windows AT the unresolved positions are re-encoded (gathered
@@ -262,10 +257,7 @@ class DepthCounter:
         codec). The mask is LSB-first u32 words (lane i = bit i&31 of
         word i>>5)."""
         t0 = time.time()
-        host, done = fetched
-        if done is not None:
-            done.synchronize()
-        mask = np.unpackbits(to_numpy_u32(host).view(np.uint8),
+        mask = np.unpackbits(to_numpy_u32(fetched(handle)).view(np.uint8),
                              bitorder="little")
         self.phase_s["drain"] += time.time() - t0
         lanes = np.flatnonzero(mask)
@@ -346,29 +338,81 @@ def gc_curve_from_depth(depth_u16: np.ndarray, qgc: np.ndarray):
 
 
 class StreamCounter:
-    """Drives one sample's depth accumulation (flat mode, one device):
-    the object run_count feeds."""
+    """Drives one sample's depth accumulation on one device, in flat or
+    anchored mode: the object run_count feeds.
 
-    def __init__(self, dictionary: Dictionary, *,
-                 batch_bases: int = 1 << 24, packed_table=None,
+    Anchored mode builds its AnchoredDepthCounter at the first chunk, so
+    the row width can be autodetected from real reads; reads wider than
+    the row width are cut into k-1-overlap segments, so every read rides
+    the anchored path (the JAX package's flat overflow counter is never
+    fed under segmentation)."""
+
+    def __init__(self, dictionary: Dictionary, *, mode: str = "flat",
+                 index=None, batch_bases: int = 1 << 24,
+                 read_len: int | None = None, packed_table=None,
                  device: str = "cuda"):
         self.dict = dictionary
+        self.mode = mode
         self.batch_bases = batch_bases
-        self.counter = DepthCounter(dictionary, batch_bases=batch_bases,
-                                    packed_table=packed_table, device=device)
+        self.read_len = read_len
+        self.device = resolve_device(device)
+        self.counter = None
+        self.row_streamer = None
+        if mode == "anchored":
+            if index is None:
+                raise ValueError("anchored mode needs an AnchoredIndex")
+            self.index = index
+            if read_len is not None:
+                self._make_anchored(read_len)
+        elif mode == "flat":
+            self.counter = DepthCounter(dictionary, batch_bases=batch_bases,
+                                        packed_table=packed_table,
+                                        device=self.device)
+        else:
+            raise ValueError(f"unknown count mode {mode!r}")
+
+    def _make_anchored(self, read_len: int) -> None:
+        from quickmer2_tpu_torch.ops.anchored import (
+            AnchoredDepthCounter, RowStreamer)
+        self.read_len = read_len
+        self.row_streamer = RowStreamer(read_len,
+                                        segment_k=self.dict.kmer_size)
+        self.counter = AnchoredDepthCounter(
+            self.index, self.dict.kmer_size, read_len, device=self.device)
 
     def feed_codes(self, codes: np.ndarray) -> None:
-        self.counter.feed_codes(codes)
+        if self.mode != "anchored":
+            self.counter.feed_codes(codes)
+            return
+        if self.counter is None:
+            self._make_anchored(_autodetect_read_len(codes))
+        rows = self.row_streamer.feed(codes)
+        if len(rows):
+            self.counter.feed_reads(rows)
 
     def finish(self) -> np.ndarray:
-        """Flush tails and return the host depth u32[n_kmers]."""
+        """Flush tails and return the merged host depth u32[n_kmers]."""
+        if self.mode == "anchored":
+            if self.counter is None:     # empty sample
+                return np.zeros(self.dict.n_kmers, np.uint32)
+            tail = self.row_streamer.finish()
+            if len(tail):
+                self.counter.feed_reads(tail)
         return self.counter.finish()
 
     @property
     def stats(self) -> dict:
-        s = {"mode": "flat",
-             "total_windows": self.counter.total_kmer_windows}
-        for key, val in self.counter.phase_s.items():
+        s = {"mode": self.mode,
+             "total_windows": getattr(self.counter, "total_kmer_windows", 0)}
+        if self.mode == "anchored" and self.counter is not None:
+            # n_reads counts rows through the anchored pass; long reads
+            # appear as segments, tallied separately
+            s["n_reads"] = self.counter.n_reads
+            s["n_spilled"] = self.counter.n_spilled
+            s["n_spilled2"] = self.counter.n_spilled2
+            s["read_len"] = self.read_len
+            s.update(self.row_streamer.stats)      # n_long_reads, n_segments
+        for key, val in getattr(self.counter, "phase_s", {}).items():
             s["phase_" + key + "_s"] = round(val, 4)
         return s
 
@@ -376,19 +420,38 @@ class StreamCounter:
 def run_count(qm_path: str, sample_path: str, out_prefix: str,
               batch_bases: int = 1 << 24, fmt: str | None = None,
               chunk_bytes: int = 1 << 24, verbose: bool = True,
-              device: str = "cuda") -> dict:
+              mode: str = "flat", ref_fasta: str | None = None,
+              read_len: int | None = None, device: str = "cuda") -> dict:
     """Full count phase: .qm + reads → <out_prefix>.bin (+ .txt if the
     dictionary's .qgc companion exists). Returns summary stats.
 
-    This is the flat mode with the mono engine (the only path ported
-    so far): a separator-delimited code stream, one mono-table probe per
-    k-mer.
+    mode="flat"     — separator-delimited code stream, one mono-table
+                      probe per k-mer.
+    mode="anchored" — the fast path (ops.anchored): fixed-width read rows
+                      anchored against the genome; needs ref_fasta (the
+                      genome the dictionary was built from; default: the
+                      .qm path without its suffix). The first anchored
+                      count builds <ref_fasta>.qai, later ones load it.
+                      Output identical to flat mode.
+    read_len        — anchored row width (default: autodetected).
     device: "cuda" (default; raises without a card) or "cpu".
     """
     dev = resolve_device(device)
     t0 = time.time()
     dictionary = Dictionary.from_qm(qm_path)
-    sc = StreamCounter(dictionary, batch_bases=batch_bases, device=dev)
+    index = None
+    index_s = 0.0
+    if mode == "anchored":
+        from quickmer2_tpu_torch.ops.anchored import AnchoredIndex
+        if ref_fasta is None:
+            ref_fasta = _companion(qm_path, "")
+        ti = time.time()
+        index = AnchoredIndex.from_dictionary_and_fasta(
+            dictionary, ref_fasta, cache_path=ref_fasta + ".qai", device=dev)
+        index_s = time.time() - ti
+    sc = StreamCounter(dictionary, mode=mode, index=index,
+                       batch_bases=batch_bases, read_len=read_len,
+                       device=dev)
     setup_s = time.time() - t0
     stream = sys.stdin.buffer if sample_path == "-" else open(sample_path, "rb")
     bytes_consumed = 0
@@ -417,6 +480,7 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
              "elapsed_s": time.time() - t0,
              "device": str(dev),
              "phases": {"setup_s": round(setup_s, 4),
+                        "index_s": round(index_s, 4),
                         "stream_s": round(stream_s, 4),
                         "finish_s": round(finish_s, 4)},
              "bytes_consumed": bytes_consumed,
@@ -432,6 +496,20 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
         if verbose:
             print("Mean sequencing depth: %.2f" % mean_depth)
     return stats
+
+
+def _autodetect_read_len(codes: np.ndarray, cap: int = 1024) -> int:
+    """Row width for the anchored path: the longest read in the first
+    packed chunk, rounded up to a multiple of 32 and capped (longer reads
+    are cut into segments)."""
+    seps = np.flatnonzero(codes == SEP)
+    if len(seps) == 0:
+        longest = len(codes)
+    else:
+        bounds = np.concatenate([[-1], seps, [len(codes)]])
+        longest = int(np.max(bounds[1:] - bounds[:-1]) - 1)
+    longest = max(longest, 32)
+    return min(-(-longest // 32) * 32, cap)
 
 
 def _companion(qm_path: str, ext: str) -> str:

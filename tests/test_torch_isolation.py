@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither jax nor the JAX package,
-and its entry points run on the card unless asked for the CPU — on a
-box without a card they raise instead of falling back."""
+"""The port stands alone: it imports neither jax nor the JAX package
+(a flat and an anchored count on the CPU, in a fresh interpreter), and
+its entry points run on the card unless asked for the CPU — on a box
+without a card they raise instead of falling back."""
 
 import os
 import subprocess
@@ -23,15 +24,23 @@ from quickmer2_tpu_torch.io import formats
 rng = np.random.default_rng(0)
 g = rng.integers(0, 4, 5000).astype(np.uint8)
 canon, valid = codec.sliding_kmers_np(g, 25)
-kmers = np.unique(canon[valid & (canon != 0)])
-Dictionary.from_kmers_in_order(kmers, 1 << 14, 25).to_qm("d.qm")
+kmers = canon[valid & (canon != 0)]          # rank order = genome order
+assert len(np.unique(kmers)) == len(kmers)
 lut = np.frombuffer(b"ACTG", np.uint8)
+with open("g.fa", "w") as f:
+    f.write(">c1\n" + lut[g].tobytes().decode() + "\n")
+Dictionary.from_kmers_in_order(kmers, 1 << 14, 25).to_qm("g.fa.qm")
 with open("r.fa", "w") as f:
     for s in rng.integers(0, 4900, 200):
         f.write(">r\n" + lut[g[s:s + 100]].tobytes().decode() + "\n")
-stats = run_count("d.qm", "r.fa", "out", batch_bases=1 << 13,
+stats = run_count("g.fa.qm", "r.fa", "flat", batch_bases=1 << 13,
                   verbose=False, device="cpu")
-assert formats.read_u16("out.bin").sum() > 0, stats
+assert formats.read_u16("flat.bin").sum() > 0, stats
+stats = run_count("g.fa.qm", "r.fa", "anch", batch_bases=1 << 13,
+                  verbose=False, mode="anchored", device="cpu")
+assert stats["mode"] == "anchored", stats
+with open("flat.bin", "rb") as a, open("anch.bin", "rb") as b:
+    assert a.read() == b.read()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "quickmer2_tpu"
              or m.startswith("quickmer2_tpu."))
@@ -67,16 +76,33 @@ def _entry(name, tmp_path):
         return lambda: count.run_count(os.path.join(d, "g.qm"),
                                        os.path.join(d, "r.fa"),
                                        os.path.join(d, "o"))
+    if name == "run_count_anchored":
+        return lambda: count.run_count(os.path.join(d, "g.qm"),
+                                       os.path.join(d, "r.fa"),
+                                       os.path.join(d, "o"), mode="anchored")
     if name == "run_est":
         return lambda: est.run_est(os.path.join(d, "g"), os.path.join(d, "o"),
                                    os.path.join(d, "cn.bed"))
     dic = Dictionary.from_kmers_in_order(np.arange(1, 50, dtype=np.uint64),
                                          1 << 8, 15)
-    return lambda: count.DepthCounter(dic)
+    if name == "DepthCounter":
+        return lambda: count.DepthCounter(dic)
+    from quickmer2_tpu_torch.ops import anchored
+    genome = np.random.default_rng(1).integers(0, 4, 200).astype(np.uint8)
+    if name == "AnchoredIndex":
+        return lambda: anchored.AnchoredIndex.build(
+            genome, np.arange(49, dtype=np.uint32) + 14, dic.kmers_in_order,
+            15, neighbor_bits=False)
+    index = anchored.AnchoredIndex.build(
+        genome, np.arange(49, dtype=np.uint32) + 14, dic.kmers_in_order, 15,
+        neighbor_bits=False, device="cpu")
+    return lambda: anchored.AnchoredDepthCounter(index, 15, 100)
 
 
-@pytest.mark.parametrize("name", ["run_search", "run_count", "run_est",
-                                  "DepthCounter"])
+@pytest.mark.parametrize("name", ["run_search", "run_count",
+                                  "run_count_anchored", "run_est",
+                                  "DepthCounter", "AnchoredIndex",
+                                  "AnchoredDepthCounter"])
 def test_default_device_refuses_cpu_fallback(tmp_path, name):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -96,7 +122,7 @@ def test_cli_default_device_refuses_cpu_fallback(tmp_path):
 @pytest.mark.parametrize("args", [
     ["search", "--quirk-editdist", "g.fa"],
     ["search", "--emit-devices", "2", "g.fa"],
-    ["count", "--mode", "anchored", "g.fa", "r.fq", "o"],
+    ["count", "--data-devices", "2", "g.fa", "r.fq", "o"],
     ["count", "--engine", "packed", "g.fa", "r.fq", "o"],
     ["count", "--checkpoint", "ck", "g.fa", "r.fq", "o"],
     ["sparse", "100", "g.fa"],
