@@ -5,14 +5,23 @@
 
 Phases:
   1. build    — nvcc builds every kernel of the paths (csrc/*.cu), one
-                process per source, in parallel;
+                process per source, in parallel; one line per kernel of
+                ptxas' registers, stack frame and spill bytes;
   2. kernels  — each kernel against its plain PyTorch version on the
                 card, at the main paths' shapes; integer outputs, so the
                 tolerance is exact equality; CUDA-event times of both.
                 K2 (flat mono count) and K1 (Hamming join) first; the
-                anchored path's kernels (K4 neighbor sweep, K3 anchored
-                read pass in tier 1 and tier 2, K2r exact row recount)
-                need the search's dictionary and run after the flat path;
+                anchored path's kernels need the search's dictionary and
+                run after the flat path (`check_anchored_kernels`): the
+                key filter and K4 (neighbor sweep) on the index's table,
+                both again at k = 15 and k = 32 on a small dictionary;
+                K3 (anchored read pass) timed in tier 1 and tier 2 on
+                the main path's 160-wide batches, then untimed on the
+                shapes its lane groups branch on: the mask format (N
+                bases) in all three branches (tier 1, tier 2, point
+                probes), rows of 64 (2 lanes a read) and rows of 1024
+                from segmented 10 kb reads (32 lanes a read); K2r (exact
+                row recount);
   3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
                 bed) → count (flat, mono) → est on a 12 Mb realistic
                 genome (tools/realistic_genome.py, S. cerevisiae scale)
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -65,20 +75,51 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, warm: int = 1) -> float:
+def cuda_ms(fn, reps: int, warm: int = 1, queued: bool = False) -> float:
     """Mean milliseconds per call of fn() over `reps` calls, by CUDA
-    events after `warm` untimed calls."""
+    events after `warm` untimed calls, the calls back to back as they
+    are issued. queued: the events and calls are first queued behind a
+    sleeping kernel, so that a kernel that takes less time than its
+    wrapper's host code (K3's) is timed on the card and not on the
+    host."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(60_000_000)
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def kernel_ms(fn, reps: int) -> tuple[float, float]:
+    """A kernel's time by cuda_ms, back to back (the kernel table's
+    `ms`) and queued (its `queued_ms`)."""
+    return cuda_ms(fn, reps), cuda_ms(fn, reps, queued=True)
+
+
+def ptxas_summary(nvcc_log: str) -> list[str]:
+    """One line per kernel of nvcc's -Xptxas -v report: registers,
+    stack frame and spill bytes; warnings as they are."""
+    out, name = [], None
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif "stack frame" in line and name:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {frame}")
+            name = None
+        elif "warning" in line:
+            out.append(line.strip())
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -200,7 +241,8 @@ def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
         raise AssertionError(f"count_mono k={k} disagrees with its plain version")
     if not timed:
         return None
-    ms = cuda_ms(lambda: count_mono_step(pk_d, bits_d, rows, d_kernel, **kw), 10)
+    ms, queued_ms = kernel_ms(
+        lambda: count_mono_step(pk_d, bits_d, rows, d_kernel, **kw), 10)
     plain_ms = cuda_ms(
         lambda: count_mono_step_plain(pk_d, bits_d, rows, d_plain, **kw), 2)
     # least traffic: packed batch in, each touched row read once, each
@@ -217,13 +259,15 @@ def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
     n_bytes = (pk.nbytes + bits.nbytes + 64 * rows_touched
                + 8 * slots_touched + 4 * m_kernel.numel())
     b_ms, b_by = bound_ms(n_bytes, 52 * n_win)
-    log(f"  count_mono time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  count_mono time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
         f"{rows_touched} rows touched)")
     return {"name": "count_mono", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/count_mono.cu",
             "replaces": "quickmer2_tpu/pipelines/count.py:139",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
@@ -263,7 +307,7 @@ def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
             f"hamming_join {cpad}/{cpad_q} disagrees with its plain version")
     if not timed:
         return None
-    ms = cuda_ms(lambda: join_compare(*lay, s_kernel, **kw), 10)
+    ms, queued_ms = kernel_ms(lambda: join_compare(*lay, s_kernel, **kw), 10)
     plain_ms = cuda_ms(lambda: join_compare_plain(*lay, s_plain, **kw), 1)
     # least traffic: occ of every word lane and qidx of every query lane
     # (they tell which lanes are live), the (hi, lo) codes of the live
@@ -273,14 +317,16 @@ def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
     n_bytes = (4 * (lay[2].numel() + lay[5].numel())
                + 8 * (n_live_w + n_live_q) + 8 * n_live_q)
     b_ms, b_by = bound_ms(n_bytes, 20 * pairs)
-    log(f"  hamming_join time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  hamming_join time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
         f"{20 * pairs / 1e9:.2f} G ops; {n_live_w} live words, {n_live_q} "
         f"live queries)")
     return {"name": "hamming_join", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/hamming_join.cu",
             "replaces": "tools/proto_join2d.py:55",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
@@ -321,41 +367,136 @@ def packed_on(rows, dev):
             rowpack.aux_tensor(fmt, aux).to(dev), pk.nbytes + aux.nbytes)
 
 
-def check_neighbor_bits(stream, index, k, dev):
+def check_key_filter(index, dev):
+    """The key filter of the smoke's table (K4's first launch)."""
+    from quickmer2_tpu_torch.kernels.neighbor_bits import (
+        filter_words_for, key_filter, key_filter_plain)
+    n_words = filter_words_for(index.n_kmers)
+    kw = dict(n_buckets=index.n_buckets, n_words=n_words)
+    f_kernel = key_filter(index.rows, **kw)
+    f_plain = key_filter_plain(index.rows, n_words=n_words)
+    torch.cuda.synchronize()
+    err = max_abs_err(f_kernel, f_plain)
+    log(f"  key_filter: {index.n_kmers} keys, {n_words} words "
+        f"({4 * n_words / 2**20:.0f} MiB, "
+        f"{32 * n_words / index.n_kmers:.2f} bits a key), "
+        f"max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError("key_filter disagrees with its plain version")
+    ms, queued_ms = kernel_ms(lambda: key_filter(index.rows, **kw), 10)
+    plain_ms = cuda_ms(lambda: key_filter_plain(index.rows, n_words=n_words),
+                       1, warm=0)
+    # least traffic: the (hi, lo) halves of every table entry in, the
+    # filter out; least work: ~30 int ops per key (DJB, word, three
+    # bits) and a test per entry
+    n_bytes = 16 * index.n_buckets + 4 * n_words
+    n_ops = 30 * index.n_kmers + 2 * 2 * index.n_buckets
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    log(f"  key_filter time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB)")
+    return f_kernel, {
+        "name": "key_filter", "route": "cuda",
+        "source": "quickmer2_tpu_torch/csrc/neighbor_bits.cu",
+        "replaces": "quickmer2_tpu/ops/anchored.py:388",
+        "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_neighbor_bits(stream, index, filt, k, dev):
     """K4 on the first K4_CHUNK windows of the genome stream."""
     from quickmer2_tpu_torch.kernels.neighbor_bits import (
         neighbor_bits, neighbor_bits_plain)
     seg = torch.from_numpy(np.ascontiguousarray(
         stream[:K4_CHUNK + k - 1])).to(dev)
     kw = dict(n_buckets=index.n_buckets, k=k)
-    out_k = neighbor_bits(seg, index.rows, **kw)
+    out_k = neighbor_bits(seg, index.rows, filt, **kw)
     trace = {}
-    out_p = neighbor_bits_plain(seg, index.rows, trace=trace, **kw)
+    out_p = neighbor_bits_plain(seg, index.rows, filt, trace=trace, **kw)
     torch.cuda.synchronize()
     err = max_abs_err(out_k, out_p)
     log(f"  neighbor_bits k={k}: {seg.numel()} bases, {trace['probes']} "
-        f"probes, {trace['rows_touched']} of {index.n_buckets} table rows "
-        f"touched, {int((out_k != 0).sum())} flagged bases, "
-        f"max |kernel - plain| = {err}")
+        f"probes, {trace['passed']} pass the filter "
+        f"({trace['passed'] / trace['probes']:.4%}; hits it drops: "
+        f"{trace['missed']}), {trace['rows_touched']} of {index.n_buckets} "
+        f"table rows named by them, {int((out_k != 0).sum())} flagged "
+        f"bases, max |kernel - plain| = {err}")
     if err != 0:
         raise AssertionError("neighbor_bits disagrees with its plain version")
-    ms = cuda_ms(lambda: neighbor_bits(seg, index.rows, **kw), 3)
-    plain_ms = cuda_ms(lambda: neighbor_bits_plain(seg, index.rows, **kw),
-                       1, warm=0)
-    # least traffic: the chunk in, one byte out per base, each touched
-    # 32-B table row once; least work: ~60 int ops per probe (mutate,
-    # canonical min, DJB, 4 entry compares) and ~4 per window offset
-    n_bytes = 2 * seg.numel() + 32 * trace["rows_touched"]
-    n_ops = 60 * trace["probes"] + 4 * k * seg.numel()
+    ms, queued_ms = kernel_ms(
+        lambda: neighbor_bits(seg, index.rows, filt, **kw), 3)
+    plain_ms = cuda_ms(lambda: neighbor_bits_plain(seg, index.rows, filt,
+                                                   **kw), 1, warm=0)
+    # least traffic: the chunk in, one byte out per base, the filter
+    # once, each 32-B table row named by a probe that passes the filter
+    # once. Least work, ~30 int ops per probe: the substituted base (2),
+    # put into both strands' codes (6), canonical min of two 64-bit
+    # codes (5), the chosen strand's hash by its delta (4), the filter
+    # word's index and load (4), its three bit positions (7), the test
+    # (2); ~16 more per passing probe (two bucket indices, four entry
+    # compares) and ~4 per window offset. An unfiltered sweep reads two
+    # random 32-B sectors per probe.
+    n_bytes = (2 * seg.numel() + 4 * filt.numel()
+               + 32 * trace["rows_touched"])
+    n_ops = (30 * trace["probes"] + 16 * trace["passed"]
+             + 4 * k * seg.numel())
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    log(f"  neighbor_bits time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    log(f"  neighbor_bits time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-        f"{n_ops / 1e9:.2f} G ops)")
+        f"{n_ops / 1e9:.2f} G ops); unfiltered probes' random sectors "
+        f"{64 * trace['probes'] / 1e9:.1f} GB, filter sectors "
+        f"{32 * trace['probes'] / 1e9:.1f} GB + {64 * trace['passed'] / 1e9:.2f}"
+        f" GB of table rows")
     return {"name": "neighbor_bits", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/neighbor_bits.cu",
             "replaces": "quickmer2_tpu/ops/anchored.py:388",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_neighbor_bits_small(k, dev):
+    """K4 and its filter at k on a random genome whose unique k-mers are
+    the dictionary, with planted one-substitution copies (so that the
+    bitmap has hits at every k), in one chunk. 1 Mb, but 32 kb at k < 17:
+    there the code's high word is 0 and DJB takes ~9.4 M values only, so
+    a larger dictionary overfills the two-choice table's buckets."""
+    from quickmer2_tpu_torch.kernels.neighbor_bits import (
+        filter_words_for, key_filter, key_filter_plain, neighbor_bits,
+        neighbor_bits_plain)
+    from quickmer2_tpu_torch.device import words
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.ops.packed_table import PackedTable
+    rng = np.random.default_rng(k)
+    g = rng.integers(0, 4, 1 << (15 if k < 17 else 20)).astype(np.uint8)
+    for p in rng.integers(0, len(g) - 4 * k, len(g) >> 12):
+        q = (p + 2 * k + 5000) % (len(g) - 2 * k)
+        g[q:q + 2 * k] = g[p:p + 2 * k]
+        g[q + k] = (g[q + k] + 1) % 4
+    g[rng.random(len(g)) < 1e-4] = codec.SEP
+    canon, valid = codec.sliding_kmers_np(g, k)
+    ok = valid & (canon != 0)
+    uniq, cnt = np.unique(canon[ok], return_counts=True)
+    hi, lo = codec.split_u64(uniq[cnt == 1])
+    table = PackedTable.build(hi, lo, np.arange(len(hi), dtype=np.uint32))
+    rows = words(table.rows, dev)
+    n_words = filter_words_for(len(hi))
+    filt = key_filter(rows, n_buckets=table.n_buckets, n_words=n_words)
+    err = max_abs_err(filt, key_filter_plain(rows, n_words=n_words))
+    seg = torch.from_numpy(g).to(dev)
+    kw = dict(n_buckets=table.n_buckets, k=k)
+    out_k = neighbor_bits(seg, rows, filt, **kw)
+    out_p = neighbor_bits_plain(seg, rows, filt, **kw)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(out_k, out_p))
+    log(f"  neighbor_bits + key_filter k={k}: {len(g)} bases, {len(hi)} "
+        f"keys, {n_words} words, {int((out_k != 0).sum())} flagged bases, "
+        f"max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError(f"neighbor_bits k={k} disagrees with its plain "
+                             "version")
 
 
 def spill_batches(index, counter, reads, dev):
@@ -416,7 +557,8 @@ def check_anchored(index, counter, rows, tier, dev):
     if err != 0:
         raise AssertionError(
             f"anchored tier {tier} disagrees with its plain version")
-    ms = cuda_ms(lambda: anchored_count(pk, aux, *tab, d_kernel, **kw), 10)
+    ms, queued_ms = kernel_ms(
+        lambda: anchored_count(pk, aux, *tab, d_kernel, **kw), 10)
     plain_ms = cuda_ms(
         lambda: anchored_count_plain(pk, aux, *tab, d_plain, **kw), 1, warm=0)
     # least traffic: the packed rows in and a code out per row; each
@@ -431,13 +573,15 @@ def check_anchored(index, counter, rows, tier, dev):
                + 8 * trace["diff_words"].numel())
     n_ops = 16 * rows.size + 60 * trace["probes"]
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    log(f"  anchored tier {tier} time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  anchored tier {tier} time {ms:.4f} ms (queued "
+        f"{queued_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
         f"{n_ops / 1e9:.3f} G ops; {uniq})")
     return {"name": f"anchored_tier{tier}", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/anchored.cu",
             "replaces": "quickmer2_tpu/ops/anchored.py:512",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
@@ -466,8 +610,8 @@ def check_count_mono_rows(counter, rows, dev):
         f"max |kernel - plain| = {err}")
     if err != 0:
         raise AssertionError("count_mono_rows disagrees with its plain version")
-    ms = cuda_ms(lambda: count_mono_rows(pk, aux, counter._mono_rows,
-                                         d_kernel, **kw), 10)
+    ms, queued_ms = kernel_ms(lambda: count_mono_rows(
+        pk, aux, counter._mono_rows, d_kernel, **kw), 10)
     plain_ms = cuda_ms(lambda: count_mono_rows_plain(
         pk, aux, counter._mono_rows, d_plain, **kw), 2)
     # least traffic and work as K2's: packed rows in, each touched 64-B
@@ -483,29 +627,100 @@ def check_count_mono_rows(counter, rows, dev):
     n_bytes = (in_bytes + 64 * rows_touched + 8 * slots_touched
                + 4 * m_kernel.numel())
     b_ms, b_by = bound_ms(n_bytes, 52 * int(ok.sum()))
-    log(f"  count_mono_rows time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  count_mono_rows time {ms:.4f} ms (queued {queued_ms:.4f} "
+        f"ms), plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
         f"{rows_touched} rows touched)")
     return {"name": "count_mono_rows", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/count_mono.cu",
             "replaces": "quickmer2_tpu/ops/anchored.py:942",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def check_anchored_kernels(world, reads, dev):
+def compare_anchored(index, rows, kw, label, dev):
+    """K3 against its plain version on one batch of rows, untimed."""
+    from quickmer2_tpu_torch.kernels.anchored import (
+        anchored_count, anchored_count_plain)
+    fmt, pk, aux, _ = packed_on(rows, dev)
+    tab = (index.rows, index.genome_tiles, index.dblock)
+    d_k = torch.zeros(index.n_kmers + 2, dtype=torch.int32, device=dev)
+    d_p = torch.zeros_like(d_k)
+    c_k = anchored_count(pk, aux, *tab, d_k, fmt=fmt, **kw)
+    c_p = anchored_count_plain(pk, aux, *tab, d_p, fmt=fmt, **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(d_k, d_p), max_abs_err(c_k, c_p))
+    log(f"  {label} ({fmt}, rows of {rows.shape[1]}): codes 0/1/2 = "
+        f"{np.bincount(c_k.cpu().numpy(), minlength=3).tolist()}, "
+        f"{int((d_k != 0).sum())} diff words set, "
+        f"max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError(f"{label} disagrees with its plain version")
+
+
+def check_anchored_edges(index, counter, g, reads, dev):
+    """K3 on the shapes its lane-group layout branches on, each against
+    its plain version: the mask format (N bases) in all three branches,
+    rows of 64 (2 lanes a read) and of 1024 (segmented 10 kb reads, 32
+    lanes a read) in both tiers."""
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.ops.anchored import (
+        AnchoredDepthCounter, rows_from_flat_codes)
+    rng = np.random.default_rng(7)
+    B, k = counter.batch_reads, counter.k
+    point = dict(counter._tier_kw(1), max_dirty=8, neighbor_mode=False)
+    lens = rows_of(reads[B:2 * B])
+    mask = lens.copy()
+    mask[rng.random(mask.shape) < 0.002] = codec.SEP
+    for rows in (lens, mask):
+        for kw, label in ((counter._tier_kw(1), "tier 1"),
+                          (counter._tier_kw(2), "tier 2"),
+                          (point, "point probes")):
+            compare_anchored(index, rows, kw, label, dev)
+    narrow = AnchoredDepthCounter(index, k, 64, prefetch_puts=False,
+                                  device=dev)
+    r64 = np.ascontiguousarray(reads[2 * B:3 * B, :64])
+    m64 = r64.copy()
+    m64[rng.random(m64.shape) < 0.002] = codec.SEP
+    for rows in (r64, m64):
+        for tier in (1, 2):
+            compare_anchored(index, rows, narrow._tier_kw(tier),
+                             f"tier {tier}", dev)
+    long_reads = simulate_reads(rng, g, 600, 10_000, 0.003)
+    flat = np.concatenate([long_reads, np.full((600, 1), codec.SEP,
+                                               np.uint8)], 1)
+    wide_rows = rows_from_flat_codes(flat.reshape(-1), 1024, segment_k=k)
+    wide = AnchoredDepthCounter(index, k, 1024, prefetch_puts=False,
+                                device=dev)
+    for tier in (1, 2):
+        compare_anchored(index, wide_rows, wide._tier_kw(tier),
+                         f"tier {tier}", dev)
+
+
+def check_anchored_kernels(fa, g, reads, dev):
+    """The anchored path's kernels against their plain versions: the
+    key filter and K4 on the index's own table (and at k = 15 and 32 on
+    a small dictionary), K3 in tier 1 and 2 on the main path's batches
+    (timed) and on its edge shapes, K2r on an exact batch. Returns the
+    timed kernel-table rows."""
     t = time.time()
-    stream, index, counter = anchored_setup(world["fa"], dev)
+    stream, index, counter = anchored_setup(fa, dev)
     log(f"  anchored index: {index.n_kmers} k-mers, {index.n_buckets} "
         f"buckets, genome {index.genome_len} bases, built on the card in "
         f"{time.time() - t:.1f} s")
     k = counter.k
-    rows = [check_neighbor_bits(stream, index, k, dev)]
+    filt, row = check_key_filter(index, dev)
+    rows = [row, check_neighbor_bits(stream, index, filt, k, dev)]
+    del filt
+    for kk in (15, 32):
+        check_neighbor_bits_small(kk, dev)
     B = counter.batch_reads
     rows.append(check_anchored(index, counter, rows_of(reads[:B]), 1, dev))
     tier2, exact, first = spill_batches(index, counter, reads, dev)
     log(f"  tier-1 codes 0/1/2 of the first batch: {first.tolist()}")
     rows.append(check_anchored(index, counter, tier2, 2, dev))
+    check_anchored_edges(index, counter, g, reads, dev)
     rows.append(check_count_mono_rows(counter, exact, dev))
     del stream, index, counter
     torch.cuda.empty_cache()
@@ -557,7 +772,8 @@ def main() -> int:
     from quickmer2_tpu_torch.kernels.count_mono import (
         count_mono_rows, count_mono_step)
     from quickmer2_tpu_torch.kernels.hamming_join import join_compare
-    from quickmer2_tpu_torch.kernels.neighbor_bits import neighbor_bits
+    from quickmer2_tpu_torch.kernels.neighbor_bits import (
+        key_filter, neighbor_bits)
     from quickmer2_tpu_torch.pipelines.count import run_count
     from quickmer2_tpu_torch.pipelines.est import run_est
     from quickmer2_tpu_torch.pipelines.search import (
@@ -572,7 +788,7 @@ def main() -> int:
 
     def reset_counts():
         for fn in (count_mono_step, join_compare, anchored_count,
-                   count_mono_rows, neighbor_bits):
+                   count_mono_rows, neighbor_bits, key_filter):
             fn.launches = 0
         anchored_count.branch_launches = dict.fromkeys(
             anchored_count.branch_launches, 0)
@@ -584,7 +800,8 @@ def main() -> int:
                 "anchored_tier2": anchored_count.branch_launches["runs"],
                 "anchored_point": anchored_count.branch_launches["point"],
                 "count_mono_rows": count_mono_rows.launches,
-                "neighbor_bits": neighbor_bits.launches}
+                "neighbor_bits": neighbor_bits.launches,
+                "key_filter": key_filter.launches}
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -596,9 +813,8 @@ def main() -> int:
         log(f"phase build: {time.time() - t:.2f} s "
             + ", ".join(f"{n} {b['s']:.2f} s" for n, b in built.items()))
         for name, b in built.items():
-            for line in b["log"].splitlines():
-                if any(w in line for w in ("registers", "spill", "warning")):
-                    log(f"  nvcc {name}: {line.strip()}")
+            for line in ptxas_summary(b["log"]):
+                log(f"  nvcc {name}: {line}")
 
         # -- inputs ------------------------------------------------------
         rng = np.random.default_rng(2024)
@@ -664,7 +880,8 @@ def main() -> int:
 
         # -- 2, anchored path: kernels against their plain versions -----
         t = time.time()
-        rows += check_anchored_kernels(world, reads, dev)
+        rows += check_anchored_kernels(world["fa"], world["g"], reads,
+                                       dev)
         log(f"phase kernels (anchored path): {time.time() - t:.1f} s "
             f"(tolerance: exact equality, integer outputs)")
 
@@ -693,7 +910,7 @@ def main() -> int:
             anch = read_counts()
             log(f"launches on the anchored path: {anch}")
             need = ("anchored_tier1", "anchored_tier2", "count_mono_rows",
-                    "neighbor_bits")
+                    "neighbor_bits", "key_filter")
             if not all(anch[k] > 0 for k in need):
                 raise AssertionError(f"a kernel never launched: {anch}")
             with open(os.path.join(WORK, "s.bin"), "rb") as f, \

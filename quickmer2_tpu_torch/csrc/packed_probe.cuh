@@ -1,5 +1,5 @@
-// Two-choice packed-table probe, shared by csrc/anchored.cu (K3) and
-// csrc/neighbor_bits.cu (K4).
+// Two-choice packed-table probe and the table's key filter, shared by
+// csrc/anchored.cu (K3) and csrc/neighbor_bits.cu (K4).
 //
 // Replaces quickmer2_tpu/ops/packed_table.py::probe_packed (with
 // hash.djb_pair and packed_table.bucket_hashes_jnp), an XLA device function
@@ -10,6 +10,12 @@
 // (0, 0)). Where both candidates hold the key (h1 == h2) the later entry
 // wins, as the JAX probe's sequence of `where`s does; keys are unique, so
 // both carry the same rank and position.
+//
+// The key filter (kernels/neighbor_bits.py::key_filter_plain is its plain
+// version) is a blocked Bloom filter of 2^wbits u32 words over the table's
+// keys: a key sets three bits of one word, the word chosen by the top bits
+// of DJB * 2654435761 and the bits by the top 15 bits of DJB * kFilterMult.
+// It has no false negatives, so a probe that fails the filter is a miss.
 
 #pragma once
 
@@ -17,6 +23,9 @@
 #include <stdint.h>
 
 namespace qm2t {
+
+constexpr unsigned kH2Mult = 2654435761u;
+constexpr unsigned kFilterMult = 0x85EBCA77u;
 
 // DJB2 mod 2^32 over the 4 bytes of lo, then the 4 bytes of hi.
 __device__ __forceinline__ unsigned djb_pair(unsigned hi, unsigned lo) {
@@ -28,18 +37,27 @@ __device__ __forceinline__ unsigned djb_pair(unsigned hi, unsigned lo) {
   return h;
 }
 
-// Probe the canonical code; on a hit set *rank and *pos and return true,
-// on a miss leave them as they are and return false.
-__device__ __forceinline__ bool packed_probe(const uint4* __restrict__ rows,
-                                             unsigned long long code,
-                                             unsigned bucket_mask,
-                                             unsigned* rank, unsigned* pos) {
+__device__ __forceinline__ unsigned filter_word(unsigned h, int wbits) {
+  return (h * kH2Mult) >> (32 - wbits);
+}
+
+__device__ __forceinline__ unsigned filter_bits(unsigned h) {
+  const unsigned p = h * kFilterMult;
+  return (1u << (p >> 27)) | (1u << ((p >> 22) & 31u)) |
+         (1u << ((p >> 17) & 31u));
+}
+
+// Probe the canonical code whose DJB hash is h; on a hit set *rank and
+// *pos and return true, on a miss leave them as they are and return false.
+__device__ __forceinline__ bool packed_probe_h(const uint4* __restrict__ rows,
+                                               unsigned long long code,
+                                               unsigned h,
+                                               unsigned bucket_mask,
+                                               unsigned* rank, unsigned* pos) {
   if (code == 0ull) return false;
   const unsigned hi = (unsigned)(code >> 32);
   const unsigned lo = (unsigned)code;
-  const unsigned h = djb_pair(hi, lo);
-  const unsigned cand[2] = {h & bucket_mask,
-                            ((h * 2654435761u) >> 7) & bucket_mask};
+  const unsigned cand[2] = {h & bucket_mask, ((h * kH2Mult) >> 7) & bucket_mask};
   bool found = false;
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
@@ -56,18 +74,27 @@ __device__ __forceinline__ bool packed_probe(const uint4* __restrict__ rows,
   return found;
 }
 
-// Canonical code (min of forward and reverse complement) of k 2-bit bases
-// b(0..k-1), MSB-first as in ops/codec.py.
-template <typename Base>
-__device__ __forceinline__ unsigned long long canonical(int k, Base b) {
+__device__ __forceinline__ bool packed_probe(const uint4* __restrict__ rows,
+                                             unsigned long long code,
+                                             unsigned bucket_mask,
+                                             unsigned* rank, unsigned* pos) {
+  return packed_probe_h(rows, code,
+                        djb_pair((unsigned)(code >> 32), (unsigned)code),
+                        bucket_mask, rank, pos);
+}
+
+// Canonical code (min of forward and reverse complement) of the k bases
+// held LSB-first as 2-bit lanes of x (base q at bits 2q; lanes at and
+// above k are ignored). The forward code is MSB-first as in ops/codec.py:
+// reversing the 32 lanes of x puts base q at lane 31 - q, and the shift
+// brings it to lane k - 1 - q. The complement of a base is base ^ 2.
+__device__ __forceinline__ unsigned long long canonical_lsb(
+    unsigned long long x, int k) {
+  unsigned long long r = __brevll(x);
+  r = ((r >> 1) & 0x5555555555555555ull) | ((r & 0x5555555555555555ull) << 1);
+  const unsigned long long fwd = r >> (64 - 2 * k);
   const unsigned long long mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
-  const int top = 2 * k - 2;
-  unsigned long long fwd = 0, rc = 0;
-  for (int i = 0; i < k; ++i) {
-    const unsigned long long c = b(i) & 3u;
-    fwd = ((fwd << 2) | c) & mask;
-    rc = (rc >> 2) | (((c + 2) & 3u) << top);   // complement = (c-2)&3
-  }
+  const unsigned long long rc = (x ^ 0xAAAAAAAAAAAAAAAAull) & mask;
   return fwd <= rc ? fwd : rc;
 }
 

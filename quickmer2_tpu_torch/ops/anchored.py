@@ -27,7 +27,8 @@ path's depth, bit for bit.
 On the card the read pass is kernel K3 (csrc/anchored.cu via
 kernels.anchored), the exact recount K2r (csrc/count_mono.cu via
 kernels.count_mono.count_mono_rows), and the neighbor bitmap of the index
-K4 (csrc/neighbor_bits.cu via kernels.neighbor_bits). Host code here:
+K4 behind the table's key filter (csrc/neighbor_bits.cu via
+kernels.neighbor_bits). Host code here:
 the index build and its .qai companion, row transport, spill routing
 and finish.
 """
@@ -47,7 +48,8 @@ from quickmer2_tpu_torch.device import (
     fetched, resolve_device, start_fetch, to_numpy_u32, word_dtype, words)
 from quickmer2_tpu_torch.kernels.anchored import DBLK, GBLK, anchored_count
 from quickmer2_tpu_torch.kernels.count_mono import count_mono_rows
-from quickmer2_tpu_torch.kernels.neighbor_bits import neighbor_bits
+from quickmer2_tpu_torch.kernels.neighbor_bits import (
+    filter_words_for, key_filter, neighbor_bits)
 from quickmer2_tpu_torch.ops import codec, rowpack
 from quickmer2_tpu_torch.ops.monotable import MonoTable
 from quickmer2_tpu_torch.ops.packed_table import PackedTable, probe_packed_np
@@ -334,19 +336,24 @@ def build_neighbor_bits_device(genome_codes: np.ndarray, rows: torch.Tensor,
                                n_buckets: int, k: int,
                                chunk: int = 1 << 23) -> np.ndarray:
     """build_neighbor_bits on rows' device (kernel K4 on a card), in
-    chunks with a k-1 overlap; the same bytes as the host builder. Chunk
-    i's sweep is queued before chunk i-1's bitmap is fetched."""
+    chunks with a k-1 overlap; the same bytes as the host builder. The
+    table's key filter is built once, before the first chunk; chunk i's
+    sweep is queued before chunk i-1's bitmap is fetched."""
     genome_codes = np.asarray(genome_codes, np.uint8)
     G = len(genome_codes)
     nb = np.zeros(G, np.uint8)
     if G < k:
         return nb
+    n_keys = int((rows.view(-1, 4)[:, :2] != 0).any(1).sum())
+    filt = key_filter(rows, n_buckets=n_buckets,
+                      n_words=filter_words_for(n_keys))
     step = max(chunk, 4 * k)
     pending = None                       # (off, fetch handle)
     for off in range(0, G - k + 1, step):
         seg = torch.from_numpy(np.ascontiguousarray(
             genome_codes[off: off + step + k - 1])).to(rows.device)
-        out = start_fetch(neighbor_bits(seg, rows, n_buckets=n_buckets, k=k))
+        out = start_fetch(neighbor_bits(seg, rows, filt, n_buckets=n_buckets,
+                                        k=k))
         if pending is not None:
             poff, phandle = pending
             part = fetched(phandle).numpy()

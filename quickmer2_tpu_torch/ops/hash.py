@@ -56,6 +56,13 @@ def djb_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def mul32(h: torch.Tensor, m: int) -> torch.Tensor:
+    """(h * m) mod 2^32 for int64 tensors of u32 values and a u32
+    constant m. The full product would pass 2^63, so it is formed from
+    the 16-bit halves of m."""
+    return (h * (m & 0xFFFF) + (((h * (m >> 16)) & 0xFFFF) << 16)) & U32
+
+
 # ---------------------------------------------------------------------------
 # Host table: build / probe (numpy + tight python where order-dependent)
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from quickmer2_tpu_torch.device import U32, u32
+from quickmer2_tpu_torch.device import u32
 
 # 2 entries x (hi, lo, rank, pos) = 8 u32 = 32 B per bucket row;
 # two-choice placement at load 0.5 with C=2 succeeds w.h.p. (doubling
@@ -33,23 +33,21 @@ from quickmer2_tpu_torch.device import U32, u32
 ENTRIES_PER_BUCKET = 2
 ROW_WIDTH = 4 * ENTRIES_PER_BUCKET  # 8 u32 = 32 B
 
-_H2_MULT = np.uint32(2654435761)  # Knuth multiplicative hash
+H2_MULT = np.uint32(2654435761)  # Knuth multiplicative hash
 
 
 def bucket_hashes(h: np.ndarray, n_buckets: int):
     """Two bucket candidates from the DJB low-32 hash (h1 = same home
     bucket family as the reference's probe start; h2 decorrelated)."""
     h1 = h & np.uint32(n_buckets - 1)
-    h2 = ((h * _H2_MULT) >> np.uint32(7)) & np.uint32(n_buckets - 1)
+    h2 = ((h * H2_MULT) >> np.uint32(7)) & np.uint32(n_buckets - 1)
     return h1, h2
 
 
 def bucket_hashes_t(h: torch.Tensor, n_buckets: int):
-    """bucket_hashes on int64 tensors of u32 values. The product
-    h * 2654435761 would pass 2^63, so its low 32 bits are formed from
-    16-bit halves of the multiplier."""
-    m = int(_H2_MULT)
-    prod = (h * (m & 0xFFFF) + (((h * (m >> 16)) & 0xFFFF) << 16)) & U32
+    """bucket_hashes on int64 tensors of u32 values."""
+    from quickmer2_tpu_torch.ops.hash import mul32
+    prod = mul32(h, int(H2_MULT))
     return h & (n_buckets - 1), (prod >> 7) & (n_buckets - 1)
 
 

@@ -207,6 +207,61 @@ def test_anchored_count_matches_jax(world, branch, n_rate):
     assert (diff.numpy() != 0).sum() > 100
 
 
+def _rows_of_width(world, width: int, seed: int) -> np.ndarray:
+    """Rows of `width` from the world's chromosomes. 64: reads of 64 at
+    1 %/bp, reverse complements, garbage, reads over the N gap and the
+    repeat. 1024: 10 kb reads at 0.3 %/bp (one reverse complemented)
+    cut into k-1-overlap segments, as the count cuts long reads."""
+    rng = np.random.default_rng(seed)
+    chr1, chr2 = world["chr1"], world["chr2"]
+    if width == 1024:
+        reads = helpers.mutate_reads(
+            rng, helpers.simulate_reads(rng, chr1, 4, 10000)
+            + helpers.simulate_reads(rng, chr2, 1, 5000), 0.003)
+        reads.append(helpers.revcomp(reads[0]))
+    else:
+        reads = helpers.mutate_reads(
+            rng, helpers.simulate_reads(rng, chr1, 200, width)
+            + helpers.simulate_reads(rng, chr2, 60, width), 0.01)
+        reads += [helpers.revcomp(r) for r in reads[:30]]
+        reads += [helpers.random_genome(rng, width) for _ in range(20)]
+        gap = chr1.find("N")
+        reads += [chr1[gap + o: gap + o + width] for o in range(-60, 20, 9)]
+        reads += [chr1[15000 + o: 15000 + o + width]
+                  for o in range(-40, 1560, 41)]
+    stream = np.concatenate([np.append(jcodec.encode_bases(r.encode()),
+                                       jcodec.SEP) for r in reads])
+    return janch.rows_from_flat_codes(stream.astype(np.uint8), width,
+                                      segment_k=K)
+
+
+@pytest.mark.parametrize("width", [64, 1024])
+@pytest.mark.parametrize("branch", ["neighbor", "runs"])
+def test_anchored_count_widths_match_jax(world, width, branch):
+    """K3's plain version at the row widths its lane-group layout
+    branches on (2 and 32 lanes a read), tier 1 and tier 2."""
+    jix, tix = world["jindex"], world["tindex"]
+    rows = _rows_of_width(world, width, width)
+    fmt, pk, aux, pk_t, aux_t = _packed(rows)
+    w = width - K + 1
+    kw = dict(k=K, read_len=width,
+              anchor_offsets=tuple(sorted({0, w // 3, (2 * w) // 3, w - 1})),
+              **TIER_KW[branch])
+    jdiff, jcode = janch.anchored_count_batch_packed(
+        jnp.asarray(pk), jnp.asarray(aux), jix.rows, jix.genome_tiles,
+        jix.dblock, jnp.zeros(jix.n_kmers + 2, jnp.uint32), None, fmt=fmt,
+        n_buckets=jix.n_buckets, **kw)
+    diff = torch.zeros(tix.n_kmers + 2, dtype=torch.int64)
+    code = tkanch.anchored_count(pk_t, aux_t, tix.rows, tix.genome_tiles,
+                                 tix.dblock, diff, fmt=fmt,
+                                 n_buckets=tix.n_buckets, **kw)
+    jcode = np.asarray(jcode)
+    np.testing.assert_array_equal(code.numpy(), jcode)
+    np.testing.assert_array_equal(diff.numpy().astype(np.uint32),
+                                  np.asarray(jdiff))
+    assert (jcode == 0).sum() > 0 and (diff.numpy() != 0).sum() > 50
+
+
 def test_exact_count_rows_mono_matches_jax(world):
     """K2r's plain version: slot depth and the set of unresolved lanes,
     on a crowded mono table (load 2: a side table and full buckets)."""
