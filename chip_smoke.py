@@ -10,18 +10,26 @@ Phases:
   2. kernels  — each kernel against its plain PyTorch version on the
                 card, at the main paths' shapes; integer outputs, so the
                 tolerance is exact equality; CUDA-event times of both.
-                K2 (flat mono count) and K1 (Hamming join) first; the
-                anchored path's kernels need the search's dictionary and
-                run after the flat path (`check_anchored_kernels`): the
-                key filter and K4 (neighbor sweep) on the index's table,
-                both again at k = 15 and k = 32 on a small dictionary;
-                K3 (anchored read pass) timed in tier 1 and tier 2 on
-                the main path's 160-wide batches, then untimed on the
-                shapes its lane groups branch on: the mask format (N
-                bases) in all three branches (tier 1, tier 2, point
-                probes), rows of 64 (2 lanes a read) and rows of 1024
-                from segmented 10 kb reads (32 lanes a read); K2r (exact
-                row recount);
+                K2 (flat mono count) first: timed at k = 30 on a 2^22-
+                bucket table (P = 16 slices), where the same batch also
+                runs at P = 1, 4, 8, 32 and 64, each checked; untimed at
+                k = 32 (P = 2), k = 15 (P = 2) and k = 31 (P = 1, the
+                one-pass kernel), the last two on batches that are not a
+                multiple of 64 bases. Then K1 (Hamming join) on the
+                search's own layouts at pads 64/32 (timed, with the card
+                time of building its layouts) and 128/64, each also on
+                hand-planted buckets: > 1024 live pairs, 36 pairs, live
+                words without a live query. The anchored path's kernels
+                need the search's dictionary and run after the flat path
+                (`check_anchored_kernels`): the key filter and K4
+                (neighbor sweep) on the index's table, both again at
+                k = 15 and k = 32 on a small dictionary; K3 (anchored
+                read pass) timed in tier 1 and tier 2 on the main path's
+                160-wide batches, then untimed on the shapes its lane
+                groups branch on: the mask format (N bases) in all three
+                branches (tier 1, tier 2, point probes), rows of 64 (2
+                lanes a read) and rows of 1024 from segmented 10 kb
+                reads (32 lanes a read); K2r (exact row recount);
   3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
                 bed) → count (flat, mono) → est on a 12 Mb realistic
                 genome (tools/realistic_genome.py, S. cerevisiae scale)
@@ -64,6 +72,11 @@ HBM_BYTES_S = 3.35e12            # H100 SXM HBM3
 # int32 ALU: 132 SMs x 64 lanes x 1.98 GHz (the data sheet's 67 TFLOP/s
 # float32 is 128 lanes x 2 flops per FMA at the same clock)
 INT32_OPS_S = 132 * 64 * 1.98e9
+
+# K2's untimed branch shapes beside the timed k = 30 (P = 16) and k = 32
+# (P = 2) cases: (k, keys, batch bases) giving P = 2 at k = 15 and P = 1
+# at k = 31, both batches not a multiple of 64 bases
+K2_EDGES = ((15, 2_000_000, (1 << 22) + 13), (31, 600_000, 3_000_001))
 
 GENOME_BASES = 12_000_000
 READ_LEN = 150
@@ -196,10 +209,13 @@ def write_fastq(path, reads):
 
 def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
     """K2 on a random dictionary with a side table and a batch with read
-    separators and N bases; returns a kernel-table row when timed."""
+    separators and N bases; returns a kernel-table row when timed. A
+    timed case also runs the kernel at other slice counts P, each
+    checked against the plain version, and logs their times."""
     from quickmer2_tpu_torch.device import words
+    from quickmer2_tpu_torch.kernels import count_mono as cm
     from quickmer2_tpu_torch.kernels.count_mono import (
-        count_mono_step, count_mono_step_plain)
+        count_mono_step, count_mono_step_plain, partitions_for)
     from quickmer2_tpu_torch.ops import codec, rowpack
     from quickmer2_tpu_torch.ops.monotable import MonoTable
     from quickmer2_tpu_torch.utils import native
@@ -223,6 +239,7 @@ def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
     bits_d = torch.from_numpy(bits[0]).to(dev)
     rows = words(table.rows, dev)
     kw = dict(k=k, n_buckets=table.n_buckets, n_bases=n_bases)
+    n_parts = partitions_for(table.n_buckets)
 
     def zero():
         return torch.zeros(table.n_slots + 1, dtype=torch.int32, device=dev)
@@ -233,22 +250,37 @@ def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
     err = max(max_abs_err(d_kernel[:-1], d_plain[:-1]),
               max_abs_err(m_kernel, m_plain))
     n_unres = int(np.unpackbits(m_kernel.cpu().numpy().view(np.uint8)).sum())
-    log(f"  count_mono k={k}: {len(keys)} keys, {table.n_buckets} buckets, "
-        f"side {table.side.n_kmers} keys, batch {n_bases} bases: "
-        f"{int(d_kernel[:-1].sum())} hits, {n_unres} unresolved lanes, "
-        f"max |kernel - plain| = {err}")
+    log(f"  count_mono k={k}: {len(keys)} keys, {table.n_buckets} buckets "
+        f"(P = {n_parts}), side {table.side.n_kmers} keys, batch {n_bases} "
+        f"bases: {int(d_kernel[:-1].sum())} hits, {n_unres} unresolved "
+        f"lanes, max |kernel - plain| = {err}")
     if err != 0:
         raise AssertionError(f"count_mono k={k} disagrees with its plain version")
     if not timed:
         return None
+    d_ref = d_plain.clone()
     ms, queued_ms = kernel_ms(
         lambda: count_mono_step(pk_d, bits_d, rows, d_kernel, **kw), 10)
     plain_ms = cuda_ms(
         lambda: count_mono_step_plain(pk_d, bits_d, rows, d_plain, **kw), 2)
+    # the same batch at other slice counts (1 = the one-pass kernel),
+    # each against the plain version's depth and mask
+    sweep = {}
+    for p in sorted({1, 4, 8, 16, 32, 64} - {n_parts}):
+        d_p = zero()
+        m_p = cm.count_mono_launch(pk_d, bits_d, rows, d_p, n_parts=p, **kw)
+        torch.cuda.synchronize()
+        e_p = max(max_abs_err(d_p[:-1], d_ref[:-1]),
+                  max_abs_err(m_p, m_plain))
+        if e_p != 0:
+            raise AssertionError(f"count_mono at P = {p} disagrees with its "
+                                 "plain version")
+        sweep[p] = round(cuda_ms(lambda: cm.count_mono_launch(
+            pk_d, bits_d, rows, d_p, n_parts=p, **kw), 10), 4)
     # least traffic: packed batch in, each touched row read once, each
     # touched depth word read and written once, mask words out; least
-    # work: a rolling codec (~16 int ops), canonical min, DJB over 8
-    # bytes (~16), 8 entry compares (~16) per window
+    # work: the word-parallel codec and canonical min (~20 int ops), DJB
+    # over 8 bytes (~16), 8 entry compares (~16) per window
     n_win = n_bases - k + 1
     codes = rowpack.unpack_rows(pk_d[None], bits_d[None], read_len=n_bases)[0]
     chi, clo, ok = codec.sliding_kmers(codes, k)
@@ -259,74 +291,143 @@ def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
     n_bytes = (pk.nbytes + bits.nbytes + 64 * rows_touched
                + 8 * slots_touched + 4 * m_kernel.numel())
     b_ms, b_by = bound_ms(n_bytes, 52 * n_win)
-    log(f"  count_mono time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, "
+    log(f"  count_mono time {ms:.4f} ms (queued {queued_ms:.4f} ms) at P = "
+        f"{n_parts}, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-        f"{rows_touched} rows touched)")
+        f"{rows_touched} rows touched); ms at other P: {sweep}")
     return {"name": "count_mono", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/count_mono.cu",
             "replaces": "quickmer2_tpu/pipelines/count.py:139",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "partitions": n_parts,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def join_layouts(uniq, occ, k, cpad, cpad_q, dev):
     """Part 0, word chunk 0 and query chunk 0 of the search's own join
     plan at these pads: its queries (the singletons), its interleaved
-    chunks and its slow-path routing, built by its layout scatter."""
+    chunks and its slow-path routing, built by its layout scatter.
+    Returns the layouts, the query count, the bucket count and a
+    function that builds the layouts again."""
     from quickmer2_tpu_torch.ops import hamming_join as hj
     plan = hj._JoinPlan(uniq[occ == 1], uniq, occ, k, cpad=cpad,
                         cpad_q=cpad_q, device=dev)
     qsel = plan.query_chunk(0)
-    lay = plan.layouts(0, 0, plan.queries(qsel))
-    return lay, len(qsel), plan.n_bkts[0]
+    q = plan.queries(qsel)
+    lay = plan.layouts(0, 0, q)
+    return lay, len(qsel), plan.n_bkts[0], lambda: plan.layouts(0, 0, q)
+
+
+def plant_buckets(lay, nq, cpad, cpad_q, rng):
+    """Hand-planted buckets on a copy of the layouts, at the shapes K1
+    branches on: bucket 0 with words in two lanes of three and queries in
+    six of seven (> 1024 pairs at pads 64/32), bucket 1 with 3
+    words and 12 queries (36 > 32 pairs), bucket 2 with live words and no
+    live query. The planted queries take fresh indices nq.. and are
+    near some of the bucket's words (one base apart), so their terms are
+    nonzero. Returns the layouts and the new query count."""
+    from quickmer2_tpu_torch.device import words as as_words
+    dh, dl, docc, qh, ql, qidx = (t.clone() for t in lay)
+    extra = 2 * cpad_q
+    qidx[qidx == nq] = nq + extra
+
+    def words(b, lanes):
+        o = torch.tensor(lanes, device=dh.device) + b * cpad
+        dh[b * cpad:(b + 1) * cpad] = 0
+        dl[b * cpad:(b + 1) * cpad] = 0
+        docc[b * cpad:(b + 1) * cpad] = 0
+        for t, hi in ((dh, 1 << 20), (dl, 1 << 32), (docc, 256)):
+            t[o] = as_words(rng.integers(1, hi, len(o)), dh.device)
+        return o
+
+    def queries(b, lanes, first, wo):
+        qidx[b * cpad_q:(b + 1) * cpad_q] = nq + extra
+        for n, j in enumerate(lanes):
+            o = b * cpad_q + j
+            w = wo[n % len(wo)]
+            qidx[o] = first + n
+            qh[o] = dh[w]
+            ql[o] = dl[w] ^ (1 << int(rng.integers(0, 31)))
+        return first + len(lanes)
+
+    wo = words(0, [j for j in range(cpad) if j % 3 != 1])
+    nxt = queries(0, [j for j in range(cpad_q) if j % 7 != 3], nq, wo)
+    wo = words(1, [0, 5, 9])
+    queries(1, list(range(5, 17)), nxt, wo)
+    words(2, list(range(10)))
+    qidx[2 * cpad_q:3 * cpad_q] = nq + extra
+    return (dh, dl, docc, qh, ql, qidx), nq + extra
 
 
 def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
+    """K1 on the search's own layouts, then on hand-planted buckets."""
     from quickmer2_tpu_torch.kernels.hamming_join import (
         join_compare, join_compare_plain)
     from quickmer2_tpu_torch.ops.hamming_join import _part_masks
-    lay, nq, n_buckets = join_layouts(uniq, occ, k, cpad, cpad_q, dev)
+    lay, nq, n_buckets, rebuild = join_layouts(uniq, occ, k, cpad, cpad_q, dev)
     kw = dict(e=2, masks=_part_masks(k), n_buckets=n_buckets, cpad=cpad,
               cpad_q=cpad_q)
-    s_kernel = torch.zeros(nq + 1, dtype=torch.int32, device=dev)
-    s_plain = torch.zeros_like(s_kernel)
-    join_compare(*lay, s_kernel, **kw)
-    join_compare_plain(*lay, s_plain, **kw)
-    torch.cuda.synchronize()
-    err = max_abs_err(s_kernel[:-1], s_plain[:-1])
-    live_w = (lay[2][:-1].view(n_buckets, cpad) != 0).sum(1).to(torch.int64)
-    live_q = (lay[5][:-1].view(n_buckets, cpad_q) != nq).sum(1).to(torch.int64)
-    pairs = int((live_w * live_q).sum())
-    log(f"  hamming_join cpad {cpad}/{cpad_q}: {n_buckets} buckets, {nq} "
-        f"queries, {pairs} live pairs, {int((s_kernel[:-1] != 0).sum())} "
-        f"nonzero sums, max |kernel - plain| = {err}")
-    if err != 0:
-        raise AssertionError(
-            f"hamming_join {cpad}/{cpad_q} disagrees with its plain version")
+
+    def compare(lay, nq, label):
+        s_kernel = torch.zeros(nq + 1, dtype=torch.int32, device=dev)
+        s_plain = torch.zeros_like(s_kernel)
+        join_compare(*lay, s_kernel, **kw)
+        join_compare_plain(*lay, s_plain, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(s_kernel[:-1], s_plain[:-1])
+        live_w = (lay[2][:-1].view(n_buckets, cpad) != 0).sum(1)
+        live_q = (lay[5][:-1].view(n_buckets, cpad_q) != nq).sum(1)
+        pairs = (live_w * live_q).to(torch.int64)
+        log(f"  hamming_join cpad {cpad}/{cpad_q}{label}: {n_buckets} "
+            f"buckets, {nq} queries, {int(pairs.sum())} live pairs (most "
+            f"in a bucket {int(pairs.max())}), "
+            f"{int((s_kernel[:-1] != 0).sum())} nonzero sums, "
+            f"max |kernel - plain| = {err}")
+        if err != 0:
+            raise AssertionError(f"hamming_join {cpad}/{cpad_q}{label} "
+                                 "disagrees with its plain version")
+        return err, live_w.to(torch.int64), live_q.to(torch.int64), s_kernel
+
+    err, live_w, live_q, s_kernel = compare(lay, nq, "")
+    planted, nq_p = plant_buckets(lay, nq, cpad, cpad_q,
+                                  np.random.default_rng(cpad))
+    compare(planted, nq_p, ", planted buckets")
+    del planted
     if not timed:
         return None
     ms, queued_ms = kernel_ms(lambda: join_compare(*lay, s_kernel, **kw), 10)
+    s_plain = torch.zeros_like(s_kernel)
     plain_ms = cuda_ms(lambda: join_compare_plain(*lay, s_plain, **kw), 1)
-    # least traffic: occ of every word lane and qidx of every query lane
-    # (they tell which lanes are live), the (hi, lo) codes of the live
-    # words and live queries, each live query's sum read and written
-    # once; least work: ~20 int ops per live pair
-    n_live_w, n_live_q = int(live_w.sum()), int(live_q.sum())
-    n_bytes = (4 * (lay[2].numel() + lay[5].numel())
+    del lay
+    torch.cuda.empty_cache()
+    layout_ms = cuda_ms(rebuild, 3)
+    # least traffic: qidx of every query lane and occ of every word lane
+    # of a bucket with a live query (they tell which lanes are live), the
+    # (hi, lo) codes of the live words there and of the live queries,
+    # each live query's sum read and written once; least work: ~20 int
+    # ops per live pair. The all-lanes count beside it reads occ of
+    # every bucket and the codes of every live word.
+    has_q = live_q > 0
+    n_live_w, n_live_q = int(live_w[has_q].sum()), int(live_q.sum())
+    pairs = int((live_w * live_q).sum())
+    n_bytes = (4 * (n_buckets * cpad_q + cpad * int(has_q.sum()))
                + 8 * (n_live_w + n_live_q) + 8 * n_live_q)
     b_ms, b_by = bound_ms(n_bytes, 20 * pairs)
+    all_bytes = (4 * n_buckets * (cpad + cpad_q) + 8 * int(live_w.sum())
+                 + 16 * n_live_q)
+    all_ms, _ = bound_ms(all_bytes, 20 * pairs)
     log(f"  hamming_join time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-        f"{20 * pairs / 1e9:.2f} G ops; {n_live_w} live words, {n_live_q} "
-        f"live queries)")
+        f"{20 * pairs / 1e9:.2f} G ops; {n_live_w} live words in "
+        f"{int(has_q.sum())} buckets with a live query, {n_live_q} live "
+        f"queries; counting occ of every bucket {all_bytes / 1e6:.1f} MB, "
+        f"{all_ms:.4f} ms); layouts {layout_ms:.4f} ms")
     return {"name": "hamming_join", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/hamming_join.cu",
             "replaces": "tools/proto_join2d.py:55",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "layout_ms": layout_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
@@ -826,6 +927,9 @@ def main() -> int:
         t = time.time()
         rows = [check_count_mono(rng, 30, 11_000_000, 1 << 24, dev, True)]
         check_count_mono(rng, 32, 2_000_000, 1 << 22, dev, False)
+        for k, n_keys, n_bases in K2_EDGES:
+            check_count_mono(np.random.default_rng(k), k, n_keys, n_bases,
+                             dev, False)
         uniq, occ, _ = _tabulate_streaming(fasta_io.iter_fasta(world["fa"]), 30)
         rows.append(check_hamming_join(uniq, occ, 30, 64, 32, dev, True))
         check_hamming_join(uniq, occ, 30, 128, 64, dev, False)

@@ -20,103 +20,254 @@
 //                                      [b * cpad, (b + 1) * cpad)
 //   qh, ql        u32[B * cpad_q + 1]  query lanes
 //   qidx          i32[B * cpad_q + 1]  query index, nq on holes
-// Holes carry occ 0 (they add nothing) and qidx nq (skipped). Within one
-// call each query holds one lane, so the plain += on scaled[qidx] never
-// collides. H >= 1 excludes self-pairs.
+// Holes carry occ 0 (they add nothing) and qidx nq (skipped); a lane is
+// live where occ != 0 (words) or 0 <= qidx < nq (queries), wherever it
+// sits in its bucket. H >= 1 excludes self-pairs.
 //
-// Design: one block per G buckets (G * cpad_q <= 256 threads). The block
-// stages its buckets' word lanes (12 B each) in shared memory once; each
-// thread owns one query lane and loops over its bucket's words up to the
-// last one with nonzero occ, which is exact on any layout (the search
-// fills each bucket from lane 0, so the loop ends after the live words).
-// The Pallas kernel's (slab, cpad_q, cpad) intermediates never exist:
-// every term lives in registers.
+// Design: a warp per bucket, a block per eight buckets. Lane j holds lane
+// 32t + j of its bucket in slot t (WS = ceil(cpad / 32) word slots, QS =
+// ceil(cpad_q / 32) query slots, both template parameters), so each slot
+// is one coalesced 128-B load. The warp loads qidx, then docc only where
+// the bucket has a live query, then the (hi, lo) codes of the live lanes
+// only. Ballots give the live lanes and their span, the lanes up to the
+// last live one. The search fills each bucket from lane 0, so the spans
+// are the live lanes; holes inside a span add nothing, so any layout is
+// exact. The span pairs are dealt round the lanes (join_bucket): the warp
+// splits into 32 / Q groups of Q lanes, Q the query span rounded up to a
+// power of two, so a pair's lane comes from shifts and masks, no divide;
+// each lane compares one query against every (32 / Q)-th word, codes by
+// shuffle, keeps one sum and adds it by atomicAdd (sums are integers, so
+// the order does not matter). No shared memory and no __syncthreads. The
+// card keeps many such warps in flight, and that hides the three
+// dependent loads: on the H100 this grid ran faster than persistent
+// blocks that pipelined buckets in registers.
 //
 // Bound on the H100: sum_b live_words(b) * live_queries(b) pair compares
 // of ~20 integer operations each (two of them popcounts), against the
-// least traffic: docc of every word lane and qidx of every query lane
-// (4 B each; they tell which lanes are live), 8 B of (hi, lo) per live
-// word and per live query, and each live query's sum read and written
-// once. At the search's shapes (2^20 buckets at k = 30, a few live lanes
-// per bucket) the layouts are mostly holes and the bytes bound it;
-// chip_smoke.py computes both bounds from each run's layouts.
+// least traffic this design needs: qidx of every query lane, docc of every
+// word lane of a bucket with a live query, 8 B of (hi, lo) per live word
+// of such a bucket and per live query, and each live query's sum read and
+// written once. At
+// the search's shapes (2^20 buckets at k = 30, a few live lanes per bucket)
+// the bytes bound it; chip_smoke.py computes both bounds from each run's
+// layouts.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kMaxStagedWords = 2048;   // 24 KB of shared memory
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct PartMasks {
   unsigned hi[3];
   unsigned lo[3];
 };
 
-__global__ void __launch_bounds__(kMaxThreads)
-hamming_join_kernel(const unsigned* __restrict__ dh,
-                    const unsigned* __restrict__ dl,
-                    const unsigned* __restrict__ docc,
-                    const unsigned* __restrict__ qh,
-                    const unsigned* __restrict__ ql,
-                    const int* __restrict__ qidx,
-                    unsigned* __restrict__ scaled,
-                    long long n_buckets, int cpad, int cpad_q, int group,
-                    int nq, unsigned e, PartMasks pm) {
-  extern __shared__ unsigned smem[];
-  unsigned* wh = smem;
-  unsigned* wl = wh + group * cpad;
-  unsigned* wo = wl + group * cpad;
-  int* nlive = (int*)(wo + group * cpad);
+struct Layout {
+  const unsigned* dh;
+  const unsigned* dl;
+  const unsigned* docc;
+  const unsigned* qh;
+  const unsigned* ql;
+  const int* qidx;
+  unsigned* scaled;
+  long long n_buckets;
+  int cpad, cpad_q, nq;
+  unsigned e;
+  PartMasks pm;
+};
 
-  const long long b0 = (long long)blockIdx.x * group;
-  if ((int)threadIdx.x < group) nlive[threadIdx.x] = 0;
-  __syncthreads();
-  for (int t = threadIdx.x; t < group * cpad; t += blockDim.x) {
-    const long long b = b0 + t / cpad;
-    unsigned h = 0, l = 0, o = 0;
-    if (b < n_buckets) {
-      const long long off = b * cpad + t % cpad;
-      o = docc[off];
-      if (o) {
-        h = dh[off];
-        l = dl[off];
+__device__ __forceinline__ unsigned pair_term(const Layout& L, unsigned q_h,
+                                              unsigned q_l, unsigned w_h,
+                                              unsigned w_l, unsigned occ) {
+  const unsigned xh = q_h ^ w_h;
+  const unsigned xl = q_l ^ w_l;
+  const unsigned ham = __popc((xh | (xh >> 1)) & 0x55555555u) +
+                       __popc((xl | (xl >> 1)) & 0x55555555u);
+  if (ham < 1u || ham > L.e) return 0u;
+  const unsigned m = (((xh & L.pm.hi[0]) | (xl & L.pm.lo[0])) == 0u) +
+                     (((xh & L.pm.hi[1]) | (xl & L.pm.lo[1])) == 0u) +
+                     (((xh & L.pm.hi[2]) | (xl & L.pm.lo[2])) == 0u);
+  const unsigned scale = m == 3u ? 2u : m == 2u ? 3u : m == 1u ? 6u : 0u;
+  return occ * scale;
+}
+
+// One bucket's lanes as a warp holds them: lane j has bucket lane 32t + j
+// in slot t.
+template <int WS, int QS>
+struct Bucket {
+  int qi[QS];
+  unsigned occ[WS], wh[WS], wl[WS], qh[QS], ql[QS];
+};
+
+__device__ __forceinline__ bool live_query(const Layout& L, int qi) {
+  return (unsigned)qi < (unsigned)L.nq;
+}
+
+template <int WS, int QS>
+__device__ __forceinline__ void load_qidx(const Layout& L, long long b,
+                                          int lane, Bucket<WS, QS>& k) {
+#pragma unroll
+  for (int t = 0; t < QS; ++t) {
+    const int j = 32 * t + lane;
+    k.qi[t] = j < L.cpad_q ? __ldg(L.qidx + b * L.cpad_q + j) : L.nq;
+  }
+}
+
+// occ of every word lane, where the bucket has a live query.
+template <int WS, int QS>
+__device__ __forceinline__ void load_occ(const Layout& L, long long b,
+                                         int lane, Bucket<WS, QS>& k) {
+  bool any = false;
+#pragma unroll
+  for (int t = 0; t < QS; ++t) any = any || live_query(L, k.qi[t]);
+  any = __any_sync(kFull, any);
+#pragma unroll
+  for (int t = 0; t < WS; ++t) {
+    const int j = 32 * t + lane;
+    k.occ[t] = (any && j < L.cpad) ? __ldg(L.docc + b * L.cpad + j) : 0u;
+  }
+}
+
+// (hi, lo) codes of the live lanes.
+template <int WS, int QS>
+__device__ __forceinline__ void load_codes(const Layout& L, long long b,
+                                           int lane, Bucket<WS, QS>& k) {
+#pragma unroll
+  for (int t = 0; t < WS; ++t) {
+    const long long o = b * L.cpad + 32 * t + lane;
+    k.wh[t] = k.occ[t] ? __ldg(L.dh + o) : 0u;
+    k.wl[t] = k.occ[t] ? __ldg(L.dl + o) : 0u;
+  }
+#pragma unroll
+  for (int t = 0; t < QS; ++t) {
+    const long long o = b * L.cpad_q + 32 * t + lane;
+    k.qh[t] = live_query(L, k.qi[t]) ? __ldg(L.qh + o) : 0u;
+    k.ql[t] = live_query(L, k.qi[t]) ? __ldg(L.ql + o) : 0u;
+  }
+}
+
+// Bucket lane w of a value held S slots a lane, for every lane of the warp
+// (only the slots below the warp-uniform span are read).
+template <int S>
+__device__ __forceinline__ unsigned fetch(const unsigned (&v)[S], int w,
+                                          int span) {
+  unsigned x = 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if (32 * s >= span) break;
+    const unsigned y = __shfl_sync(kFull, v[s], w & 31);
+    if ((w >> 5) == s) x = y;
+  }
+  return x;
+}
+
+// Lanes [0, span) hold every live lane of a ballot set: span = one past
+// the highest live lane, 0 if none.
+template <int S>
+__device__ __forceinline__ int live_span(const unsigned (&live)[S]) {
+  int span = 0;
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    if (live[t]) span = 32 * t + 32 - __clz(live[t]);
+  }
+  return span;
+}
+
+// Every live pair of a bucket whose lanes have arrived. The search fills
+// a bucket from lane 0, so the live lanes are a prefix; the pairs of the
+// query span x word span are dealt (holes add nothing, so any layout is
+// exact). With Q, the query span rounded up to a power of two, at most
+// 32, the warp is G = 32 / Q groups of Q lanes: lane r of group g takes
+// query lane r and word lanes g, g + G, ...; each lane keeps one sum and
+// adds it once. A wider query span (cpad_q > 32) takes the words one at a
+// time, each lane its own query slots.
+template <int WS, int QS>
+__device__ __forceinline__ void join_bucket(const Layout& L, int lane,
+                                            const Bucket<WS, QS>& k) {
+  unsigned lq[QS], lw[WS];
+#pragma unroll
+  for (int t = 0; t < QS; ++t) lq[t] = __ballot_sync(kFull, live_query(L, k.qi[t]));
+#pragma unroll
+  for (int t = 0; t < WS; ++t) lw[t] = __ballot_sync(kFull, k.occ[t] != 0u);
+  const int q_span = live_span<QS>(lq), w_span = live_span<WS>(lw);
+  if (q_span == 0 || w_span == 0) return;
+  if (q_span <= 32) {
+    const int qbits = 32 - __clz(q_span - 1);   // Q = 1 << qbits
+    const int r = lane & ((1 << qbits) - 1);
+    const int G = 32 >> qbits;
+    const unsigned q_h = __shfl_sync(kFull, k.qh[0], r);
+    const unsigned q_l = __shfl_sync(kFull, k.ql[0], r);
+    const int q_i = __shfl_sync(kFull, k.qi[0], r);
+    const bool live = live_query(L, q_i);
+    unsigned acc = 0;
+    for (int w = lane >> qbits; w - (lane >> qbits) < w_span; w += G) {
+      const unsigned w_h = fetch<WS>(k.wh, w, w_span);
+      const unsigned w_l = fetch<WS>(k.wl, w, w_span);
+      const unsigned w_o = fetch<WS>(k.occ, w, w_span);
+      if (live && w < w_span) acc += pair_term(L, q_h, q_l, w_h, w_l, w_o);
+    }
+    if (acc) atomicAdd(L.scaled + q_i, acc);
+    return;
+  }
+  unsigned acc[QS];
+#pragma unroll
+  for (int t = 0; t < QS; ++t) acc[t] = 0;
+  for (int w = 0; w < w_span; ++w) {
+    const unsigned w_o = fetch<WS>(k.occ, w, w_span);
+    if (w_o == 0u) continue;                  // warp-uniform: w is
+    const unsigned w_h = fetch<WS>(k.wh, w, w_span);
+    const unsigned w_l = fetch<WS>(k.wl, w, w_span);
+#pragma unroll
+    for (int t = 0; t < QS; ++t) {
+      if (live_query(L, k.qi[t])) {
+        acc[t] += pair_term(L, k.qh[t], k.ql[t], w_h, w_l, w_o);
       }
     }
-    wh[t] = h;
-    wl[t] = l;
-    wo[t] = o;
-    if (o) atomicMax(&nlive[t / cpad], t % cpad + 1);
   }
-  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < QS; ++t) {
+    if (acc[t]) atomicAdd(L.scaled + k.qi[t], acc[t]);
+  }
+}
 
-  const int g = threadIdx.x / cpad_q;
-  const long long b = b0 + g;
-  if (g >= group || b >= n_buckets) return;
-  const long long qo = b * cpad_q + threadIdx.x % cpad_q;
-  const int qi = qidx[qo];
-  if (qi < 0 || qi >= nq) return;
-  const unsigned q_h = qh[qo];
-  const unsigned q_l = ql[qo];
-  const unsigned* bh = wh + g * cpad;
-  const unsigned* bl = wl + g * cpad;
-  const unsigned* bo = wo + g * cpad;
-  const int live = nlive[g];
-  unsigned sum = 0;
-  for (int j = 0; j < live; ++j) {
-    const unsigned xh = q_h ^ bh[j];
-    const unsigned xl = q_l ^ bl[j];
-    const unsigned ham = __popc((xh | (xh >> 1)) & 0x55555555u) +
-                         __popc((xl | (xl >> 1)) & 0x55555555u);
-    if (ham >= 1u && ham <= e) {
-      const unsigned m = (((xh & pm.hi[0]) | (xl & pm.lo[0])) == 0u) +
-                         (((xh & pm.hi[1]) | (xl & pm.lo[1])) == 0u) +
-                         (((xh & pm.hi[2]) | (xl & pm.lo[2])) == 0u);
-      const unsigned scale = m == 3u ? 2u : m == 2u ? 3u : m == 1u ? 6u : 0u;
-      sum += bo[j] * scale;
-    }
+template <int WS, int QS>
+__global__ void __launch_bounds__(kThreads)
+hamming_join_kernel(const Layout L) {
+  const long long b = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  if (b >= L.n_buckets) return;              // warp-uniform
+  const int lane = threadIdx.x & 31;
+  Bucket<WS, QS> k;
+  load_qidx(L, b, lane, k);
+  load_occ(L, b, lane, k);
+  load_codes(L, b, lane, k);
+  join_bucket(L, lane, k);
+}
+
+template <int WS, int QS>
+int launch(const Layout& L, cudaStream_t stream) {
+  const long long blocks = (L.n_buckets + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  hamming_join_kernel<WS, QS><<<(unsigned)blocks, kThreads, 0, stream>>>(L);
+  return (int)cudaGetLastError();
+}
+
+// Slots a lane needs for `pad` lanes: 1, 2, 4 or 8.
+int slots_for(int pad) {
+  int s = 1;
+  while (32 * s < pad) s <<= 1;
+  return s;
+}
+
+template <int WS>
+int launch_ws(const Layout& L, cudaStream_t stream) {
+  switch (slots_for(L.cpad_q)) {
+    case 1: return launch<WS, 1>(L, stream);
+    case 2: return launch<WS, 2>(L, stream);
+    case 4: return launch<WS, 4>(L, stream);
+    default: return launch<WS, 8>(L, stream);
   }
-  if (sum) scaled[qi] += sum;
 }
 
 }  // namespace
@@ -138,17 +289,16 @@ extern "C" int qm2t_hamming_join(const void* dh, const void* dl,
       cpad_q > 255 || nq < 0 || e < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  int group = kMaxThreads / cpad_q;
-  if (group > kMaxStagedWords / cpad) group = kMaxStagedWords / cpad;
-  if (group < 1) group = 1;
-  const long long blocks = (n_buckets + group - 1) / group;
-  const size_t smem = (size_t)group * cpad * 3 * sizeof(unsigned) +
-                      (size_t)group * sizeof(int);
-  PartMasks pm = {{mh0, mh1, mh2}, {ml0, ml1, ml2}};
-  hamming_join_kernel<<<(unsigned)blocks, group * cpad_q, smem,
-                        (cudaStream_t)stream>>>(
-      (const unsigned*)dh, (const unsigned*)dl, (const unsigned*)docc,
-      (const unsigned*)qh, (const unsigned*)ql, (const int*)qidx,
-      (unsigned*)scaled, n_buckets, cpad, cpad_q, group, nq, (unsigned)e, pm);
-  return (int)cudaGetLastError();
+  const Layout L = {(const unsigned*)dh, (const unsigned*)dl,
+                    (const unsigned*)docc, (const unsigned*)qh,
+                    (const unsigned*)ql, (const int*)qidx, (unsigned*)scaled,
+                    n_buckets, cpad, cpad_q, nq, (unsigned)e,
+                    {{mh0, mh1, mh2}, {ml0, ml1, ml2}}};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (slots_for(cpad)) {
+    case 1: return launch_ws<1>(L, s);
+    case 2: return launch_ws<2>(L, s);
+    case 4: return launch_ws<4>(L, s);
+    default: return launch_ws<8>(L, s);
+  }
 }

@@ -79,8 +79,14 @@ class Dictionary:
         (Slot placement may differ from a reference-built .qm whose
         placement embeds its pass-1 insert + resize + compact history —
         SURVEY.md section 3.1; all chain-ordered outputs are unaffected.)
+        Raises ValueError when the keys would fill the table: the
+        reference probe walks without wrapping and runs off a full one.
         """
         kmers = np.ascontiguousarray(kmers, dtype=np.uint64)
+        if len(kmers) >= hash_size:
+            raise ValueError(
+                f"Dictionary.from_kmers_in_order: {len(kmers)} keys do not "
+                f"fit a table of {hash_size} slots")
         table = np.zeros(hash_size, dtype=np.uint64)
         if native.available():
             slots = native.insert_keys(table, kmers, return_slots=True)

@@ -7,7 +7,9 @@ count_step_mono_pk. It takes one batch of `n_bases` 2-bit codes (the
 ops.rowpack layout, one row = the batch), adds 1 to depth[slot] for
 every valid window whose canonical k-mer sits in the mono table, and
 returns the unresolved-lane mask (valid & nonzero & miss & bucket full)
-as LSB-first u32 words: lane i is bit i & 31 of word i >> 5.
+as LSB-first u32 words: lane i is bit i & 31 of word i >> 5. On the card
+a table larger than L2 is probed slice by slice (`partitions_for`),
+through a scratch buffer cached per device and batch size.
 
 `count_mono_rows` replaces quickmer2_tpu/ops/anchored.py::
 exact_count_rows_mono_packed, the anchored path's exact recount: the same
@@ -31,10 +33,36 @@ from quickmer2_tpu_torch.kernels import build
 from quickmer2_tpu_torch.ops import codec, monotable, rowpack
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_void_p]
+                                     ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p]
 _ROWS_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                   + [ctypes.c_longlong, ctypes.c_void_p])
+SLICE_BYTES = 24 << 20     # rows + depth words of one probed slice
+_MAX_PARTS = 256
+_work: dict = {}
+
+
+def partitions_for(n_buckets: int) -> int:
+    """K2's slice count P: the least power of two for which a slice's
+    rows and depth words (96 B a bucket) fit SLICE_BYTES, at most 256."""
+    bucket_bytes = 4 * (monotable.ROW_WIDTH + monotable.ENTRIES)
+    p = 1
+    while (p < min(_MAX_PARTS, n_buckets)
+           and n_buckets * bucket_bytes // p > SLICE_BYTES):
+        p <<= 1
+    return p
+
+
+def _workspace(device: torch.device, n: int) -> torch.Tensor:
+    """K2's scratch for n windows, u32[2 * P + n]: slice totals, fills
+    and bins; one per device and window count, reused by every batch of
+    that size."""
+    key = (device, n)
+    if key not in _work:
+        _work[key] = torch.empty(2 * _MAX_PARTS + n, dtype=torch.int32,
+                                 device=device)
+    return _work[key]
 
 
 def pack_lanes(flags: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -67,6 +95,17 @@ def count_mono_step(pk: torch.Tensor, bits: torch.Tensor, rows: torch.Tensor,
     if pk.device.type == "cpu":
         return count_mono_step_plain(pk, bits, rows, depth, k=k,
                                      n_buckets=n_buckets, n_bases=n_bases)
+    mask = count_mono_launch(pk, bits, rows, depth, k=k, n_buckets=n_buckets,
+                             n_bases=n_bases,
+                             n_parts=partitions_for(n_buckets))
+    count_mono_step.launches += 1
+    return mask
+
+
+def count_mono_launch(pk, bits, rows, depth, *, k: int, n_buckets: int,
+                      n_bases: int, n_parts: int) -> torch.Tensor:
+    """K2 on CUDA tensors at P = n_parts slices (1: the one-pass kernel);
+    count_mono_step's launch, which it alone counts."""
     n = n_bases - k + 1
     build.check_tensors("count_mono_step", pk.device, [
         ("pk", pk, torch.uint8, (-(-n_bases // 4),)),
@@ -75,6 +114,9 @@ def count_mono_step(pk: torch.Tensor, bits: torch.Tensor, rows: torch.Tensor,
         ("depth", depth, torch.int32, (n_buckets * monotable.ENTRIES + 1,))])
     if not 1 <= k <= 32 or n <= 0:
         raise ValueError(f"count_mono_step: bad k={k} for {n_bases} bases")
+    if (pk.data_ptr() | bits.data_ptr()) & 7:
+        raise ValueError("count_mono_step: pk and bits must be 8-byte aligned")
+    work = _workspace(pk.device, n) if n_parts > 1 else None
     mask = torch.empty(-(-n // 32), dtype=torch.int32, device=pk.device)
     lib = build.load("count_mono")
     lib.qm2t_count_mono.argtypes = _ARGTYPES
@@ -83,9 +125,9 @@ def count_mono_step(pk: torch.Tensor, bits: torch.Tensor, rows: torch.Tensor,
         rc = lib.qm2t_count_mono(pk.data_ptr(), bits.data_ptr(),
                                  rows.data_ptr(), depth.data_ptr(),
                                  mask.data_ptr(), n_bases, k, n_buckets,
-                                 stream)
+                                 n_parts, None if work is None
+                                 else work.data_ptr(), stream)
     build.check(lib, rc, "count_mono")
-    count_mono_step.launches += 1
     return mask
 
 

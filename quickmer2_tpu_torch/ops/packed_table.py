@@ -34,6 +34,11 @@ ENTRIES_PER_BUCKET = 2
 ROW_WIDTH = 4 * ENTRIES_PER_BUCKET  # 8 u32 = 32 B
 
 H2_MULT = np.uint32(2654435761)  # Knuth multiplicative hash
+# Both candidate buckets derive from one DJB value, so at most
+# 2 x ENTRIES_PER_BUCKET keys may share it; the doubling stops after
+# MAX_DOUBLINGS.
+MAX_SHARED_HASH = 2 * ENTRIES_PER_BUCKET
+MAX_DOUBLINGS = 8
 
 
 def bucket_hashes(h: np.ndarray, n_buckets: int):
@@ -60,7 +65,11 @@ class PackedTable:
     @classmethod
     def build(cls, khi: np.ndarray, klo: np.ndarray, rank: np.ndarray,
               pos: np.ndarray | None = None, load: float = 0.5) -> "PackedTable":
-        """khi/klo/rank (+optional pos) per dictionary k-mer (any order)."""
+        """khi/klo/rank (+optional pos) per dictionary k-mer (any order).
+        Raises ValueError when more than MAX_SHARED_HASH keys share one
+        DJB value (no bucket count can place them: both candidates come
+        from that value) or when MAX_DOUBLINGS doublings do not place
+        every key."""
         from quickmer2_tpu_torch.ops.hash import djb_pair_np
         n = len(khi)
         if pos is None:
@@ -68,11 +77,21 @@ class PackedTable:
         n_buckets = 1 << max(
             1, int(np.ceil(np.log2(max(n, 1) / (ENTRIES_PER_BUCKET * load)))))
         h = djb_pair_np(khi, klo)
-        while True:
+        if n:
+            shared = int(np.unique(h, return_counts=True)[1].max())
+            if shared > MAX_SHARED_HASH:
+                raise ValueError(
+                    f"PackedTable.build: {shared} keys share one DJB hash; "
+                    f"two-choice buckets of {ENTRIES_PER_BUCKET} entries "
+                    f"hold at most {MAX_SHARED_HASH}")
+        for _ in range(MAX_DOUBLINGS + 1):
             rows = _try_place(khi, klo, rank, pos, h, n_buckets)
             if rows is not None:
                 return cls(rows, n_buckets, n)
             n_buckets <<= 1
+        raise ValueError(
+            f"PackedTable.build: {n} keys not placed after {MAX_DOUBLINGS} "
+            f"doublings ({n_buckets >> 1} buckets)")
 
 
 def _try_place(khi, klo, rank, pos, h, n_buckets):
