@@ -29,7 +29,11 @@ Phases:
                 groups branch on: the mask format (N bases) in all three
                 branches (tier 1, tier 2, point probes), rows of 64 (2
                 lanes a read) and rows of 1024 from segmented 10 kb
-                reads (32 lanes a read); K2r (exact row recount);
+                reads (32 lanes a read); K2r (exact row recount)
+                timed on the main path's exact batch, with its
+                wrapper's host time; then untimed at k = 15, 30, 31, 32 on rows of 64, 150 (a
+                38-B pitch), 160 and 1024, lens and mask format, on a
+                short batch of 1001 reads (R * W no multiple of 32);
   3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
                 bed) → count (flat, mono) → est on a 12 Mb realistic
                 genome (tools/realistic_genome.py, S. cerevisiae scale)
@@ -147,6 +151,17 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.numel() == 0:
         return 0
     return int((u32(a) - u32(b)).abs().max().item())
+
+
+def touched(chi, clo, depth, n_buckets) -> tuple[int, int]:
+    """Mono-table rows named by the valid windows' codes (chi, clo), and
+    buckets with a hit (a nonzero depth word among their 8)."""
+    from quickmer2_tpu_torch.ops import monotable
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    bucket = djb_pair(chi, clo) & (n_buckets - 1)
+    hit = torch.nonzero(depth[:-1]).flatten() // monotable.ENTRIES
+    return (int(torch.unique(bucket).numel()),
+            int(torch.unique(hit).numel()))
 
 
 # -- inputs ---------------------------------------------------------------
@@ -277,24 +292,24 @@ def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
                                  "plain version")
         sweep[p] = round(cuda_ms(lambda: cm.count_mono_launch(
             pk_d, bits_d, rows, d_p, n_parts=p, **kw), 10), 4)
-    # least traffic: packed batch in, each touched row read once, each
-    # touched depth word read and written once, mask words out; least
-    # work: the word-parallel codec and canonical min (~20 int ops), DJB
-    # over 8 bytes (~16), 8 entry compares (~16) per window
+    # least traffic: packed batch in, each touched row read once, the
+    # 32-B sector of each bucket's depth words with a hit read and
+    # written once (an atomic moves the whole sector), mask words out;
+    # least work: the word-parallel codec and canonical min (~20 int
+    # ops), DJB over 8 bytes (~16), 8 entry compares (~16) per window
     n_win = n_bases - k + 1
     codes = rowpack.unpack_rows(pk_d[None], bits_d[None], read_len=n_bases)[0]
     chi, clo, ok = codec.sliding_kmers(codes, k)
-    from quickmer2_tpu_torch.ops.hash import djb_pair
-    bucket = djb_pair(chi[ok], clo[ok]) & (table.n_buckets - 1)
-    rows_touched = int(torch.unique(bucket).numel())
-    slots_touched = int((d_plain[:-1] != 0).sum())
+    rows_touched, buckets_hit = touched(chi[ok], clo[ok], d_plain,
+                                        table.n_buckets)
     n_bytes = (pk.nbytes + bits.nbytes + 64 * rows_touched
-               + 8 * slots_touched + 4 * m_kernel.numel())
+               + 64 * buckets_hit + 4 * m_kernel.numel())
     b_ms, b_by = bound_ms(n_bytes, 52 * n_win)
     log(f"  count_mono time {ms:.4f} ms (queued {queued_ms:.4f} ms) at P = "
         f"{n_parts}, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-        f"{rows_touched} rows touched); ms at other P: {sweep}")
+        f"{rows_touched} rows touched, {buckets_hit} with a hit); ms at "
+        f"other P: {sweep}")
     return {"name": "count_mono", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/count_mono.cu",
             "replaces": "quickmer2_tpu/pipelines/count.py:139",
@@ -487,10 +502,10 @@ def check_key_filter(index, dev):
     ms, queued_ms = kernel_ms(lambda: key_filter(index.rows, **kw), 10)
     plain_ms = cuda_ms(lambda: key_filter_plain(index.rows, n_words=n_words),
                        1, warm=0)
-    # least traffic: the (hi, lo) halves of every table entry in, the
-    # filter out; least work: ~30 int ops per key (DJB, word, three
-    # bits) and a test per entry
-    n_bytes = 16 * index.n_buckets + 4 * n_words
+    # least traffic: every table row's 32-B sector in (both entries'
+    # keys lie in it), the filter out; least work: ~30 int ops per key
+    # (DJB, word, three bits) and a test per entry
+    n_bytes = 32 * index.n_buckets + 4 * n_words
     n_ops = 30 * index.n_kmers + 2 * 2 * index.n_buckets
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     log(f"  key_filter time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
@@ -686,58 +701,133 @@ def check_anchored(index, counter, rows, tier, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def check_count_mono_rows(counter, rows, dev):
-    """K2r on one exact batch against the counter's mono table."""
-    from quickmer2_tpu_torch.kernels.count_mono import (
-        count_mono_rows, count_mono_rows_plain)
-    from quickmer2_tpu_torch.ops import codec, rowpack
-    from quickmer2_tpu_torch.ops.hash import djb_pair
-    mono, k, L = counter._mono, counter.k, counter.read_len
-    fmt, pk, aux, in_bytes = packed_on(rows, dev)
-    kw = dict(fmt=fmt, k=k, n_buckets=mono.n_buckets, read_len=L)
+def host_ms(fn, reps: int) -> float:
+    """Host-clock milliseconds per call of fn() while its launches queue
+    behind a sleeping kernel (so no call waits for the card): the
+    wrapper's own host time."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(60_000_000)
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / reps * 1e3
 
-    def zero():
-        return torch.zeros(mono.n_slots + 1, dtype=torch.int32, device=dev)
-    d_kernel, d_plain = zero(), zero()
-    m_kernel = count_mono_rows(pk, aux, counter._mono_rows, d_kernel, **kw)
-    m_plain = count_mono_rows_plain(pk, aux, counter._mono_rows, d_plain,
-                                    **kw)
+
+def compare_count_mono_rows(rows, mono_rows, n_buckets, n_slots, k, label,
+                            dev):
+    """K2r against its plain version on one batch of rows; returns (max |kernel - plain|, the batch on the card, the
+    plain version's depth, hits, unresolved lanes)."""
+    from quickmer2_tpu_torch.kernels import count_mono as cm
+    fmt, pk, aux, in_bytes = packed_on(rows, dev)
+    kw = dict(fmt=fmt, k=k, n_buckets=n_buckets, read_len=rows.shape[1])
+    d_kernel = torch.zeros(n_slots + 1, dtype=torch.int32, device=dev)
+    d_plain = torch.zeros_like(d_kernel)
+    m_kernel = cm.count_mono_rows(pk, aux, mono_rows, d_kernel, **kw)
+    m_plain = cm.count_mono_rows_plain(pk, aux, mono_rows, d_plain, **kw)
     torch.cuda.synchronize()
     err = max(max_abs_err(d_kernel[:-1], d_plain[:-1]),
               max_abs_err(m_kernel, m_plain))
+    hits = int(d_kernel[:-1].sum())
     n_unres = int(np.unpackbits(m_kernel.cpu().numpy().view(np.uint8)).sum())
-    log(f"  count_mono_rows ({fmt}): {len(rows)} rows of {L}, "
-        f"{int(d_kernel[:-1].sum())} hits, {n_unres} unresolved lanes, "
+    R, L = rows.shape
+    log(f"  count_mono_rows {label} ({fmt}): {R} rows of {L}, k={k}, "
+        f"{R * (L - k + 1)} lanes, {hits} hits, {n_unres} unresolved lanes, "
         f"max |kernel - plain| = {err}")
     if err != 0:
-        raise AssertionError("count_mono_rows disagrees with its plain version")
-    ms, queued_ms = kernel_ms(lambda: count_mono_rows(
-        pk, aux, counter._mono_rows, d_kernel, **kw), 10)
-    plain_ms = cuda_ms(lambda: count_mono_rows_plain(
-        pk, aux, counter._mono_rows, d_plain, **kw), 2)
-    # least traffic and work as K2's: packed rows in, each touched 64-B
-    # mono row read once, each touched slot read and written once, the
-    # mask out; ~52 int ops per valid window
+        raise AssertionError(f"count_mono_rows {label} ({fmt}, L={L}, "
+                             f"k={k}) disagrees with its plain version")
+    return err, (fmt, pk, aux, in_bytes, kw), d_plain, m_kernel
+
+
+def window_traffic(batch, depth, n_buckets) -> tuple[int, int, int]:
+    """(valid windows, mono rows they name, buckets with a hit) of one
+    batch of read rows as compare_count_mono_rows returns it."""
+    from quickmer2_tpu_torch.ops import codec, rowpack
+    fmt, pk, aux, _, kw = batch
+    k, L = kw["k"], kw["read_len"]
     reads = rowpack.unpack_batch(fmt, pk, aux, read_len=L)
     chi, clo, ok = codec.sliding_kmers(reads.reshape(-1), k)
-    lane = torch.arange(chi.numel(), device=dev)
+    lane = torch.arange(chi.numel(), device=pk.device)
     ok = ok & (lane % L < L - k + 1)
-    bucket = djb_pair(chi[ok], clo[ok]) & (mono.n_buckets - 1)
-    rows_touched = int(torch.unique(bucket).numel())
-    slots_touched = int((d_plain[:-1] != 0).sum())
-    n_bytes = (in_bytes + 64 * rows_touched + 8 * slots_touched
+    return (int(ok.sum()),) + touched(chi[ok], clo[ok], depth, n_buckets)
+
+
+def check_count_mono_rows(counter, rows, dev):
+    """K2r on one exact batch against the counter's mono table, timed,
+    with the wrapper's host time a call."""
+    from quickmer2_tpu_torch.kernels import count_mono as cm
+    mono = counter._mono
+    table = (counter._mono_rows, mono.n_buckets, mono.n_slots, counter.k)
+    err, batch, d_plain, m_kernel = compare_count_mono_rows(
+        rows, *table, "exact batch", dev)
+    fmt, pk, aux, in_bytes, kw = batch
+    d = torch.zeros_like(d_plain)
+
+    def call():
+        return cm.count_mono_rows(pk, aux, counter._mono_rows, d, **kw)
+    ms, queued_ms = kernel_ms(call, 10)
+    wrapper_ms = host_ms(call, 50)
+    plain_ms = cuda_ms(lambda: cm.count_mono_rows_plain(
+        pk, aux, counter._mono_rows, d, **kw), 2)
+    # least traffic: packed rows in, each touched 64-B mono row read
+    # once, the 32-B sector of each bucket's depth words with a hit read
+    # and written once, the mask out; ~52 int ops per valid window
+    n_valid, rows_touched, buckets_hit = window_traffic(
+        batch, d_plain, mono.n_buckets)
+    n_bytes = (in_bytes + 64 * rows_touched + 64 * buckets_hit
                + 4 * m_kernel.numel())
-    b_ms, b_by = bound_ms(n_bytes, 52 * int(ok.sum()))
+    b_ms, b_by = bound_ms(n_bytes, 52 * n_valid)
     log(f"  count_mono_rows time {ms:.4f} ms (queued {queued_ms:.4f} "
-        f"ms), plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-        f"{rows_touched} rows touched)")
+        f"ms), wrapper host time {wrapper_ms:.4f} ms a call, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB, {n_valid} valid windows, "
+        f"{rows_touched} rows touched, {buckets_hit} with a hit)")
     return {"name": "count_mono_rows", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/count_mono.cu",
             "replaces": "quickmer2_tpu/ops/anchored.py:942",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "plain_ms": plain_ms,
+            "host_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_count_mono_rows_edges(counter, g, dev):
+    """K2r on the shapes its window map branches on, each against its
+    plain version: k = 15, 30, 31, 32 (30 on the counter's own table, the
+    others on a table of the unique k-mers of the genome's first 1 Mb at
+    load 1, so that buckets fill); rows of 64, 150 (a 38-B pitch, not a
+    multiple of 8), 160 and 1024 (segmented 10 kb reads); the lens and
+    the mask format (SEP bases inside rows); a short batch of 1001 reads,
+    so that R * W is not a multiple of 32."""
+    from quickmer2_tpu_torch.device import words
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.ops.anchored import rows_from_flat_codes
+    from quickmer2_tpu_torch.ops.monotable import MonoTable
+    rng = np.random.default_rng(11)
+    region = g[:1 << 20]
+    reads = simulate_reads(rng, region, 1001, READ_LEN, ERR)
+    long_reads = simulate_reads(rng, region, 60, 10_000, ERR)
+    flat = np.concatenate([long_reads, np.full((60, 1), codec.SEP,
+                                               np.uint8)], 1).reshape(-1)
+    for k in (15, 30, 31, 32):
+        if k == counter.k:
+            mono = counter._mono
+            mono_rows = counter._mono_rows
+        else:
+            canon, valid = codec.sliding_kmers_np(region, k)
+            hi, lo = codec.split_u64(np.unique(canon[valid & (canon != 0)]))
+            mono = MonoTable.build(hi, lo, load=1.0)
+            mono_rows = words(mono.rows, dev)
+        for lens in (np.ascontiguousarray(reads[:, :64]), reads,
+                     rows_of(reads), rows_from_flat_codes(flat, 1024,
+                                                          segment_k=k)):
+            mask = lens.copy()
+            mask[rng.random(mask.shape) < 0.003] = codec.SEP
+            for rows in (lens, mask):
+                compare_count_mono_rows(rows, mono_rows, mono.n_buckets,
+                                        mono.n_slots, k, "edge", dev)
 
 
 def compare_anchored(index, rows, kw, label, dev):
@@ -823,6 +913,7 @@ def check_anchored_kernels(fa, g, reads, dev):
     rows.append(check_anchored(index, counter, tier2, 2, dev))
     check_anchored_edges(index, counter, g, reads, dev)
     rows.append(check_count_mono_rows(counter, exact, dev))
+    check_count_mono_rows_edges(counter, g, dev)
     del stream, index, counter
     torch.cuda.empty_cache()
     return rows

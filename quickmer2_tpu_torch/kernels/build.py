@@ -85,13 +85,17 @@ def build_all(names=SOURCES) -> dict:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
+def load(name: str, argtypes: dict | None = None) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first use.
+    `argtypes` ({entry point: ctypes argument types}) are set when the
+    library is first loaded, not on every call."""
     if name not in _libs:
         build_all([name])
         lib = ctypes.CDLL(library_path(name))
         lib.qm2t_error_string.argtypes = [ctypes.c_int]
         lib.qm2t_error_string.restype = ctypes.c_char_p
+        for fn, types in (argtypes or {}).items():
+            getattr(lib, fn).argtypes = types
         _libs[name] = lib
     return _libs[name]
 

@@ -16,7 +16,7 @@ exact_count_rows_mono_packed, the anchored path's exact recount: the same
 step over R read rows of width read_len (ops.rowpack.pack_batch layout,
 "lens" or "mask"), windows that cross a row end masked, the unresolved
 mask over the R*W window lanes (W = read_len - k + 1), LSB-first u32
-words.
+words. On the card it probes in one pass, 512 lanes a block.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel, or raises.
@@ -32,12 +32,13 @@ from quickmer2_tpu_torch.device import store
 from quickmer2_tpu_torch.kernels import build
 from quickmer2_tpu_torch.ops import codec, monotable, rowpack
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p, ctypes.c_void_p]
-_ROWS_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                  + [ctypes.c_longlong, ctypes.c_void_p])
+_ARGTYPES = {
+    "qm2t_count_mono": [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p],
+    "qm2t_count_mono_rows": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p]}
 SLICE_BYTES = 24 << 20     # rows + depth words of one probed slice
 _MAX_PARTS = 256
 _work: dict = {}
@@ -118,8 +119,7 @@ def count_mono_launch(pk, bits, rows, depth, *, k: int, n_buckets: int,
         raise ValueError("count_mono_step: pk and bits must be 8-byte aligned")
     work = _workspace(pk.device, n) if n_parts > 1 else None
     mask = torch.empty(-(-n // 32), dtype=torch.int32, device=pk.device)
-    lib = build.load("count_mono")
-    lib.qm2t_count_mono.argtypes = _ARGTYPES
+    lib = build.load("count_mono", _ARGTYPES)
     with torch.cuda.device(pk.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qm2t_count_mono(pk.data_ptr(), bits.data_ptr(),
@@ -174,9 +174,10 @@ def count_mono_rows(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
     if fmt not in ("lens", "mask") or not 1 <= k <= 32 or W < 1 or R < 1:
         raise ValueError(f"count_mono_rows: bad fmt={fmt!r} k={k} "
                          f"read_len={read_len} rows={R}")
+    if (pk.data_ptr() | aux.data_ptr()) & 7:
+        raise ValueError("count_mono_rows: pk and aux must be 8-byte aligned")
     mask = torch.empty(-(-(R * W) // 32), dtype=torch.int32, device=pk.device)
-    lib = build.load("count_mono")
-    lib.qm2t_count_mono_rows.argtypes = _ROWS_ARGTYPES
+    lib = build.load("count_mono", _ARGTYPES)
     with torch.cuda.device(pk.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qm2t_count_mono_rows(

@@ -25,7 +25,8 @@ from quickmer2_tpu.pipelines import search as jsearch
 from quickmer2_tpu_torch import dictionary as tdict
 from quickmer2_tpu_torch.io import formats as tformats
 from quickmer2_tpu_torch.kernels import anchored as tkanch
-from quickmer2_tpu_torch.kernels.count_mono import count_mono_rows
+from quickmer2_tpu_torch.kernels.count_mono import (count_mono_rows,
+                                                    count_mono_rows_plain)
 from quickmer2_tpu_torch.ops import anchored as tanch
 from quickmer2_tpu_torch.ops import monotable as tmono
 from quickmer2_tpu_torch.ops import packed_table as tpacked
@@ -291,6 +292,63 @@ def test_exact_count_rows_mono_matches_jax(world):
         assert len(want) > 0
         np.testing.assert_array_equal(depth.numpy()[:-1],
                                       np.asarray(jdepth)[:-1])
+
+
+def _rows_at(fmt: str, L: int, k: int) -> tuple[np.ndarray, tuple]:
+    """Rows of width L drawn from a seeded random genome at 1 %/bp
+    (reverse complemented in turn) plus random rows, in the lens format
+    (suffix SEP padding at random lengths) or the mask format (SEP bases
+    anywhere); and both packages' mono tables of the genome's unique
+    k-mers at load 2 (full buckets and a side table)."""
+    rng = np.random.default_rng(10 * L + k)
+    g = rng.integers(0, 4, 4000).astype(np.uint8)
+    canon, valid = jcodec.sliding_kmers_np(g, k)
+    uniq, cnt = np.unique(canon[valid & (canon != 0)], return_counts=True)
+    khi, klo = jcodec.split_u64(uniq[cnt == 1])
+    tables = (jmono.MonoTable.build(khi, klo, load=2.0),
+              tmono.MonoTable.build(khi, klo, load=2.0))
+    starts = rng.integers(0, len(g) - L, 120)
+    rows = g[starts[:, None] + np.arange(L)[None, :]]
+    rows = np.where(rng.random(rows.shape) < 0.01, (rows + 1) % 4, rows)
+    rows[::2] = (rows[::2, ::-1] + 2) % 4
+    rows = np.concatenate([rows, rng.integers(0, 4, (9, L))]).astype(np.uint8)
+    if fmt == "lens":
+        cut = rng.integers(k - 1, L + 1, len(rows))
+        cut[::3] = L
+        rows[np.arange(L)[None, :] >= cut[:, None]] = jcodec.SEP
+    else:
+        rows[rng.random(rows.shape) < 0.01] = jcodec.SEP
+    return rows, tables
+
+
+@pytest.mark.parametrize("k", [15, 31, 32])
+@pytest.mark.parametrize("L", [64, 150, 160])
+@pytest.mark.parametrize("fmt", ["lens", "mask"])
+def test_exact_count_rows_mono_shapes_match_jax(fmt, L, k):
+    """K2r's plain version at the row widths and k its window map
+    branches on (a 38-B pitch at L = 150, k = 32 filling the code):
+    slot depth and the unresolved lanes, exactly."""
+    rows, (jt, tt) = _rows_at(fmt, L, k)
+    assert jt.side is not None
+    fmt_got, pk, aux, pk_t, aux_t = _packed(rows)
+    assert fmt_got == fmt
+    jdepth, jub = janch.exact_count_rows_mono_packed(
+        jnp.asarray(pk), jnp.asarray(aux), jnp.asarray(jt.rows),
+        jnp.zeros(jt.n_slots + 1, jnp.uint32), fmt=fmt, k=k,
+        n_buckets=jt.n_buckets, read_len=L)
+    depth = torch.zeros(tt.n_slots + 1, dtype=torch.int64)
+    words = count_mono_rows_plain(pk_t, aux_t, _t64(tt.rows), depth, fmt=fmt,
+                                  k=k, n_buckets=tt.n_buckets, read_len=L)
+    n_lanes = len(rows) * (L - k + 1)
+    want = np.unpackbits(np.asarray(jub))[:n_lanes]
+    got = np.unpackbits(words.numpy().astype(np.uint32).view(np.uint8),
+                        bitorder="little")
+    np.testing.assert_array_equal(got[:n_lanes], want)
+    assert not got[n_lanes:].any() and want.any()
+    want_depth = np.asarray(jdepth)[:-1]
+    np.testing.assert_array_equal(depth.numpy()[:-1].astype(np.uint32),
+                                  want_depth)
+    assert want_depth.sum() > 0
 
 
 # -- the neighbor bitmap and the .qai --------------------------------------

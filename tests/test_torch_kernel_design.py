@@ -8,6 +8,17 @@ on the CPU.
   is the same funnel shift over the invalid bitmask. Written here in
   numpy, it equals quickmer2_tpu.ops.codec.sliding_kmers at every k the
   seams between the two 32-bit halves and the 64-bit words can cut.
+* K2r's row-wise window map: lane i = r * W + j of R read rows of pitch
+  L finds its row by a 32-bit multiply-high by floor((2^32 - 1) / W) and
+  one correction, its window at bit 8 * ceil(L / 4) * r + 2j of the
+  packed rows (a row starts inside a word where the pitch is not a
+  multiple of 8 bytes) and its validity by the lens compare j + k <=
+  len_r or a funnel shift of the mask bits at 8 * ceil(L / 8) * r + j,
+  all read from the words a block of lanes stages. Written here in numpy,
+  block by block, it equals quickmer2_tpu.ops.codec.sliding_kmers over
+  rowpack.unpack_batch cut to W windows a row, and the staged words
+  stay within the kernel's bound on them, whose worst case (W = 1, k =
+  32) fits the shared memory the kernel gives them.
 * The plain versions the card kernels are held against, at the shapes
   the new kernels branch on: join_compare_plain against the JAX
   _part_chunk_join with buckets of > 32 and > 1024 live pairs and words
@@ -25,6 +36,7 @@ import torch
 from quickmer2_tpu.ops import codec as jcodec
 from quickmer2_tpu.ops import hamming_join as jhj
 from quickmer2_tpu.ops import monotable as jmono
+from quickmer2_tpu.ops import rowpack as jrowpack
 from quickmer2_tpu.pipelines import count as jcount
 from quickmer2_tpu_torch.device import to_numpy_u32
 from quickmer2_tpu_torch.kernels.count_mono import (
@@ -94,6 +106,124 @@ def test_word_parallel_codec_matches_jax(k):
     np.testing.assert_array_equal(valid, jvalid)
     np.testing.assert_array_equal(canon[valid], want[jvalid])
     assert valid.any() and not valid.all()
+
+
+ROW_TILE = 512           # csrc/count_mono.cu::kRowTile, K2r's lanes a block
+ROW_STAGE_WORDS = 576    # csrc/count_mono.cu::kRowStageWords
+
+
+def row_stage_words(tile: int, W: int, k: int, lens: bool) -> int:
+    """csrc/count_mono.cu::row_stage_words: the most words a block of
+    `tile` lanes stages in either stream."""
+    D = (tile + W - 2) // W
+    pk_bits = 2 * (tile - 1) + 2 * (k + 2) * D + 2 * k
+    aux_bits = 16 * D + 16 if lens else tile - 1 + (k + 6) * D + k
+    return (np.maximum(pk_bits, aux_bits) + 62) // 64 + 2
+
+
+def row_window_kmers(fmt: str, pk: np.ndarray, aux: np.ndarray, L: int,
+                     k: int, tile: int):
+    """(canonical code u64[R*W], valid bool[R*W]) by K2r's window map,
+    each lane reading the words its block of `tile` lanes stages (the
+    arithmetic of csrc/count_mono.cu::RowWindows, in int64)."""
+    R, W = pk.shape[0], L - k + 1
+    lens = fmt == "lens"
+    pitch, aux_pitch = -(-L // 4), 2 if lens else -(-L // 8)
+    w2 = _words(pk.reshape(-1), 0)
+    wa = _words(np.ascontiguousarray(aux).view(np.uint8).reshape(-1), 0xFF)
+    n = R * W
+    recip = (2**32 - 1) // W
+
+    def row_of(i):
+        q = (i * recip) >> 32
+        return np.where(i - q * W >= W, q + 1, q)
+    i = np.arange(n, dtype=np.int64)
+    assert (row_of(i) == i // W).all()
+    # the block's first and last lane, the bits it stages in each stream
+    b0 = (i // tile) * tile
+    b1 = np.minimum(b0 + tile, n) - 1
+    r0, r1 = row_of(b0), row_of(b1)
+    j0, j1 = b0 - r0 * W, b1 - r1 * W
+    ps, pe = 8 * pitch * r0 + 2 * j0, 8 * pitch * r1 + 2 * (j1 + k)
+    as_ = 8 * aux_pitch * r0 + (0 if lens else j0)
+    ae = 8 * aux_pitch * r1 + (16 if lens else j1 + k)
+    pk_count = ((pe - 1) >> 6) - (ps >> 6) + 2
+    aux_count = ((ae - 1) >> 6) - (as_ >> 6) + 2
+    bound = row_stage_words(tile, W, k, lens)
+    assert pk_count.max() <= bound and aux_count.max() <= bound
+    # each lane's bits, relative to its block's first staged word
+    r = row_of(i)
+    j = i - r * W
+    pb = 8 * pitch * r0 - 64 * (ps >> 6) + 8 * pitch * (r - r0) + 2 * j
+    ab = 8 * aux_pitch * r0 - 64 * (as_ >> 6) + 8 * aux_pitch * (r - r0)
+    assert pb.min() >= 0 and ((pb >> 6) + 1 < pk_count).all()
+    x = _funnel(w2, (ps >> 6) + (pb >> 6), pb & 63)
+    if lens:
+        assert (ab & 15).max() == 0 and ((ab >> 6) < aux_count).all()
+        length = (wa[(as_ >> 6) + (ab >> 6)] >> (ab & 63).astype(np.uint64)
+                  ) & np.uint64(0xFFFF)
+        valid = j + k <= length.astype(np.int64)
+    else:
+        ab = ab + j
+        assert ab.min() >= 0 and ((ab >> 6) + 1 < aux_count).all()
+        inval = _funnel(wa, (as_ >> 6) + (ab >> 6), ab & 63)
+        valid = (inval & np.uint64((1 << k) - 1)) == 0
+    mask = np.uint64((1 << (2 * k)) - 1)
+    fwd = _rev2(x) >> np.uint64(64 - 2 * k)
+    rc = (x ^ np.uint64(0xAAAAAAAAAAAAAAAA)) & mask
+    return np.minimum(fwd, rc), valid
+
+
+def _read_rows(fmt: str, R: int, L: int, seed: int) -> np.ndarray:
+    """Rows of random codes: lens, suffix-padded with SEP at random
+    lengths (a third of the rows full); mask, SEP bases anywhere."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 4, (R, L)).astype(np.uint8)
+    if fmt == "lens":
+        cut = rng.integers(0, L + 1, R)
+        cut[: R // 3] = L
+        rows[np.arange(L)[None, :] >= cut[:, None]] = jcodec.SEP
+    else:
+        rows[rng.random(rows.shape) < 0.02] = jcodec.SEP
+        rows[0] = jcodec.SEP
+    return rows
+
+
+@pytest.mark.parametrize("k", [15, 31, 32])
+@pytest.mark.parametrize("L", [64, 150, 160])
+@pytest.mark.parametrize("fmt", ["lens", "mask"])
+def test_row_window_map_matches_jax(fmt, L, k):
+    R = 93                                  # R * W is no multiple of 32
+    rows = _read_rows(fmt, R, L, 1000 * L + k)
+    got_fmt, pk, aux = rowpack.pack_batch(rows)
+    assert got_fmt == fmt
+    W = L - k + 1
+    reads = jrowpack.unpack_batch(fmt, jnp.asarray(pk), jnp.asarray(aux),
+                                  read_len=L)
+    chi, clo, jvalid = (np.asarray(a) for a in
+                        jcodec.sliding_kmers(reads.reshape(-1), k))
+
+    def cut(a):
+        out = np.zeros(R * L, a.dtype)
+        out[: len(a)] = a
+        return out.reshape(R, L)[:, :W].reshape(-1)
+    chi, clo, jvalid = cut(chi), cut(clo), cut(jvalid)
+    want = (chi.astype(np.uint64) << np.uint64(32)) | clo.astype(np.uint64)
+    assert (R * W) % 32 and jvalid.any() and not jvalid.all()
+    canon, valid = row_window_kmers(fmt, pk, aux, L, k, ROW_TILE)
+    np.testing.assert_array_equal(valid, jvalid)
+    np.testing.assert_array_equal(canon[valid], want[jvalid])
+
+
+@pytest.mark.parametrize("lens", [True, False])
+def test_row_stage_bound_fits_every_shape(lens):
+    """The kernel's static_assert checks the bound at W = 1, k = 32
+    only; over every row width and k it accepts, the bound peaks there."""
+    W = np.arange(1, 65536, dtype=np.int64)
+    worst = max(int(row_stage_words(ROW_TILE, W, k, lens).max())
+                for k in range(1, 33))
+    assert worst == row_stage_words(ROW_TILE, 1, 32, lens)
+    assert row_stage_words(ROW_TILE, 1, 32, False) <= ROW_STAGE_WORDS
 
 
 def _planted_join_world(seed: int, k: int = 15):
