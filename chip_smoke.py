@@ -19,11 +19,22 @@ Phases:
                 search's own layouts at pads 64/32 (timed, with the card
                 time of building its layouts) and 128/64, each also on
                 hand-planted buckets: > 1024 live pairs, 36 pairs, live
-                words without a live query. The anchored path's kernels
+                words without a live query. K6 (per-neighbor sum) on the
+                search's own slow set (timed), against the host slow path
+                on 20,000 of those queries (timed), at k = 15 and 32 on a
+                small dictionary (e = 1, 2); the hamming filter (K1, K6
+                as its slow path) and the probe filter (K6 over every
+                query) on the search's unique set, timed, their sums
+                equal. The anchored path's kernels
                 need the search's dictionary and run after the flat path
                 (`check_anchored_kernels`): the key filter and K4
                 (neighbor sweep) on the index's table, both again at
-                k = 15 and k = 32 on a small dictionary; K3 (anchored
+                k = 15 and k = 32 on a small dictionary; K5 (the join's
+                neighbor bits) on a 2,000,000-window tile at pads 64/32
+                (timed, with its layouts' time), on hand-planted buckets
+                (near-all-A queries beside holes, both strands, the
+                differing base in either word) and on the tile's slow
+                windows at pads 240/240; K3 (anchored
                 read pass) timed in tier 1 and tier 2 on the main path's
                 160-wide batches, then untimed on the shapes its lane
                 groups branch on: the mask format (N bases) in all three
@@ -33,7 +44,9 @@ Phases:
                 timed on the main path's exact batch, with its
                 wrapper's host time; then untimed at k = 15, 30, 31, 32 on rows of 64, 150 (a
                 38-B pitch), 160 and 1024, lens and mask format, on a
-                short batch of 1001 reads (R * W no multiple of 32);
+                short batch of 1001 reads (R * W no multiple of 32). Then
+                the smoke's .qai built with K4 and with the join (its
+                own path: K5 must launch), identical bytes, both times;
   3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
                 bed) → count (flat, mono) → est on a 12 Mb realistic
                 genome (tools/realistic_genome.py, S. cerevisiae scale)
@@ -41,8 +54,9 @@ Phases:
                 count --mode anchored (its .qai built on the card) → est
                 on the same reads. The launch counters are reset just
                 before each path and read just after; each path's kernels
-                must have launched; the anchored .bin must equal the flat
-                .bin byte for byte; CN is checked on the baseline windows
+                must have launched (K1 and K6 in the search); the
+                anchored .bin must equal the flat .bin byte for byte;
+                CN is checked on the baseline windows
                 (2 ± 0.1) and on a segment with 3x extra read depth
                 (6 ± 0.5), for both paths;
   4. cpu      — a 50 k-read subset counted with device="cuda" and with
@@ -137,6 +151,31 @@ def ptxas_summary(nvcc_log: str) -> list[str]:
         elif "warning" in line:
             out.append(line.strip())
     return out
+
+
+def ptxas_of(nvcc_log: str, match: str) -> dict:
+    """Registers (least and most), stack frame and spill bytes (most)
+    over the kernels of an nvcc -Xptxas -v report whose mangled name
+    holds `match`."""
+    regs, stack, spill = [], 0, 0
+    for line in ptxas_summary(nvcc_log):
+        name, _, rest = line.partition(": ")
+        m = re.match(r"(\d+) registers, (\d+) bytes stack frame, (\d+) "
+                     r"bytes spill stores, (\d+) bytes spill loads", rest)
+        if m and match in name:
+            regs.append(int(m.group(1)))
+            stack = max(stack, int(m.group(2)))
+            spill = max(spill, int(m.group(3)), int(m.group(4)))
+    if not regs:
+        raise AssertionError(f"no ptxas report for {match}")
+    return {"registers": [min(regs), max(regs)], "stack_bytes": stack,
+            "spill_bytes": spill}
+
+
+# the kernels whose rows carry their ptxas report: (source, name match)
+PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernelILb0"),
+              "join_bits": ("hamming_join", "hamming_join_kernelILb1"),
+              "neighbor_sum": ("neighbor_sum", "neighbor_sum_kernel")}
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -446,6 +485,148 @@ def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+HOST_SLOW_QUERIES = 20_000     # slow queries the host slow path is timed on
+
+
+def slow_queries(uniq, occ, k, dev):
+    """The queries that the search's own join plan (pads 64/32) sends to
+    its slow path, as the search routes them."""
+    from quickmer2_tpu_torch.ops import hamming_join as hj
+    queries = uniq[occ == 1]
+    plan = hj._JoinPlan(queries, uniq, occ, k, cpad=64, cpad_q=32,
+                        device=dev)
+    for qc in range(plan.n_qchunks):
+        plan.query_chunk(qc)
+    return queries[plan.slow]
+
+
+def compare_neighbor_sum(queries, rows, n_buckets, k, e, label, dev,
+                         trace=None):
+    """K6 against its plain version on one query set; returns (max
+    |kernel - plain|, the kernel's arguments, its sums)."""
+    from quickmer2_tpu_torch.device import words
+    from quickmer2_tpu_torch.kernels.neighbor_sum import (
+        neighbor_sum, neighbor_sum_plain)
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.ops.hamming_join import _rc_np
+    halves = codec.split_u64(queries) + codec.split_u64(_rc_np(queries, k))
+    args = [words(a, dev) for a in halves] + [rows]
+    kw = dict(k=k, e=e, n_buckets=n_buckets)
+    out_k = neighbor_sum(*args, **kw)
+    out_p = neighbor_sum_plain(*args, slab_pairs=1 << 24, trace=trace, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(out_k, out_p)
+    log(f"  neighbor_sum {label} k={k} e={e}: {len(queries)} queries, "
+        f"{n_buckets} buckets, {int((out_k != 0).sum())} nonzero sums, "
+        f"max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError(f"neighbor_sum {label} k={k} e={e} disagrees "
+                             "with its plain version")
+    return err, (args, kw), out_k
+
+
+def check_neighbor_sum(uniq, occ, k, dev):
+    """K6 on the search's own slow set against its plain version (timed)
+    and, on HOST_SLOW_QUERIES of those queries, against the host slow
+    path (timed). Returns the kernel-table row and the packed table."""
+    from quickmer2_tpu_torch.device import to_numpy_u32
+    from quickmer2_tpu_torch.kernels.neighbor_sum import (
+        neighbor_sum, neighbor_sum_plain)
+    from quickmer2_tpu_torch.ops.hamming_join import _slow_sums_sorted_np
+    from quickmer2_tpu_torch.pipelines.search import _occ_table
+    t = time.time()
+    rows, n_buckets = _occ_table(uniq, occ, dev)
+    table_s = time.time() - t
+    slow = slow_queries(uniq, occ, k, dev)
+    trace = {}
+    err, (args, kw), out_k = compare_neighbor_sum(
+        slow, rows, n_buckets, k, 2, "slow set", dev, trace)
+    ms, queued_ms = kernel_ms(lambda: neighbor_sum(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: neighbor_sum_plain(*args, slab_pairs=1 << 24,
+                                                  **kw), 1, warm=0)
+    n_host = min(HOST_SLOW_QUERIES, len(slow))
+    t = time.perf_counter()
+    host = _slow_sums_sorted_np(slow[:n_host], uniq, occ, k, 2)
+    host_s = time.perf_counter() - t
+    if not np.array_equal(host, to_numpy_u32(out_k)[:n_host]):
+        raise AssertionError("neighbor_sum disagrees with the host slow path")
+    host_all_s = host_s * len(slow) / n_host
+    log(f"  host slow path: {n_host} of the {len(slow)} slow queries in "
+        f"{host_s:.2f} s, equal to the kernel; the whole slow set at that "
+        f"rate {host_all_s:.1f} s, against the packed table's build "
+        f"{table_s:.2f} s + K6 {ms:.4f} ms")
+    # least traffic: each 32-B table row that some probe names, read
+    # once; the queries' four words in, one sum out, the edit words.
+    # Least work, ~70 int ops a neighbor: two edits on the 64-bit pair
+    # (~24), the canonical min (~4), DJB over 8 bytes (~24), two bucket
+    # indices (~6), four entry compares and the add (~12)
+    n_bytes = (32 * trace["rows_touched"] + 20 * len(slow)
+               + 4 * (trace["probes"] // max(len(slow), 1)))
+    b_ms, b_by = bound_ms(n_bytes, 70 * trace["probes"])
+    log(f"  neighbor_sum time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB, {trace['rows_touched']} of {n_buckets} "
+        f"rows named, {trace['probes']} probes, "
+        f"{70 * trace['probes'] / 1e9:.1f} G ops)")
+    row = {"name": "neighbor_sum", "route": "cuda",
+           "source": "quickmer2_tpu_torch/csrc/neighbor_sum.cu",
+           "replaces": "quickmer2_tpu/ops/editdist.py:152",
+           "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+           "plain_ms": plain_ms, "slow_queries": len(slow),
+           "host_ms_per_query": host_s / n_host * 1e3,
+           "table_s": table_s,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return row, (rows, n_buckets)
+
+
+def check_neighbor_sum_small(k, dev):
+    """K6 at k on a random genome with planted one- and two-substitution
+    copies, its distinct k-mers in a packed table, e = 1 and 2. 1 Mb, but
+    32 kb at k < 17 (see check_neighbor_bits_small)."""
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.pipelines.search import _occ_table
+    rng = np.random.default_rng(100 + k)
+    g = rng.integers(0, 4, 1 << (15 if k < 17 else 20)).astype(np.uint8)
+    for p in rng.integers(0, len(g) - 4 * k, len(g) >> 10):
+        q = (p + 2 * k + 5000) % (len(g) - 2 * k)
+        g[q:q + 2 * k] = g[p:p + 2 * k]
+        for d in rng.integers(0, k, int(rng.integers(1, 3))):
+            g[q + k // 2 + d] = (g[q + k // 2 + d] + 1) % 4
+    canon, valid = codec.sliding_kmers_np(g, k)
+    uniq, cnt = np.unique(canon[valid & (canon != 0)], return_counts=True)
+    occ = np.minimum(cnt, 255).astype(np.uint8)
+    rows, n_buckets = _occ_table(uniq, occ, dev)
+    for e in (1, 2):
+        compare_neighbor_sum(uniq[:50_000], rows, n_buckets, k, e, "small",
+                             dev)
+
+
+def check_filters(uniq, occ, table, k, dev):
+    """The two device filters on the search's unique set: the hamming
+    join with K6 as its slow path and the probe filter (K6 over every
+    query), timed; their sums must be equal."""
+    from quickmer2_tpu_torch.ops.hamming_join import hamming_neighbor_sums
+    from quickmer2_tpu_torch.pipelines.search import _device_filter
+    queries = uniq[occ == 1]
+    st = {}
+    t = time.time()
+    sums_h = hamming_neighbor_sums(queries, uniq, occ, k, 2,
+                                   packed_rows=table[0],
+                                   n_buckets_packed=table[1], device=dev,
+                                   stats=st)
+    hamming_s = time.time() - t
+    t = time.time()
+    sums_p = _device_filter(queries, table, k, 2, 1 << 20)
+    probe_s = time.time() - t
+    log(f"  filters on {len(queries)} queries: hamming {hamming_s:.2f} s "
+        f"(join {st['join_s']:.2f} s, slow path {st['slow_s']:.2f} s for "
+        f"{st['n_slow']} queries), probe {probe_s:.2f} s; sums equal: "
+        f"{np.array_equal(sums_h, sums_p)}")
+    if not np.array_equal(sums_h, sums_p):
+        raise AssertionError("the hamming and the probe filter disagree")
+    return {"hamming_s": hamming_s, "probe_s": probe_s}
+
+
 # -- phase 2, anchored path: K4, K3 (tier 1, tier 2), K2r -------------------
 
 ANCHOR_READ_LEN = 160          # the row width the count autodetects at 150 bp
@@ -465,7 +646,7 @@ def anchored_setup(fa, dev):
     counter = anchored.AnchoredDepthCounter(index, dic.kmer_size,
                                             ANCHOR_READ_LEN,
                                             prefetch_puts=False, device=dev)
-    return stream, index, counter
+    return stream, dic.kmers_in_order, index, counter
 
 
 def rows_of(reads):
@@ -613,6 +794,192 @@ def check_neighbor_bits_small(k, dev):
     if err != 0:
         raise AssertionError(f"neighbor_bits k={k} disagrees with its plain "
                              "version")
+
+
+BITS_TILE = 2_000_000     # hamming_neighbor_bits' tile of genome windows
+
+
+def compare_join_bits(lay, nq, k, n_buckets, cpad, cpad_q, label):
+    """K5 against its plain version on one call's layouts (dh, dl, dlive,
+    qh, ql, qfw, qidx); returns (max |kernel - plain|, the kernel's
+    planes, live words and live queries a bucket)."""
+    from quickmer2_tpu_torch.kernels.hamming_join import (
+        join_bits, join_bits_plain)
+    kw = dict(k=k, n_buckets=n_buckets, cpad=cpad, cpad_q=cpad_q)
+    p_k = torch.zeros((nq + 1, 4), dtype=torch.int32, device=lay[0].device)
+    p_p = torch.zeros_like(p_k)
+    join_bits(*lay, p_k, **kw)
+    join_bits_plain(*lay, p_p, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(p_k[:-1], p_p[:-1])
+    live_w = (lay[2][:-1].view(n_buckets, cpad) != 0).sum(1).to(torch.int64)
+    live_q = (lay[6][:-1].view(n_buckets, cpad_q) != nq).sum(1).to(
+        torch.int64)
+    pairs = live_w * live_q
+    log(f"  join_bits cpad {cpad}/{cpad_q}{label}: {n_buckets} buckets, "
+        f"{nq} queries, {int(pairs.sum())} live pairs (most in a bucket "
+        f"{int(pairs.max())}), {int((p_k[:-1] != 0).any(1).sum())} rows "
+        f"with a bit, max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError(f"join_bits {cpad}/{cpad_q}{label} disagrees "
+                             "with its plain version")
+    return err, p_k, live_w, live_q
+
+
+def plant_bits_buckets(lay, nq, k, cpad, cpad_q, rng):
+    """plant_buckets' shapes on a copy of K5's layouts (their live words
+    carry a nonzero flag, their queries a random strand), and bucket 3:
+    word lanes 2 and 5 among holes of code (0, 0); queries one base from
+    all-A (H = 1 from every hole) on both strands, whose only true
+    neighbor is the word in lane 2; and queries that differ from the word
+    in lane 5 in one base of the hi word, on both strands. Returns the
+    layouts, the new query count and the near-all-A queries' indices."""
+    dh, dl, dlive, qh, ql, qfw, qidx = lay
+    (dh, dl, dlive, qh, ql, qidx), nq2 = plant_buckets(
+        (dh, dl, dlive, qh, ql, qidx), nq, cpad, cpad_q, rng)
+    qfw = qfw.clone()
+    planted = qidx[:3 * cpad_q] != nq2
+    qfw[:3 * cpad_q][planted] = torch.from_numpy(
+        rng.integers(0, 2, int(planted.sum()))).to(qfw.device, qfw.dtype)
+    b = 3
+    for t in (dh, dl, dlive):
+        t[b * cpad:(b + 1) * cpad] = 0
+    near_a = 1 << 14                              # base 7 is C
+    far = int(rng.integers(1, 1 << 28))
+    for lane, hi, lo in ((2, 0, near_a | (3 << 24)), (5, far, 12345)):
+        dh[b * cpad + lane], dl[b * cpad + lane] = hi, lo
+        dlive[b * cpad + lane] = 1
+    qidx[qidx == nq2] = nq2 + 4
+    qidx[b * cpad_q:(b + 1) * cpad_q] = nq2 + 4
+    for lane, (hi, lo, fwd) in enumerate(((0, near_a, 1), (0, near_a, 0),
+                                          (far ^ (2 << 8), 12345, 1),
+                                          (far ^ (2 << 8), 12345, 0))):
+        o = b * cpad_q + lane
+        qh[o], ql[o], qfw[o], qidx[o] = hi, lo, fwd, nq2 + lane
+    return (dh, dl, dlive, qh, ql, qfw, qidx), nq2 + 4, (nq2, nq2 + 1)
+
+
+def check_join_bits(stream, dict_kmers, k, dev):
+    """K5 on the first BITS_TILE windows of the genome stream as
+    hamming_neighbor_bits joins them: part 0, word chunk 0 at pads 64/32
+    (timed, with the card time of building its layouts), the same on
+    hand-planted buckets, and the tile's slow windows gathered and joined
+    at pads 240/240 as the escalation does."""
+    from quickmer2_tpu_torch.device import popcount32, u32, words
+    from quickmer2_tpu_torch.kernels.hamming_join import (
+        join_bits, join_bits_plain)
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.ops import hamming_join as hj
+    w = hj._BitsWords(dict_kmers, k, hj.CHUNK_W, dev)
+    seg = np.ascontiguousarray(stream[:BITS_TILE + k - 1])
+    canon, valid, is_fwd, keys_q, active, slow = w.route_tile(seg, 64, 32)
+    chi, clo, fwd = hj._device_kmerize(torch.from_numpy(seg).to(dev), k)
+    qslot = w.query_slots(0, keys_q, active)
+    n_buckets = w.n_bkts[0]
+
+    def layouts():
+        return w.layouts(0, 0, chi, clo, fwd, qslot, 64, 32)
+    lay = layouts()
+    nq = len(canon)
+    err, p_k, live_w, live_q = compare_join_bits(lay, nq, k, n_buckets, 64,
+                                                 32, "")
+    planted, nq_p, near_a = plant_bits_buckets(
+        lay, nq, k, 64, 32, np.random.default_rng(5))
+    _, p_planted, _, _ = compare_join_bits(planted, nq_p, k, n_buckets, 64,
+                                           32, ", planted buckets")
+    bits = popcount32(u32(p_planted[list(near_a)])).sum(1)
+    if bits.tolist() != [1, 1]:
+        raise AssertionError(f"near-all-A queries took bits from holes: "
+                             f"{p_planted[list(near_a)].tolist()}")
+    del planted, p_planted
+    left = np.flatnonzero(valid & slow)
+    g_keys = w.part_keys_of(canon[left])
+    g_act = ~(w.over(240, 0)[g_keys[0]] | w.over(240, 1)[g_keys[1]]
+              | w.over(240, 2)[g_keys[2]])
+    hq = np.bincount(g_keys[0][g_act], minlength=n_buckets)
+    g_act &= hq[g_keys[0]] <= 240
+    g_hi, g_lo = codec.split_u64(canon[left])
+    lay240 = w.layouts(0, 0, words(g_hi, dev), words(g_lo, dev),
+                       torch.from_numpy(is_fwd[left]).to(dev),
+                       w.query_slots(0, g_keys, g_act), 240, 240)
+    compare_join_bits(lay240, len(left), k, n_buckets, 240, 240,
+                      f", the tile's {len(left)} slow windows gathered")
+    del lay240
+    kw = dict(k=k, n_buckets=n_buckets, cpad=64, cpad_q=32)
+    ms, queued_ms = kernel_ms(lambda: join_bits(*lay, p_k, **kw), 10)
+    p_p = torch.zeros_like(p_k)
+    plain_ms = cuda_ms(lambda: join_bits_plain(*lay, p_p, **kw), 1)
+    del lay
+    torch.cuda.empty_cache()
+    layout_ms = cuda_ms(layouts, 3)
+    # K1's least traffic with planes in place of sums: qidx of every
+    # query lane, the live flag of every word lane of a bucket with a
+    # live query, 8 B of codes per live word there and per live query,
+    # each live query's strand flag, and its 16-B planes read and
+    # written once; ~16 int ops a live pair
+    has_q = live_q > 0
+    n_live_w, n_live_q = int(live_w[has_q].sum()), int(live_q.sum())
+    pairs = int((live_w * live_q).sum())
+    n_bytes = (4 * (n_buckets * 32 + 64 * int(has_q.sum()))
+               + 8 * (n_live_w + n_live_q) + 4 * n_live_q + 32 * n_live_q)
+    b_ms, b_by = bound_ms(n_bytes, 16 * pairs)
+    log(f"  join_bits time {ms:.4f} ms (queued {queued_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB, {16 * pairs / 1e9:.2f} G ops; "
+        f"{n_live_w} live words in {int(has_q.sum())} buckets with a live "
+        f"query, {n_live_q} live queries); layouts {layout_ms:.4f} ms; "
+        f"tile: {int(valid.sum())} valid windows, {len(left)} slow")
+    return {"name": "join_bits", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/hamming_join.cu",
+            "replaces": "quickmer2_tpu/ops/hamming_join.py:190",
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms, "layout_ms": layout_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def compare_qai_builders(fa, dev, reset_counts, read_counts):
+    """The smoke's .qai built with K4 (the sweep) and with the Hamming
+    join (K5): identical bytes; each build's seconds (index_s), and the
+    join's routing counts from a second, bitmap-only run. The join's
+    build is its own path: the counts are reset just before it and read
+    just after. Returns K5's launches there."""
+    from quickmer2_tpu_torch.dictionary import Dictionary
+    from quickmer2_tpu_torch.ops import anchored
+    from quickmer2_tpu_torch.ops.hamming_join import hamming_neighbor_bits
+    dic = Dictionary.from_qm(fa + ".qm")
+    stream, pos = anchored._genome_stream_and_positions(dic, fa)
+    blobs, secs = {}, {}
+    for builder, join_on in (("sweep", ()), ("join", ("cuda",))):
+        path = os.path.join(WORK, f"{builder}.qai")
+        anchored.JOIN_BITS_DEVICES = join_on
+        reset_counts()
+        t = time.time()
+        try:
+            anchored.AnchoredIndex.build(stream, pos, dic.kmers_in_order,
+                                         dic.kmer_size, cache_path=path,
+                                         device=dev)
+            torch.cuda.synchronize()
+        finally:
+            anchored.JOIN_BITS_DEVICES = ()
+        secs[builder] = time.time() - t
+        counts = read_counts()
+        with open(path, "rb") as f:
+            blobs[builder] = f.read()
+        os.remove(path)
+        log(f"  .qai by {builder}: index_s {secs[builder]:.2f} s, "
+            f"{len(blobs[builder])} bytes, launches {counts}")
+    join_launches = counts["join_bits"]
+    if join_launches == 0:
+        raise AssertionError("the join-built .qai never launched K5")
+    if blobs["sweep"] != blobs["join"]:
+        raise AssertionError("the .qai by the join differs from the sweep's")
+    st = {}
+    t = time.time()
+    hamming_neighbor_bits(stream, dic.kmers_in_order, dic.kmer_size,
+                          device=dev, stats=st)
+    log(f"  .qai bytes identical; the join's bitmap alone "
+        f"{time.time() - t:.2f} s, {json.dumps(st)}")
+    return join_launches
 
 
 def spill_batches(index, counter, reads, dev):
@@ -896,7 +1263,7 @@ def check_anchored_kernels(fa, g, reads, dev):
     (timed) and on its edge shapes, K2r on an exact batch. Returns the
     timed kernel-table rows."""
     t = time.time()
-    stream, index, counter = anchored_setup(fa, dev)
+    stream, dict_kmers, index, counter = anchored_setup(fa, dev)
     log(f"  anchored index: {index.n_kmers} k-mers, {index.n_buckets} "
         f"buckets, genome {index.genome_len} bases, built on the card in "
         f"{time.time() - t:.1f} s")
@@ -906,6 +1273,7 @@ def check_anchored_kernels(fa, g, reads, dev):
     del filt
     for kk in (15, 32):
         check_neighbor_bits_small(kk, dev)
+    rows.append(check_join_bits(stream, dict_kmers, k, dev))
     B = counter.batch_reads
     rows.append(check_anchored(index, counter, rows_of(reads[:B]), 1, dev))
     tier2, exact, first = spill_batches(index, counter, reads, dev)
@@ -914,7 +1282,7 @@ def check_anchored_kernels(fa, g, reads, dev):
     check_anchored_edges(index, counter, g, reads, dev)
     rows.append(check_count_mono_rows(counter, exact, dev))
     check_count_mono_rows_edges(counter, g, dev)
-    del stream, index, counter
+    del stream, dict_kmers, index, counter
     torch.cuda.empty_cache()
     return rows
 
@@ -963,9 +1331,11 @@ def main() -> int:
     from quickmer2_tpu_torch.kernels.anchored import anchored_count
     from quickmer2_tpu_torch.kernels.count_mono import (
         count_mono_rows, count_mono_step)
-    from quickmer2_tpu_torch.kernels.hamming_join import join_compare
+    from quickmer2_tpu_torch.kernels.hamming_join import (
+        join_bits, join_compare)
     from quickmer2_tpu_torch.kernels.neighbor_bits import (
         key_filter, neighbor_bits)
+    from quickmer2_tpu_torch.kernels.neighbor_sum import neighbor_sum
     from quickmer2_tpu_torch.pipelines.count import run_count
     from quickmer2_tpu_torch.pipelines.est import run_est
     from quickmer2_tpu_torch.pipelines.search import (
@@ -980,7 +1350,8 @@ def main() -> int:
 
     def reset_counts():
         for fn in (count_mono_step, join_compare, anchored_count,
-                   count_mono_rows, neighbor_bits, key_filter):
+                   count_mono_rows, neighbor_bits, key_filter, neighbor_sum,
+                   join_bits):
             fn.launches = 0
         anchored_count.branch_launches = dict.fromkeys(
             anchored_count.branch_launches, 0)
@@ -993,7 +1364,9 @@ def main() -> int:
                 "anchored_point": anchored_count.branch_launches["point"],
                 "count_mono_rows": count_mono_rows.launches,
                 "neighbor_bits": neighbor_bits.launches,
-                "key_filter": key_filter.launches}
+                "key_filter": key_filter.launches,
+                "neighbor_sum": neighbor_sum.launches,
+                "join_bits": join_bits.launches}
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -1024,7 +1397,12 @@ def main() -> int:
         uniq, occ, _ = _tabulate_streaming(fasta_io.iter_fasta(world["fa"]), 30)
         rows.append(check_hamming_join(uniq, occ, 30, 64, 32, dev, True))
         check_hamming_join(uniq, occ, 30, 128, 64, dev, False)
-        del uniq, occ
+        row, table = check_neighbor_sum(uniq, occ, 30, dev)
+        rows.append(row)
+        for kk in (15, 32):
+            check_neighbor_sum_small(kk, dev)
+        check_filters(uniq, occ, table, 30, dev)
+        del uniq, occ, table
         torch.cuda.empty_cache()
         log(f"phase kernels (flat path): {time.time() - t:.1f} s (tolerance: "
             f"exact equality, integer outputs)")
@@ -1052,7 +1430,11 @@ def main() -> int:
             window_size=1000, control_bed=world["ctrl"]),
             verbose=False, stats=sstats, device="cuda")
         log(f"phase search: {time.time() - t:.1f} s {json.dumps(sstats)}")
-        launches = {}
+        srch = read_counts()
+        log(f"launches in the search: {srch}")
+        if not (srch["hamming_join"] > 0 and srch["neighbor_sum"] > 0):
+            raise AssertionError(f"a kernel never launched: {srch}")
+        launches = {"neighbor_sum": srch["neighbor_sum"]}
         if not check_only:
             t = time.time()
             cstats = run_count(world["fa"] + ".qm", fq,
@@ -1079,6 +1461,10 @@ def main() -> int:
                                        dev)
         log(f"phase kernels (anchored path): {time.time() - t:.1f} s "
             f"(tolerance: exact equality, integer outputs)")
+        t = time.time()
+        launches["join_bits"] = compare_qai_builders(
+            world["fa"], dev, reset_counts, read_counts)
+        log(f"phase .qai builders: {time.time() - t:.1f} s")
 
         if not check_only:
             # -- 3. the anchored path: count --mode anchored → est -------
@@ -1138,6 +1524,9 @@ def main() -> int:
 
         for row in rows:
             row["launches"] = launches.get(row["name"], 0)
+            if row["name"] in PTXAS_ROWS:
+                src, match = PTXAS_ROWS[row["name"]]
+                row["ptxas"] = ptxas_of(built[src]["log"], match)
         log(f"smoke total: {time.time() - t_all:.1f} s")
         # -- 5. the card ------------------------------------------------
         smi = subprocess.run(

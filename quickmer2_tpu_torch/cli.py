@@ -45,7 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("-w", type=int, default=1000, help="k-mers per window")
     s.add_argument("-c", type=str, default=None, help="control region bed")
     s.add_argument("--quirk-editdist", action="store_true",
-                   help="(not yet ported)")
+                   help="emulate the reference's mod-32 shift in the edit "
+                        "filter (k=30; host code)")
     s.add_argument("--out-prefix", type=str, default=None)
     s.add_argument("--json", action="store_true",
                    help="print structured per-phase stats as one JSON line")
@@ -118,14 +119,14 @@ def main(argv=None) -> int:
                      f"quickmer2_tpu_torch")
 
     if args.cmd == "search":
-        _reject(parser, args, [("--quirk-editdist", "quirk_editdist", False),
-                               ("--emit-devices", "emit_devices", None),
+        _reject(parser, args, [("--emit-devices", "emit_devices", None),
                                ("--profile", "profile", None)])
         from quickmer2_tpu_torch.pipelines.search import run_search
         cfg = SearchConfig(kmer_size=args.k, threads=args.t,
                            hash_size=parse_size_suffix(args.s),
                            edit_distance=args.e, edit_depth_threshold=args.d,
-                           window_size=args.w, control_bed=args.c)
+                           window_size=args.w, control_bed=args.c,
+                           quirk_mod32_editdist=args.quirk_editdist)
         stats = {}
         run_search(args.fasta, cfg, out_prefix=args.out_prefix,
                    verbose=not args.json, stats=stats, device=args.device)

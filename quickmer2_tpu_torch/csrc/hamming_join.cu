@@ -67,15 +67,17 @@ struct PartMasks {
 struct Layout {
   const unsigned* dh;
   const unsigned* dl;
-  const unsigned* docc;
+  const unsigned* docc;     // occ (K1) or the live flag (K5)
   const unsigned* qh;
   const unsigned* ql;
+  const unsigned* qfw;      // K5: strand flag of each query lane
   const int* qidx;
-  unsigned* scaled;
+  unsigned* out;            // K1: scaled u32[nq + 1]; K5: planes [nq + 1][4]
   long long n_buckets;
   int cpad, cpad_q, nq;
-  unsigned e;
-  PartMasks pm;
+  unsigned e;               // K1: the largest distance
+  int k;                    // K5: the k-mer length
+  PartMasks pm;             // K1: the three part masks
 };
 
 __device__ __forceinline__ unsigned pair_term(const Layout& L, unsigned q_h,
@@ -93,12 +95,70 @@ __device__ __forceinline__ unsigned pair_term(const Layout& L, unsigned q_h,
   return occ * scale;
 }
 
+// K5's term of a pair: the bit 1 << j of plane *b where H(q, w) = 1,
+// else 0.
+__device__ __forceinline__ unsigned pair_bit(const Layout& L, unsigned q_h,
+                                             unsigned q_l, unsigned q_f,
+                                             unsigned w_h, unsigned w_l,
+                                             unsigned* b) {
+  const unsigned xh = q_h ^ w_h;
+  const unsigned xl = q_l ^ w_l;
+  const unsigned yh = (xh | (xh >> 1)) & 0x55555555u;
+  const unsigned yl = (xl | (xl >> 1)) & 0x55555555u;
+  if (__popc(yh) + __popc(yl) != 1u) return 0u;
+  const bool in_lo = yl != 0u;
+  const unsigned s = in_lo ? (unsigned)(__ffs(yl) - 1) >> 1
+                           : ((unsigned)(__ffs(yh) - 1) >> 1) + 16u;
+  const unsigned t = ((in_lo ? w_l : w_h) >> ((s & 15u) << 1)) & 3u;
+  *b = q_f ? t : (t - 2u) & 3u;
+  return 1u << ((q_f ? (unsigned)(L.k - 1) - s : s) & 31u);
+}
+
+// One query's running result: K1's sum (added by atomicAdd) or K5's four
+// plane words (ORed in by atomicOr), both flushed once.
+template <bool BITS>
+struct Acc;
+
+template <>
+struct Acc<false> {
+  unsigned sum = 0;
+  __device__ __forceinline__ void add(const Layout& L, unsigned q_h,
+                                      unsigned q_l, unsigned, unsigned w_h,
+                                      unsigned w_l, unsigned w_o) {
+    sum += pair_term(L, q_h, q_l, w_h, w_l, w_o);
+  }
+  __device__ __forceinline__ void flush(const Layout& L, int qi) {
+    if (sum) atomicAdd(L.out + qi, sum);
+  }
+};
+
+template <>
+struct Acc<true> {
+  unsigned p[4] = {0u, 0u, 0u, 0u};
+  __device__ __forceinline__ void add(const Layout& L, unsigned q_h,
+                                      unsigned q_l, unsigned q_f,
+                                      unsigned w_h, unsigned w_l,
+                                      unsigned w_o) {
+    if (w_o == 0u) return;                  // a hole, code (0, 0)
+    unsigned b = 0;
+    const unsigned bit = pair_bit(L, q_h, q_l, q_f, w_h, w_l, &b);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) p[c] |= b == (unsigned)c ? bit : 0u;
+  }
+  __device__ __forceinline__ void flush(const Layout& L, int qi) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (p[c]) atomicOr(L.out + 4ll * qi + c, p[c]);
+    }
+  }
+};
+
 // One bucket's lanes as a warp holds them: lane j has bucket lane 32t + j
 // in slot t.
 template <int WS, int QS>
 struct Bucket {
   int qi[QS];
-  unsigned occ[WS], wh[WS], wl[WS], qh[QS], ql[QS];
+  unsigned occ[WS], wh[WS], wl[WS], qh[QS], ql[QS], qf[QS];
 };
 
 __device__ __forceinline__ bool live_query(const Layout& L, int qi) {
@@ -130,8 +190,8 @@ __device__ __forceinline__ void load_occ(const Layout& L, long long b,
   }
 }
 
-// (hi, lo) codes of the live lanes.
-template <int WS, int QS>
+// (hi, lo) codes of the live lanes, and K5's strand flags.
+template <bool BITS, int WS, int QS>
 __device__ __forceinline__ void load_codes(const Layout& L, long long b,
                                            int lane, Bucket<WS, QS>& k) {
 #pragma unroll
@@ -143,8 +203,10 @@ __device__ __forceinline__ void load_codes(const Layout& L, long long b,
 #pragma unroll
   for (int t = 0; t < QS; ++t) {
     const long long o = b * L.cpad_q + 32 * t + lane;
-    k.qh[t] = live_query(L, k.qi[t]) ? __ldg(L.qh + o) : 0u;
-    k.ql[t] = live_query(L, k.qi[t]) ? __ldg(L.ql + o) : 0u;
+    const bool live = live_query(L, k.qi[t]);
+    k.qh[t] = live ? __ldg(L.qh + o) : 0u;
+    k.ql[t] = live ? __ldg(L.ql + o) : 0u;
+    k.qf[t] = (BITS && live) ? __ldg(L.qfw + o) : 0u;
   }
 }
 
@@ -183,7 +245,7 @@ __device__ __forceinline__ int live_span(const unsigned (&live)[S]) {
 // query lane r and word lanes g, g + G, ...; each lane keeps one sum and
 // adds it once. A wider query span (cpad_q > 32) takes the words one at a
 // time, each lane its own query slots.
-template <int WS, int QS>
+template <bool BITS, int WS, int QS>
 __device__ __forceinline__ void join_bucket(const Layout& L, int lane,
                                             const Bucket<WS, QS>& k) {
   unsigned lq[QS], lw[WS];
@@ -199,21 +261,20 @@ __device__ __forceinline__ void join_bucket(const Layout& L, int lane,
     const int G = 32 >> qbits;
     const unsigned q_h = __shfl_sync(kFull, k.qh[0], r);
     const unsigned q_l = __shfl_sync(kFull, k.ql[0], r);
+    const unsigned q_f = __shfl_sync(kFull, k.qf[0], r);
     const int q_i = __shfl_sync(kFull, k.qi[0], r);
     const bool live = live_query(L, q_i);
-    unsigned acc = 0;
+    Acc<BITS> acc;
     for (int w = lane >> qbits; w - (lane >> qbits) < w_span; w += G) {
       const unsigned w_h = fetch<WS>(k.wh, w, w_span);
       const unsigned w_l = fetch<WS>(k.wl, w, w_span);
       const unsigned w_o = fetch<WS>(k.occ, w, w_span);
-      if (live && w < w_span) acc += pair_term(L, q_h, q_l, w_h, w_l, w_o);
+      if (live && w < w_span) acc.add(L, q_h, q_l, q_f, w_h, w_l, w_o);
     }
-    if (acc) atomicAdd(L.scaled + q_i, acc);
+    if (live) acc.flush(L, q_i);
     return;
   }
-  unsigned acc[QS];
-#pragma unroll
-  for (int t = 0; t < QS; ++t) acc[t] = 0;
+  Acc<BITS> acc[QS];
   for (int w = 0; w < w_span; ++w) {
     const unsigned w_o = fetch<WS>(k.occ, w, w_span);
     if (w_o == 0u) continue;                  // warp-uniform: w is
@@ -222,17 +283,17 @@ __device__ __forceinline__ void join_bucket(const Layout& L, int lane,
 #pragma unroll
     for (int t = 0; t < QS; ++t) {
       if (live_query(L, k.qi[t])) {
-        acc[t] += pair_term(L, k.qh[t], k.ql[t], w_h, w_l, w_o);
+        acc[t].add(L, k.qh[t], k.ql[t], k.qf[t], w_h, w_l, w_o);
       }
     }
   }
 #pragma unroll
   for (int t = 0; t < QS; ++t) {
-    if (acc[t]) atomicAdd(L.scaled + k.qi[t], acc[t]);
+    if (live_query(L, k.qi[t])) acc[t].flush(L, k.qi[t]);
   }
 }
 
-template <int WS, int QS>
+template <bool BITS, int WS, int QS>
 __global__ void __launch_bounds__(kThreads)
 hamming_join_kernel(const Layout L) {
   const long long b = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
@@ -241,15 +302,16 @@ hamming_join_kernel(const Layout L) {
   Bucket<WS, QS> k;
   load_qidx(L, b, lane, k);
   load_occ(L, b, lane, k);
-  load_codes(L, b, lane, k);
-  join_bucket(L, lane, k);
+  load_codes<BITS>(L, b, lane, k);
+  join_bucket<BITS>(L, lane, k);
 }
 
-template <int WS, int QS>
+template <bool BITS, int WS, int QS>
 int launch(const Layout& L, cudaStream_t stream) {
   const long long blocks = (L.n_buckets + kThreads / 32 - 1) / (kThreads / 32);
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  hamming_join_kernel<WS, QS><<<(unsigned)blocks, kThreads, 0, stream>>>(L);
+  hamming_join_kernel<BITS, WS, QS>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(L);
   return (int)cudaGetLastError();
 }
 
@@ -260,14 +322,29 @@ int slots_for(int pad) {
   return s;
 }
 
-template <int WS>
+template <bool BITS, int WS>
 int launch_ws(const Layout& L, cudaStream_t stream) {
   switch (slots_for(L.cpad_q)) {
-    case 1: return launch<WS, 1>(L, stream);
-    case 2: return launch<WS, 2>(L, stream);
-    case 4: return launch<WS, 4>(L, stream);
-    default: return launch<WS, 8>(L, stream);
+    case 1: return launch<BITS, WS, 1>(L, stream);
+    case 2: return launch<BITS, WS, 2>(L, stream);
+    case 4: return launch<BITS, WS, 4>(L, stream);
+    default: return launch<BITS, WS, 8>(L, stream);
   }
+}
+
+template <bool BITS>
+int launch_pads(const Layout& L, cudaStream_t stream) {
+  switch (slots_for(L.cpad)) {
+    case 1: return launch_ws<BITS, 1>(L, stream);
+    case 2: return launch_ws<BITS, 2>(L, stream);
+    case 4: return launch_ws<BITS, 4>(L, stream);
+    default: return launch_ws<BITS, 8>(L, stream);
+  }
+}
+
+bool bad_pads(long long n_buckets, int cpad, int cpad_q, int nq) {
+  return n_buckets < 1 || cpad < 1 || cpad > 255 || cpad_q < 1 ||
+         cpad_q > 255 || nq < 0;
 }
 
 }  // namespace
@@ -285,20 +362,34 @@ extern "C" int qm2t_hamming_join(const void* dh, const void* dl,
                                  unsigned mh0, unsigned ml0, unsigned mh1,
                                  unsigned ml1, unsigned mh2, unsigned ml2,
                                  void* stream) {
-  if (n_buckets < 1 || cpad < 1 || cpad > 255 || cpad_q < 1 ||
-      cpad_q > 255 || nq < 0 || e < 1) {
+  if (bad_pads(n_buckets, cpad, cpad_q, nq) || e < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = {(const unsigned*)dh, (const unsigned*)dl,
                     (const unsigned*)docc, (const unsigned*)qh,
-                    (const unsigned*)ql, (const int*)qidx, (unsigned*)scaled,
-                    n_buckets, cpad, cpad_q, nq, (unsigned)e,
-                    {{mh0, mh1, mh2}, {ml0, ml1, ml2}}};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (slots_for(cpad)) {
-    case 1: return launch_ws<1>(L, s);
-    case 2: return launch_ws<2>(L, s);
-    case 4: return launch_ws<4>(L, s);
-    default: return launch_ws<8>(L, s);
+                    (const unsigned*)ql, nullptr, (const int*)qidx,
+                    (unsigned*)scaled, n_buckets, cpad, cpad_q, nq,
+                    (unsigned)e, 0, {{mh0, mh1, mh2}, {ml0, ml1, ml2}}};
+  return launch_pads<false>(L, (cudaStream_t)stream);
+}
+
+// K5: planes u32[nq + 1][4] are ORed in place; dlive u32[B * cpad + 1]
+// is 1 on a word lane and 0 on a hole; qfw u32[B * cpad_q + 1] is 1 where
+// the query lane's canonical code is its forward strand.
+extern "C" int qm2t_hamming_join_bits(const void* dh, const void* dl,
+                                      const void* dlive, const void* qh,
+                                      const void* ql, const void* qfw,
+                                      const void* qidx, void* planes,
+                                      long long n_buckets, int cpad,
+                                      int cpad_q, int nq, int k,
+                                      void* stream) {
+  if (bad_pads(n_buckets, cpad, cpad_q, nq) || k < 1 || k > 32) {
+    return (int)cudaErrorInvalidValue;
   }
+  const Layout L = {(const unsigned*)dh, (const unsigned*)dl,
+                    (const unsigned*)dlive, (const unsigned*)qh,
+                    (const unsigned*)ql, (const unsigned*)qfw,
+                    (const int*)qidx, (unsigned*)planes, n_buckets, cpad,
+                    cpad_q, nq, 1u, k, {{0u, 0u, 0u}, {0u, 0u, 0u}}};
+  return launch_pads<true>(L, (cudaStream_t)stream);
 }

@@ -28,7 +28,8 @@ On the card the read pass is kernel K3 (csrc/anchored.cu via
 kernels.anchored), the exact recount K2r (csrc/count_mono.cu via
 kernels.count_mono.count_mono_rows), and the neighbor bitmap of the index
 K4 behind the table's key filter (csrc/neighbor_bits.cu via
-kernels.neighbor_bits). Host code here:
+kernels.neighbor_bits) or, on the device types of JOIN_BITS_DEVICES, the
+Hamming join K5 (ops.hamming_join.hamming_neighbor_bits). Host code here:
 the index build and its .qai companion, row transport, spill routing
 and finish.
 """
@@ -60,6 +61,14 @@ __all__ = ["GBLK", "DBLK", "AnchoredIndex", "AnchoredDepthCounter",
            "rows_from_flat_codes"]
 
 
+# device types on which AnchoredIndex.build takes the neighbor bitmap
+# from the Hamming join (K5) instead of the K4 sweep. None so far: on
+# the smoke genome of chip_smoke.py the sweep is the faster; the join is
+# meant for dictionaries past the sweep's key-filter capacity, which no
+# run has measured yet. Both give the same bytes.
+JOIN_BITS_DEVICES: tuple = ()
+
+
 @dataclasses.dataclass
 class AnchoredIndex:
     """The anchored path's structures, on `device`."""
@@ -88,10 +97,12 @@ class AnchoredIndex:
         k-mer in rank order; kmers_in_order: u64[n].
 
         neighbor_bits=True also builds the single-substitution
-        neighbor-hit bitmap into the tile bytes. device_build: sweep it
-        with kernel K4 on `device` (default: on a card) instead of the
-        host Bloom-filtered builder; both give the same bytes (so does
-        the JAX package's Hamming-join builder).
+        neighbor-hit bitmap into the tile bytes. device_build: build it
+        on `device` (default: on a card), by the K4 sweep behind the
+        table's key filter or, where `device` is of a type in
+        JOIN_BITS_DEVICES, by the Hamming join (K5); else by the host
+        Bloom-filtered builder. All give the same bytes, and so does the
+        JAX package.
 
         cache_path persists tiles and positions as a .qai companion
         (io.formats.write_qai), byte-identical to the JAX package's."""
@@ -105,7 +116,12 @@ class AnchoredIndex:
         if neighbor_bits:
             if device_build is None:
                 device_build = dev.type == "cuda"
-            if device_build:
+            if device_build and dev.type in JOIN_BITS_DEVICES:
+                from quickmer2_tpu_torch.ops.hamming_join import (
+                    hamming_neighbor_bits)
+                nbits = hamming_neighbor_bits(genome_codes, kmers_in_order,
+                                              k, device=dev)
+            elif device_build:
                 nbits = build_neighbor_bits_device(
                     genome_codes, words(table.rows, dev), table.n_buckets, k)
             else:

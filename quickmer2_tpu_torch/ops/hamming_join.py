@@ -23,26 +23,42 @@ contributes occ·(6/m) and the total is divided by 6.
 
 Exactness under bucket overflow: buckets larger than `cpad` are
 truncated, so any query whose OWN part value lands in an overflowed
-bucket (for any part) is routed to the host slow path
-(`_slow_sums_sorted_np` — enumeration + searchsorted); for the
-remaining fast queries every exact-part join of every relevant pair is
-intact, because the pair's bucket in an exact part IS the query's
+bucket (for any part) is routed to the slow path: per-neighbor probes of
+the caller's packed table (kernel K6, kernels.neighbor_sum) or, without
+one, the host `_slow_sums_sorted_np` (enumeration + searchsorted); for
+the remaining fast queries every exact-part join of every relevant pair
+is intact, because the pair's bucket in an exact part IS the query's
 bucket.
+
+`hamming_neighbor_bits` is the same join at Hamming distance exactly 1
+over genome windows, emitting the anchored index's neighbor bitmap
+(kernel K5, kernels.hamming_join.join_bits).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from quickmer2_tpu_torch.device import (
     U32, resolve_device, store, to_numpy_u32, u32, word_dtype, words)
-from quickmer2_tpu_torch.kernels.hamming_join import join_compare
+from quickmer2_tpu_torch.kernels.hamming_join import join_bits, join_compare
+from quickmer2_tpu_torch.kernels.neighbor_sum import neighbor_sum
 from quickmer2_tpu_torch.ops import codec
 from quickmer2_tpu_torch.ops.editdist import edit_table
+from quickmer2_tpu_torch.utils import native
 
 CHUNK_W = 12_000_000    # words per word chunk
 CHUNK_Q = 4_000_000     # queries per query chunk
+CHUNK_Q_BITS = 2_000_000    # genome windows per tile of the bits join
+ESCALATE_PAD = 240      # word and query pads of the escalation re-join
+# lanes of one escalation layout array (4 GiB of u32): at k = 32 the
+# widest part has 16 M buckets, whose 240-wide layouts (seven arrays of
+# 16 GiB) do not fit an 80 GB card, so the bits join escalates only where
+# B * 240 stays within this (k <= 31)
+ESCALATE_MAX_LANES = 1 << 30
 
 
 def part_ranges(k: int) -> list[tuple[int, int]]:
@@ -85,14 +101,16 @@ def _part_key(hi: torch.Tensor, lo: torch.Tensor, lo_bit: int,
 
 
 def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
-                    width: int, n_buckets: int, cpad: int, cpad_q: int):
+                    width: int, n_buckets: int, cpad: int, cpad_q: int,
+                    qfwd=None):
     """Scatter one word chunk and the query chunk into padded bucket
     layouts (the first half of quickmer2_tpu _part_chunk_join,
-    hamming_join.py:126-149): word lane key*cpad + slot, query lane
-    key*cpad_q + slot; entries whose slot reaches the pad stay out.
-    Returns (dh, dl, docc, qh, ql, qidx) — word tensors of
-    B*cpad + 1 / B*cpad_q + 1 lanes (the last lane is the hole) and
-    int32 qidx, nq on holes."""
+    hamming_join.py:126-149, and of _part_chunk_join_bits): word lane
+    key*cpad + slot, query lane key*cpad_q + slot; entries whose slot
+    reaches the pad stay out. Returns (dh, dl, docc, qh, ql, qidx) —
+    word tensors of B*cpad + 1 / B*cpad_q + 1 lanes (the last lane is
+    the hole) and int32 qidx, nq on holes — and, given the queries'
+    strand flags qfwd, their lanes qfw after qidx."""
     dtype = whi.dtype
     nq = qhi.shape[0]
     hole_d = n_buckets * cpad
@@ -116,7 +134,11 @@ def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
     qh[qf] = qhi[qsel]
     ql[qf] = qlo[qsel]
     qidx[qf] = torch.nonzero(qsel).flatten().to(torch.int32)
-    return dh, dl, docc, qh, ql, qidx
+    if qfwd is None:
+        return dh, dl, docc, qh, ql, qidx
+    qfw = torch.zeros_like(qh)
+    qfw[qf] = qfwd[qsel].to(dtype)
+    return dh, dl, docc, qh, ql, qidx, qfw
 
 
 def _slots_u8(keys: np.ndarray) -> np.ndarray:
@@ -269,6 +291,10 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
                           cpad: int = 64, cpad_q: int = 32,
                           chunk_w: int = CHUNK_W,
                           chunk_q: int = CHUNK_Q,
+                          packed_rows: torch.Tensor | None = None,
+                          n_buckets_packed: int = 0,
+                          escalate: int = 0,
+                          escalate_min: int = 1024,
                           device: str | torch.device = "cuda",
                           stats: dict | None = None) -> np.ndarray:
     """Neighbor-occurrence sums for `unique_kmers` (queries) against the
@@ -277,8 +303,19 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
     the JAX package's hamming_neighbor_sums. Chunking and routing are
     _JoinPlan's.
 
+    packed_rows / n_buckets_packed: the packed table over `uniq` with
+    occ in the pos field (word tensor on `device`); with it the slow
+    queries go through K6 in one launch (K6 holds no per-neighbor
+    intermediate, so the JAX package's batch_slow has no counterpart),
+    without it through the host `_slow_sums_sorted_np`. escalate > 0: a
+    slow set larger than escalate_min is joined again at pads of 240
+    (escalate - 1 more times) before what is left takes the slow path.
+
     stats: optional dict filled with the routing counts (queries in
-    total, joined on the device, sent to the slow path; join calls).
+    total, joined on the device, sent to the slow path; join calls), the
+    seconds of the join (`join_s`, re-joins included) and of the slow
+    path (`slow_s`) and, after an escalation, the re-join's own stats
+    (`escalation`).
     """
     device = resolve_device(device)
     if not 1 <= e <= 2:
@@ -291,6 +328,7 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
         # k-mers wider pads shrink the slow set (exactness is
         # pad-independent)
         cpad, cpad_q = 128, 64
+    t0 = time.time()
     plan = _JoinPlan(unique_kmers, uniq, occ, k, cpad=cpad, cpad_q=cpad_q,
                      chunk_w=chunk_w, chunk_q=chunk_q, device=device)
     masks = _part_masks(k)
@@ -323,14 +361,347 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
     if stats is not None:
         stats.update({"n_queries": n, "n_slow": len(slow_idx),
                       "n_joined": n - len(slow_idx),
-                      "join_calls": join_compare_calls})
-    if len(slow_idx):
+                      "join_calls": join_compare_calls,
+                      "join_s": time.time() - t0, "slow_s": 0.0})
+    uk = np.asarray(unique_kmers, np.uint64)
+    if (len(slow_idx) > escalate_min and escalate > 0
+            and cpad < ESCALATE_PAD):
+        sub = {} if stats is not None else None
+        sums[slow_idx] = hamming_neighbor_sums(
+            uk[slow_idx], uniq, occ, k, e, cpad=ESCALATE_PAD,
+            cpad_q=ESCALATE_PAD, chunk_w=chunk_w, chunk_q=chunk_q,
+            packed_rows=packed_rows, n_buckets_packed=n_buckets_packed,
+            escalate=escalate - 1, escalate_min=escalate_min, device=device,
+            stats=sub)
+        if stats is not None:
+            stats["escalation"] = sub
+            stats["join_s"] += sub["join_s"]
+            stats["slow_s"] = sub["slow_s"]
+        return np.minimum(sums, np.iinfo(np.uint32).max).astype(np.uint32)
+    t1 = time.time()
+    if len(slow_idx) and packed_rows is not None:
+        # per-neighbor probes of the caller's packed table (K6)
+        sq = uk[slow_idx]
+        halves = codec.split_u64(sq) + codec.split_u64(_rc_np(sq, k))
+        out = neighbor_sum(*(words(a, device) for a in halves), packed_rows,
+                           k=k, e=e, n_buckets=n_buckets_packed)
+        sums[slow_idx] = to_numpy_u32(out)
+    elif len(slow_idx):
         # host path: enumerate neighbors vectorized and binary-search the
         # SORTED distinct array (np.unique output)
-        sq = np.asarray(unique_kmers, np.uint64)[slow_idx]
-        sums[slow_idx] = _slow_sums_sorted_np(sq, uniq, occ, k, e)
-
+        sums[slow_idx] = _slow_sums_sorted_np(uk[slow_idx], uniq, occ, k, e)
+    if stats is not None:
+        stats["slow_s"] = time.time() - t1
     return np.minimum(sums, np.iinfo(np.uint32).max).astype(np.uint32)
+
+
+class _BitsWords:
+    """The word side of hamming_neighbor_bits: W = [dict, rc(dict)] on
+    the device (palindromic rc lanes dead, slot 255), cut into
+    contiguous chunks of at most `chunk_w` words in dictionary order —
+    genome order, so a chunk's part keys spread like the whole's (the
+    sums join interleaves its chunks because its arrays are sorted by
+    code). Caches, per pad, the overflowed buckets (unioned over chunks)
+    and, per (part, chunk), the in-bucket slots; joins a query set into
+    per-query bit planes with K5."""
+
+    def __init__(self, dict_kmers: np.ndarray, k: int, chunk_w: int,
+                 device: torch.device):
+        self.k, self.device = k, device
+        rc_db = _rc_np(dict_kmers, k)
+        self.live = np.concatenate([np.ones(len(dict_kmers), bool),
+                                    rc_db != dict_kmers])
+        whi, wlo = codec.split_u64(np.concatenate([dict_kmers, rc_db]))
+        self.ranges = part_ranges(k)
+        self.n_bkts = [1 << (2 * (t - s)) for (s, t) in self.ranges]
+        self.part_keys = [_extract_part_np(whi, wlo, s, t)
+                          for (s, t) in self.ranges]
+        n_w = len(whi)
+        self.chunks = [slice(c0, min(c0 + chunk_w, n_w))
+                       for c0 in range(0, n_w, chunk_w)]
+        dhi, dlo = codec.split_u64(dict_kmers)
+        self.whi_d, self.wlo_d = _build_w_device(
+            words(dhi, device), words(dlo, device), k=k)
+        self.ones = torch.ones(n_w, dtype=torch.uint8, device=device)
+        self._over: dict = {}
+        self._slots: dict = {}
+        self.calls = 0
+
+    def over(self, cp: int, i: int) -> np.ndarray:
+        """bool[B]: part i's buckets holding more than cp live words in
+        some chunk."""
+        if (cp, i) not in self._over:
+            ov = np.zeros(self.n_bkts[i], bool)
+            for c in self.chunks:
+                hw = np.bincount(self.part_keys[i][c][self.live[c]],
+                                 minlength=self.n_bkts[i])
+                ov |= hw > cp
+            self._over[(cp, i)] = ov
+        return self._over[(cp, i)]
+
+    def _w_slots(self, i: int, ci: int) -> torch.Tensor:
+        if (i, ci) not in self._slots:
+            c = self.chunks[ci]
+            live = self.live[c]
+            s8 = np.full(len(live), 255, np.uint8)
+            s8[live] = _slots_u8(self.part_keys[i][c][live])
+            self._slots[(i, ci)] = torch.from_numpy(s8).to(self.device)
+        return self._slots[(i, ci)]
+
+    def layouts(self, i: int, ci: int, qhi, qlo, qfwd, qslot, cp: int,
+                cpq: int):
+        """Part i's bucket layouts of word chunk ci and the queries (word
+        tensors qhi/qlo, strand flags qfwd and in-bucket slots qslot, 255
+        for a query left out): (dh, dl, dlive, qh, ql, qfw, qidx), K5's
+        argument order."""
+        s, t = self.ranges[i]
+        c = self.chunks[ci]
+        dh, dl, dlive, qh, ql, qidx, qfw = _bucket_layouts(
+            self.whi_d[c], self.wlo_d[c], self.ones[c], self._w_slots(i, ci),
+            qhi, qlo, qslot, lo_bit=2 * s, width=2 * (t - s),
+            n_buckets=self.n_bkts[i], cpad=cp, cpad_q=cpq, qfwd=qfwd)
+        return dh, dl, dlive, qh, ql, qfw, qidx
+
+    def query_slots(self, i: int, keys_q, active) -> torch.Tensor:
+        """In-bucket slots of part i for the `active` queries (bool np
+        array), 255 for the others, on the device."""
+        qslot = np.full(len(active), 255, np.uint8)
+        qslot[active] = _slots_u8(keys_q[i][active])
+        return torch.from_numpy(qslot).to(self.device)
+
+    def join(self, qhi, qlo, qfwd, keys_q, active, planes, cp: int,
+             cpq: int) -> None:
+        """OR the bits of the `active` queries (bool np array) into
+        planes [n + 1, 4]; qhi/qlo word tensors of the canonical codes,
+        qfwd their strand flags on the device, keys_q their part keys
+        (host)."""
+        for i in range(3):
+            qslot = self.query_slots(i, keys_q, active)
+            for ci in range(len(self.chunks)):
+                join_bits(*self.layouts(i, ci, qhi, qlo, qfwd, qslot, cp, cpq),
+                          planes, k=self.k, n_buckets=self.n_bkts[i], cpad=cp,
+                          cpad_q=cpq)
+                self.calls += 1
+
+    def route_tile(self, seg: np.ndarray, cp: int, cpq: int):
+        """A tile of codes (len chunk_q + k - 1): its windows' canonical
+        codes, validity and strand on the host, their part keys, and the
+        windows the join takes (`active`) and leaves to the slow path
+        (`slow`): those in a word bucket over cp, or in a bucket of the
+        tile's active windows over cpq."""
+        k = self.k
+        if native.available():
+            canon, valid, is_fwd = native.sliding_canon(seg, k)
+        else:
+            fwd, rc, valid = codec.sliding_fwd_rc_np(seg, k)
+            canon, is_fwd = np.minimum(fwd, rc), fwd <= rc
+        keys_q = self.part_keys_of(canon)
+        slow = np.zeros(len(canon), bool)
+        for i in range(3):
+            slow |= self.over(cp, i)[keys_q[i]]
+        active = valid & ~slow
+        for i in range(3):
+            hq = np.bincount(keys_q[i][active], minlength=self.n_bkts[i])
+            over_q = hq[keys_q[i]] > cpq
+            slow |= over_q & active
+            active &= ~over_q
+        return canon, valid, is_fwd, keys_q, active, slow
+
+    def part_keys_of(self, canon: np.ndarray) -> list:
+        hi, lo = codec.split_u64(canon)
+        return [_extract_part_np(hi, lo, s, t) for (s, t) in self.ranges]
+
+
+def hamming_neighbor_bits(genome_codes: np.ndarray, dict_kmers: np.ndarray,
+                          k: int, cpad: int = 64, cpad_q: int = 32,
+                          chunk_w: int = CHUNK_W,
+                          chunk_q: int = CHUNK_Q_BITS,
+                          escalate: bool = True,
+                          escalate_min: int = 50_000,
+                          device: str | torch.device = "cuda",
+                          stats: dict | None = None) -> np.ndarray:
+    """Neighbor-hit bitmap of the genome against the dictionary as a
+    Hamming join — the same bytes as ops.anchored.build_neighbor_bits
+    and the JAX package's hamming_neighbor_bits: u8[G], bit b of byte e
+    set iff substituting base b at position e inside any valid window
+    yields a canonical k-mer in the dictionary.
+
+    Genome windows (queries) go in fixed contiguous tiles of chunk_q;
+    each H = 1 pair of a window and a word of W = [dict, rc(dict)]
+    names its substitution (offset, base), ORed into per-window bit
+    planes (K5) and smeared onto genome positions. Windows in
+    overflowed buckets (repeat tracts) are joined again at pads of 240
+    when there are more than escalate_min of them and the wider layouts
+    fit (ESCALATE_MAX_LANES), and what is left enumerates its 3k
+    variants on the host against the sorted dictionary.
+
+    stats: optional dict filled with the valid windows, the windows left
+    to the slow path by the main pass (`n_slow`), how many of them the
+    escalation took and the host enumerated, and the K5 calls."""
+    device = resolve_device(device)
+    G = len(genome_codes)
+    nb = np.zeros(G, np.uint8)
+    if G < k or len(dict_kmers) == 0:
+        return nb
+    genome_codes = np.asarray(genome_codes, np.uint8)
+    dict_kmers = np.asarray(dict_kmers, np.uint64)
+    w = _BitsWords(dict_kmers, k, chunk_w, device)
+    wd = word_dtype(device)
+
+    # main pass: contiguous window tiles; codes cross at 1 B a base and
+    # the canonical pairs and strand flags are derived on the device
+    n_valid = 0
+    slow_parts = []
+    for t0 in range(0, G - k + 1, chunk_q):
+        seg = genome_codes[t0: t0 + chunk_q + k - 1]
+        pad = chunk_q + k - 1 - len(seg)
+        if pad:
+            seg = np.concatenate([seg, np.full(pad, codec.SEP, np.uint8)])
+        canon, valid, is_fwd, keys_q, active, slow = w.route_tile(
+            seg, cpad, cpad_q)
+        n_valid += int(valid.sum())
+        chi, clo, fwd = _device_kmerize(
+            torch.from_numpy(seg).to(device), k)
+        planes = torch.zeros((chunk_q + 1, 4), dtype=wd, device=device)
+        w.join(chi, clo, fwd, keys_q, active, planes, cpad, cpad_q)
+        hot, rows = _fetch_hot_planes(planes, chunk_q)
+        _smear_planes(nb, t0 + hot, rows, k)
+        left = np.flatnonzero(valid & slow)
+        if len(left):
+            slow_parts.append((t0 + left.astype(np.int64), canon[left],
+                               is_fwd[left]))
+        del chi, clo, fwd, planes
+
+    n_slow = sum(len(p[0]) for p in slow_parts)
+    n_escalated = n_host = 0
+    if slow_parts:
+        gsel = np.concatenate([p[0] for p in slow_parts])
+        canon = np.concatenate([p[1] for p in slow_parts])
+        is_fwd = np.concatenate([p[2] for p in slow_parts])
+        still = np.ones(len(gsel), bool)
+        fits = max(w.n_bkts) * ESCALATE_PAD <= ESCALATE_MAX_LANES
+        if (escalate and fits and cpad < ESCALATE_PAD
+                and len(gsel) > escalate_min):
+            # gathered windows: their canonical pairs upload directly
+            n_escalated = len(gsel)
+            still = _join_gathered(w, nb, gsel, canon, is_fwd, ESCALATE_PAD,
+                                   ESCALATE_PAD, chunk_q)
+        n_host = int(still.sum())
+        if n_host:
+            other = _rc_np(canon[still], k)
+            fwd_q = np.where(is_fwd[still], canon[still], other)
+            rc_q = np.where(is_fwd[still], other, canon[still])
+            _slow_bits_np(nb, gsel[still], fwd_q, rc_q, np.sort(dict_kmers),
+                          k)
+    if stats is not None:
+        stats.update({"n_windows": n_valid, "n_slow": n_slow,
+                      "n_escalated": n_escalated, "n_host": n_host,
+                      "join_calls": w.calls})
+    return nb
+
+
+def _join_gathered(w: _BitsWords, nb: np.ndarray, gsel, canon, is_fwd,
+                   cp: int, cpq: int, chunk_q: int) -> np.ndarray:
+    """Escalation pass over a gathered window set at pads cp/cpq: the
+    resolved windows' bits are ORed into nb; returns the mask of the
+    windows still unresolved."""
+    keys_q = w.part_keys_of(canon)
+    slow = np.zeros(len(gsel), bool)
+    for i in range(3):
+        slow |= w.over(cp, i)[keys_q[i]]
+    fast_pos = np.flatnonzero(~slow)
+    s_qhi, s_qlo = codec.split_u64(canon)
+    for qc0 in range(0, len(fast_pos), chunk_q):
+        qpos = fast_pos[qc0: qc0 + chunk_q]
+        chunk_slow = np.zeros(len(qpos), bool)
+        for i in range(3):
+            hq = np.bincount(keys_q[i][qpos], minlength=w.n_bkts[i])
+            chunk_slow |= hq[keys_q[i][qpos]] > cpq
+        slow[qpos[chunk_slow]] = True
+        qpos = qpos[~chunk_slow]
+        if len(qpos) == 0:
+            continue
+        n_q = len(qpos)
+        planes = torch.zeros((n_q + 1, 4), dtype=word_dtype(w.device),
+                             device=w.device)
+        w.join(words(s_qhi[qpos], w.device), words(s_qlo[qpos], w.device),
+               torch.from_numpy(is_fwd[qpos]).to(w.device),
+               [kq[qpos] for kq in keys_q], np.ones(n_q, bool), planes, cp,
+               cpq)
+        hot, rows = _fetch_hot_planes(planes, n_q)
+        _smear_planes(nb, gsel[qpos[hot]], rows, k=w.k)
+        del planes
+    return slow
+
+
+def _device_kmerize(codes: torch.Tensor, k: int):
+    """Canonical (hi, lo) word tensors and the forward-strand flag of
+    every window of a code tile, on its device."""
+    fhi, flo, rhi, rlo, _ = codec.sliding_fwd_rc(codes, k)
+    fwd_less = (fhi < rhi) | ((fhi == rhi) & (flo <= rlo))
+    wd = word_dtype(codes.device)
+    return (store(torch.where(fwd_less, fhi, rhi), wd),
+            store(torch.where(fwd_less, flo, rlo), wd), fwd_less)
+
+
+def _fetch_hot_planes(planes: torch.Tensor, n_rows: int):
+    """(indices of the rows among the first n_rows with a bit set, those
+    rows as u32[n, 4]) on the host: neighbor hits are rare, so only the
+    hot rows cross to the host."""
+    acc = planes[:n_rows]
+    hot = torch.nonzero((acc != 0).any(1)).flatten()
+    return (hot.cpu().numpy().astype(np.int64),
+            to_numpy_u32(acc[hot]).reshape(-1, 4))
+
+
+def _smear_planes(nb: np.ndarray, qsel: np.ndarray, planes: np.ndarray,
+                  k: int) -> None:
+    """OR per-window bit planes (u32[n,4], bit j of plane b = hit at
+    window offset j, base b) onto genome positions: nb[o+j] |= 1<<b."""
+    hot = np.flatnonzero(planes.any(axis=1))    # neighbor hits are rare
+    if len(hot) == 0:
+        return
+    pl = planes[hot]
+    osel = qsel[hot]
+    for j in range(k):
+        bits = ((pl >> np.uint32(j)) & 1).astype(np.uint8)
+        byte = (bits[:, 0] | (bits[:, 1] << 1) | (bits[:, 2] << 2)
+                | (bits[:, 3] << 3))
+        nz = np.flatnonzero(byte)
+        if len(nz):
+            np.bitwise_or.at(nb, osel[nz] + j, byte[nz])
+
+
+def _slow_bits_np(nb: np.ndarray, o_idx: np.ndarray, fwd: np.ndarray,
+                  rc: np.ndarray, sorted_dict: np.ndarray, k: int,
+                  batch: int = 4096) -> None:
+    """Host path for overflow windows: enumerate all 3k single
+    substitutions, canonicalize, membership by searchsorted into the
+    sorted dictionary, OR hits into nb. Same enumeration semantics as
+    the probe builders (ops.anchored.build_neighbor_bits)."""
+    for off in range(0, len(o_idx), batch):
+        sl = slice(off, off + batch)
+        f = fwd[sl]
+        r = rc[sl]
+        o = o_idx[sl]
+        for j in range(k):
+            sh_f = np.uint64(2 * (k - 1 - j))
+            sh_r = np.uint64(2 * j)
+            orig = (f >> sh_f) & np.uint64(3)
+            for d in (1, 2, 3):
+                b = (orig + np.uint64(d)) & np.uint64(3)
+                x = orig ^ b
+                mf = f ^ (x << sh_f)
+                mr = r ^ (x << sh_r)
+                canon = np.minimum(mf, mr)
+                idx = np.searchsorted(sorted_dict, canon)
+                inb = idx < len(sorted_dict)
+                idc = np.minimum(idx, len(sorted_dict) - 1)
+                hit = inb & (sorted_dict[idc] == canon)
+                if hit.any():
+                    np.bitwise_or.at(
+                        nb, o[hit] + j,
+                        (np.uint8(1) << b[hit].astype(np.uint8)))
 
 
 def _build_w_device(dhi: torch.Tensor, dlo: torch.Tensor, *, k: int):

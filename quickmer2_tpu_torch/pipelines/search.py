@@ -4,15 +4,19 @@ Reference: main_search (QuicKmer.c:1088-1304). Three stages there:
 pass-1 lock-free hash tabulation, threaded edit-distance filter,
 delete/compact, then a pass-2 genome rescan emitting chain/GC/windows.
 
-Port of quickmer2_tpu/pipelines/search.py, default filter only:
+Port of quickmer2_tpu/pipelines/search.py:
   1. tabulate   — bulk canonical k-mer extraction (native C codec) +
                   sort-based distinct counting (np.unique), saturated at
                   255 like the reference's u8 occr (QuicKmer.c:888).
-  2. filter     — neighbor-occurrence sums by the blocked Hamming join
-                  (ops.hamming_join, CUDA compare kernel on the card); a
-                  k-mer survives iff occr == 1 and sum < d
-                  (QuicKmer.c:1218-1231). The quirk-compat mode
-                  (SURVEY.md Q2) is not ported yet.
+  2. filter     — neighbor-occurrence sums; a k-mer survives iff
+                  occr == 1 and sum < d (QuicKmer.c:1218-1231). By the
+                  blocked Hamming join (default; ops.hamming_join, kernel
+                  K1 on the card) with its slow queries probed one
+                  neighbor at a time in a packed table of every distinct
+                  k-mer (kernel K6) or enumerated on the host; by K6 over
+                  every query ("probe"); on the host against the pass-1
+                  table ("host"); or in quirk-compat mode (SURVEY.md Q2,
+                  host, k = 30).
   3. emit       — one genome-order pass on the host: membership lookups
                   against the pass-1 table, GC bins (ops.gc), control
                   flags, window rows; dictionary placement by insertion in genome
@@ -32,12 +36,15 @@ from __future__ import annotations
 import numpy as np
 
 from quickmer2_tpu_torch.config import SearchConfig
-from quickmer2_tpu_torch.device import resolve_device
+from quickmer2_tpu_torch.device import resolve_device, to_numpy_u32, words
 from quickmer2_tpu_torch.dictionary import Dictionary
 from quickmer2_tpu_torch.io import fasta as fasta_io
+from quickmer2_tpu_torch.kernels.neighbor_sum import neighbor_sum
 from quickmer2_tpu_torch.ops import codec
 from quickmer2_tpu_torch.ops import hash as qhash
-from quickmer2_tpu_torch.ops.hamming_join import hamming_neighbor_sums
+from quickmer2_tpu_torch.ops.editdist import neighbor_occr_sum_quirk_np
+from quickmer2_tpu_torch.ops.hamming_join import _rc_np, hamming_neighbor_sums
+from quickmer2_tpu_torch.ops.packed_table import PackedTable
 from quickmer2_tpu_torch.pipelines import emit as emit_mod
 from quickmer2_tpu_torch.utils import native
 
@@ -117,6 +124,14 @@ def _tabulate_streaming(chroms, k: int):
     return uniq, np.minimum(counts, 255).astype(np.uint8), total_positions
 
 
+# device types on which the hamming filter sends its slow queries to K6,
+# through a packed table of every distinct k-mer; elsewhere they take
+# the host enumeration. On the H100 the table and K6 took 11.6 s against
+# ~98 s of host enumeration for the smoke genome's 338,812 slow queries
+# (PERF.md, section 5). The outputs are the same either way.
+PACKED_SLOW_PATH_DEVICES = ("cuda",)
+
+
 def _final_hash_size(h0: int, distinct: int) -> int:
     h = h0
     while distinct > 0.8 * h:
@@ -125,23 +140,32 @@ def _final_hash_size(h0: int, distinct: int) -> int:
 
 
 def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None,
-               verbose: bool = True, stats: dict | None = None,
+               use_device_filter: bool = True, filter_batch: int = 1 << 20,
+               filter_impl: str = "hamming", verbose: bool = True,
+               stats: dict | None = None,
                device: str = "cuda") -> Dictionary:
     """Full search phase. Writes <out>.qm, <out>.bed and, when a control
     bed is configured, <out>.qgc (out defaults to the FASTA path, like
-    the reference which names outputs ref.fa.qm etc.).
+    the reference which names outputs ref.fa.qm etc.). Every filter
+    writes the same bytes.
 
+    use_device_filter / filter_impl: "hamming" (default) or "probe" (K6
+    over every query, filter_batch queries a launch) on `device`;
+    use_device_filter=False takes the host filter. cfg.
+    quirk_mod32_editdist takes the quirk-compat host filter (k = 30).
+    The hamming filter's slow queries go to K6 on the devices of
+    PACKED_SLOW_PATH_DEVICES (a card), to the host enumeration elsewhere.
     stats: optional dict the run fills with structured per-phase metrics
-    (tabulate/filter/emit wall seconds, k-mer counts).
+    (tabulate/filter/emit wall seconds, the filter's split into join_s,
+    slow_table_s and slow_s, k-mer counts).
     device: "cuda" (default; raises without a card) or "cpu" — where the
-    edit filter's join runs."""
+    edit filter's kernels run."""
     import time
 
     dev = resolve_device(device)
-    if cfg.quirk_mod32_editdist:
-        raise NotImplementedError(
-            "the quirk-compat edit filter (--quirk-editdist) is not yet "
-            "ported to quickmer2_tpu_torch")
+    if filter_impl not in ("hamming", "probe"):
+        raise ValueError(f"unknown filter_impl {filter_impl!r}: use "
+                         "'hamming' or 'probe'")
     t0 = time.time()
     out_prefix = out_prefix or fasta_path
     k = cfg.kmer_size
@@ -156,7 +180,7 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
         print(f"search: {n_positions} k-mer positions, {len(uniq)} distinct, "
               f"hash_size {hash_size:#x}")
 
-    # pass-1 table (pass-2 membership tests)
+    # pass-1 table (the host filters' lookups, pass-2 membership tests)
     table = np.zeros(hash_size, dtype=np.uint64)
     if native.available():
         slots = native.insert_keys(table, uniq, return_slots=True)
@@ -165,15 +189,46 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
     tabulate_s = time.time() - t0
     t1 = time.time()
 
-    # -- stage 2: edit-distance filter (blocked Hamming join) ---------
+    # -- stage 2: edit-distance filter --------------------------------
     keep_uniq = occr_vals == 1
     n_removed = 0
-    join_stats: dict = {}
+    filter_stats: dict = {}
+    split = {"join_s": 0.0, "slow_table_s": 0.0, "slow_s": 0.0}
     if cfg.edit_distance > 0:
+        e = cfg.edit_distance
         unique_kmers = uniq[keep_uniq]
-        sums = hamming_neighbor_sums(unique_kmers, uniq, occr_vals, k,
-                                     cfg.edit_distance, device=dev,
-                                     stats=join_stats)
+        if cfg.quirk_mod32_editdist and k != 30:
+            raise ValueError(
+                "quirk-compat edit filter is defined for k=30 only")
+        if cfg.quirk_mod32_editdist or not use_device_filter:
+            occr = np.zeros(hash_size, dtype=np.uint8)
+            occr[slots] = occr_vals
+            ts = time.time()
+            if cfg.quirk_mod32_editdist:
+                sums = neighbor_occr_sum_quirk_np(unique_kmers, table, occr,
+                                                  hash_size, k, e)
+            else:
+                sums = _host_filter(unique_kmers, table, occr, hash_size, k, e)
+            split["slow_s"] = time.time() - ts
+        else:
+            ptab = None
+            if (filter_impl == "probe"
+                    or dev.type in PACKED_SLOW_PATH_DEVICES):
+                ts = time.time()
+                ptab = _occ_table(uniq, occr_vals, dev)
+                split["slow_table_s"] = time.time() - ts
+            if filter_impl == "hamming":
+                sums = hamming_neighbor_sums(
+                    unique_kmers, uniq, occr_vals, k, e,
+                    packed_rows=None if ptab is None else ptab[0],
+                    n_buckets_packed=0 if ptab is None else ptab[1],
+                    device=dev, stats=filter_stats)
+                split["join_s"] = filter_stats.pop("join_s")
+                split["slow_s"] = filter_stats.pop("slow_s")
+            else:
+                ts = time.time()
+                sums = _device_filter(unique_kmers, ptab, k, e, filter_batch)
+                split["slow_s"] = time.time() - ts
         survive = sums < cfg.edit_depth_threshold
         kill = np.zeros(len(uniq), dtype=bool)
         kill[np.flatnonzero(keep_uniq)[~survive]] = True
@@ -215,8 +270,70 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
             "n_positions": int(n_positions), "n_distinct": int(len(uniq)),
             "n_filtered": n_removed, "n_kmers": dictionary.n_kmers,
             "hash_size": hash_size, "device": str(dev),
-            "filter": join_stats,
+            "filter": filter_stats,
             "phases": {"tabulate_s": round(tabulate_s, 4),
                        "filter_s": round(filter_s, 4),
+                       **{n: round(v, 4) for n, v in split.items()},
                        "emit_s": round(time.time() - t2, 4)}})
     return dictionary
+
+
+def _occ_table(uniq: np.ndarray, occr_vals: np.ndarray, dev):
+    """(rows on dev, n_buckets) of the packed two-choice table over every
+    distinct k-mer, with its occurrence count in pos. A table that cannot
+    be built raises: the search fails rather than taking another path."""
+    uhi, ulo = codec.split_u64(uniq)
+    ptab = PackedTable.build(uhi, ulo,
+                             rank=np.arange(len(uniq), dtype=np.uint32),
+                             pos=occr_vals.astype(np.uint32))
+    return words(ptab.rows, dev), ptab.n_buckets
+
+
+def _device_filter(unique_kmers, ptab, k, edit_distance, batch: int):
+    """Neighbor-occurrence sums of every query by K6 against the packed
+    table over all distinct k-mers (ptab, from _occ_table): two row
+    reads a neighbor, `batch` queries a launch."""
+    rows, n_buckets = ptab
+    rc = _rc_np(unique_kmers, k)
+    n = len(unique_kmers)
+    sums = np.empty(n, dtype=np.uint32)
+    for off in range(0, n, batch):
+        sl = slice(off, min(off + batch, n))
+        kh, kl = codec.split_u64(unique_kmers[sl])
+        rh, rl = codec.split_u64(rc[sl])
+        out = neighbor_sum(*(words(a, rows.device) for a in (kh, kl, rh, rl)),
+                           rows, k=k, e=edit_distance, n_buckets=n_buckets)
+        sums[sl] = to_numpy_u32(out)
+    return sums
+
+
+def _host_filter(unique_kmers, table, occr, hash_size, k, edit_distance):
+    """Correct-math host filter (numpy, batched over the edit table)
+    against the pass-1 linear-probe table."""
+    rc = _rc_np(unique_kmers, k)
+    total = np.zeros(len(unique_kmers), dtype=np.uint64)
+
+    def add(f, r):
+        canon = np.minimum(f, r)
+        slots, found = qhash.probe_lookup_np(table, canon, hash_size)
+        total[:] = total + np.where(found, occr[slots].astype(np.uint64),
+                                    np.uint64(0))
+
+    def mutate(f, r, pos, delta):
+        base = (f >> np.uint64(2 * pos)) & np.uint64(3)
+        nb = (base + np.uint64(delta)) & np.uint64(3)
+        x = base ^ nb
+        f = f ^ (x << np.uint64(2 * pos))
+        r = r ^ (x << np.uint64(2 * (k - 1 - pos)))
+        return f, r
+
+    for p1 in range(k):
+        for v1 in (1, 2, 3):
+            f1, r1 = mutate(unique_kmers, rc, p1, v1)
+            add(f1, r1)
+            if edit_distance >= 2:
+                for p2 in range(p1):
+                    for v2 in (1, 2, 3):
+                        f2, r2 = mutate(f1, r1, p2, v2)
+                        add(f2, r2)
+    return total

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither jax nor the JAX package
-(a flat and an anchored count on the CPU, in a fresh interpreter), and
-its entry points run on the card unless asked for the CPU — on a box
-without a card they raise instead of falling back."""
+(a flat and an anchored count, a search whose slow queries take the
+packed-table path and an anchored index whose bitmap the Hamming join
+builds, on the CPU, in a fresh interpreter), and its entry points run on
+the card unless asked for the CPU — on a box without a card they raise
+instead of falling back."""
 
 import os
 import subprocess
@@ -41,6 +43,30 @@ stats = run_count("g.fa.qm", "r.fa", "anch", batch_bases=1 << 13,
 assert stats["mode"] == "anchored", stats
 with open("flat.bin", "rb") as a, open("anch.bin", "rb") as b:
     assert a.read() == b.read()
+
+from quickmer2_tpu_torch.config import SearchConfig
+from quickmer2_tpu_torch.ops import anchored
+from quickmer2_tpu_torch.pipelines import search
+# 100 windows ending in one motif overflow a join bucket: slow queries
+crowd = np.concatenate([np.concatenate([rng.integers(0, 4, 20), g[:10]])
+                        for _ in range(100)]).astype(np.uint8)
+with open("s.fa", "w") as f:
+    f.write(">s1\n" + lut[np.concatenate([g, crowd])].tobytes().decode()
+            + "\n")
+st = {}
+search.PACKED_SLOW_PATH_DEVICES = ("cuda", "cpu")
+search.run_search("s.fa", SearchConfig(kmer_size=15, hash_size=1 << 14,
+                                       edit_distance=2, window_size=50),
+                  verbose=False, stats=st, device="cpu")
+assert st["filter"]["n_slow"] > 0 and st["phases"]["slow_table_s"] > 0, st
+pos = np.arange(len(kmers), dtype=np.uint32) + 24
+tiles = []
+for join_on, device_build in ((("cpu",), True), ((), False)):
+    anchored.JOIN_BITS_DEVICES = join_on   # the join, then the host builder
+    tiles.append(anchored.AnchoredIndex.build(
+        g, pos, kmers, 25, device_build=device_build,
+        device="cpu").genome_tiles.numpy())
+assert (tiles[0] == tiles[1]).all()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "quickmer2_tpu"
              or m.startswith("quickmer2_tpu."))
@@ -120,7 +146,6 @@ def test_cli_default_device_refuses_cpu_fallback(tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ["search", "--quirk-editdist", "g.fa"],
     ["search", "--emit-devices", "2", "g.fa"],
     ["count", "--data-devices", "2", "g.fa", "r.fq", "o"],
     ["count", "--engine", "packed", "g.fa", "r.fq", "o"],
@@ -134,3 +159,26 @@ def test_cli_rejects_unported(args, capsys):
                      else []))
     assert exc.value.code != 0
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_search_quirk_editdist_matches_jax(tmp_path):
+    """`search --quirk-editdist` runs the quirk-compat filter and writes
+    the JAX package's .qm and .bed."""
+    from quickmer2_tpu.cli import main as jax_main
+    from quickmer2_tpu_torch.cli import main
+    from tests import helpers
+    rng = np.random.default_rng(3)
+    seq = helpers.random_genome(rng, 1500)
+    noisy = "".join("ACGT"[rng.integers(0, 4)] if rng.random() < 0.03 else c
+                    for c in seq)
+    fa = str(tmp_path / "g.fa")
+    helpers.write_fasta(fa, {"c1": seq + noisy})
+    args = ["search", "-k", "30", "-s", "16K", "-d", "2", "-w", "50",
+            "--quirk-editdist"]
+    jax_main(args + ["--out-prefix", str(tmp_path / "jax"), fa])
+    main(args + ["--out-prefix", str(tmp_path / "port"), "--device", "cpu",
+                 fa])
+    for ext in (".qm", ".bed"):
+        with open(str(tmp_path / "jax") + ext, "rb") as a, \
+                open(str(tmp_path / "port") + ext, "rb") as b:
+            assert a.read() == b.read(), ext
