@@ -22,7 +22,10 @@ Phases:
                 words without a live query. K6 (per-neighbor sum) on the
                 search's own slow set (timed), against the host slow path
                 on 20,000 of those queries (timed), at k = 15 and 32 on a
-                small dictionary (e = 1, 2); the hamming filter (K1, K6
+                small dictionary (e = 1, 2), each with the key filter's
+                pass rate and no hit dropped; K6 on one probe-filter
+                batch of 2^20 queries (timed), the first 2^18 against the
+                plain version; the hamming filter (K1, K6
                 as its slow path) and the probe filter (K6 over every
                 query) on the search's unique set, timed, their sums
                 equal. The anchored path's kernels
@@ -54,7 +57,8 @@ Phases:
                 count --mode anchored (its .qai built on the card) → est
                 on the same reads. The launch counters are reset just
                 before each path and read just after; each path's kernels
-                must have launched (K1 and K6 in the search); the
+                must have launched (K1, the key filter and K6 in the
+                search); the
                 anchored .bin must equal the flat .bin byte for byte;
                 CN is checked on the baseline windows
                 (2 ± 0.1) and on a segment with 3x extra read depth
@@ -500,47 +504,80 @@ def slow_queries(uniq, occ, k, dev):
     return queries[plan.slow]
 
 
-def compare_neighbor_sum(queries, rows, n_buckets, k, e, label, dev,
-                         trace=None):
-    """K6 against its plain version on one query set; returns (max
-    |kernel - plain|, the kernel's arguments, its sums)."""
+def compare_neighbor_sum(queries, table, k, e, label, dev, trace=None,
+                         plain_queries=None):
+    """K6 against its plain version on one query set (the plain version
+    on its first plain_queries only, where given); table: (rows,
+    n_buckets, key filter) from _occ_table. Returns (max |kernel -
+    plain|, the kernel's arguments, its sums). With a `trace`, the
+    filter must drop no hit."""
     from quickmer2_tpu_torch.device import words
     from quickmer2_tpu_torch.kernels.neighbor_sum import (
         neighbor_sum, neighbor_sum_plain)
     from quickmer2_tpu_torch.ops import codec
     from quickmer2_tpu_torch.ops.hamming_join import _rc_np
+    rows, n_buckets, filt = table
     halves = codec.split_u64(queries) + codec.split_u64(_rc_np(queries, k))
-    args = [words(a, dev) for a in halves] + [rows]
+    args = [words(a, dev) for a in halves] + [rows, filt]
     kw = dict(k=k, e=e, n_buckets=n_buckets)
+    n_plain = plain_queries or len(queries)
     out_k = neighbor_sum(*args, **kw)
-    out_p = neighbor_sum_plain(*args, slab_pairs=1 << 24, trace=trace, **kw)
+    out_p = neighbor_sum_plain(*(a[:n_plain] for a in args[:4]), rows, filt,
+                               slab_pairs=1 << 24, trace=trace, **kw)
     torch.cuda.synchronize()
-    err = max_abs_err(out_k, out_p)
-    log(f"  neighbor_sum {label} k={k} e={e}: {len(queries)} queries, "
-        f"{n_buckets} buckets, {int((out_k != 0).sum())} nonzero sums, "
+    err = max_abs_err(out_k[:n_plain], out_p)
+    log(f"  neighbor_sum {label} k={k} e={e}: {len(queries)} queries "
+        f"({n_plain} against the plain version), {n_buckets} buckets, "
+        f"{int((out_k != 0).sum())} nonzero sums, "
         f"max |kernel - plain| = {err}")
     if err != 0:
         raise AssertionError(f"neighbor_sum {label} k={k} e={e} disagrees "
                              "with its plain version")
+    if trace is not None:
+        log(f"  key filter ({filt.numel()} words): {trace['passed']} of "
+            f"{trace['probes']} probes pass "
+            f"({trace['passed'] / trace['probes']:.4%}), hits it drops: "
+            f"{trace['missed']}, {trace['rows_touched']} table rows named "
+            f"by passing probes, {trace['filter_sectors']} filter sectors "
+            f"named")
+        if trace["missed"] != 0:
+            raise AssertionError("the key filter dropped a hit")
     return err, (args, kw), out_k
 
 
+# least integer operations of K6 a probe: two substituted bases (4), put
+# into both strands' codes (12), the canonical min of two 64-bit codes
+# (5), the chosen strand's hash by two deltas (8), the filter word's
+# index and load (4), its three bit positions (7), the test (2); and a
+# probe that passes the filter: two bucket indices, four entry compares
+# (16). Without the filter every probe reads the table and hashes 8
+# bytes: ~70 ops a probe, the count printed beside the bound.
+K6_OPS, K6_PASS_OPS, K6_OPS_UNFILTERED = 42, 16, 70
+PROBE_BATCH = 1 << 20          # _device_filter's queries a launch
+PROBE_PLAIN = 1 << 18          # of those, held against the plain version
+
+
 def check_neighbor_sum(uniq, occ, k, dev):
-    """K6 on the search's own slow set against its plain version (timed)
-    and, on HOST_SLOW_QUERIES of those queries, against the host slow
-    path (timed). Returns the kernel-table row and the packed table."""
+    """K6 on the search's own slow set against its plain version (timed;
+    the key filter's pass rate and dropped hits from the plain version's
+    trace) and, on HOST_SLOW_QUERIES of those queries, against the host
+    slow path (timed); then on one probe-filter batch of PROBE_BATCH
+    queries (timed), against the plain version on its first
+    PROBE_PLAIN. Returns the kernel-table row and the table (rows,
+    n_buckets, key filter)."""
     from quickmer2_tpu_torch.device import to_numpy_u32
     from quickmer2_tpu_torch.kernels.neighbor_sum import (
         neighbor_sum, neighbor_sum_plain)
     from quickmer2_tpu_torch.ops.hamming_join import _slow_sums_sorted_np
     from quickmer2_tpu_torch.pipelines.search import _occ_table
     t = time.time()
-    rows, n_buckets = _occ_table(uniq, occ, dev)
+    table = _occ_table(uniq, occ, dev)
+    torch.cuda.synchronize()
     table_s = time.time() - t
     slow = slow_queries(uniq, occ, k, dev)
     trace = {}
     err, (args, kw), out_k = compare_neighbor_sum(
-        slow, rows, n_buckets, k, 2, "slow set", dev, trace)
+        slow, table, k, 2, "slow set", dev, trace)
     ms, queued_ms = kernel_ms(lambda: neighbor_sum(*args, **kw), 10)
     plain_ms = cuda_ms(lambda: neighbor_sum_plain(*args, slab_pairs=1 << 24,
                                                   **kw), 1, warm=0)
@@ -553,36 +590,54 @@ def check_neighbor_sum(uniq, occ, k, dev):
     host_all_s = host_s * len(slow) / n_host
     log(f"  host slow path: {n_host} of the {len(slow)} slow queries in "
         f"{host_s:.2f} s, equal to the kernel; the whole slow set at that "
-        f"rate {host_all_s:.1f} s, against the packed table's build "
-        f"{table_s:.2f} s + K6 {ms:.4f} ms")
-    # least traffic: each 32-B table row that some probe names, read
-    # once; the queries' four words in, one sum out, the edit words.
-    # Least work, ~70 int ops a neighbor: two edits on the 64-bit pair
-    # (~24), the canonical min (~4), DJB over 8 bytes (~24), two bucket
-    # indices (~6), four entry compares and the add (~12)
-    n_bytes = (32 * trace["rows_touched"] + 20 * len(slow)
-               + 4 * (trace["probes"] // max(len(slow), 1)))
-    b_ms, b_by = bound_ms(n_bytes, 70 * trace["probes"])
+        f"rate {host_all_s:.1f} s, against the packed table's and its "
+        f"filter's build {table_s:.2f} s + K6 {ms:.4f} ms")
+    # least traffic: each 32-B table row that a passing probe names and
+    # each 32-B filter sector that a probe names, read once; the
+    # queries' four words in, one sum out; the edit words
+    m = trace["probes"] // max(len(slow), 1)
+    n_bytes = (32 * trace["rows_touched"] + 32 * trace["filter_sectors"]
+               + 20 * len(slow) + 4 * m)
+    n_ops = K6_OPS * trace["probes"] + K6_PASS_OPS * trace["passed"]
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    old_ms, old_by = bound_ms(0, K6_OPS_UNFILTERED * trace["probes"])
     log(f"  neighbor_sum time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{n_bytes / 1e6:.1f} MB, {trace['rows_touched']} of {n_buckets} "
-        f"rows named, {trace['probes']} probes, "
-        f"{70 * trace['probes'] / 1e9:.1f} G ops)")
+        f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.1f} G ops at {K6_OPS} a "
+        f"probe + {K6_PASS_OPS} a passing probe; unfiltered count "
+        f"{K6_OPS_UNFILTERED} a probe: {old_ms:.4f} ms, {old_by})")
+
+    queries = uniq[occ == 1][:PROBE_BATCH]
+    ptrace = {}
+    _, (pargs, pkw), _ = compare_neighbor_sum(
+        queries, table, k, 2, "probe-filter batch", dev, ptrace,
+        plain_queries=PROBE_PLAIN)
+    p_ms, p_queued_ms = kernel_ms(lambda: neighbor_sum(*pargs, **pkw), 10)
+    log(f"  neighbor_sum probe-filter batch: {len(queries)} queries in "
+        f"{p_ms:.4f} ms (queued {p_queued_ms:.4f} ms), "
+        f"{len(queries) * m / p_queued_ms / 1e6:.2f} G probes/s; slow set "
+        f"{len(slow) * m / queued_ms / 1e6:.2f} G probes/s")
     row = {"name": "neighbor_sum", "route": "cuda",
            "source": "quickmer2_tpu_torch/csrc/neighbor_sum.cu",
            "replaces": "quickmer2_tpu/ops/editdist.py:152",
            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
            "plain_ms": plain_ms, "slow_queries": len(slow),
+           "filter_pass": trace["passed"] / trace["probes"],
+           "filter_missed": trace["missed"],
+           "probe_batch_queries": len(queries), "probe_batch_ms": p_ms,
+           "probe_batch_queued_ms": p_queued_ms,
+           "probe_batch_filter_pass": ptrace["passed"] / ptrace["probes"],
            "host_ms_per_query": host_s / n_host * 1e3,
            "table_s": table_s,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    return row, (rows, n_buckets)
+    return row, table
 
 
 def check_neighbor_sum_small(k, dev):
     """K6 at k on a random genome with planted one- and two-substitution
-    copies, its distinct k-mers in a packed table, e = 1 and 2. 1 Mb, but
-    32 kb at k < 17 (see check_neighbor_bits_small)."""
+    copies, its distinct k-mers in a packed table with its key filter,
+    e = 1 and 2. 1 Mb, but 32 kb at k < 17 (see
+    check_neighbor_bits_small)."""
     from quickmer2_tpu_torch.ops import codec
     from quickmer2_tpu_torch.pipelines.search import _occ_table
     rng = np.random.default_rng(100 + k)
@@ -595,10 +650,9 @@ def check_neighbor_sum_small(k, dev):
     canon, valid = codec.sliding_kmers_np(g, k)
     uniq, cnt = np.unique(canon[valid & (canon != 0)], return_counts=True)
     occ = np.minimum(cnt, 255).astype(np.uint8)
-    rows, n_buckets = _occ_table(uniq, occ, dev)
+    table = _occ_table(uniq, occ, dev)
     for e in (1, 2):
-        compare_neighbor_sum(uniq[:50_000], rows, n_buckets, k, e, "small",
-                             dev)
+        compare_neighbor_sum(uniq[:50_000], table, k, e, "small", dev, {})
 
 
 def check_filters(uniq, occ, table, k, dev):
@@ -612,11 +666,12 @@ def check_filters(uniq, occ, table, k, dev):
     t = time.time()
     sums_h = hamming_neighbor_sums(queries, uniq, occ, k, 2,
                                    packed_rows=table[0],
-                                   n_buckets_packed=table[1], device=dev,
+                                   n_buckets_packed=table[1],
+                                   packed_filter=table[2], device=dev,
                                    stats=st)
     hamming_s = time.time() - t
     t = time.time()
-    sums_p = _device_filter(queries, table, k, 2, 1 << 20)
+    sums_p = _device_filter(queries, table, k, 2, PROBE_BATCH)
     probe_s = time.time() - t
     log(f"  filters on {len(queries)} queries: hamming {hamming_s:.2f} s "
         f"(join {st['join_s']:.2f} s, slow path {st['slow_s']:.2f} s for "
@@ -1432,9 +1487,10 @@ def main() -> int:
         log(f"phase search: {time.time() - t:.1f} s {json.dumps(sstats)}")
         srch = read_counts()
         log(f"launches in the search: {srch}")
-        if not (srch["hamming_join"] > 0 and srch["neighbor_sum"] > 0):
+        if not all(srch[k] > 0 for k in ("hamming_join", "neighbor_sum",
+                                          "key_filter")):
             raise AssertionError(f"a kernel never launched: {srch}")
-        launches = {"neighbor_sum": srch["neighbor_sum"]}
+        launches = {k: srch[k] for k in ("neighbor_sum", "key_filter")}
         if not check_only:
             t = time.time()
             cstats = run_count(world["fa"] + ".qm", fq,
@@ -1500,7 +1556,9 @@ def main() -> int:
                     raise AssertionError("anchored and flat .bin files differ")
             log("anchored .bin identical to flat .bin")
             cn_check(world, cn_bed, "anchored")
-            launches.update({k: anch[k] for k in need})
+            # the key filter launches in both paths: once for the search's
+            # table, once for the anchored index's
+            launches.update({k: anch[k] + launches.get(k, 0) for k in need})
 
             # -- 4. the card against the port's own CPU path --------------
             t = time.time()

@@ -54,12 +54,6 @@ constexpr int kWin = 256;       // windows per block (blockDim.x)
 constexpr int kMaxK = 32;
 constexpr unsigned kSep = 4;
 
-// 33^(7 - i): the weight of byte i of the code in DJB mod 2^32.
-__constant__ unsigned kDjbWeight[8] = {
-    33u * 33u * 33u * 33u * 33u * 33u * 33u, 33u * 33u * 33u * 33u * 33u * 33u,
-    33u * 33u * 33u * 33u * 33u, 33u * 33u * 33u * 33u, 33u * 33u * 33u,
-    33u * 33u, 33u, 1u};
-
 __global__ void key_filter_kernel(const uint4* __restrict__ entries,
                                   unsigned* __restrict__ filt,
                                   long long n_entries, int wbits) {
@@ -105,8 +99,6 @@ neighbor_bits_kernel(const uint8_t* __restrict__ codes,
     for (int i = 0; i < k; ++i) {
       const unsigned b = tile[x + i];
       const int sh_f = 2 * (k - 1 - i), sh_r = 2 * i;
-      const unsigned wf = kDjbWeight[sh_f >> 3] << (sh_f & 7);
-      const unsigned wr = kDjbWeight[sh_r >> 3] << (sh_r & 7);
       const unsigned long long f_clr = fwd & ~(3ull << sh_f);
       const unsigned long long r_clr = rc & ~(3ull << sh_r);
       unsigned long long code[3];
@@ -119,7 +111,8 @@ neighbor_bits_kernel(const uint8_t* __restrict__ codes,
             r_clr | ((unsigned long long)(nb ^ 2u) << sh_r);
         const bool use_f = mf <= mr;
         code[d] = use_f ? mf : mr;
-        h[d] = use_f ? hf + (nb - b) * wf : hr + ((nb ^ 2u) - (b ^ 2u)) * wr;
+        h[d] = use_f ? hf + qm2t::djb_delta(sh_f, b, nb)
+                     : hr + qm2t::djb_delta(sh_r, b ^ 2u, nb ^ 2u);
         word[d] = __ldg(filt + qm2t::filter_word(h[d], wbits));
       }
       unsigned hit = 0;

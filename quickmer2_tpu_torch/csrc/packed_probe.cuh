@@ -1,5 +1,6 @@
-// Two-choice packed-table probe and the table's key filter, shared by
-// csrc/anchored.cu (K3) and csrc/neighbor_bits.cu (K4).
+// Two-choice packed-table probe, the table's key filter and DJB by deltas,
+// shared by csrc/anchored.cu (K3), csrc/neighbor_bits.cu (K4) and
+// csrc/neighbor_sum.cu (K6).
 //
 // Replaces quickmer2_tpu/ops/packed_table.py::probe_packed (with
 // hash.djb_pair and packed_table.bucket_hashes_jnp), an XLA device function
@@ -16,6 +17,11 @@
 // keys: a key sets three bits of one word, the word chosen by the top bits
 // of DJB * 2654435761 and the bits by the top 15 bits of DJB * kFilterMult.
 // It has no false negatives, so a probe that fails the filter is a miss.
+//
+// DJB mod 2^32 is linear in the code's bytes: byte i (byte 0 the low byte
+// of lo) weighs 33^(7 - i). A substitution rewrites one 2-bit field, which
+// lies inside one byte, so the hash of a neighbor is the hash of the code
+// plus djb_delta of each substituted field.
 
 #pragma once
 
@@ -26,6 +32,19 @@ namespace qm2t {
 
 constexpr unsigned kH2Mult = 2654435761u;
 constexpr unsigned kFilterMult = 0x85EBCA77u;
+
+// 33^(7 - i): the weight of byte i of the code in DJB mod 2^32.
+__constant__ unsigned kDjbWeight[8] = {
+    33u * 33u * 33u * 33u * 33u * 33u * 33u, 33u * 33u * 33u * 33u * 33u * 33u,
+    33u * 33u * 33u * 33u * 33u, 33u * 33u * 33u * 33u, 33u * 33u * 33u,
+    33u * 33u, 33u, 1u};
+
+// The change of djb_pair when the 2-bit field at bit sh (even) of the
+// 64-bit code goes from old_base to new_base (mod 2^32, so a fall wraps).
+__device__ __forceinline__ unsigned djb_delta(int sh, unsigned old_base,
+                                              unsigned new_base) {
+  return (new_base - old_base) * (kDjbWeight[sh >> 3] << (sh & 7));
+}
 
 // DJB2 mod 2^32 over the 4 bytes of lo, then the 4 bytes of hi.
 __device__ __forceinline__ unsigned djb_pair(unsigned hi, unsigned lo) {

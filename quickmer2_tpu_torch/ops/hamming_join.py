@@ -24,8 +24,9 @@ contributes occ·(6/m) and the total is divided by 6.
 Exactness under bucket overflow: buckets larger than `cpad` are
 truncated, so any query whose OWN part value lands in an overflowed
 bucket (for any part) is routed to the slow path: per-neighbor probes of
-the caller's packed table (kernel K6, kernels.neighbor_sum) or, without
-one, the host `_slow_sums_sorted_np` (enumeration + searchsorted); for
+the caller's packed table behind its key filter (kernel K6,
+kernels.neighbor_sum) or, without one, the host `_slow_sums_sorted_np`
+(enumeration + searchsorted); for
 the remaining fast queries every exact-part join of every relevant pair
 is intact, because the pair's bucket in an exact part IS the query's
 bucket.
@@ -293,6 +294,7 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
                           chunk_q: int = CHUNK_Q,
                           packed_rows: torch.Tensor | None = None,
                           n_buckets_packed: int = 0,
+                          packed_filter: torch.Tensor | None = None,
                           escalate: int = 0,
                           escalate_min: int = 1024,
                           device: str | torch.device = "cuda",
@@ -303,13 +305,15 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
     the JAX package's hamming_neighbor_sums. Chunking and routing are
     _JoinPlan's.
 
-    packed_rows / n_buckets_packed: the packed table over `uniq` with
-    occ in the pos field (word tensor on `device`); with it the slow
-    queries go through K6 in one launch (K6 holds no per-neighbor
-    intermediate, so the JAX package's batch_slow has no counterpart),
-    without it through the host `_slow_sums_sorted_np`. escalate > 0: a
-    slow set larger than escalate_min is joined again at pads of 240
-    (escalate - 1 more times) before what is left takes the slow path.
+    packed_rows / n_buckets_packed / packed_filter: the packed table over
+    `uniq` with occ in the pos field and its key filter
+    (kernels.neighbor_bits.key_filter; word tensors on `device`); with
+    them the slow queries go through K6 in one launch (K6 holds no
+    per-neighbor intermediate, so the JAX package's batch_slow has no
+    counterpart), without them through the host `_slow_sums_sorted_np`.
+    escalate > 0: a slow set larger than escalate_min is joined again
+    at pads of 240 (escalate - 1 more times) before what is left takes
+    the slow path.
 
     stats: optional dict filled with the routing counts (queries in
     total, joined on the device, sent to the slow path; join calls), the
@@ -371,8 +375,8 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
             uk[slow_idx], uniq, occ, k, e, cpad=ESCALATE_PAD,
             cpad_q=ESCALATE_PAD, chunk_w=chunk_w, chunk_q=chunk_q,
             packed_rows=packed_rows, n_buckets_packed=n_buckets_packed,
-            escalate=escalate - 1, escalate_min=escalate_min, device=device,
-            stats=sub)
+            packed_filter=packed_filter, escalate=escalate - 1,
+            escalate_min=escalate_min, device=device, stats=sub)
         if stats is not None:
             stats["escalation"] = sub
             stats["join_s"] += sub["join_s"]
@@ -384,7 +388,8 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
         sq = uk[slow_idx]
         halves = codec.split_u64(sq) + codec.split_u64(_rc_np(sq, k))
         out = neighbor_sum(*(words(a, device) for a in halves), packed_rows,
-                           k=k, e=e, n_buckets=n_buckets_packed)
+                           packed_filter, k=k, e=e,
+                           n_buckets=n_buckets_packed)
         sums[slow_idx] = to_numpy_u32(out)
     elif len(slow_idx):
         # host path: enumerate neighbors vectorized and binary-search the

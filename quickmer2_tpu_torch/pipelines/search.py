@@ -13,10 +13,10 @@ Port of quickmer2_tpu/pipelines/search.py:
                   blocked Hamming join (default; ops.hamming_join, kernel
                   K1 on the card) with its slow queries probed one
                   neighbor at a time in a packed table of every distinct
-                  k-mer (kernel K6) or enumerated on the host; by K6 over
-                  every query ("probe"); on the host against the pass-1
-                  table ("host"); or in quirk-compat mode (SURVEY.md Q2,
-                  host, k = 30).
+                  k-mer behind its key filter (kernel K6) or enumerated
+                  on the host; by K6 over every query ("probe"); on the
+                  host against the pass-1 table ("host"); or in
+                  quirk-compat mode (SURVEY.md Q2, host, k = 30).
   3. emit       — one genome-order pass on the host: membership lookups
                   against the pass-1 table, GC bins (ops.gc), control
                   flags, window rows; dictionary placement by insertion in genome
@@ -39,6 +39,8 @@ from quickmer2_tpu_torch.config import SearchConfig
 from quickmer2_tpu_torch.device import resolve_device, to_numpy_u32, words
 from quickmer2_tpu_torch.dictionary import Dictionary
 from quickmer2_tpu_torch.io import fasta as fasta_io
+from quickmer2_tpu_torch.kernels.neighbor_bits import (
+    filter_words_for, key_filter)
 from quickmer2_tpu_torch.kernels.neighbor_sum import neighbor_sum
 from quickmer2_tpu_torch.ops import codec
 from quickmer2_tpu_torch.ops import hash as qhash
@@ -125,10 +127,11 @@ def _tabulate_streaming(chroms, k: int):
 
 
 # device types on which the hamming filter sends its slow queries to K6,
-# through a packed table of every distinct k-mer; elsewhere they take
-# the host enumeration. On the H100 the table and K6 took 11.6 s against
-# ~98 s of host enumeration for the smoke genome's 338,812 slow queries
-# (PERF.md, section 5). The outputs are the same either way.
+# through a packed table of every distinct k-mer and its key filter;
+# elsewhere they take the host enumeration. On an H100 80GB HBM3 at
+# 700 W the table and K6 took 11.6 s against ~98 s of host enumeration
+# for the smoke genome's 338,812 slow queries (PERF.md, section 5). The
+# outputs are the same either way.
 PACKED_SLOW_PATH_DEVICES = ("cuda",)
 
 
@@ -157,7 +160,8 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
     PACKED_SLOW_PATH_DEVICES (a card), to the host enumeration elsewhere.
     stats: optional dict the run fills with structured per-phase metrics
     (tabulate/filter/emit wall seconds, the filter's split into join_s,
-    slow_table_s and slow_s, k-mer counts).
+    slow_table_s (the packed table and its key filter) and slow_s, k-mer
+    counts).
     device: "cuda" (default; raises without a card) or "cpu" — where the
     edit filter's kernels run."""
     import time
@@ -218,10 +222,10 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
                 ptab = _occ_table(uniq, occr_vals, dev)
                 split["slow_table_s"] = time.time() - ts
             if filter_impl == "hamming":
+                rows, n_buckets, filt = ptab or (None, 0, None)
                 sums = hamming_neighbor_sums(
-                    unique_kmers, uniq, occr_vals, k, e,
-                    packed_rows=None if ptab is None else ptab[0],
-                    n_buckets_packed=0 if ptab is None else ptab[1],
+                    unique_kmers, uniq, occr_vals, k, e, packed_rows=rows,
+                    n_buckets_packed=n_buckets, packed_filter=filt,
                     device=dev, stats=filter_stats)
                 split["join_s"] = filter_stats.pop("join_s")
                 split["slow_s"] = filter_stats.pop("slow_s")
@@ -279,21 +283,27 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
 
 
 def _occ_table(uniq: np.ndarray, occr_vals: np.ndarray, dev):
-    """(rows on dev, n_buckets) of the packed two-choice table over every
-    distinct k-mer, with its occurrence count in pos. A table that cannot
-    be built raises: the search fails rather than taking another path."""
+    """(rows on dev, n_buckets, key filter on dev) of the packed
+    two-choice table over every distinct k-mer, with its occurrence
+    count in pos, and the table's key filter (one launch on a card). A
+    table that cannot be built raises: the search fails rather than
+    taking another path."""
     uhi, ulo = codec.split_u64(uniq)
     ptab = PackedTable.build(uhi, ulo,
                              rank=np.arange(len(uniq), dtype=np.uint32),
                              pos=occr_vals.astype(np.uint32))
-    return words(ptab.rows, dev), ptab.n_buckets
+    rows = words(ptab.rows, dev)
+    filt = key_filter(rows, n_buckets=ptab.n_buckets,
+                      n_words=filter_words_for(len(uniq)))
+    return rows, ptab.n_buckets, filt
 
 
 def _device_filter(unique_kmers, ptab, k, edit_distance, batch: int):
     """Neighbor-occurrence sums of every query by K6 against the packed
-    table over all distinct k-mers (ptab, from _occ_table): two row
-    reads a neighbor, `batch` queries a launch."""
-    rows, n_buckets = ptab
+    table over all distinct k-mers (ptab, from _occ_table): a key-filter
+    word a neighbor, two row reads for those that pass it, `batch`
+    queries a launch."""
+    rows, n_buckets, filt = ptab
     rc = _rc_np(unique_kmers, k)
     n = len(unique_kmers)
     sums = np.empty(n, dtype=np.uint32)
@@ -302,7 +312,8 @@ def _device_filter(unique_kmers, ptab, k, edit_distance, batch: int):
         kh, kl = codec.split_u64(unique_kmers[sl])
         rh, rl = codec.split_u64(rc[sl])
         out = neighbor_sum(*(words(a, rows.device) for a in (kh, kl, rh, rl)),
-                           rows, k=k, e=edit_distance, n_buckets=n_buckets)
+                           rows, filt, k=k, e=edit_distance,
+                           n_buckets=n_buckets)
         sums[sl] = to_numpy_u32(out)
     return sums
 

@@ -1,5 +1,6 @@
 """Port edit-distance neighbor sums against the JAX package: K6's plain
-version against neighbor_occr_sum_packed, the linear-probe sum (2.l) and
+version against neighbor_occr_sum_packed (and, traced, its key filter:
+no hit dropped, few probes passed), the linear-probe sum (2.l) and
 the quirk-compat host sum against theirs, hamming_neighbor_sums with the
 packed slow path (and with escalation) against the JAX one and brute
 force, and run_search in every filter mode writing the JAX package's
@@ -18,6 +19,8 @@ from quickmer2_tpu.ops import hamming_join as jhj
 from quickmer2_tpu.ops import hash as jhash
 from quickmer2_tpu.ops.packed_table import PackedTable as JPackedTable
 from quickmer2_tpu_torch.device import to_numpy_u32, words
+from quickmer2_tpu_torch.kernels.neighbor_bits import (
+    filter_words_for, key_filter)
 from quickmer2_tpu_torch.kernels.neighbor_sum import (
     edit_words, neighbor_sum, neighbor_sum_plain)
 from quickmer2_tpu_torch.ops import editdist as ted
@@ -51,6 +54,17 @@ def _queries(uniq, occ, n=120):
                            np.array([1], np.uint64)])
 
 
+def _filtered_table(uniq, occ):
+    """The port's packed table over uniq with counts in pos, and its key
+    filter: (rows, n_buckets, filter), word tensors on the CPU."""
+    uh, ul = jcodec.split_u64(uniq)
+    tt = PackedTable.build(uh, ul, rank=np.arange(len(uniq), dtype=np.uint32),
+                           pos=occ.astype(np.uint32))
+    rows = words(tt.rows, CPU)
+    return rows, tt.n_buckets, key_filter(
+        rows, n_buckets=tt.n_buckets, n_words=filter_words_for(len(uniq)))
+
+
 def _halves(q, k):
     kh, kl = jcodec.split_u64(q)
     rh, rl = jcodec.split_u64(jhj._rc_np(q, k))
@@ -72,10 +86,9 @@ def test_neighbor_sum_matches_jax_packed(k, e):
         *(jnp.asarray(a) for a in halves), jnp.asarray(jt.rows),
         *(jnp.asarray(a) for a in jed.edit_table(k, e)), k=k,
         n_buckets=jt.n_buckets))
-    tt = PackedTable.build(uh, ul, rank=np.arange(len(uniq), dtype=np.uint32),
-                           pos=occ.astype(np.uint32))
-    args = [words(a, CPU) for a in halves] + [words(tt.rows, CPU)]
-    kw = dict(k=k, e=e, n_buckets=tt.n_buckets)
+    rows, n_buckets, filt = _filtered_table(uniq, occ)
+    args = [words(a, CPU) for a in halves] + [rows, filt]
+    kw = dict(k=k, e=e, n_buckets=n_buckets)
     got = to_numpy_u32(neighbor_sum_plain(*args, slab_pairs=1 << 16, **kw))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(to_numpy_u32(neighbor_sum(*args, **kw)), want)
@@ -87,6 +100,29 @@ def test_neighbor_sum_matches_jax_packed(k, e):
     np.testing.assert_array_equal((ew >> 6) & 3, d1)
     np.testing.assert_array_equal((ew >> 8) & 63, np.maximum(p2, 0))
     np.testing.assert_array_equal((ew >> 14) & 3, d2)
+
+
+@pytest.mark.parametrize("k,e", [(15, 2), (30, 2), (32, 1)])
+def test_neighbor_sum_filter_trace(k, e):
+    """K6's plain version traced with the table's key filter on singleton
+    queries: the filter drops no hit (`missed` 0), passes every hit and
+    few other probes, and the traced run gives the same sums."""
+    uniq, occ = _world(600 + k, k)
+    q = uniq[occ == 1][:150]
+    rows, n_buckets, filt = _filtered_table(uniq, occ)
+    args = [words(a, CPU) for a in _halves(q, k)] + [rows, filt]
+    kw = dict(k=k, e=e, n_buckets=n_buckets)
+    trace = {}
+    got = to_numpy_u32(neighbor_sum_plain(*args, trace=trace, **kw))
+    np.testing.assert_array_equal(
+        got, to_numpy_u32(neighbor_sum_plain(*args, **kw)))
+    m = len(ted.edit_table(k, e)[0])
+    assert trace["probes"] == len(q) * m
+    assert trace["missed"] == 0
+    hits = int((got > 0).sum())
+    assert 0 < hits <= trace["passed"] < 0.1 * trace["probes"]
+    assert 0 < trace["rows_touched"] <= 2 * trace["passed"]
+    assert 0 < trace["filter_sectors"] <= filt.shape[0] // 8
 
 
 @pytest.mark.parametrize("k,e", [(15, 2), (31, 1), (32, 2)])
@@ -168,11 +204,12 @@ def test_neighbor_sums_packed_slow_path(k, e, cpad, escalate):
                                      n_buckets_packed=jt.n_buckets,
                                      batch_slow=128, escalate=escalate,
                                      escalate_min=1)
-    tt = PackedTable.build(uh, ul, **kw)
+    rows, n_buckets, filt = _filtered_table(uniq, occ)
     stats = {}
     got = thj.hamming_neighbor_sums(targets, uniq, occ, k, e, cpad=cpad,
-                                    packed_rows=words(tt.rows, CPU),
-                                    n_buckets_packed=tt.n_buckets,
+                                    packed_rows=rows,
+                                    n_buckets_packed=n_buckets,
+                                    packed_filter=filt,
                                     escalate=escalate, escalate_min=1,
                                     device="cpu", stats=stats)
     np.testing.assert_array_equal(got, want)
