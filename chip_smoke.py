@@ -50,10 +50,23 @@ Phases:
                 short batch of 1001 reads (R * W no multiple of 32). Then
                 the smoke's .qai built with K4 and with the join (its
                 own path: K5 must launch), identical bytes, both times;
+                The flat engines' kernels need the search's .qm and
+                run after the flat path (`check_flat_engines`): K7
+                (linear probe) on the smoke's .qm, K8 (packed count) on
+                its PackedTable (host build timed) and K9 (the sort-join
+                codec), each timed on one 2^24-base batch of the reads;
+                untimed at k = 15, 31, 32 on batches no multiple of 64
+                bases and on a 4096-slot table whose scans wrap past
+                slot 0; then the sort-join crossover: one batch through
+                K2 and through K9 + ops.sortjoin at n = 2^14 .. 2^20
+                keys, the join's depth checked against K8's;
   3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
                 bed) → count (flat, mono) → est on a 12 Mb realistic
                 genome (tools/realistic_genome.py, S. cerevisiae scale)
-                with ~20x simulated 150 bp reads; then the anchored path:
+                with ~20x simulated 150 bp reads; then count with each
+                other flat engine (linear, packed, sortjoin, auto), each
+                .bin equal to the mono one and each layout's kernel
+                launched on its own path; then the anchored path:
                 count --mode anchored (its .qai built on the card) → est
                 on the same reads. The launch counters are reset just
                 before each path and read just after; each path's kernels
@@ -65,7 +78,13 @@ Phases:
                 (6 ± 0.5), for both paths;
   4. cpu      — a 50 k-read subset counted with device="cuda" and with
                 device="cpu" gives byte-identical .bin files, in flat and
-                in anchored mode;
+                in anchored mode; then that subset's flat (mono, linear)
+                and anchored counts interrupted by a reader that raises
+                after four checkpoints and resumed from them, each .bin
+                equal to the uninterrupted one; a two-sample cohort (the
+                full reads and the subset) in both modes, its .bin, .txt
+                and .CN.bed equal to the single-sample runs'; and
+                entry() once on the card, equal to the CPU;
   5. card     — name and power limit from nvidia-smi.
 `--check-only` stops after the kernel checks (it still runs the search,
 whose dictionary the anchored checks need). Prints the kernel table as
@@ -179,7 +198,11 @@ def ptxas_of(nvcc_log: str, match: str) -> dict:
 # the kernels whose rows carry their ptxas report: (source, name match)
 PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernelILb0"),
               "join_bits": ("hamming_join", "hamming_join_kernelILb1"),
-              "neighbor_sum": ("neighbor_sum", "neighbor_sum_kernel")}
+              "neighbor_sum": ("neighbor_sum", "neighbor_sum_kernel"),
+              "count_mono": ("count_mono", "count_mono_"),
+              "count_linear": ("count_flat", "count_linear_kernel"),
+              "count_packed": ("count_flat", "count_packed_kernel"),
+              "kmerize": ("count_flat", "kmerize_kernel")}
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1342,6 +1365,498 @@ def check_anchored_kernels(fa, g, reads, dev):
     return rows
 
 
+# -- phase 2, the flat engines: K7, K8, K9 and the sort-join crossover -----
+
+def flat_codes(reads, n_bases):
+    """The first n_bases codes of the flat count's stream of `reads`
+    (each read followed by a separator)."""
+    from quickmer2_tpu_torch.ops import codec
+    sep = np.full((len(reads), 1), codec.SEP, np.uint8)
+    stream = np.concatenate([reads, sep], 1).reshape(-1)
+    if len(stream) < n_bases:
+        raise AssertionError(f"{len(stream)} codes, {n_bases} wanted")
+    return stream[:n_bases]
+
+
+def flat_batch(codes, dev):
+    """codes → the 2-bit batch (pk, bits) on the card, and its bytes."""
+    from quickmer2_tpu_torch.ops import rowpack
+    pk, bits = rowpack.pack_rows(codes[None, :])
+    return (torch.from_numpy(pk[0]).to(dev), torch.from_numpy(bits[0]).to(dev),
+            pk.nbytes + bits.nbytes)
+
+
+def batch_windows(pk, bits, k, n_bases):
+    """(chi, clo) of the batch's valid windows, by the plain codec."""
+    from quickmer2_tpu_torch.ops import codec, rowpack
+    codes = rowpack.unpack_rows(pk[None], bits[None], read_len=n_bases)[0]
+    chi, clo, ok = codec.sliding_kmers(codes, k)
+    return chi[ok], clo[ok]
+
+
+def hit_sectors(depth) -> int:
+    """32-B sectors of a rank-space depth vector with a hit, the trash
+    lane's included."""
+    return int(torch.unique(torch.nonzero(depth[:-1]).flatten() // 8)
+               .numel()) + 1
+
+
+def linear_traffic(chi, clo, table, H):
+    """What K7 must read for these windows: distinct table sectors over
+    every probe step (8-B entries, 4 a sector) and distinct rank sectors
+    of the slots where the scans stop; and the probe steps."""
+    from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.ops.hash import djb_pair, probe_lookup, slot_at
+    idx0 = djb_pair(chi, clo) & (H - 1)
+    idx, _ = probe_lookup(u32(table[:, 0]), u32(table[:, 1]), chi, clo, H)
+    steps = (idx - idx0).abs() + 1
+    first = torch.cumsum(steps, 0) - steps
+    within = (torch.arange(int(steps.sum()), device=chi.device)
+              - torch.repeat_interleave(first, steps))
+    step = torch.where((idx0 & (H >> 1)) != 0, -1, 1)
+    slots = slot_at(torch.repeat_interleave(idx0, steps)
+                    + within * torch.repeat_interleave(step, steps), H)
+    return (int(torch.unique(slots // 4).numel()),
+            int(torch.unique(slot_at(idx, H) // 8).numel()),
+            int(steps.sum()))
+
+
+def check_count_linear(dic, codes, dev, timed, label):
+    """K7 on the .qm table of `dic` and one batch; whole depth vectors
+    (trash lane included) exactly equal. Returns a kernel-table row when
+    timed."""
+    from quickmer2_tpu_torch.kernels.count_flat import (
+        count_linear_step, count_linear_step_plain, linear_table)
+    table, rank = linear_table(dic, dev)
+    pk, bits, nbytes = flat_batch(codes, dev)
+    kw = dict(k=dic.kmer_size, hash_size=dic.hash_size, n_bases=len(codes))
+    n = dic.n_kmers
+
+    def zero():
+        return torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    d_kernel, d_plain = zero(), zero()
+    count_linear_step(pk, bits, table, rank, d_kernel, **kw)
+    count_linear_step_plain(pk, bits, table, rank, d_plain, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(d_kernel, d_plain)
+    log(f"  count_linear {label} k={dic.kmer_size}: {n} keys, "
+        f"{dic.hash_size} slots, batch {len(codes)} bases: "
+        f"{int(d_kernel[:-1].sum())} hits, {int(d_kernel[-1])} trash, "
+        f"max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError(f"count_linear {label} disagrees with its "
+                             "plain version")
+    if not timed:
+        return None
+    ms, queued_ms = kernel_ms(
+        lambda: count_linear_step(pk, bits, table, rank, d_kernel, **kw), 10)
+    plain_ms = cuda_ms(
+        lambda: count_linear_step_plain(pk, bits, table, rank, d_plain, **kw),
+        1)
+    chi, clo = batch_windows(pk, bits, dic.kmer_size, len(codes))
+    t_sec, r_sec, probes = linear_traffic(chi, clo, table, dic.hash_size)
+    d_sec = hit_sectors(d_plain)
+    n_win = len(codes) - dic.kmer_size + 1
+    n_bytes = nbytes + 32 * (t_sec + r_sec) + 64 * d_sec
+    # ~36 int ops a window (codec, canonical min, DJB), 8 a probe step
+    b_ms, b_by = bound_ms(n_bytes, 36 * n_win + 8 * probes)
+    log(f"  count_linear time {ms:.4f} ms (queued {queued_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB; {probes} probe steps over {len(chi)} "
+        f"valid windows, {probes / max(len(chi), 1):.4f} a window; "
+        f"{t_sec} table, {r_sec} rank, {d_sec} depth sectors)")
+    return {"name": "count_linear", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/count_flat.cu",
+            "replaces": "quickmer2_tpu/pipelines/count.py:40",
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def check_count_packed(table, codes, k, dev, timed, label):
+    """K8 on a PackedTable and one batch; whole depth vectors exactly
+    equal. Returns a kernel-table row when timed."""
+    from quickmer2_tpu_torch.kernels.count_flat import (
+        count_packed_step, count_packed_step_plain)
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    from quickmer2_tpu_torch.ops.packed_table import bucket_hashes_t
+    rows = table.device_rows(dev)
+    pk, bits, nbytes = flat_batch(codes, dev)
+    kw = dict(k=k, n_buckets=table.n_buckets, n_bases=len(codes))
+    n = table.n_kmers
+
+    def zero():
+        return torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    d_kernel, d_plain = zero(), zero()
+    count_packed_step(pk, bits, rows, d_kernel, **kw)
+    count_packed_step_plain(pk, bits, rows, d_plain, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(d_kernel, d_plain)
+    log(f"  count_packed {label} k={k}: {n} keys, {table.n_buckets} buckets, "
+        f"batch {len(codes)} bases: {int(d_kernel[:-1].sum())} hits, "
+        f"{int(d_kernel[-1])} trash, max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError(f"count_packed {label} disagrees with its "
+                             "plain version")
+    if not timed:
+        return None
+    ms, queued_ms = kernel_ms(
+        lambda: count_packed_step(pk, bits, rows, d_kernel, **kw), 10)
+    plain_ms = cuda_ms(
+        lambda: count_packed_step_plain(pk, bits, rows, d_plain, **kw), 2)
+    chi, clo = batch_windows(pk, bits, k, len(codes))
+    nz = (chi | clo) != 0
+    h1, h2 = bucket_hashes_t(djb_pair(chi[nz], clo[nz]), table.n_buckets)
+    rows_touched = int(torch.unique(torch.cat([h1, h2])).numel())
+    d_sec = hit_sectors(d_plain)
+    n_win = len(codes) - k + 1
+    n_bytes = nbytes + 32 * rows_touched + 64 * d_sec
+    # ~48 int ops a window: codec and DJB (36), two buckets, 4 compares
+    b_ms, b_by = bound_ms(n_bytes, 48 * n_win)
+    log(f"  count_packed time {ms:.4f} ms (queued {queued_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB, {rows_touched} rows, {d_sec} depth "
+        f"sectors)")
+    return {"name": "count_packed", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/count_flat.cu",
+            "replaces": "quickmer2_tpu/pipelines/count.py:131",
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def check_kmerize(codes, k, dev, timed, label):
+    """K9 on one batch; (chi, clo, valid) exactly equal."""
+    from quickmer2_tpu_torch.kernels.count_flat import (
+        kmerize_step, kmerize_step_plain)
+    pk, bits, nbytes = flat_batch(codes, dev)
+    kw = dict(k=k, n_bases=len(codes))
+    got = kmerize_step(pk, bits, **kw)
+    want = kmerize_step_plain(pk, bits, **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
+              int((got[2] != want[2]).sum()))
+    log(f"  kmerize {label} k={k}: batch {len(codes)} bases, "
+        f"{int(got[2].sum())} valid windows, max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError(f"kmerize {label} disagrees with its plain "
+                             "version")
+    if not timed:
+        return None
+    ms, queued_ms = kernel_ms(lambda: kmerize_step(pk, bits, **kw), 10)
+    plain_ms = cuda_ms(lambda: kmerize_step_plain(pk, bits, **kw), 2)
+    n_win = len(codes) - k + 1
+    n_bytes = nbytes + 9 * n_win
+    # ~24 int ops a window: the funnel shifts, reversal, canonical min
+    b_ms, b_by = bound_ms(n_bytes, 24 * n_win)
+    log(f"  kmerize time {ms:.4f} ms (queued {queued_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB)")
+    return {"name": "kmerize", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/count_flat.cu",
+            "replaces": "quickmer2_tpu/pipelines/count.py:152",
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+# K7, K8, K9's untimed shapes: (k, keys, batch bases), batches that are
+# no multiple of 64 bases
+FLAT_ENGINE_EDGES = ((15, 400_000, (1 << 21) + 13), (31, 400_000, 3_000_001),
+                     (32, 400_000, (1 << 21) + 45))
+
+
+def check_flat_engines_small(rng, k, n_keys, n_bases, dev):
+    """K7, K8, K9 at k on a random dictionary (a third of the batch's
+    windows among its keys) and a batch with read separators and N
+    bases."""
+    from quickmer2_tpu_torch.dictionary import Dictionary
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.ops.packed_table import PackedTable
+    from quickmer2_tpu_torch.utils import native
+    g = rng.integers(0, 4, n_bases).astype(np.uint8)
+    canon, valid, _ = native.sliding_canon(g, k)
+    hits = canon[valid & (canon != 0) & (rng.random(len(canon)) < 0.3)]
+    top = (1 << (2 * k)) - 1
+    rand = rng.integers(1, 1 << 62, n_keys, dtype=np.int64).astype(np.uint64)
+    keys = np.unique(np.concatenate([hits, rand & np.uint64(top)]))
+    keys = keys[keys != 0]
+    keys = keys[rng.permutation(len(keys))[:n_keys]]
+    dic = Dictionary.from_kmers_in_order(keys, 1 << 21, k)
+    codes = g.copy()
+    codes[READ_LEN::READ_LEN + 1] = codec.SEP
+    codes[rng.random(n_bases) < 0.01] = codec.SEP
+    check_count_linear(dic, codes, dev, False, "edge")
+    check_count_packed(PackedTable.from_dictionary(dic), codes, k, dev, False,
+                       "edge")
+    check_kmerize(codes, k, dev, False, "edge")
+
+
+def check_count_linear_wrap(rng, dev):
+    """K7 on a 4096-slot table, full but for two slots near the top:
+    scans from the upper half run down through slot 0 and wrap to slot
+    H - 1, where a planted key is found; misses run long."""
+    from quickmer2_tpu_torch.dictionary import Dictionary, make_rank
+    from quickmer2_tpu_torch.io import formats
+    from quickmer2_tpu_torch.ops import hash as qhash
+    from quickmer2_tpu_torch.utils import native
+    H, k, empty = 4096, 15, (3000, 3500)
+    g = rng.integers(0, 4, 4 * H).astype(np.uint8)
+    canon, valid, _ = native.sliding_canon(g, k)
+    keys = np.unique(canon[valid & (canon != 0)])
+    keys = keys[rng.permutation(len(keys))]
+    table = np.zeros(H, np.uint64)
+    placed = keys[:H // 4]
+    qhash.probe_insert_np(table, placed, H)
+    table[list(empty)] = 0
+    free = np.setdiff1d(np.flatnonzero(table == 0), empty)
+    table[rng.permutation(free)] = keys[len(placed):len(placed) + len(free)]
+    spare = keys[len(placed) + len(free):]
+    start = qhash.djb_u64_np(spare) & (H - 1)
+    table[H - 1] = spare[(start >= H // 2) & (start < min(empty))][0]
+    slots = np.flatnonzero(table)
+    dic = Dictionary(formats.QmHeader(k, 0, 0, 0, H, int(slots[0])), table,
+                     slots.astype(np.int64), make_rank(H, slots))
+    starts = rng.integers(0, len(g) - READ_LEN, 20_000)
+    reads = g[starts[:, None] + np.arange(READ_LEN)]
+    codes = np.concatenate([flat_codes(reads, 20_000 * (READ_LEN + 1) - 7),
+                            (table[H - 1] >> (2 * np.arange(
+                                k - 1, -1, -1, dtype=np.uint64))
+                             & np.uint64(3)).astype(np.uint8)])
+    check_count_linear(dic, codes, dev, False, "4096 slots, wrapping")
+
+
+SORTJOIN_NS = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
+
+
+def sortjoin_crossover(dict_kmers, codes, k, dev):
+    """One batch through the mono engine (K2) and the sort-join engine
+    (K9 + ops.sortjoin) on dictionaries of the first n keys of the
+    smoke's, n in SORTJOIN_NS: CUDA-event ms of each (back to back), the
+    sort-join depth checked against K8's on a packed table of the same
+    keys. Returns {n: (mono ms, sortjoin ms)} and the largest n at which
+    sort-join was faster (0 if none)."""
+    from quickmer2_tpu_torch.device import words
+    from quickmer2_tpu_torch.kernels.count_flat import (
+        count_packed_step, kmerize_step)
+    from quickmer2_tpu_torch.kernels.count_mono import count_mono_step
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.ops.monotable import MonoTable
+    from quickmer2_tpu_torch.ops.packed_table import PackedTable
+    from quickmer2_tpu_torch.ops.sortjoin import SortJoinEngine
+    pk, bits, _ = flat_batch(codes, dev)
+    n_bases = len(codes)
+    out, best = {}, 0
+    for n in SORTJOIN_NS:
+        keys = dict_kmers[:n]
+        hi, lo = codec.split_u64(keys)
+        mono = MonoTable.build(hi, lo)
+        rows = words(mono.rows, dev)
+        depth = torch.zeros(mono.n_slots + 1, dtype=torch.int32, device=dev)
+        engine = SortJoinEngine(keys, dev)
+        engine.count_codes(*kmerize_step(pk, bits, k=k, n_bases=n_bases))
+        packed = PackedTable.build(hi, lo, np.arange(n, dtype=np.uint32))
+        ref = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        count_packed_step(pk, bits, packed.device_rows(dev), ref, k=k,
+                          n_buckets=packed.n_buckets, n_bases=n_bases)
+        got = engine.finish()
+        if not np.array_equal(got, ref[:-1].cpu().numpy().view(np.uint32)):
+            raise AssertionError(f"sort-join at n = {n} disagrees with K8")
+        mono_ms = cuda_ms(lambda: count_mono_step(
+            pk, bits, rows, depth, k=k, n_buckets=mono.n_buckets,
+            n_bases=n_bases), 5)
+        sj_ms = cuda_ms(lambda: engine.count_codes(
+            *kmerize_step(pk, bits, k=k, n_bases=n_bases)), 5)
+        out[n] = (round(mono_ms, 4), round(sj_ms, 4))
+        if sj_ms < mono_ms:
+            best = n
+        log(f"  sort-join crossover n = {n}: mono (K2) {mono_ms:.4f} ms, "
+            f"sort-join (K9 + torch) {sj_ms:.4f} ms a {n_bases}-base batch; "
+            f"sort-join depth equal to K8's ({int(got.sum())} hits)")
+        del rows, depth, engine, ref
+    return out, best
+
+
+def check_flat_engines(fa, reads, dev):
+    """K7, K8 and K9 against their plain versions: timed at k = 30 on the
+    smoke's own .qm (the linear table), its PackedTable (host build
+    timed) and one 2^24-base batch of the smoke's reads; untimed at k =
+    15, 31, 32 and on a wrapping 4096-slot table; then the sort-join
+    crossover. Returns the timed kernel-table rows."""
+    from quickmer2_tpu_torch.dictionary import Dictionary
+    from quickmer2_tpu_torch.ops.packed_table import PackedTable
+    dic = Dictionary.from_qm(fa + ".qm")
+    codes = flat_codes(reads, 1 << 24)
+    rows = [check_count_linear(dic, codes, dev, True, "smoke")]
+    t = time.time()
+    table = PackedTable.from_dictionary(dic)
+    log(f"  PackedTable.from_dictionary: {dic.n_kmers} keys, "
+        f"{table.n_buckets} buckets, host build {time.time() - t:.2f} s")
+    rows.append(check_count_packed(table, codes, dic.kmer_size, dev, True,
+                                   "smoke"))
+    del table
+    rows.append(check_kmerize(codes, dic.kmer_size, dev, True, "smoke"))
+    for k, n_keys, n_bases in FLAT_ENGINE_EDGES:
+        check_flat_engines_small(np.random.default_rng(k), k, n_keys,
+                                 n_bases, dev)
+    check_count_linear_wrap(np.random.default_rng(4096), dev)
+    cross, best = sortjoin_crossover(dic.kmers_in_order, codes,
+                                     dic.kmer_size, dev)
+    log(f"  sort-join crossover {json.dumps(cross)}: sort-join wins up to "
+        f"n = {best} (0: never)")
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 3, the flat engines, checkpoints, the cohort, entry() ---------
+
+ENGINES = ("linear", "packed", "sortjoin", "auto")
+# the kernel that each flat layout's count launches
+LAYOUT_KERNEL = {"mono": "count_mono", "linear": "count_linear",
+                 "packed": "count_packed", "sortjoin": "kmerize"}
+
+
+def count_engines(fa, fq, n_windows, reset_counts, read_counts):
+    """run_count with each other flat engine on the smoke's reads, each
+    its own path (counts reset just before, read just after): its .bin
+    must equal the mono s.bin, and its layout's kernel must launch.
+    Returns the launches of K7, K8 and K9 on their engines' paths."""
+    from quickmer2_tpu_torch.pipelines.count import run_count
+    with open(os.path.join(WORK, "s.bin"), "rb") as f:
+        want = f.read()
+    launches = {}
+    for engine in ENGINES:
+        out = os.path.join(WORK, f"e_{engine}")
+        reset_counts()
+        t = time.time()
+        st = run_count(fa + ".qm", fq, out, verbose=False, engine=engine,
+                       device="cuda")
+        count_phase(f"count (flat, {engine})", time.time() - t, st,
+                    n_windows)
+        got = read_counts()
+        kernel = LAYOUT_KERNEL[st["layout"]]
+        log(f"launches on the {engine} engine's path: {got}")
+        if got[kernel] == 0:
+            raise AssertionError(f"{kernel} never launched on the {engine} "
+                                 f"engine's path: {got}")
+        if engine != "auto":
+            launches[kernel] = got[kernel]
+        with open(out + ".bin", "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"the {engine} engine's .bin differs "
+                                     "from the mono .bin")
+        log(f"  {engine} (layout {st['layout']}) .bin identical to mono")
+    return launches
+
+
+class Interrupted(Exception):
+    pass
+
+
+class LimitedFile:
+    """A file whose reads raise Interrupted after n_reads: a count that
+    dies mid-stream."""
+
+    def __init__(self, f, n_reads):
+        self._f = f
+        self._left = n_reads
+
+    def read(self, n):
+        if self._left <= 0:
+            raise Interrupted()
+        self._left -= 1
+        return self._f.read(n)
+
+    def seek(self, n):
+        return self._f.seek(n)
+
+    def close(self):
+        return self._f.close()
+
+
+def check_resume(fa, sub):
+    """Flat (mono, linear) and anchored counts of the 50 k-read subset
+    interrupted after a few checkpoints, then resumed from them: each
+    .bin must equal the uninterrupted count's."""
+    import builtins
+    from quickmer2_tpu_torch.pipelines.count import run_count
+    from quickmer2_tpu_torch.utils import checkpoint
+    real = builtins.open
+    every = 2 << 20
+    for mode, engine in (("flat", "mono"), ("flat", "linear"),
+                         ("anchored", "mono")):
+        t = time.time()
+        ckpt = os.path.join(WORK, f"ck_{mode}_{engine}")
+        kw = dict(batch_bases=1 << 22, chunk_bytes=1 << 20, verbose=False,
+                  mode=mode, engine=engine, checkpoint_path=ckpt,
+                  checkpoint_every_bytes=every, device="cuda")
+        out = os.path.join(WORK, f"r_{mode}_{engine}")
+
+        def limited(path, *a, **k):
+            f = real(path, *a, **k)
+            return LimitedFile(f, 9) if path == sub else f
+        builtins.open = limited
+        try:
+            run_count(fa + ".qm", sub, out, **kw)
+            raise AssertionError("the interrupted count ran to its end")
+        except Interrupted:
+            pass
+        finally:
+            builtins.open = real
+        offset = checkpoint.load(ckpt)[0]
+        run_count(fa + ".qm", sub, out, **kw)
+        if os.path.exists(ckpt):
+            raise AssertionError("the checkpoint outlived its count")
+        with open(out + ".bin", "rb") as f, \
+                open(os.path.join(WORK, f"sub_{mode}_cuda.bin"), "rb") as h:
+            if f.read() != h.read():
+                raise AssertionError(f"the resumed {mode} {engine} count "
+                                     "differs from the uninterrupted one")
+        log(f"phase resume ({mode}, {engine}): interrupted after "
+            f"{9 << 20} bytes and {offset // every} checkpoints, resumed from byte "
+            f"{offset}; .bin identical to the uninterrupted count, "
+            f"{time.time() - t:.1f} s")
+
+
+def check_cohort(fa, fq, sub):
+    """A two-sample cohort (the full reads and the 50 k subset) in both
+    modes: its .bin, .txt and .CN.bed equal the single-sample runs'."""
+    from quickmer2_tpu_torch.pipelines.cohort import run_cohort
+    singles = {"flat": ("s", "sub_flat_cuda"),
+               "anchored": ("a", "sub_anchored_cuda")}
+    for mode, single in singles.items():
+        t = time.time()
+        outs = [os.path.join(WORK, f"co_{mode}_{i}") for i in range(2)]
+        stats = run_cohort(fa + ".qm", list(zip((fq, sub), outs)), mode=mode,
+                           ref_fasta=fa if mode == "anchored" else None,
+                           verbose=False, device="cuda")
+        for out, ref in zip(outs, single):
+            for ext in (".bin", ".txt", ".CN.bed"):
+                with open(out + ext, "rb") as f, \
+                        open(os.path.join(WORK, ref + ext), "rb") as h:
+                    if f.read() != h.read():
+                        raise AssertionError(f"cohort ({mode}) {ext} differs "
+                                             f"from the single run {ref}")
+        log(f"phase cohort ({mode}): 2 samples in {time.time() - t:.1f} s "
+            f"({', '.join(str(s['elapsed_s']) for s in stats)} s each); "
+            f".bin, .txt, .CN.bed identical to the single-sample runs")
+
+
+def check_entry():
+    """entry() once on the card, against the same step on the CPU."""
+    from quickmer2_tpu_torch.device import to_numpy_u32
+    from quickmer2_tpu_torch.entry import entry
+    fn, args = entry()
+    got = to_numpy_u32(fn(*args))
+    fn_cpu, args_cpu = entry(device="cpu")
+    want = to_numpy_u32(fn_cpu(*args_cpu))
+    if not np.array_equal(got, want):
+        raise AssertionError("entry() on the card differs from the CPU")
+    log(f"phase entry: entry() on the card, {int(got[:-1].sum())} hits "
+        f"and {int(got[-1])} trash of {len(got) - 1} k-mers, equal to the "
+        "CPU")
+
+
 # -- phase 3: the main path ------------------------------------------------
 
 def median_cn(cn_bed, excl, seg):
@@ -1384,6 +1899,8 @@ def main() -> int:
     from quickmer2_tpu_torch.config import SearchConfig
     from quickmer2_tpu_torch.kernels import build
     from quickmer2_tpu_torch.kernels.anchored import anchored_count
+    from quickmer2_tpu_torch.kernels.count_flat import (
+        count_linear_step, count_packed_step, kmerize_step)
     from quickmer2_tpu_torch.kernels.count_mono import (
         count_mono_rows, count_mono_step)
     from quickmer2_tpu_torch.kernels.hamming_join import (
@@ -1406,7 +1923,8 @@ def main() -> int:
     def reset_counts():
         for fn in (count_mono_step, join_compare, anchored_count,
                    count_mono_rows, neighbor_bits, key_filter, neighbor_sum,
-                   join_bits):
+                   join_bits, count_linear_step, count_packed_step,
+                   kmerize_step):
             fn.launches = 0
         anchored_count.branch_launches = dict.fromkeys(
             anchored_count.branch_launches, 0)
@@ -1421,7 +1939,10 @@ def main() -> int:
                 "neighbor_bits": neighbor_bits.launches,
                 "key_filter": key_filter.launches,
                 "neighbor_sum": neighbor_sum.launches,
-                "join_bits": join_bits.launches}
+                "join_bits": join_bits.launches,
+                "count_linear": count_linear_step.launches,
+                "count_packed": count_packed_step.launches,
+                "kmerize": kmerize_step.launches}
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -1511,6 +2032,16 @@ def main() -> int:
             launches.update({k: flat[k] for k in ("count_mono",
                                                   "hamming_join")})
 
+        # -- 2, the flat engines: kernels against their plain versions --
+        t = time.time()
+        rows += check_flat_engines(world["fa"], reads, dev)
+        log(f"phase kernels (flat engines): {time.time() - t:.1f} s "
+            f"(tolerance: exact equality, integer outputs)")
+        if not check_only:
+            # -- 3, the other flat engines' counts, each its own path ----
+            launches.update(count_engines(world["fa"], fq, n_windows,
+                                          reset_counts, read_counts))
+
         # -- 2, anchored path: kernels against their plain versions -----
         t = time.time()
         rows += check_anchored_kernels(world["fa"], world["g"], reads,
@@ -1575,10 +2106,18 @@ def main() -> int:
                         bins.append(f.read())
                 if bins[0] != bins[1]:
                     raise AssertionError(f"{mode}: cuda and cpu .bin differ")
+                run_est(world["fa"], os.path.join(WORK, f"sub_{mode}_cuda"),
+                        os.path.join(WORK, f"sub_{mode}_cuda.CN.bed"),
+                        verbose=False, device="cuda")
                 log(f"phase cpu ({mode}): 50000 reads, cuda and cpu .bin "
                     f"identical ({len(bins[0])} bytes) in "
                     f"{time.time() - t:.1f} s")
                 t = time.time()
+
+            # -- 3, resumed counts, the cohort, entry() ------------------
+            check_resume(world["fa"], sub)
+            check_cohort(world["fa"], fq, sub)
+            check_entry()
 
         for row in rows:
             row["launches"] = launches.get(row["name"], 0)

@@ -9,7 +9,11 @@ for one NVIDIA H100:
             CUDA kernel csrc/hamming_join.cu
   count   — stream sample reads through the fused mono-table count
             kernel csrc/count_mono.cu (unpack → k-mer codec → DJB →
-            one 64-B row probe → depth atomicAdd)
+            one 64-B row probe → depth atomicAdd), or another engine
+            (csrc/count_flat.cu: the linear probe, the packed table,
+            the sort-join codec), or the anchored read pass; resumable
+            from a checkpoint
+  cohort  — count + est of many samples against one dictionary
   est     — GC-corrected (LOWESS) windowed copy number, on the host
 
 Every entry point takes a `device` argument that defaults to "cuda"

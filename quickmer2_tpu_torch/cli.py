@@ -4,8 +4,13 @@ package's (quickmer2_tpu/cli.py) for the ported subcommands:
   python -m quickmer2_tpu_torch search [-k N] [-s SIZE] [-e N] [-d N] [-w N]
                                        [-c ctrl.bed] [--device cuda|cpu] ref.fa
   python -m quickmer2_tpu_torch count  [--batch-bases N] [--mode flat|anchored]
+                                       [--engine mono|packed|sortjoin|linear|auto]
+                                       [--checkpoint PATH] [--checkpoint-every N]
                                        [--read-len N] [--json]
                                        [--device cuda|cpu] ref.fa sample out
+  python -m quickmer2_tpu_torch cohort [--batch-bases N] [--mode flat|anchored]
+                                       [--read-len N] [--json]
+                                       [--device cuda|cpu] ref.fa s1.fq:out1 ...
   python -m quickmer2_tpu_torch est    [--json] [--device cuda|cpu]
                                        ref.fa sample_prefix out.bed
 
@@ -22,7 +27,7 @@ import json
 
 from quickmer2_tpu_torch.config import SearchConfig, parse_size_suffix
 
-_LATER = ("cohort", "sparse", "index", "colortrack", "colorkey")
+_LATER = ("sparse", "index", "colortrack", "colorkey")
 
 
 def _device_arg(p: argparse.ArgumentParser) -> None:
@@ -71,12 +76,17 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--dict-devices", type=int, default=None,
                    help="(not yet ported)")
     c.add_argument("--checkpoint", type=str, default=None, metavar="PATH",
-                   help="(not yet ported)")
+                   help="periodic resume checkpoint; rerun with the same "
+                        "flags to resume (works for stdin too: the "
+                        "replayed pipe is fast-forwarded)")
     c.add_argument("--checkpoint-every", type=parse_size_suffix,
-                   default=None, metavar="BYTES", help="(not yet ported)")
+                   default=1 << 30, metavar="BYTES",
+                   help="checkpoint interval in consumed bytes "
+                        "(K/M/G suffix ok, default 1G)")
     c.add_argument("--engine", choices=["mono", "packed", "sortjoin",
                                        "linear", "auto"], default="mono",
-                   help="flat-path exact engine (only mono is ported)")
+                   help="flat-path exact engine; auto picks sortjoin for "
+                        "small dictionaries, else mono")
     c.add_argument("--json", action="store_true",
                    help="print the run's structured stats as one JSON "
                         "line on stdout")
@@ -86,6 +96,22 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("fasta", help="reference FASTA path or .qm path")
     c.add_argument("sample", help="FASTA/FASTQ reads ('-' for stdin)")
     c.add_argument("out_prefix")
+
+    co = sub.add_parser("cohort", help="count+est many samples against "
+                                       "one dictionary (amortized load)")
+    co.add_argument("--batch-bases", type=int, default=1 << 24)
+    co.add_argument("--mode", choices=["flat", "anchored"], default="flat")
+    co.add_argument("--read-len", type=int, default=None)
+    co.add_argument("--data-devices", type=int, default=None,
+                    help="(not yet ported)")
+    co.add_argument("--dict-devices", type=int, default=None,
+                    help="(not yet ported)")
+    co.add_argument("--json", action="store_true")
+    _device_arg(co)
+    co.add_argument("fasta", help="reference FASTA path or .qm path")
+    co.add_argument("pairs", nargs="+",
+                    help="sample.fq:out_prefix pairs (est runs when the "
+                         ".qgc companion exists)")
 
     e = sub.add_parser("est", help="GC-corrected copy-number estimation")
     e.add_argument("--plot", action="store_true", help="(not yet ported)")
@@ -108,6 +134,10 @@ def _reject(parser: argparse.ArgumentParser, args, options) -> None:
         if getattr(args, attr) != default:
             parser.error(f"{args.cmd} {flag} is not yet ported to "
                          f"quickmer2_tpu_torch")
+
+
+def _qm(fasta: str) -> str:
+    return fasta if fasta.endswith(".qm") else fasta + ".qm"
 
 
 def main(argv=None) -> int:
@@ -136,14 +166,30 @@ def main(argv=None) -> int:
     elif args.cmd == "count":
         _reject(parser, args, [("--data-devices", "data_devices", None),
                                ("--dict-devices", "dict_devices", None),
-                               ("--checkpoint", "checkpoint", None),
-                               ("--checkpoint-every", "checkpoint_every", None),
-                               ("--engine", "engine", "mono"),
                                ("--profile", "profile", None)])
         from quickmer2_tpu_torch.pipelines.count import run_count
-        qm = args.fasta if args.fasta.endswith(".qm") else args.fasta + ".qm"
         stats = run_count(
-            qm, args.sample, args.out_prefix, batch_bases=args.batch_bases,
+            _qm(args.fasta), args.sample, args.out_prefix,
+            batch_bases=args.batch_bases, mode=args.mode,
+            ref_fasta=args.fasta if args.mode == "anchored" else None,
+            read_len=args.read_len, checkpoint_path=args.checkpoint,
+            checkpoint_every_bytes=args.checkpoint_every, engine=args.engine,
+            verbose=not args.json, device=args.device)
+        if args.json:
+            print(json.dumps(stats))
+
+    elif args.cmd == "cohort":
+        _reject(parser, args, [("--data-devices", "data_devices", None),
+                               ("--dict-devices", "dict_devices", None)])
+        from quickmer2_tpu_torch.pipelines.cohort import run_cohort
+        pairs = []
+        for p in args.pairs:
+            sample, _, out = p.rpartition(":")
+            if not sample:
+                parser.error(f"cohort pair {p!r} must be sample:out_prefix")
+            pairs.append((sample, out))
+        stats = run_cohort(
+            _qm(args.fasta), pairs, batch_bases=args.batch_bases,
             mode=args.mode,
             ref_fasta=args.fasta if args.mode == "anchored" else None,
             read_len=args.read_len, verbose=not args.json,

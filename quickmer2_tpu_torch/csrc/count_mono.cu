@@ -35,9 +35,11 @@
 // in the alphabet A=0, C=1, T=2, G=3), RC = X ^ A and F = rev2(X) >> (64 -
 // 2k), rev2 reversing the 2-bit lanes (packed_probe.cuh::canonical_lsb).
 // Validity is the same funnel shift over the invalid bitmask, tested on k
-// bits. No loop over k. A window map (FlatWindows for K2, RowWindows for
-// K2r) says where a lane's window starts: K2's lane i at bit 2i of the batch
-// and i of its bitmask; K2r's lane r * W + j at bit 8 * pitch * r + 2j of
+// bits. No loop over k. The codec and K2's window map live in
+// flat_windows.cuh, which csrc/count_flat.cu (K7, K8, K9) shares. A window
+// map (FlatWindows for K2, RowWindows for K2r) says where a lane's window
+// starts: K2's lane i at bit 2i of the batch and i of its bitmask; K2r's
+// lane r * W + j at bit 8 * pitch * r + 2j of
 // the packed rows (pitch = ceil(L / 4) bytes, so a row may start inside a
 // word: L = 150 gives 38 B) and at bit 8 * ceil(L / 8) * r + j of the mask.
 // K2r finds r by a 32-bit multiply-high by a reciprocal of W and one
@@ -77,22 +79,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flat_windows.cuh"
 #include "packed_probe.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxK = 32;
 constexpr unsigned kEntries = 8;
-constexpr int kTile = 4096;                 // windows per block, K2's tiles
-constexpr int kTileWords = kTile / 32 + 2;  // 2-bit lanes, 32 bases a word
-constexpr int kTileBitWords = kTile / 64 + 2;
 constexpr int kRowTile = 512;               // K2r's lanes per block
 constexpr int kRowStageWords = 576;         // K2r's staged words, each stream
 constexpr int kMaxParts = 256;
 constexpr unsigned short kNoPart = 0xFFFF;
-
-typedef unsigned long long u64;
 
 // Probe one valid window's canonical code: depth[slot] += 1 on a hit;
 // returns unresolved = nonzero & miss & every entry of the bucket used.
@@ -119,92 +115,6 @@ __device__ __forceinline__ bool mono_probe(u64 canon,
   }
   return nonzero && !found && full;
 }
-
-// 64-bit word j of a byte array of n_bytes (8-B aligned); bytes past the
-// end read as the matching byte of pad.
-__device__ __forceinline__ u64 load_word(const uint8_t* __restrict__ p,
-                                         long long j, long long n_bytes,
-                                         u64 pad) {
-  const long long off = 8 * j;
-  if (off + 8 <= n_bytes) return __ldg((const u64*)p + j);
-  u64 w = pad;
-  for (int b = 0; b < 8; ++b) {
-    if (off + b < n_bytes) {
-      w = (w & ~(0xFFull << (8 * b))) | ((u64)p[off + b] << (8 * b));
-    }
-  }
-  return w;
-}
-
-// Bits [s, s + 64) of the 128-bit value (hi:lo), 0 <= s < 64.
-__device__ __forceinline__ u64 funnel(u64 lo, u64 hi, int s) {
-  return s ? (lo >> s) | (hi << (64 - s)) : lo;
-}
-
-// Bits [b, b + 64) of a run of words.
-__device__ __forceinline__ u64 bits_at(const u64* w, int b) {
-  return funnel(w[b >> 6], w[(b >> 6) + 1], b & 63);
-}
-
-// Words w0 .. w0 + count - 1 of a byte array into dst, by the block.
-__device__ __forceinline__ void stage_words(u64* dst, int count,
-                                            const uint8_t* __restrict__ src,
-                                            long long w0, long long n_bytes,
-                                            u64 pad) {
-  for (int j = threadIdx.x; j < count; j += kThreads) {
-    dst[j] = load_word(src, w0 + j, n_bytes, pad);
-  }
-}
-
-// Canonical code of the window at bit pb of the staged 2-bit lanes, if
-// none of the k invalid bits at bit ib of the staged bitmask is set and
-// the code is nonzero (the windows that can hit).
-__device__ __forceinline__ bool staged_window(const u64* pk, int pb,
-                                              const u64* inval, int ib, int k,
-                                              u64* canon) {
-  if (bits_at(inval, ib) & ((1ull << k) - 1)) return false;
-  *canon = qm2t::canonical_lsb(bits_at(pk, pb), k);
-  return *canon != 0;
-}
-
-// K2's window map: lane i is window i of one flat batch (one row).
-struct FlatWindows {
-  const uint8_t* pk;
-  const uint8_t* bits;
-  long long pk_bytes, bits_bytes;
-  long long n;          // windows: n_bases - k + 1
-  int k;
-
-  struct Tile {
-    u64 pk[kTileWords];
-    u64 bits[kTileBitWords];
-  };
-  struct Span {};
-
-  __host__ __device__ __forceinline__ int lanes() const { return kTile; }
-
-  __device__ __forceinline__ Span stage(Tile& t, long long base) const {
-    stage_words(t.pk, kTileWords, pk, base / 32, pk_bytes, 0);
-    stage_words(t.bits, kTileBitWords, bits, base / 64, bits_bytes, ~0ull);
-    __syncthreads();
-    return Span{};
-  }
-
-  __device__ __forceinline__ bool window(const Tile& t, const Span&,
-                                         long long base, int j,
-                                         u64* canon) const {
-    if (base + j >= n) return false;
-    return staged_window(t.pk, 2 * j, t.bits, j, k, canon);
-  }
-
-  // Canonical code of a binned (valid) lane, from global memory.
-  __device__ __forceinline__ u64 decode(long long i) const {
-    const u64 x = funnel(load_word(pk, i >> 5, pk_bytes, 0),
-                         load_word(pk, (i >> 5) + 1, pk_bytes, 0),
-                         2 * (int)(i & 31));
-    return qm2t::canonical_lsb(x, k);
-  }
-};
 
 // The most words a K2r block of `tile` lanes stages in either stream (see
 // RowWindows::stage): its lanes span at most D + 1 rows, D = (tile + W -

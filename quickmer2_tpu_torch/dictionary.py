@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 
 from quickmer2_tpu_torch.io import formats
+from quickmer2_tpu_torch.ops import codec
 from quickmer2_tpu_torch.utils import native
 
 
@@ -114,6 +115,15 @@ class Dictionary:
     def to_qm(self, path: str) -> None:
         formats.write_qm(path, self.header, np.ascontiguousarray(self.table),
                          self.chain_array())
+
+    # -- device views ----------------------------------------------------
+
+    def device_arrays(self):
+        """(table_hi, table_lo, rank) as host numpy: the reference table's
+        u32 halves and the slot → rank map (the linear-probe count's
+        inputs, kernels.count_flat)."""
+        hi, lo = codec.split_u64(np.asarray(self.table))
+        return hi, lo, np.asarray(self.rank, dtype=np.int32)
 
 
 def content_fingerprint(kmers_in_order: np.ndarray, kmer_size: int) -> int:

@@ -103,8 +103,9 @@ def neighbor_occr_sum(khi, klo, rkhi, rklo, table_hi, table_lo, occr,
                       p1, d1, p2, d2, *, k: int, hash_size: int,
                       max_steps: int = 4096) -> torch.Tensor:
     """Sum of neighbor occurrence counts for a batch of k-mers against
-    the reference's linear-probe table (DJB start slot, scan toward the
-    middle until a match or an empty slot, at most max_steps steps).
+    the reference's linear-probe table (ops.hash.probe_lookup: DJB start
+    slot, scan toward the middle until a match or an empty slot, at most
+    max_steps steps, slots read as the JAX package's gathers read them).
 
     khi/klo: canonical codes, rkhi/rklo: their exact reverse
     complements (int64 u32 halves, [N]); table_hi/table_lo: the table's
@@ -114,25 +115,9 @@ def neighbor_occr_sum(khi, klo, rkhi, rklo, table_hi, table_lo, occr,
     an empty slot, whose occr is 0, so it adds nothing."""
     n, m = khi.shape[0], p1.shape[0]
     chi, clo = _neighbor_canon(khi, klo, rkhi, rklo, p1, d1, p2, d2, k)
-    idx = qhash.djb_pair(chi, clo) & (hash_size - 1)
-    step = torch.where((idx & (hash_size >> 1)) != 0, -1, 1)
-
-    def probe(idx):
-        # gathers clamp out-of-range slots, as XLA's do
-        at = idx.clamp(0, hash_size - 1)
-        ehi, elo = table_hi[at], table_lo[at]
-        return (ehi == chi) & (elo == clo), (ehi == 0) & (elo == 0)
-
-    match, empty = probe(idx)
-    done = match | empty
-    it = 0
-    while not bool(done.all()) and it < max_steps:
-        idx = torch.where(done, idx, idx + step)
-        match, empty = probe(idx)
-        done = done | match | empty
-        it += 1
-    match, _ = probe(idx)
-    occ = occr[idx.clamp(0, hash_size - 1)].to(torch.int64)
+    idx, match = qhash.probe_lookup(table_hi, table_lo, chi, clo, hash_size,
+                                    max_steps)
+    occ = occr[qhash.slot_at(idx, hash_size)].to(torch.int64)
     return torch.where(match, occ, 0).view(n, m).sum(1)
 
 

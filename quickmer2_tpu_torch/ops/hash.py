@@ -108,3 +108,52 @@ def probe_lookup_np(table: np.ndarray, keys: np.ndarray, hash_size: int):
         nxt[active] = ~done
         active = nxt
     return idx, table[idx] == keys
+
+
+# ---------------------------------------------------------------------------
+# Device probe (plain PyTorch; kernel K7 inlines it, csrc/count_flat.cu)
+# ---------------------------------------------------------------------------
+
+MAX_STEPS = 4096
+
+
+def slot_at(idx: torch.Tensor, hash_size: int) -> torch.Tensor:
+    """The slot that the JAX package's gather reads at index idx: an
+    index in [-hash_size, 0) wraps once by +hash_size, then the index
+    clamps to [0, hash_size - 1]."""
+    idx = torch.where(idx < 0, idx + hash_size, idx)
+    return idx.clamp(0, hash_size - 1)
+
+
+def probe_lookup(table_hi: torch.Tensor, table_lo: torch.Tensor,
+                 khi: torch.Tensor, klo: torch.Tensor, hash_size: int,
+                 max_steps: int = MAX_STEPS):
+    """Plain PyTorch version of quickmer2_tpu/ops/hash.py::probe_lookup.
+
+    table_hi/table_lo: the table's u32 halves, (0, 0) = empty slot;
+    khi/klo: query canonical codes (int64 tensors of u32 values).
+    Returns (idx int64[N], found bool[N]): idx is where the scan
+    stopped, before slot_at (it may pass either end of a small table);
+    found is True when it stopped on a match. The scan starts at DJB &
+    (hash_size - 1), steps -1 from the upper half and +1 from the lower
+    half, stops at a match or an empty slot, and takes at most max_steps
+    steps. Only the lanes still scanning are gathered at each step.
+    """
+    idx = djb_pair(khi, klo) & (hash_size - 1)
+    step = torch.where((idx & (hash_size >> 1)) != 0, -1, 1)
+
+    def probe(at, qhi, qlo):
+        s = slot_at(at, hash_size)
+        ehi, elo = table_hi[s], table_lo[s]
+        return (ehi == qhi) & (elo == qlo), (ehi == 0) & (elo == 0)
+
+    found, empty = probe(idx, khi, klo)
+    active = torch.nonzero(~(found | empty)).flatten()
+    for _ in range(max_steps):
+        if not active.numel():
+            break
+        idx[active] += step[active]
+        match, empty = probe(idx[active], khi[active], klo[active])
+        found[active] = match
+        active = active[~(match | empty)]
+    return idx, found

@@ -93,6 +93,21 @@ class PackedTable:
             f"PackedTable.build: {n} keys not placed after {MAX_DOUBLINGS} "
             f"doublings ({n_buckets >> 1} buckets)")
 
+    @classmethod
+    def from_dictionary(cls, dic, pos: np.ndarray | None = None,
+                        load: float = 0.5) -> "PackedTable":
+        """The table of a dictionary's k-mers, rank = genome order (the
+        packed flat count's table, kernels.count_flat)."""
+        from quickmer2_tpu_torch.ops import codec
+        khi, klo = codec.split_u64(dic.kmers_in_order)
+        rank = np.arange(dic.n_kmers, dtype=np.uint32)
+        return cls.build(khi, klo, rank, pos, load)
+
+    def device_rows(self, device: torch.device) -> torch.Tensor:
+        """The rows as a word tensor [B, 8] on `device`."""
+        from quickmer2_tpu_torch.device import words
+        return words(self.rows, device)
+
 
 def _try_place(khi, klo, rank, pos, h, n_buckets):
     """Vectorized two-choice first-fit: several rounds of 'everyone not

@@ -18,20 +18,29 @@ same output bytes. Flat mode, the mono engine:
   finish: slot → rank permutation + side counts (u32 wrap); the .bin
           wraps to u16 (SURVEY.md Q8)
 
+The flat count's other engines (DepthCounter layouts, `count --engine`)
+replace the mono table: the two-choice packed table (K8), the
+reference's linear probe over the .qm table (K7), or no table at all
+(sortjoin: the codec K9, then a join against the sorted keys,
+ops.sortjoin). They give the same depth.
+
 Anchored mode (ops.anchored): the code stream becomes fixed-width read
 rows (RowStreamer; long reads in k-1-overlap segments), each batch runs
 the anchored read pass (kernel K3), and spilled reads are recounted
 through tier 2 (K3 again) and the mono table (K2r); the row width is
 autodetected from the first chunk unless given.
 
-With device="cpu" the same stream runs through the kernels' plain
-PyTorch versions.
+run_count writes a resume checkpoint (utils.checkpoint, the JAX
+package's format) every checkpoint_every_bytes of input when asked, in
+either mode. With device="cpu" the same stream runs through the
+kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import struct
 import sys
 import time
 
@@ -42,11 +51,15 @@ from quickmer2_tpu_torch.device import (
     fetched, resolve_device, start_fetch, to_numpy_u32, word_dtype, words)
 from quickmer2_tpu_torch.dictionary import Dictionary
 from quickmer2_tpu_torch.io import formats
+from quickmer2_tpu_torch.kernels.count_flat import (
+    count_linear_step, count_packed_step, kmerize_step, linear_table)
 from quickmer2_tpu_torch.kernels.count_mono import count_mono_step
 from quickmer2_tpu_torch.ops import codec, rowpack
 from quickmer2_tpu_torch.ops.codec import SEP
 from quickmer2_tpu_torch.ops.monotable import MonoTable
-from quickmer2_tpu_torch.utils import native
+from quickmer2_tpu_torch.ops.packed_table import PackedTable
+from quickmer2_tpu_torch.ops.sortjoin import SortJoinEngine
+from quickmer2_tpu_torch.utils import checkpoint, native
 
 
 _SEP_ARR = np.array([SEP], np.uint8)
@@ -168,32 +181,74 @@ def make_packer(mode: str):
     return PyPacker(mode)
 
 
+# layout="auto" takes sortjoin for a dictionary of at most this many
+# k-mers, else mono. Set from the H100 (chip_smoke.py times one 2^24-base
+# batch through both at n = 2^14 .. 2^20 keys; PERF.md): sort-join took
+# 14.3-14.6 ms a batch at every n against K2's 0.20-0.24 ms, so it never
+# wins and auto is mono.
+AUTO_SORTJOIN_MAX_N = 0
+
+LAYOUTS = ("mono", "packed", "sortjoin", "linear", "auto")
+
+
 class DepthCounter:
     """Accumulates k-mer depth over streamed code batches on the device.
 
-    The mono layout (ops.monotable) with 2-bit-packed H2D is the only
-    one ported so far: depth lives in SLOT space (bucket*8 + entry) as a
-    u32 word tensor until finish, unresolved lanes (possible side-table
-    members) recount on the host one batch behind.
+    Each batch crosses as 2-bit codes (ops.rowpack) and runs one of the
+    JAX package's table layouts, all with the same depth at finish:
+      mono     — the single-row mono table (K2, kernels.count_mono):
+                 depth in SLOT space (bucket*8 + entry) until finish,
+                 unresolved lanes (possible side-table members) recount
+                 on the host one batch behind;
+      packed   — the two-choice packed table (K8), depth in rank order;
+      linear   — the reference's linear probe over the .qm table (K7),
+                 depth in rank order;
+      sortjoin — no table: the codec (K9) and a join against the sorted
+                 keys (ops.sortjoin), depth in key-sorted order;
+      auto     — sortjoin for dictionaries of at most AUTO_SORTJOIN_MAX_N
+                 k-mers, else mono.
+    Rank-order depth is u32[n_kmers + 1], its last lane the trash lane of
+    invalid windows and misses.
     """
 
-    layout = "mono"     # recorded in snapshots; restore checks it
-
     def __init__(self, dictionary: Dictionary, batch_bases: int = 1 << 24,
-                 packed_table=None, device: str = "cuda"):
+                 layout: str = "mono", packed_table=None,
+                 device: str = "cuda"):
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown table layout {layout!r}; one of "
+                             f"{LAYOUTS}")
         self.device = resolve_device(device)
         self.dict = dictionary
         self.k = dictionary.kmer_size
         self.batch_bases = batch_bases
-        # packed_table: pass a prebuilt MonoTable to amortize the build
-        self._mono = (packed_table if isinstance(packed_table, MonoTable)
-                      else MonoTable.from_dictionary(dictionary))
-        self.rows = words(self._mono.rows, self.device)
-        self.depth = torch.zeros(self._mono.n_slots + 1,
-                                 dtype=word_dtype(self.device),
-                                 device=self.device)
-        self._side_counts = np.zeros(dictionary.n_kmers, np.uint64)
-        self._pending_masks: list[tuple[np.ndarray, tuple]] = []
+        if layout == "auto":
+            layout = ("sortjoin" if dictionary.n_kmers <= AUTO_SORTJOIN_MAX_N
+                      else "mono")
+        self.layout = layout     # recorded in snapshots; restore checks it
+        wd = word_dtype(self.device)
+        # packed_table: a prebuilt MonoTable (mono) or PackedTable (packed)
+        # amortizes the build across counters (cohorts)
+        if layout == "mono":
+            self._mono = (packed_table if isinstance(packed_table, MonoTable)
+                          else MonoTable.from_dictionary(dictionary))
+            self.rows = words(self._mono.rows, self.device)
+            self.depth = torch.zeros(self._mono.n_slots + 1, dtype=wd,
+                                     device=self.device)
+            self._side_counts = np.zeros(dictionary.n_kmers, np.uint64)
+            self._pending_masks: list[tuple[np.ndarray, tuple]] = []
+        elif layout == "packed":
+            self._packed = (packed_table
+                            if isinstance(packed_table, PackedTable)
+                            else PackedTable.from_dictionary(dictionary))
+            self.rows = self._packed.device_rows(self.device)
+        elif layout == "linear":
+            self.table, self.rank = linear_table(dictionary, self.device)
+        else:
+            self._engine = SortJoinEngine(dictionary.kmers_in_order,
+                                          self.device)
+        if layout in ("packed", "linear"):
+            self.depth = torch.zeros(dictionary.n_kmers + 1, dtype=wd,
+                                     device=self.device)
         self._carry = np.zeros(0, np.uint8)
         self._pending: list[np.ndarray] = []
         self._pending_len = 0
@@ -217,21 +272,30 @@ class DepthCounter:
         bits_d = torch.from_numpy(bits[0]).to(self.device)
         t1 = time.time()
         self.phase_s["pack_put"] += t1 - t0
-        ub = count_mono_step(pk_d, bits_d, self.rows, self.depth, k=self.k,
-                             n_buckets=self._mono.n_buckets,
-                             n_bases=self.batch_bases)
-        self._pending_masks.append((batch, start_fetch(ub)))
+        kw = dict(k=self.k, n_bases=self.batch_bases)
+        if self.layout == "mono":
+            ub = count_mono_step(pk_d, bits_d, self.rows, self.depth,
+                                 n_buckets=self._mono.n_buckets, **kw)
+            self._pending_masks.append((batch, start_fetch(ub)))
+        elif self.layout == "packed":
+            count_packed_step(pk_d, bits_d, self.rows, self.depth,
+                              n_buckets=self._packed.n_buckets, **kw)
+        elif self.layout == "linear":
+            count_linear_step(pk_d, bits_d, self.table, self.rank, self.depth,
+                              hash_size=self.dict.hash_size, **kw)
+        else:
+            self._engine.count_codes(*kmerize_step(pk_d, bits_d, **kw))
         self.phase_s["dispatch"] += time.time() - t1
         # drain masks one batch behind so the D2H never stalls the next
         # launch; ~0.1% of lanes at load 0.5 end up unresolved
-        if len(self._pending_masks) > 1:
+        if self.layout == "mono" and len(self._pending_masks) > 1:
             self._drain_mask(*self._pending_masks.pop(0))
         self.total_kmer_windows += len(batch) - self.k + 1
         self._carry = batch[-(self.k - 1):].copy()
 
     def finish(self) -> np.ndarray:
         """Flush the tail (padded to full batch shape with separators) and
-        return host depth u32[n_kmers]."""
+        return host depth u32[n_kmers] in rank order."""
         if self._pending_len:
             buf = np.concatenate([self._carry] + self._pending)
             pad = np.full(self.batch_bases - len(buf) % self.batch_bases, SEP, np.uint8)
@@ -239,6 +303,10 @@ class DepthCounter:
             for off in range(0, len(buf), self.batch_bases):
                 self._run(buf[off : off + self.batch_bases])
             self._pending, self._pending_len = [], 0
+        if self.layout == "sortjoin":
+            return self._engine.finish()
+        if self.layout != "mono":
+            return to_numpy_u32(self.depth)[:-1]
         for pend in self._pending_masks:
             self._drain_mask(*pend)
         self._pending_masks = []
@@ -278,36 +346,48 @@ class DepthCounter:
     # -- state carried across (same dict keys as the JAX DepthCounter) --
 
     def snapshot(self) -> dict:
-        """Slot-space depth + residual host codes + side counts; with the
-        stream offset and parser state this fully determines the
-        remaining computation."""
+        """Depth (in the layout's order) + residual host codes (+ side
+        counts for mono); with the stream offset and parser state this
+        fully determines the remaining computation. The layout is
+        recorded, since the depth orders differ between layouts."""
         residual = np.concatenate([self._carry] + self._pending) \
             if (self._pending_len or len(self._carry)) else np.zeros(0, np.uint8)
-        for pend in self._pending_masks:
-            self._drain_mask(*pend)
-        self._pending_masks = []
-        return {"depth": to_numpy_u32(self.depth), "residual": residual,
-                "windows": self.total_kmer_windows, "layout": self.layout,
-                "side_counts": self._side_counts.copy()}
+        depth = (self._engine.snapshot_depth() if self.layout == "sortjoin"
+                 else to_numpy_u32(self.depth))
+        snap = {"depth": depth, "residual": residual,
+                "windows": self.total_kmer_windows, "layout": self.layout}
+        if self.layout == "mono":
+            for pend in self._pending_masks:
+                self._drain_mask(*pend)
+            self._pending_masks = []
+            snap["side_counts"] = self._side_counts.copy()
+        return snap
 
     def restore(self, snap: dict) -> None:
         """Resume from a snapshot() dict — this counter's or the JAX
-        package's mono DepthCounter's (numpy arrays, same keys)."""
+        package's DepthCounter's of the same layout (numpy arrays, same
+        keys)."""
         snap_layout = str(snap.get("layout", ""))
         if snap_layout and snap_layout != self.layout:
             raise ValueError(
                 f"checkpoint was taken with table layout {snap_layout!r}, "
                 f"this counter uses {self.layout!r}; resume with the same "
                 f"layout (depth orders differ between layouts)")
-        want = self._mono.n_slots + 1
+        want = (self._mono.n_slots + 1 if self.layout == "mono"
+                else self.dict.n_kmers + 1)
         if len(snap["depth"]) != want:
             raise ValueError(
                 f"checkpoint depth length {len(snap['depth'])} != {want}; "
                 f"the checkpoint was taken with a different table layout "
                 f"than this counter's ({self.layout!r})")
-        self.depth = words(np.asarray(snap["depth"]), self.device)
-        self._side_counts = np.asarray(snap["side_counts"], np.uint64).copy()
-        self._pending_masks = []
+        if self.layout == "sortjoin":
+            self._engine.restore_depth(snap["depth"])
+        else:
+            self.depth = words(np.asarray(snap["depth"]), self.device)
+        if self.layout == "mono":
+            self._side_counts = np.asarray(snap["side_counts"],
+                                           np.uint64).copy()
+            self._pending_masks = []
         residual = snap["residual"]
         # the first k-1 of the residual are the carry; re-split exactly
         self._carry = np.zeros(0, np.uint8)
@@ -339,22 +419,25 @@ def gc_curve_from_depth(depth_u16: np.ndarray, qgc: np.ndarray):
 
 class StreamCounter:
     """Drives one sample's depth accumulation on one device, in flat or
-    anchored mode: the object run_count feeds.
+    anchored mode: the object run_count and run_cohort feed, so both
+    share one set of semantics.
 
-    Anchored mode builds its AnchoredDepthCounter at the first chunk, so
-    the row width can be autodetected from real reads; reads wider than
-    the row width are cut into k-1-overlap segments, so every read rides
-    the anchored path (the JAX package's flat overflow counter is never
-    fed under segmentation)."""
+    Flat mode runs a DepthCounter of table layout `engine`. Anchored mode
+    builds its AnchoredDepthCounter at the first chunk, so the row width
+    can be autodetected from real reads; reads wider than the row width
+    are cut into k-1-overlap segments, so every read rides the anchored
+    path (the JAX package's flat overflow counter is never fed under
+    segmentation, and the port has none)."""
 
     def __init__(self, dictionary: Dictionary, *, mode: str = "flat",
                  index=None, batch_bases: int = 1 << 24,
                  read_len: int | None = None, packed_table=None,
-                 device: str = "cuda"):
+                 engine: str = "mono", device: str = "cuda"):
         self.dict = dictionary
         self.mode = mode
         self.batch_bases = batch_bases
         self.read_len = read_len
+        self.engine = engine          # flat-path DepthCounter layout
         self.device = resolve_device(device)
         self.counter = None
         self.row_streamer = None
@@ -366,6 +449,7 @@ class StreamCounter:
                 self._make_anchored(read_len)
         elif mode == "flat":
             self.counter = DepthCounter(dictionary, batch_bases=batch_bases,
+                                        layout=engine,
                                         packed_table=packed_table,
                                         device=self.device)
         else:
@@ -404,6 +488,8 @@ class StreamCounter:
     def stats(self) -> dict:
         s = {"mode": self.mode,
              "total_windows": getattr(self.counter, "total_kmer_windows", 0)}
+        if self.mode == "flat":
+            s["layout"] = self.counter.layout
         if self.mode == "anchored" and self.counter is not None:
             # n_reads counts rows through the anchored pass; long reads
             # appear as segments, tallied separately
@@ -416,17 +502,75 @@ class StreamCounter:
             s["phase_" + key + "_s"] = round(val, 4)
         return s
 
+    # -- checkpoint/resume (the JAX StreamCounter's arrays and meta) -----
+
+    def snapshot(self) -> tuple[dict, dict]:
+        """(arrays, meta) capturing the counter and the row streamer.
+        Restore on an identically configured StreamCounter (same mode and
+        engine), of this package or the JAX one, resumes bit for bit."""
+        arrays: dict = {}
+        meta: dict = {"mode": self.mode}
+        if self.mode == "anchored":
+            meta["read_len"] = self.read_len
+            if self.counter is not None:
+                a, m = self.counter.snapshot()
+                arrays.update({"anch_" + k: v for k, v in a.items()})
+                meta["anch"] = m
+                rs = self.row_streamer.snapshot()
+                arrays["rs_tail"] = rs["tail"]
+                arrays["rs_overflow"] = rs["overflow"]
+        else:
+            snap = self.counter.snapshot()
+            arrays["depth"] = snap["depth"]
+            arrays["residual"] = snap["residual"]
+            meta["windows"] = snap["windows"]
+            meta["layout"] = snap["layout"]
+            if "side_counts" in snap:           # mono layout
+                arrays["side_counts"] = snap["side_counts"]
+        return arrays, meta
+
+    def restore(self, arrays: dict, meta: dict) -> None:
+        if meta["mode"] != self.mode:
+            raise ValueError(f"checkpoint mode {meta['mode']!r} != {self.mode!r}")
+        if any(k.startswith("ovf_") for k in arrays):
+            raise ValueError(
+                "checkpoint carries a flat overflow counter (ovf_* arrays), "
+                "which this package does not have (it segments long reads "
+                "instead); resume it with quickmer2_tpu")
+        if self.mode == "anchored":
+            if "anch" in meta:
+                if self.counter is None:
+                    self._make_anchored(int(meta["read_len"]))
+                self.counter.restore(
+                    {k[5:]: v for k, v in arrays.items()
+                     if k.startswith("anch_")}, meta["anch"])
+                self.row_streamer.restore({"tail": arrays["rs_tail"],
+                                           "overflow": arrays["rs_overflow"]})
+        else:
+            snap = {"depth": arrays["depth"],
+                    "residual": arrays["residual"],
+                    "windows": meta["windows"],
+                    "layout": meta.get("layout", "")}
+            if "side_counts" in arrays:
+                snap["side_counts"] = arrays["side_counts"]
+            self.counter.restore(snap)
+
 
 def run_count(qm_path: str, sample_path: str, out_prefix: str,
               batch_bases: int = 1 << 24, fmt: str | None = None,
               chunk_bytes: int = 1 << 24, verbose: bool = True,
               mode: str = "flat", ref_fasta: str | None = None,
-              read_len: int | None = None, device: str = "cuda") -> dict:
+              read_len: int | None = None,
+              checkpoint_path: str | None = None,
+              checkpoint_every_bytes: int = 1 << 30,
+              hbm_limit_bytes: int | None = None,
+              engine: str = "mono", device: str = "cuda") -> dict:
     """Full count phase: .qm + reads → <out_prefix>.bin (+ .txt if the
     dictionary's .qgc companion exists). Returns summary stats.
 
-    mode="flat"     — separator-delimited code stream, one mono-table
-                      probe per k-mer.
+    mode="flat"     — separator-delimited code stream, one table probe
+                      per k-mer through the DepthCounter layout `engine`
+                      (mono, packed, sortjoin, linear or auto).
     mode="anchored" — the fast path (ops.anchored): fixed-width read rows
                       anchored against the genome; needs ref_fasta (the
                       genome the dictionary was built from; default: the
@@ -434,6 +578,13 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
                       count builds <ref_fasta>.qai, later ones load it.
                       Output identical to flat mode.
     read_len        — anchored row width (default: autodetected).
+    checkpoint_path — write a resume checkpoint (utils.checkpoint) every
+                      checkpoint_every_bytes of consumed input; a rerun
+                      with the same arguments resumes from it, also from
+                      stdin ("-"), whose replayed prefix is read and
+                      dropped; the file is removed on success.
+    hbm_limit_bytes — when the anchored structures would not fit this
+                      many bytes of device memory, count in flat mode.
     device: "cuda" (default; raises without a card) or "cpu".
     """
     dev = resolve_device(device)
@@ -441,30 +592,76 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
     dictionary = Dictionary.from_qm(qm_path)
     index = None
     index_s = 0.0
+    fallback = None
     if mode == "anchored":
         from quickmer2_tpu_torch.ops.anchored import AnchoredIndex
         if ref_fasta is None:
             ref_fasta = _companion(qm_path, "")
-        ti = time.time()
-        index = AnchoredIndex.from_dictionary_and_fasta(
-            dictionary, ref_fasta, cache_path=ref_fasta + ".qai", device=dev)
-        index_s = time.time() - ti
+        if hbm_limit_bytes is not None:
+            # budget check before building: the genome length from the
+            # .qai header when present, else bounded by the FASTA size
+            qai = ref_fasta + ".qai"
+            if os.path.exists(qai):
+                with open(qai, "rb") as f:
+                    g_est = struct.unpack("<Q", f.read(16)[8:16])[0]
+            else:
+                g_est = os.path.getsize(ref_fasta)
+            est = AnchoredIndex.estimate_hbm_bytes(dictionary.n_kmers, g_est)
+            if est["total"] > hbm_limit_bytes:
+                fallback = {"reason": "anchored-structures-exceed-hbm",
+                            "estimate_bytes": est,
+                            "hbm_limit_bytes": hbm_limit_bytes}
+                mode = "flat"
+                if verbose:
+                    print(f"count: anchored structures need "
+                          f"~{est['total'] / 1e9:.1f} GB (> limit "
+                          f"{hbm_limit_bytes / 1e9:.1f} GB) — falling back "
+                          f"to the flat path")
+        if mode == "anchored":
+            ti = time.time()
+            index = AnchoredIndex.from_dictionary_and_fasta(
+                dictionary, ref_fasta, cache_path=ref_fasta + ".qai",
+                device=dev)
+            index_s = time.time() - ti
     sc = StreamCounter(dictionary, mode=mode, index=index,
                        batch_bases=batch_bases, read_len=read_len,
-                       device=dev)
+                       engine=engine, device=dev)
     setup_s = time.time() - t0
     stream = sys.stdin.buffer if sample_path == "-" else open(sample_path, "rb")
     bytes_consumed = 0
+    next_ckpt = checkpoint_every_bytes
+    resumed = checkpoint.load(checkpoint_path) if checkpoint_path else None
     try:
-        data = stream.read(chunk_bytes)
-        # FASTQ autodetected by a leading '@' (QuicKmer.c:393); works
-        # for pipes too since we already hold the first chunk
-        fmt = fmt or ("fastq" if data[:1] == b"@" else "fasta-lines")
-        packer = make_packer(fmt)
+        if resumed is not None:
+            bytes_consumed, arrays, meta = resumed
+            if sample_path == "-":
+                _discard_exactly(stream, bytes_consumed, chunk_bytes)
+            else:
+                stream.seek(bytes_consumed)
+            fmt = meta["fmt"]
+            packer = make_packer(fmt)
+            packer.set_state(meta["packer"])
+            sc.restore(arrays, meta["state"])
+            next_ckpt = bytes_consumed + checkpoint_every_bytes
+            if verbose:
+                print(f"count: resumed at byte {bytes_consumed}")
+            data = stream.read(chunk_bytes)
+        else:
+            data = stream.read(chunk_bytes)
+            # FASTQ autodetected by a leading '@' (QuicKmer.c:393); works
+            # for pipes too since we already hold the first chunk
+            fmt = fmt or ("fastq" if data[:1] == b"@" else "fasta-lines")
+            packer = make_packer(fmt)
         t_stream = time.time()
         while data:
             sc.feed_codes(packer.feed(data))
             bytes_consumed += len(data)
+            if checkpoint_path and bytes_consumed >= next_ckpt:
+                arrays, state_meta = sc.snapshot()
+                checkpoint.save(checkpoint_path, bytes_consumed, arrays,
+                                meta={"fmt": fmt, "packer": packer.get_state(),
+                                      "state": state_meta})
+                next_ckpt += checkpoint_every_bytes
             data = stream.read(chunk_bytes)
     finally:
         if sample_path != "-":
@@ -473,6 +670,8 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
     tf = time.time()
     depth = sc.finish()
     finish_s = time.time() - tf
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        os.remove(checkpoint_path)
     depth_u16 = (depth & 0xFFFF).astype(np.uint16)   # Q8 wrap parity
     formats.write_u16(out_prefix + ".bin", depth_u16)
 
@@ -485,6 +684,8 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
                         "finish_s": round(finish_s, 4)},
              "bytes_consumed": bytes_consumed,
              **sc.stats}
+    if fallback is not None:
+        stats["fallback"] = fallback
     qgc_path = _companion(qm_path, ".qgc")
     if not os.path.exists(qgc_path):
         qgc_path = qm_path + ".qgc"
@@ -496,6 +697,20 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
         if verbose:
             print("Mean sequencing depth: %.2f" % mean_depth)
     return stats
+
+
+def _discard_exactly(stream, n: int, chunk_bytes: int) -> None:
+    """Fast-forward a non-seekable stream past its consumed prefix
+    (checkpoint resume from stdin: the upstream pipe replays from the
+    start and the count drops what was already counted)."""
+    left = n
+    while left > 0:
+        got = stream.read(min(chunk_bytes, left))
+        if not got:
+            raise EOFError(
+                f"stream ended {left} bytes before the checkpoint offset "
+                f"{n}; the replayed input is shorter than the original")
+        left -= len(got)
 
 
 def _autodetect_read_len(codes: np.ndarray, cap: int = 1024) -> int:

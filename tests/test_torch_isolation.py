@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax nor the JAX package
-(a flat and an anchored count, a search whose slow queries take the
-packed-table path and an anchored index whose bitmap the Hamming join
-builds, on the CPU, in a fresh interpreter), and its entry points run on
+(a flat and an anchored count, a sort-join count, a checkpointed count,
+a cohort, a search whose slow queries take the packed-table path and an
+anchored index whose bitmap the Hamming join builds, on the CPU, in a
+fresh interpreter), and its entry points run on
 the card unless asked for the CPU — on a box without a card they raise
 instead of falling back."""
 
@@ -43,6 +44,17 @@ stats = run_count("g.fa.qm", "r.fa", "anch", batch_bases=1 << 13,
 assert stats["mode"] == "anchored", stats
 with open("flat.bin", "rb") as a, open("anch.bin", "rb") as b:
     assert a.read() == b.read()
+run_count("g.fa.qm", "r.fa", "sj", batch_bases=1 << 13, verbose=False,
+          engine="sortjoin", device="cpu")
+run_count("g.fa.qm", "r.fa", "ck", batch_bases=1 << 13, verbose=False,
+          checkpoint_path="ck.ckpt", checkpoint_every_bytes=4096,
+          device="cpu")
+from quickmer2_tpu_torch.pipelines.cohort import run_cohort
+run_cohort("g.fa.qm", [("r.fa", "co")], batch_bases=1 << 13, verbose=False,
+           device="cpu")
+for out in ("sj", "ck", "co"):
+    with open("flat.bin", "rb") as a, open(out + ".bin", "rb") as b:
+        assert a.read() == b.read(), out
 
 from quickmer2_tpu_torch.config import SearchConfig
 from quickmer2_tpu_torch.ops import anchored
@@ -109,6 +121,11 @@ def _entry(name, tmp_path):
     if name == "run_est":
         return lambda: est.run_est(os.path.join(d, "g"), os.path.join(d, "o"),
                                    os.path.join(d, "cn.bed"))
+    if name == "run_cohort":
+        from quickmer2_tpu_torch.pipelines.cohort import run_cohort
+        return lambda: run_cohort(os.path.join(d, "g.qm"),
+                                  [(os.path.join(d, "r.fa"),
+                                    os.path.join(d, "o"))])
     dic = Dictionary.from_kmers_in_order(np.arange(1, 50, dtype=np.uint64),
                                          1 << 8, 15)
     if name == "DepthCounter":
@@ -127,8 +144,8 @@ def _entry(name, tmp_path):
 
 @pytest.mark.parametrize("name", ["run_search", "run_count",
                                   "run_count_anchored", "run_est",
-                                  "DepthCounter", "AnchoredIndex",
-                                  "AnchoredDepthCounter"])
+                                  "run_cohort", "DepthCounter",
+                                  "AnchoredIndex", "AnchoredDepthCounter"])
 def test_default_device_refuses_cpu_fallback(tmp_path, name):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -148,10 +165,10 @@ def test_cli_default_device_refuses_cpu_fallback(tmp_path):
 @pytest.mark.parametrize("args", [
     ["search", "--emit-devices", "2", "g.fa"],
     ["count", "--data-devices", "2", "g.fa", "r.fq", "o"],
-    ["count", "--engine", "packed", "g.fa", "r.fq", "o"],
-    ["count", "--checkpoint", "ck", "g.fa", "r.fq", "o"],
+    ["count", "--dict-devices", "2", "g.fa", "r.fq", "o"],
+    ["count", "--profile", "d", "g.fa", "r.fq", "o"],
     ["sparse", "100", "g.fa"],
-    ["cohort", "g.fa", "r.fq:o"]])
+    ["est", "--plot", "g.fa", "smp", "cn.bed"]])
 def test_cli_rejects_unported(args, capsys):
     from quickmer2_tpu_torch.cli import main
     with pytest.raises(SystemExit) as exc:
