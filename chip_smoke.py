@@ -54,12 +54,19 @@ Phases:
                 run after the flat path (`check_flat_engines`): K7
                 (linear probe) on the smoke's .qm, K8 (packed count) on
                 its PackedTable (host build timed) and K9 (the sort-join
-                codec), each timed on one 2^24-base batch of the reads;
+                codec), each timed on one 2^24-base batch of the reads,
+                K7 and K8 at their own slice count P (16 and 64 on the
+                smoke's tables) and at P = 1, 2 and a sweep, their slot
+                depth and trash counter exact at each, their slot ->
+                rank translation (timed) equal to the rank-space step;
                 untimed at k = 15, 31, 32 on batches no multiple of 64
                 bases and on a 4096-slot table whose scans wrap past
-                slot 0; then the sort-join crossover: one batch through
-                K2 and through K9 + ops.sortjoin at n = 2^14 .. 2^20
-                keys, the join's depth checked against K8's;
+                slot 0 and cross slices, each at P = 1, 2 and the
+                smoke's; the linear and packed DepthCounters' snapshot,
+                restore and resume on the card; then the sort-join
+                crossover: one batch through K2 and through K9 +
+                ops.sortjoin at n = 2^14 .. 2^20 keys, the join's depth
+                checked against K8's;
   3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
                 bed) → count (flat, mono) → est on a 12 Mb realistic
                 genome (tools/realistic_genome.py, S. cerevisiae scale)
@@ -200,8 +207,8 @@ PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernelILb0"),
               "join_bits": ("hamming_join", "hamming_join_kernelILb1"),
               "neighbor_sum": ("neighbor_sum", "neighbor_sum_kernel"),
               "count_mono": ("count_mono", "count_mono_"),
-              "count_linear": ("count_flat", "count_linear_kernel"),
-              "count_packed": ("count_flat", "count_packed_kernel"),
+              "count_linear": ("count_flat", "CountLinear"),
+              "count_packed": ("count_flat", "CountPacked"),
               "kmerize": ("count_flat", "kmerize_kernel")}
 
 
@@ -1386,12 +1393,11 @@ def flat_batch(codes, dev):
             pk.nbytes + bits.nbytes)
 
 
-def batch_windows(pk, bits, k, n_bases):
-    """(chi, clo) of the batch's valid windows, by the plain codec."""
+def codec_windows(pk, bits, k, n_bases):
+    """(chi, clo, valid) of the batch's windows, by the plain codec."""
     from quickmer2_tpu_torch.ops import codec, rowpack
     codes = rowpack.unpack_rows(pk[None], bits[None], read_len=n_bases)[0]
-    chi, clo, ok = codec.sliding_kmers(codes, k)
-    return chi[ok], clo[ok]
+    return codec.sliding_kmers(codes, k)
 
 
 def hit_sectors(depth) -> int:
@@ -1421,108 +1427,205 @@ def linear_traffic(chi, clo, table, H):
             int(steps.sum()))
 
 
-def check_count_linear(dic, codes, dev, timed, label):
-    """K7 on the .qm table of `dic` and one batch; whole depth vectors
-    (trash lane included) exactly equal. Returns a kernel-table row when
-    timed."""
+def compare_parts(name, label, launch, d_plain, parts, zero):
+    """A kernel's slot-space depth at each slice count P in `parts`
+    (launch(depth, P)) against its plain version's, whole vectors, the
+    trash counter included: exactly equal. Returns the depth of the
+    last P."""
+    for p in parts:
+        d_p = zero()
+        launch(d_p, p)
+        torch.cuda.synchronize()
+        err = max_abs_err(d_p, d_plain)
+        if err != 0:
+            raise AssertionError(f"{name} {label} at P = {p} disagrees with "
+                                 f"its plain version (max |diff| {err})")
+    return d_p
+
+
+def check_translation(name, label, d_slot, rank_slots, n, want, timed):
+    """slot_depth_to_rank of a kernel's slot-space depth against the
+    rank-space depth of the JAX step's semantics (`want`, computed
+    without slots), and back: rank_depth_to_slot then slot_depth_to_rank
+    gives `want` again. Returns (ms, bound ms) when timed."""
     from quickmer2_tpu_torch.kernels.count_flat import (
-        count_linear_step, count_linear_step_plain, linear_table)
-    table, rank = linear_table(dic, dev)
+        rank_depth_to_slot, slot_depth_to_rank)
+    got = slot_depth_to_rank(d_slot, rank_slots, n)
+    back = slot_depth_to_rank(
+        rank_depth_to_slot(want, rank_slots, len(d_slot)), rank_slots, n)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(got, want), max_abs_err(back, want))
+    if err != 0:
+        raise AssertionError(f"{name} {label}: slot -> rank disagrees with "
+                             f"the rank-space step (max |diff| {err})")
+    if not timed:
+        return None
+    ms = cuda_ms(lambda: slot_depth_to_rank(d_slot, rank_slots, n), 10)
+    # the slot of each rank read once, the slot depth read once (every
+    # lane adds to the sum), the rank depth's sectors written once; an add
+    # a lane
+    n_bytes = (8 * n + 4 * len(d_slot) + 32 * -(-4 * (n + 1) // 32))
+    b_ms, _ = bound_ms(n_bytes, len(d_slot))
+    log(f"  {name} slot -> rank: {ms:.4f} ms, bound {b_ms:.4f} ms (bytes: "
+        f"{n_bytes / 1e6:.1f} MB), equal to the rank-space step")
+    return ms, b_ms
+
+
+def linear_crossings(chi, clo, table, H, n_parts):
+    """Valid windows whose scan stops in another slice than its home slot
+    (past a slice's edge, or wrapped), at P = n_parts."""
+    from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.ops.hash import djb_pair, probe_lookup, slot_at
+    shift = (H // n_parts).bit_length() - 1
+    home = djb_pair(chi, clo) & (H - 1)
+    idx, _ = probe_lookup(u32(table[:, 0]), u32(table[:, 1]), chi, clo, H)
+    return int(((home >> shift) != (slot_at(idx, H) >> shift)).sum())
+
+
+def check_count_linear(dic, codes, dev, timed, label, parts):
+    """K7 on the .qm table of `dic` and one batch: its slot depth and
+    trash counter exactly equal to the plain version's at each slice
+    count in `parts` and at its own; the translation to rank order equal
+    to the rank-space step. Returns a kernel-table row when timed."""
+    from quickmer2_tpu_torch.device import u32, words
+    from quickmer2_tpu_torch.kernels.count_flat import (
+        count_linear_launch, count_linear_step, count_linear_step_plain,
+        linear_partitions_for, linear_rank_slots, linear_table)
+    from quickmer2_tpu_torch.ops.hash import probe_lookup, slot_at
+    table = linear_table(dic, dev)
+    rank = words(np.asarray(dic.rank, np.int32).view(np.uint32), dev)
+    H, n = dic.hash_size, dic.n_kmers
+    rank_slots = linear_rank_slots(dic, dev)
     pk, bits, nbytes = flat_batch(codes, dev)
-    kw = dict(k=dic.kmer_size, hash_size=dic.hash_size, n_bases=len(codes))
-    n = dic.n_kmers
+    kw = dict(k=dic.kmer_size, hash_size=H, n_bases=len(codes))
+    own = linear_partitions_for(H)
+    parts = sorted({1, 2, own, *parts})
 
     def zero():
-        return torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        return torch.zeros(H + 1, dtype=torch.int32, device=dev)
     d_kernel, d_plain = zero(), zero()
-    count_linear_step(pk, bits, table, rank, d_kernel, **kw)
-    count_linear_step_plain(pk, bits, table, rank, d_plain, **kw)
+    count_linear_step(pk, bits, table, d_kernel, **kw)
+    count_linear_step_plain(pk, bits, table, d_plain, **kw)
     torch.cuda.synchronize()
     err = max_abs_err(d_kernel, d_plain)
-    log(f"  count_linear {label} k={dic.kmer_size}: {n} keys, "
-        f"{dic.hash_size} slots, batch {len(codes)} bases: "
-        f"{int(d_kernel[:-1].sum())} hits, {int(d_kernel[-1])} trash, "
-        f"max |kernel - plain| = {err}")
     if err != 0:
         raise AssertionError(f"count_linear {label} disagrees with its "
                              "plain version")
+    compare_parts("count_linear", label, lambda d, p: count_linear_launch(
+        pk, bits, table, d, n_parts=p, **kw), d_plain, parts, zero)
+    # the rank-space step (JAX's count_step): rank of the stop slot, the
+    # trash lane for an invalid window
+    chi, clo, ok = codec_windows(pk, bits, dic.kmer_size, len(codes))
+    idx, _ = probe_lookup(u32(table[:, 0]), u32(table[:, 1]), chi, clo, H)
+    want = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    r = torch.where(ok, u32(rank)[slot_at(idx, H)], n)
+    want.index_add_(0, r, torch.ones_like(r, dtype=torch.int32))
+    tr = check_translation("count_linear", label, d_kernel, rank_slots, n,
+                           want, timed)
+    cross = linear_crossings(chi[ok], clo[ok], table, H, max(parts))
+    log(f"  count_linear {label} k={dic.kmer_size}: {n} keys, {H} slots (P "
+        f"= {own}; checked at P = {parts}), batch {len(codes)} bases: "
+        f"{int(d_kernel[:-1].sum())} slot adds, {int(d_kernel[-1])} trash, "
+        f"{cross} scans ending in another slice than their home's at P = "
+        f"{max(parts)}; max |kernel - plain| = {err}")
     if not timed:
-        return None
+        return cross
     ms, queued_ms = kernel_ms(
-        lambda: count_linear_step(pk, bits, table, rank, d_kernel, **kw), 10)
+        lambda: count_linear_step(pk, bits, table, d_kernel, **kw), 10)
     plain_ms = cuda_ms(
-        lambda: count_linear_step_plain(pk, bits, table, rank, d_plain, **kw),
-        1)
-    chi, clo = batch_windows(pk, bits, dic.kmer_size, len(codes))
-    t_sec, r_sec, probes = linear_traffic(chi, clo, table, dic.hash_size)
-    d_sec = hit_sectors(d_plain)
+        lambda: count_linear_step_plain(pk, bits, table, d_plain, **kw), 1)
+    sweep = {p: round(cuda_ms(lambda: count_linear_launch(
+        pk, bits, table, d_plain, n_parts=p, **kw), 10), 4)
+        for p in (1, 2, 4, 8, 32, 64) if p != own}
+    t_sec, r_sec, probes = linear_traffic(chi[ok], clo[ok], table, H)
+    d_sec = hit_sectors(want)
     n_win = len(codes) - dic.kmer_size + 1
     n_bytes = nbytes + 32 * (t_sec + r_sec) + 64 * d_sec
     # ~36 int ops a window (codec, canonical min, DJB), 8 a probe step
     b_ms, b_by = bound_ms(n_bytes, 36 * n_win + 8 * probes)
-    log(f"  count_linear time {ms:.4f} ms (queued {queued_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{n_bytes / 1e6:.1f} MB; {probes} probe steps over {len(chi)} "
-        f"valid windows, {probes / max(len(chi), 1):.4f} a window; "
-        f"{t_sec} table, {r_sec} rank, {d_sec} depth sectors)")
+    log(f"  count_linear time {ms:.4f} ms (queued {queued_ms:.4f} ms) at P = "
+        f"{own}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB; {probes} probe steps over {int(ok.sum())} "
+        f"valid windows, {probes / max(int(ok.sum()), 1):.4f} a window; "
+        f"{t_sec} table, {r_sec} rank, {d_sec} depth sectors); ms at other "
+        f"P: {sweep}")
     return {"name": "count_linear", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/count_flat.cu",
             "replaces": "quickmer2_tpu/pipelines/count.py:40",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "plain_ms": plain_ms, "partitions": own, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "translate_ms": tr[0],
+            "translate_bound_ms": tr[1]}
 
 
-def check_count_packed(table, codes, k, dev, timed, label):
-    """K8 on a PackedTable and one batch; whole depth vectors exactly
-    equal. Returns a kernel-table row when timed."""
+def check_count_packed(table, codes, k, dev, timed, label, parts):
+    """K8 on a PackedTable and one batch, as check_count_linear does K7.
+    Returns a kernel-table row when timed."""
     from quickmer2_tpu_torch.kernels.count_flat import (
-        count_packed_step, count_packed_step_plain)
+        count_packed_launch, count_packed_step, count_packed_step_plain,
+        packed_partitions_for, packed_rank_slots)
+    from quickmer2_tpu_torch.ops import packed_table
     from quickmer2_tpu_torch.ops.hash import djb_pair
-    from quickmer2_tpu_torch.ops.packed_table import bucket_hashes_t
     rows = table.device_rows(dev)
+    B, n = table.n_buckets, table.n_kmers
+    rank_slots = packed_rank_slots(rows, n)
     pk, bits, nbytes = flat_batch(codes, dev)
-    kw = dict(k=k, n_buckets=table.n_buckets, n_bases=len(codes))
-    n = table.n_kmers
+    kw = dict(k=k, n_buckets=B, n_bases=len(codes))
+    own = packed_partitions_for(B)
+    parts = sorted({1, 2, own, *parts})
 
     def zero():
-        return torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        return torch.zeros(2 * B + 1, dtype=torch.int32, device=dev)
     d_kernel, d_plain = zero(), zero()
     count_packed_step(pk, bits, rows, d_kernel, **kw)
     count_packed_step_plain(pk, bits, rows, d_plain, **kw)
     torch.cuda.synchronize()
     err = max_abs_err(d_kernel, d_plain)
-    log(f"  count_packed {label} k={k}: {n} keys, {table.n_buckets} buckets, "
-        f"batch {len(codes)} bases: {int(d_kernel[:-1].sum())} hits, "
-        f"{int(d_kernel[-1])} trash, max |kernel - plain| = {err}")
     if err != 0:
         raise AssertionError(f"count_packed {label} disagrees with its "
                              "plain version")
+    compare_parts("count_packed", label, lambda d, p: count_packed_launch(
+        pk, bits, rows, d, n_parts=p, **kw), d_plain, parts, zero)
+    # the rank-space step (JAX's count_step_packed_pk)
+    chi, clo, ok = codec_windows(pk, bits, k, len(codes))
+    found, r, _ = packed_table.probe_packed(rows, chi, clo, B, n)
+    want = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    r = torch.where(ok & found, r, n)
+    want.index_add_(0, r, torch.ones_like(r, dtype=torch.int32))
+    tr = check_translation("count_packed", label, d_kernel, rank_slots, n,
+                           want, timed)
+    log(f"  count_packed {label} k={k}: {n} keys, {B} buckets (P = {own}; "
+        f"checked at P = {parts}), batch {len(codes)} bases: "
+        f"{int(d_kernel[:-1].sum())} hits, {int(d_kernel[-1])} trash, "
+        f"max |kernel - plain| = {err}")
     if not timed:
         return None
     ms, queued_ms = kernel_ms(
         lambda: count_packed_step(pk, bits, rows, d_kernel, **kw), 10)
     plain_ms = cuda_ms(
         lambda: count_packed_step_plain(pk, bits, rows, d_plain, **kw), 2)
-    chi, clo = batch_windows(pk, bits, k, len(codes))
-    nz = (chi | clo) != 0
-    h1, h2 = bucket_hashes_t(djb_pair(chi[nz], clo[nz]), table.n_buckets)
+    sweep = {p: round(cuda_ms(lambda: count_packed_launch(
+        pk, bits, rows, d_plain, n_parts=p, **kw), 10), 4)
+        for p in (1, 2, 8, 16, 32, 128) if p != own}
+    nz = ok & ((chi | clo) != 0)
+    h1, h2 = packed_table.bucket_hashes_t(djb_pair(chi[nz], clo[nz]), B)
     rows_touched = int(torch.unique(torch.cat([h1, h2])).numel())
-    d_sec = hit_sectors(d_plain)
+    d_sec = hit_sectors(want)
     n_win = len(codes) - k + 1
     n_bytes = nbytes + 32 * rows_touched + 64 * d_sec
     # ~48 int ops a window: codec and DJB (36), two buckets, 4 compares
     b_ms, b_by = bound_ms(n_bytes, 48 * n_win)
-    log(f"  count_packed time {ms:.4f} ms (queued {queued_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+    log(f"  count_packed time {ms:.4f} ms (queued {queued_ms:.4f} ms) at P = "
+        f"{own}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
         f"{n_bytes / 1e6:.1f} MB, {rows_touched} rows, {d_sec} depth "
-        f"sectors)")
+        f"sectors); ms at other P: {sweep}")
     return {"name": "count_packed", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/count_flat.cu",
             "replaces": "quickmer2_tpu/pipelines/count.py:131",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "plain_ms": plain_ms, "partitions": own, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "translate_ms": tr[0],
+            "translate_bound_ms": tr[1]}
 
 
 def check_kmerize(codes, k, dev, timed, label):
@@ -1566,10 +1669,11 @@ FLAT_ENGINE_EDGES = ((15, 400_000, (1 << 21) + 13), (31, 400_000, 3_000_001),
                      (32, 400_000, (1 << 21) + 45))
 
 
-def check_flat_engines_small(rng, k, n_keys, n_bases, dev):
+def check_flat_engines_small(rng, k, n_keys, n_bases, dev, parts):
     """K7, K8, K9 at k on a random dictionary (a third of the batch's
     windows among its keys) and a batch with read separators and N
-    bases."""
+    bases; K7 and K8 also at the smoke's slice counts (parts: K7's, K8's)
+    on these tables."""
     from quickmer2_tpu_torch.dictionary import Dictionary
     from quickmer2_tpu_torch.ops import codec
     from quickmer2_tpu_torch.ops.packed_table import PackedTable
@@ -1586,16 +1690,17 @@ def check_flat_engines_small(rng, k, n_keys, n_bases, dev):
     codes = g.copy()
     codes[READ_LEN::READ_LEN + 1] = codec.SEP
     codes[rng.random(n_bases) < 0.01] = codec.SEP
-    check_count_linear(dic, codes, dev, False, "edge")
+    check_count_linear(dic, codes, dev, False, "edge", [parts[0]])
     check_count_packed(PackedTable.from_dictionary(dic), codes, k, dev, False,
-                       "edge")
+                       "edge", [parts[1]])
     check_kmerize(codes, k, dev, False, "edge")
 
 
-def check_count_linear_wrap(rng, dev):
+def check_count_linear_wrap(rng, dev, parts):
     """K7 on a 4096-slot table, full but for two slots near the top:
     scans from the upper half run down through slot 0 and wrap to slot
-    H - 1, where a planted key is found; misses run long."""
+    H - 1, where a planted key is found; misses run long, across the
+    slices of P = parts (K7's smoke slice count), which some must."""
     from quickmer2_tpu_torch.dictionary import Dictionary, make_rank
     from quickmer2_tpu_torch.io import formats
     from quickmer2_tpu_torch.ops import hash as qhash
@@ -1623,7 +1728,10 @@ def check_count_linear_wrap(rng, dev):
                             (table[H - 1] >> (2 * np.arange(
                                 k - 1, -1, -1, dtype=np.uint64))
                              & np.uint64(3)).astype(np.uint8)])
-    check_count_linear(dic, codes, dev, False, "4096 slots, wrapping")
+    cross = check_count_linear(dic, codes, dev, False, "4096 slots, wrapping",
+                               [parts])
+    if cross == 0:
+        raise AssertionError("no scan of the wrapping table crossed a slice")
 
 
 SORTJOIN_NS = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
@@ -1638,7 +1746,7 @@ def sortjoin_crossover(dict_kmers, codes, k, dev):
     sort-join was faster (0 if none)."""
     from quickmer2_tpu_torch.device import words
     from quickmer2_tpu_torch.kernels.count_flat import (
-        count_packed_step, kmerize_step)
+        count_packed_step, kmerize_step, packed_rank_slots, slot_depth_to_rank)
     from quickmer2_tpu_torch.kernels.count_mono import count_mono_step
     from quickmer2_tpu_torch.ops import codec
     from quickmer2_tpu_torch.ops.monotable import MonoTable
@@ -1656,9 +1764,12 @@ def sortjoin_crossover(dict_kmers, codes, k, dev):
         engine = SortJoinEngine(keys, dev)
         engine.count_codes(*kmerize_step(pk, bits, k=k, n_bases=n_bases))
         packed = PackedTable.build(hi, lo, np.arange(n, dtype=np.uint32))
-        ref = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-        count_packed_step(pk, bits, packed.device_rows(dev), ref, k=k,
+        prows = packed.device_rows(dev)
+        ref = torch.zeros(2 * packed.n_buckets + 1, dtype=torch.int32,
+                          device=dev)
+        count_packed_step(pk, bits, prows, ref, k=k,
                           n_buckets=packed.n_buckets, n_bases=n_bases)
+        ref = slot_depth_to_rank(ref, packed_rank_slots(prows, n), n)
         got = engine.finish()
         if not np.array_equal(got, ref[:-1].cpu().numpy().view(np.uint32)):
             raise AssertionError(f"sort-join at n = {n} disagrees with K8")
@@ -1670,36 +1781,81 @@ def sortjoin_crossover(dict_kmers, codes, k, dev):
         out[n] = (round(mono_ms, 4), round(sj_ms, 4))
         if sj_ms < mono_ms:
             best = n
+        # the join's least traffic: K9's 9 B a window read, the sorted
+        # keys read once, the bincount's depth written once
+        j_ms, _ = bound_ms(9 * (n_bases - k + 1) + 8 * n + 4 * (n + 1), 0)
         log(f"  sort-join crossover n = {n}: mono (K2) {mono_ms:.4f} ms, "
-            f"sort-join (K9 + torch) {sj_ms:.4f} ms a {n_bases}-base batch; "
-            f"sort-join depth equal to K8's ({int(got.sum())} hits)")
-        del rows, depth, engine, ref
+            f"sort-join (K9 + torch) {sj_ms:.4f} ms a {n_bases}-base batch "
+            f"(the join's bound {j_ms:.4f} ms, bytes); sort-join depth "
+            f"equal to K8's ({int(got.sum())} hits)")
+        del rows, depth, engine, ref, prows
     return out, best
+
+
+def check_counter_resume(dic, table, codes):
+    """The linear and packed DepthCounters on the card: a snapshot taken
+    a third of the way in (rank order, the JAX package's format),
+    restored into a new counter whose own snapshot equals it, then
+    resumed to the same finish as an uninterrupted counter."""
+    from quickmer2_tpu_torch.pipelines.count import DepthCounter
+    cut = len(codes) // 3
+    for layout, prebuilt in (("linear", None), ("packed", table)):
+        t = time.time()
+
+        def counter():
+            return DepthCounter(dic, batch_bases=1 << 22, layout=layout,
+                                packed_table=prebuilt, device="cuda")
+        full = counter()
+        full.feed_codes(codes)
+        want = full.finish()
+        half = counter()
+        half.feed_codes(codes[:cut])
+        snap = half.snapshot()
+        again = counter()
+        again.restore(snap)
+        if not np.array_equal(again.snapshot()["depth"], snap["depth"]):
+            raise AssertionError(f"{layout}: a restored snapshot differs")
+        again.feed_codes(codes[cut:])
+        if not np.array_equal(again.finish(), want):
+            raise AssertionError(f"{layout}: the resumed depth differs")
+        log(f"  {layout} DepthCounter: snapshot at {cut} of {len(codes)} "
+            f"codes restored (snapshot again equal) and resumed to the "
+            f"uninterrupted depth ({int(want.sum())} hits), "
+            f"{time.time() - t:.1f} s")
+        del full, half, again
 
 
 def check_flat_engines(fa, reads, dev):
     """K7, K8 and K9 against their plain versions: timed at k = 30 on the
     smoke's own .qm (the linear table), its PackedTable (host build
-    timed) and one 2^24-base batch of the smoke's reads; untimed at k =
-    15, 31, 32 and on a wrapping 4096-slot table; then the sort-join
+    timed) and one 2^24-base batch of the smoke's reads, K7 and K8 also
+    at P = 1, 2 and other slice counts; untimed at k = 15, 31, 32 and on
+    a wrapping 4096-slot table, at P = 1, 2 and the smoke's; the linear
+    and packed counters' snapshot and resume; then the sort-join
     crossover. Returns the timed kernel-table rows."""
     from quickmer2_tpu_torch.dictionary import Dictionary
+    from quickmer2_tpu_torch.kernels.count_flat import (
+        linear_partitions_for, packed_partitions_for)
     from quickmer2_tpu_torch.ops.packed_table import PackedTable
     dic = Dictionary.from_qm(fa + ".qm")
     codes = flat_codes(reads, 1 << 24)
-    rows = [check_count_linear(dic, codes, dev, True, "smoke")]
+    rows = [check_count_linear(dic, codes, dev, True, "smoke", [])]
     t = time.time()
     table = PackedTable.from_dictionary(dic)
     log(f"  PackedTable.from_dictionary: {dic.n_kmers} keys, "
         f"{table.n_buckets} buckets, host build {time.time() - t:.2f} s")
     rows.append(check_count_packed(table, codes, dic.kmer_size, dev, True,
-                                   "smoke"))
+                                   "smoke", []))
+    parts = (linear_partitions_for(dic.hash_size),
+             packed_partitions_for(table.n_buckets))
+    check_counter_resume(dic, table, codes)
     del table
+    torch.cuda.empty_cache()
     rows.append(check_kmerize(codes, dic.kmer_size, dev, True, "smoke"))
     for k, n_keys, n_bases in FLAT_ENGINE_EDGES:
         check_flat_engines_small(np.random.default_rng(k), k, n_keys,
-                                 n_bases, dev)
-    check_count_linear_wrap(np.random.default_rng(4096), dev)
+                                 n_bases, dev, parts)
+    check_count_linear_wrap(np.random.default_rng(4096), dev, parts[0])
     cross, best = sortjoin_crossover(dic.kmers_in_order, codes,
                                      dic.kmer_size, dev)
     log(f"  sort-join crossover {json.dumps(cross)}: sort-join wins up to "

@@ -4,8 +4,9 @@ arguments.
 entry() is the PyTorch analog of __graft_entry__.entry: the same toy
 genome, dictionary and read codes (made here from numpy), and the
 count's step through the reference's linear probe (kernel K7,
-kernels.count_flat.count_linear_step) on the card. `fn(*args)` adds the
-reads' k-mers to the depth vector args[-1] and returns it.
+kernels.count_flat.count_linear_step) on the card, its slot-space depth
+translated to rank order. `fn(*args)` adds the reads' k-mers to the
+depth vector args[-1] and returns it.
 """
 
 from __future__ import annotations
@@ -15,10 +16,10 @@ import functools
 import numpy as np
 import torch
 
-from quickmer2_tpu_torch.device import resolve_device, word_dtype
+from quickmer2_tpu_torch.device import resolve_device, store, u32, word_dtype
 from quickmer2_tpu_torch.dictionary import Dictionary
 from quickmer2_tpu_torch.kernels.count_flat import (
-    count_linear_step, linear_table)
+    count_linear_step, linear_rank_slots, linear_table, slot_depth_to_rank)
 from quickmer2_tpu_torch.ops import codec, rowpack
 
 
@@ -51,26 +52,29 @@ def _toy_codes(n=4096, seed=0):
     return np.concatenate(parts)[:n]
 
 
-def _step(pk, bits, table, rank, depth, *, k, hash_size, n_bases):
-    count_linear_step(pk, bits, table, rank, depth, k=k, hash_size=hash_size,
+def _step(pk, bits, table, rank_slots, depth, *, k, hash_size, n_bases):
+    slots = torch.zeros(hash_size + 1, dtype=depth.dtype, device=depth.device)
+    count_linear_step(pk, bits, table, slots, k=k, hash_size=hash_size,
                       n_bases=n_bases)
+    ranks = slot_depth_to_rank(slots, rank_slots, depth.shape[0] - 1)
+    depth.copy_(store(u32(depth) + u32(ranks), depth.dtype))
     return depth
 
 
 def entry(device: str = "cuda"):
     """(fn, args): the linear-probe count step and its arguments (2-bit
     packed codes and their invalid bits, the .qm table as (hi, lo)
-    pairs, the slot → rank map, a zero depth u32[n_kmers + 1]) on
-    `device` (default the card; raises without one)."""
+    pairs, the slot of each rank, a zero rank-space depth u32[n_kmers +
+    1]) on `device` (default the card; raises without one)."""
     dev = resolve_device(device)
     k = 30
     dic = _toy_dictionary(k=k)
-    table, rank = linear_table(dic, dev)
+    table = linear_table(dic, dev)
     codes = _toy_codes()
     pk, bits = rowpack.pack_rows(codes[None, :])
     depth = torch.zeros(dic.n_kmers + 1, dtype=word_dtype(dev), device=dev)
     fn = functools.partial(_step, k=k, hash_size=dic.hash_size,
                            n_bases=len(codes))
     args = (torch.from_numpy(pk[0]).to(dev), torch.from_numpy(bits[0]).to(dev),
-            table, rank, depth)
+            table, linear_rank_slots(dic, dev), depth)
     return fn, args

@@ -5,14 +5,27 @@ batch), as count_mono.count_mono_step does.
 
 `count_linear_step` (K7) replaces quickmer2_tpu/pipelines/count.py::
 count_step: the reference's linear probe (ops.hash.probe_lookup) over
-the .qm table, the slot → rank gather, and depth[rank] += 1 into a
-rank-space depth u32[n_kmers + 1] whose last lane (the trash lane) takes
-the invalid windows and the misses. The table is a word tensor [H, 2] of
-(hi, lo) a slot (`linear_table`), so a probe step is one 8-B load.
+the .qm table and a depth add where the scan stops. The table is a word
+tensor [H, 2] of (hi, lo) a slot (`linear_table`), so a probe step is
+one 8-B load.
 
 `count_packed_step` (K8) replaces count_step_packed_pk: the two-choice
-packed-table probe (ops.packed_table), depth[rank] += 1 on a hit, the
-trash lane otherwise.
+packed-table probe (ops.packed_table) and a depth add at the matching
+entry.
+
+Both count in slot space, as K2 does: depth u32[S + 1] over the
+table's S slots (K7: the H slots of the .qm table; K8: slot 2 * bucket
++ entry of the packed table's B buckets, S = 2B), its last lane a trash
+counter of the invalid windows, the misses and K7's stops on an empty
+slot. `slot_depth_to_rank` maps it to the JAX counter's rank-space
+depth u32[n_kmers + 1] (trash lane last) through the slot of each rank
+(`linear_rank_slots`, `packed_rank_slots`), and `rank_depth_to_slot`
+maps a rank-space depth back, so snapshots are the JAX package's. The
+translation is plain torch (a gather in rank order and two sums), new
+glue and no TPU kernel's port. On the
+card a table larger than L2 is probed slice by slice
+(`linear_partitions_for`, `packed_partitions_for`), through a scratch
+buffer cached per device and size.
 
 `kmerize_step` (K9) replaces _kmerize_step_pk, the sort-join engine's
 codec: (chi, clo, valid) of every window, invalid windows as key 0
@@ -29,28 +42,87 @@ import ctypes
 import numpy as np
 import torch
 
-from quickmer2_tpu_torch.device import store, u32, words
+from quickmer2_tpu_torch.device import U32, store, u32, words
 from quickmer2_tpu_torch.kernels import build
+from quickmer2_tpu_torch.kernels.count_mono import (
+    MAX_PARTS, slice_count, workspace)
 from quickmer2_tpu_torch.ops import codec, packed_table, rowpack
 from quickmer2_tpu_torch.ops.hash import MAX_STEPS, probe_lookup, slot_at
 
 _ARGTYPES = {
-    "qm2t_count_linear": [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "qm2t_count_linear": [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     "qm2t_count_packed": [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p],
     "qm2t_kmerize": [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]}
 
 
-def linear_table(dictionary, device: torch.device):
-    """(table, rank) word tensors of a dictionary on `device`: the .qm
-    table as (hi, lo) pairs [H, 2] and the slot → rank map [H]."""
-    hi, lo, rank = dictionary.device_arrays()
-    return (words(np.stack([hi, lo], axis=1), device),
-            words(rank.view(np.uint32), device))
+def linear_partitions_for(hash_size: int) -> int:
+    """K7's slice count P: a table pair and a depth word are 12 B a
+    slot."""
+    return slice_count(hash_size, 12)
+
+
+def packed_partitions_for(n_buckets: int) -> int:
+    """K8's slice count P: a row and two depth words are 40 B a
+    bucket."""
+    return slice_count(n_buckets, 4 * packed_table.ROW_WIDTH + 8)
+
+
+def linear_table(dictionary, device: torch.device) -> torch.Tensor:
+    """The .qm table of a dictionary as a word tensor of (hi, lo) pairs
+    [H, 2] on `device`."""
+    hi, lo, _ = dictionary.device_arrays()
+    return words(np.stack([hi, lo], axis=1), device)
+
+
+def linear_rank_slots(dictionary, device: torch.device) -> torch.Tensor:
+    """K7's slot of each rank: the .qm chain, int64 [n_kmers]."""
+    return torch.from_numpy(np.asarray(dictionary.chain_slots,
+                                       np.int64)).to(device)
+
+
+def packed_rank_slots(rows: torch.Tensor, n_kmers: int) -> torch.Tensor:
+    """K8's slot (2 * bucket + entry) of each rank, int64 [n_kmers]: the
+    live entries' rank fields, which must name each rank once."""
+    e = rows.reshape(-1, 4)
+    slots = torch.nonzero((e[:, 0] | e[:, 1]) != 0).flatten()
+    ranks = e[:, 2].index_select(0, slots).long()
+    if len(slots) != n_kmers:
+        raise ValueError(f"packed table holds {len(slots)} keys, "
+                         f"{n_kmers} expected")
+    out = torch.full((n_kmers,), -1, dtype=torch.int64, device=rows.device)
+    out.index_copy_(0, ranks, slots)
+    return out
+
+
+def slot_depth_to_rank(depth: torch.Tensor, rank_slots: torch.Tensor,
+                       n_kmers: int) -> torch.Tensor:
+    """Rank-space depth u32[n_kmers + 1] of a slot-space depth (same word
+    dtype and device): lane r takes the depth of slot rank_slots[r], and
+    the trash lane the rest, the trash counter included (every lane's sum
+    less the k-mers', mod 2^32). The result is the JAX counter's bit for
+    bit."""
+    out = torch.empty(n_kmers + 1, dtype=depth.dtype, device=depth.device)
+    torch.index_select(depth, 0, rank_slots, out=out[:n_kmers])
+    out[n_kmers] = (depth.sum(dtype=depth.dtype)
+                    - out[:n_kmers].sum(dtype=depth.dtype))
+    return out & U32 if out.dtype == torch.int64 else out
+
+
+def rank_depth_to_slot(depth: torch.Tensor, rank_slots: torch.Tensor,
+                       n_lanes: int) -> torch.Tensor:
+    """The slot-space depth u32[n_lanes] of a rank-space one: slot
+    rank_slots[r] takes depth[r], the trash counter (the last lane) the
+    trash lane, every other slot 0; slot_depth_to_rank gives the
+    rank-space depth back."""
+    out = torch.zeros(n_lanes, dtype=depth.dtype, device=depth.device)
+    out.index_copy_(0, rank_slots, depth[:-1])
+    out[-1] = depth[-1]
+    return out
 
 
 def _windows(pk, bits, k: int, n_bases: int):
@@ -73,6 +145,13 @@ def _check_batch(what, pk, bits, k, n_bases, specs):
         raise ValueError(f"{what}: pk and bits must be 8-byte aligned")
 
 
+def _check_parts(what, n_parts, n_units):
+    if (not 1 <= n_parts <= min(MAX_PARTS, n_units)
+            or n_parts & (n_parts - 1)):
+        raise ValueError(f"{what}: bad slice count {n_parts} for "
+                         f"{n_units} table units")
+
+
 def _launch(fn: str, what: str, device: torch.device, *args) -> None:
     lib = build.load("count_flat", _ARGTYPES)
     with torch.cuda.device(device):
@@ -83,39 +162,53 @@ def _launch(fn: str, what: str, device: torch.device, *args) -> None:
 
 # -- K7: the linear probe -------------------------------------------------
 
-def count_linear_step_plain(pk, bits, table, rank, depth, *, k: int,
+def count_linear_step_plain(pk, bits, table, depth, *, k: int,
                             hash_size: int, n_bases: int,
                             max_steps: int = MAX_STEPS) -> None:
-    """Plain PyTorch version: unpack, kmerize, probe, gather, add."""
+    """Plain PyTorch version: unpack, kmerize, probe, add at the stop
+    slot (the trash counter for an invalid window or an empty slot)."""
     chi, clo, valid = _windows(pk, bits, k, n_bases)
-    idx, _ = probe_lookup(u32(table[:, 0]), u32(table[:, 1]), chi, clo,
-                          hash_size, max_steps)
-    trash = depth.shape[0] - 1
-    r = u32(rank[slot_at(idx, hash_size)])
-    _add(depth, torch.where(valid, r, trash))
+    thi, tlo = u32(table[:, 0]), u32(table[:, 1])
+    idx, _ = probe_lookup(thi, tlo, chi, clo, hash_size, max_steps)
+    s = slot_at(idx, hash_size)
+    live = valid & ((thi[s] | tlo[s]) != 0)
+    _add(depth, torch.where(live, s, hash_size))
 
 
 def count_linear_step(pk: torch.Tensor, bits: torch.Tensor,
-                      table: torch.Tensor, rank: torch.Tensor,
-                      depth: torch.Tensor, *, k: int, hash_size: int,
-                      n_bases: int, max_steps: int = MAX_STEPS) -> None:
-    """One batch into the rank-space `depth` (updated in place)."""
+                      table: torch.Tensor, depth: torch.Tensor, *, k: int,
+                      hash_size: int, n_bases: int,
+                      max_steps: int = MAX_STEPS) -> None:
+    """One batch into the slot-space `depth` u32[hash_size + 1] (updated
+    in place)."""
     if pk.device.type == "cpu":
-        count_linear_step_plain(pk, bits, table, rank, depth, k=k,
+        count_linear_step_plain(pk, bits, table, depth, k=k,
                                 hash_size=hash_size, n_bases=n_bases,
                                 max_steps=max_steps)
         return
+    count_linear_launch(pk, bits, table, depth, k=k, hash_size=hash_size,
+                        n_bases=n_bases, max_steps=max_steps,
+                        n_parts=linear_partitions_for(hash_size))
+    count_linear_step.launches += 1
+
+
+def count_linear_launch(pk, bits, table, depth, *, k: int, hash_size: int,
+                        n_bases: int, n_parts: int,
+                        max_steps: int = MAX_STEPS) -> None:
+    """K7 on CUDA tensors at P = n_parts slices (1: the one-pass kernel);
+    count_linear_step's launch, which it alone counts."""
     _check_batch("count_linear_step", pk, bits, k, n_bases, [
         ("table", table, torch.int32, (hash_size, 2)),
-        ("rank", rank, torch.int32, (hash_size,)),
-        ("depth", depth, torch.int32, (depth.shape[0],))])
+        ("depth", depth, torch.int32, (hash_size + 1,))])
     if hash_size < 2 or hash_size > 1 << 31 or hash_size & (hash_size - 1):
         raise ValueError(f"count_linear_step: bad hash_size {hash_size}")
+    _check_parts("count_linear_step", n_parts, hash_size)
+    n = n_bases - k + 1
+    work = workspace(pk.device, n) if n_parts > 1 else None
     _launch("qm2t_count_linear", "count_linear", pk.device, pk.data_ptr(),
-            bits.data_ptr(), table.data_ptr(), rank.data_ptr(),
-            depth.data_ptr(), n_bases, k, hash_size, depth.shape[0] - 1,
-            max_steps)
-    count_linear_step.launches += 1
+            bits.data_ptr(), table.data_ptr(), depth.data_ptr(), n_bases, k,
+            hash_size, max_steps, n_parts,
+            None if work is None else work.data_ptr())
 
 
 count_linear_step.launches = 0
@@ -125,31 +218,53 @@ count_linear_step.launches = 0
 
 def count_packed_step_plain(pk, bits, rows, depth, *, k: int, n_buckets: int,
                             n_bases: int) -> None:
-    """Plain PyTorch version: unpack, kmerize, probe both buckets, add."""
+    """Plain PyTorch version: unpack, kmerize, probe both buckets, add
+    at the matching entry (the trash counter for an invalid window or a
+    miss)."""
+    from quickmer2_tpu_torch.ops.hash import djb_pair
     chi, clo, valid = _windows(pk, bits, k, n_bases)
-    trash = depth.shape[0] - 1
-    found, rank, _ = packed_table.probe_packed(rows, chi, clo, n_buckets,
-                                               trash)
-    _add(depth, torch.where(valid & found, rank, trash))
+    trash = 2 * n_buckets
+    slot = torch.full(chi.shape, trash, dtype=torch.int64, device=chi.device)
+    buckets = packed_table.bucket_hashes_t(djb_pair(chi, clo), n_buckets)
+    ok = valid & ((chi | clo) != 0)
+    for b in buckets:
+        r = u32(rows[b])
+        for e in range(packed_table.ENTRIES_PER_BUCKET):
+            m = ok & (r[:, 4 * e] == chi) & (r[:, 4 * e + 1] == clo)
+            slot = torch.where(m, 2 * b + e, slot)
+    _add(depth, slot)
 
 
 def count_packed_step(pk: torch.Tensor, bits: torch.Tensor,
                       rows: torch.Tensor, depth: torch.Tensor, *, k: int,
                       n_buckets: int, n_bases: int) -> None:
-    """One batch into the rank-space `depth` (updated in place)."""
+    """One batch into the slot-space `depth` u32[2 * n_buckets + 1]
+    (updated in place)."""
     if pk.device.type == "cpu":
         count_packed_step_plain(pk, bits, rows, depth, k=k,
                                 n_buckets=n_buckets, n_bases=n_bases)
         return
+    count_packed_launch(pk, bits, rows, depth, k=k, n_buckets=n_buckets,
+                        n_bases=n_bases,
+                        n_parts=packed_partitions_for(n_buckets))
+    count_packed_step.launches += 1
+
+
+def count_packed_launch(pk, bits, rows, depth, *, k: int, n_buckets: int,
+                        n_bases: int, n_parts: int) -> None:
+    """K8 on CUDA tensors at P = n_parts slices (1: the one-pass kernel);
+    count_packed_step's launch, which it alone counts."""
     _check_batch("count_packed_step", pk, bits, k, n_bases, [
         ("rows", rows, torch.int32, (n_buckets, packed_table.ROW_WIDTH)),
-        ("depth", depth, torch.int32, (depth.shape[0],))])
+        ("depth", depth, torch.int32, (2 * n_buckets + 1,))])
     if n_buckets < 1 or n_buckets > 1 << 32 or n_buckets & (n_buckets - 1):
         raise ValueError(f"count_packed_step: bad n_buckets {n_buckets}")
+    _check_parts("count_packed_step", n_parts, n_buckets)
+    n = n_bases - k + 1
+    work = workspace(pk.device, n) if n_parts > 1 else None
     _launch("qm2t_count_packed", "count_packed", pk.device, pk.data_ptr(),
             bits.data_ptr(), rows.data_ptr(), depth.data_ptr(), n_bases, k,
-            n_buckets, depth.shape[0] - 1)
-    count_packed_step.launches += 1
+            n_buckets, n_parts, None if work is None else work.data_ptr())
 
 
 count_packed_step.launches = 0

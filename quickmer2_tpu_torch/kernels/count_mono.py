@@ -39,29 +39,36 @@ _ARGTYPES = {
     "qm2t_count_mono_rows": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
         ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p]}
-SLICE_BYTES = 24 << 20     # rows + depth words of one probed slice
-_MAX_PARTS = 256
+SLICE_BYTES = 24 << 20     # table + depth bytes of one probed slice
+MAX_PARTS = 256
 _work: dict = {}
 
 
-def partitions_for(n_buckets: int) -> int:
-    """K2's slice count P: the least power of two for which a slice's
-    rows and depth words (96 B a bucket) fit SLICE_BYTES, at most 256."""
-    bucket_bytes = 4 * (monotable.ROW_WIDTH + monotable.ENTRIES)
+def slice_count(n_units: int, unit_bytes: int) -> int:
+    """The least power of two P for which a slice of n_units / P table
+    units of unit_bytes each (table and depth bytes) fits SLICE_BYTES,
+    at most 256 and at most n_units."""
     p = 1
-    while (p < min(_MAX_PARTS, n_buckets)
-           and n_buckets * bucket_bytes // p > SLICE_BYTES):
+    while (p < min(MAX_PARTS, n_units)
+           and n_units * unit_bytes // p > SLICE_BYTES):
         p <<= 1
     return p
 
 
-def _workspace(device: torch.device, n: int) -> torch.Tensor:
-    """K2's scratch for n windows, u32[2 * P + n]: slice totals, fills
+def partitions_for(n_buckets: int) -> int:
+    """K2's slice count P: rows and depth words are 96 B a bucket."""
+    return slice_count(n_buckets,
+                       4 * (monotable.ROW_WIDTH + monotable.ENTRIES))
+
+
+def workspace(device: torch.device, n: int) -> torch.Tensor:
+    """The sliced kernels' scratch for n windows, u32[2 * 256 + 64 +
+    n]: slice totals, fills, the sliced K7 and K8 calls' 64 hit counters,
     and bins; one per device and window count, reused by every batch of
-    that size."""
+    that size (K2, K7 and K8 alike: calls on one stream run in turn)."""
     key = (device, n)
     if key not in _work:
-        _work[key] = torch.empty(2 * _MAX_PARTS + n, dtype=torch.int32,
+        _work[key] = torch.empty(2 * MAX_PARTS + 64 + n, dtype=torch.int32,
                                  device=device)
     return _work[key]
 
@@ -117,7 +124,7 @@ def count_mono_launch(pk, bits, rows, depth, *, k: int, n_buckets: int,
         raise ValueError(f"count_mono_step: bad k={k} for {n_bases} bases")
     if (pk.data_ptr() | bits.data_ptr()) & 7:
         raise ValueError("count_mono_step: pk and bits must be 8-byte aligned")
-    work = _workspace(pk.device, n) if n_parts > 1 else None
+    work = workspace(pk.device, n) if n_parts > 1 else None
     mask = torch.empty(-(-n // 32), dtype=torch.int32, device=pk.device)
     lib = build.load("count_mono", _ARGTYPES)
     with torch.cuda.device(pk.device):

@@ -52,7 +52,8 @@ from quickmer2_tpu_torch.device import (
 from quickmer2_tpu_torch.dictionary import Dictionary
 from quickmer2_tpu_torch.io import formats
 from quickmer2_tpu_torch.kernels.count_flat import (
-    count_linear_step, count_packed_step, kmerize_step, linear_table)
+    count_linear_step, count_packed_step, kmerize_step, linear_rank_slots,
+    linear_table, packed_rank_slots, rank_depth_to_slot, slot_depth_to_rank)
 from quickmer2_tpu_torch.kernels.count_mono import count_mono_step
 from quickmer2_tpu_torch.ops import codec, rowpack
 from quickmer2_tpu_torch.ops.codec import SEP
@@ -200,15 +201,19 @@ class DepthCounter:
                  depth in SLOT space (bucket*8 + entry) until finish,
                  unresolved lanes (possible side-table members) recount
                  on the host one batch behind;
-      packed   — the two-choice packed table (K8), depth in rank order;
+      packed   — the two-choice packed table (K8), depth in SLOT space
+                 (bucket*2 + entry) on the device;
       linear   — the reference's linear probe over the .qm table (K7),
-                 depth in rank order;
+                 depth in SLOT space (the .qm slot) on the device;
       sortjoin — no table: the codec (K9) and a join against the sorted
                  keys (ops.sortjoin), depth in key-sorted order;
       auto     — sortjoin for dictionaries of at most AUTO_SORTJOIN_MAX_N
                  k-mers, else mono.
     Rank-order depth is u32[n_kmers + 1], its last lane the trash lane of
-    invalid windows and misses.
+    invalid windows and misses. The packed and linear layouts keep a
+    trash counter as their slot depth's last lane and translate to rank
+    order on the device at snapshot and finish (and back at restore), so
+    their snapshots are the JAX counter's.
     """
 
     def __init__(self, dictionary: Dictionary, batch_bases: int = 1 << 24,
@@ -241,14 +246,18 @@ class DepthCounter:
                             if isinstance(packed_table, PackedTable)
                             else PackedTable.from_dictionary(dictionary))
             self.rows = self._packed.device_rows(self.device)
+            self.rank_slots = packed_rank_slots(self.rows,
+                                                dictionary.n_kmers)
+            n_lanes = 2 * self._packed.n_buckets + 1
         elif layout == "linear":
-            self.table, self.rank = linear_table(dictionary, self.device)
+            self.table = linear_table(dictionary, self.device)
+            self.rank_slots = linear_rank_slots(dictionary, self.device)
+            n_lanes = dictionary.hash_size + 1
         else:
             self._engine = SortJoinEngine(dictionary.kmers_in_order,
                                           self.device)
         if layout in ("packed", "linear"):
-            self.depth = torch.zeros(dictionary.n_kmers + 1, dtype=wd,
-                                     device=self.device)
+            self.depth = torch.zeros(n_lanes, dtype=wd, device=self.device)
         self._carry = np.zeros(0, np.uint8)
         self._pending: list[np.ndarray] = []
         self._pending_len = 0
@@ -281,7 +290,7 @@ class DepthCounter:
             count_packed_step(pk_d, bits_d, self.rows, self.depth,
                               n_buckets=self._packed.n_buckets, **kw)
         elif self.layout == "linear":
-            count_linear_step(pk_d, bits_d, self.table, self.rank, self.depth,
+            count_linear_step(pk_d, bits_d, self.table, self.depth,
                               hash_size=self.dict.hash_size, **kw)
         else:
             self._engine.count_codes(*kmerize_step(pk_d, bits_d, **kw))
@@ -306,7 +315,7 @@ class DepthCounter:
         if self.layout == "sortjoin":
             return self._engine.finish()
         if self.layout != "mono":
-            return to_numpy_u32(self.depth)[:-1]
+            return to_numpy_u32(self._rank_depth())[:-1]
         for pend in self._pending_masks:
             self._drain_mask(*pend)
         self._pending_masks = []
@@ -316,6 +325,12 @@ class DepthCounter:
         out[self._mono.slot_rank[live]] = slots[live]
         out += self._side_counts
         return out.astype(np.uint32)          # u32 wrap (Q8 parity)
+
+    def _rank_depth(self) -> torch.Tensor:
+        """The packed or linear layout's depth in rank order, u32[n_kmers
+        + 1] with the trash lane last (one translation on the device)."""
+        return slot_depth_to_rank(self.depth, self.rank_slots,
+                                  self.dict.n_kmers)
 
     def _drain_mask(self, batch: np.ndarray, handle: tuple) -> None:
         """Recount this batch's unresolved lanes against the side
@@ -352,8 +367,12 @@ class DepthCounter:
         recorded, since the depth orders differ between layouts."""
         residual = np.concatenate([self._carry] + self._pending) \
             if (self._pending_len or len(self._carry)) else np.zeros(0, np.uint8)
-        depth = (self._engine.snapshot_depth() if self.layout == "sortjoin"
-                 else to_numpy_u32(self.depth))
+        if self.layout == "sortjoin":
+            depth = self._engine.snapshot_depth()
+        elif self.layout == "mono":
+            depth = to_numpy_u32(self.depth)
+        else:
+            depth = to_numpy_u32(self._rank_depth())
         snap = {"depth": depth, "residual": residual,
                 "windows": self.total_kmer_windows, "layout": self.layout}
         if self.layout == "mono":
@@ -382,8 +401,12 @@ class DepthCounter:
                 f"than this counter's ({self.layout!r})")
         if self.layout == "sortjoin":
             self._engine.restore_depth(snap["depth"])
-        else:
+        elif self.layout == "mono":
             self.depth = words(np.asarray(snap["depth"]), self.device)
+        else:
+            self.depth = rank_depth_to_slot(
+                words(np.asarray(snap["depth"]), self.device),
+                self.rank_slots, len(self.depth))
         if self.layout == "mono":
             self._side_counts = np.asarray(snap["side_counts"],
                                            np.uint64).copy()

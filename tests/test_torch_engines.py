@@ -1,6 +1,7 @@
 """The flat count's other engines against the JAX package: the
-reference's linear probe (plain `probe_lookup`, K7's plain version and
-the repaired `neighbor_occr_sum`, on tables whose scans pass either end),
+reference's linear probe (plain `probe_lookup`, K7's plain version with
+its slot → rank translation and the repaired `neighbor_occr_sum`, on
+tables whose scans pass either end),
 the packed table's rows, the sort-join codec (K9's plain version), and
 the DepthCounter of each layout (linear, packed, sortjoin, auto), depth
 and snapshot, bit for bit."""
@@ -130,17 +131,18 @@ def test_linear_probe_matches_jax(case):
     if case == "full":
         assert (want_idx < -hash_size).any()
 
-    n = int((rank < len(rank)).sum())
+    n = int(np.count_nonzero(table))        # the rank map's n_kmers
     want = np.asarray(jcount.count_step(
         jnp.asarray(codes), jnp.asarray(th), jnp.asarray(tl),
         jnp.asarray(rank), jnp.zeros(n + 1, jnp.uint32), k=k,
         hash_size=hash_size))
-    depth = torch.zeros(n + 1, dtype=torch.int64)
+    slots = torch.zeros(hash_size + 1, dtype=torch.int64)
     pk, bits = _packed(codes)
     count_flat.count_linear_step(
-        pk, bits, words(np.stack([th, tl], 1), CPU),
-        words(rank.view(np.uint32), CPU), depth, k=k, hash_size=hash_size,
-        n_bases=len(codes))
+        pk, bits, words(np.stack([th, tl], 1), CPU), slots, k=k,
+        hash_size=hash_size, n_bases=len(codes))
+    depth = count_flat.slot_depth_to_rank(
+        slots, torch.from_numpy(np.argsort(rank)[:n].astype(np.int64)), n)
     np.testing.assert_array_equal(depth.numpy(), want.astype(np.int64))
 
     # one base off a placed key: a neighbor of each query is that key
@@ -253,7 +255,7 @@ def test_depth_counter_layout_matches_jax(layout, k):
         assert (td.kmers_in_order >> np.uint64(63)).any()
 
 
-@pytest.mark.parametrize("layout", ["packed", "sortjoin"])
+@pytest.mark.parametrize("layout", ["linear", "packed", "sortjoin"])
 def test_port_resumes_from_jax_layout_snapshot(layout):
     """The JAX counter's snapshot of a rank- or key-ordered layout
     resumes in the port, and the port's resumes in the JAX counter."""
