@@ -66,7 +66,18 @@ Phases:
                 restore and resume on the card; then the sort-join
                 crossover: one batch through K2 and through K9 +
                 ops.sortjoin at n = 2^14 .. 2^20 keys, the join's depth
-                checked against K8's;
+                checked against K8's. K10 (the device emit's membership
+                scan) on K8's PackedTable of the .qm k-mers: the whole
+                genome as the scanner chunks it, and at chunks of 2^22
+                with an N run over a seam, an N inside a halo and a
+                SEP-padded tail, each chunk's bit-packed mask equal to
+                the plain version's and to the host lookup's hit set;
+                timed on one 2^24-window chunk. K11 (est's window sums)
+                on 101 M k-mers in windows of 1,000: two launches
+                bit for bit the same, equal to the plain version (the
+                same summation order), within 1e-4 of a float64 truth,
+                timed beside the best plain-PyTorch composition
+                (products, then torch.segment_reduce);
   3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
                 bed) → count (flat, mono) → est on a 12 Mb realistic
                 genome (tools/realistic_genome.py, S. cerevisiae scale)
@@ -82,7 +93,16 @@ Phases:
                 anchored .bin must equal the flat .bin byte for byte;
                 CN is checked on the baseline windows
                 (2 ± 0.1) and on a segment with 3x extra read depth
-                (6 ± 0.5), for both paths;
+                (6 ± 0.5), for both paths; after the flat est, est with
+                device_sums (K11 launched; windows of the host est, CN
+                within 1e-4), K11 on the count's .bin with the smoke's
+                .qgc / .bed (checked as at 101 M, timed: its kernel row),
+                search -e 0 with the host emit and with the device emit
+                (K10 launched; .qm, .bed, .qgc identical), then sparse 1
+                on a copy of the FASTA and .qm (the search's .bed and
+                .qgc again, the .rqm chain the .qm's), sparse 50, index
+                on a bed of 100 k dictionary k-mers (its chain the bed's
+                k-mers), colortrack and colorkey on the flat CN bed;
   4. cpu      — a 50 k-read subset counted with device="cuda" and with
                 device="cpu" gives byte-identical .bin files, in flat and
                 in anchored mode; then that subset's flat (mono, linear)
@@ -209,7 +229,9 @@ PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernelILb0"),
               "count_mono": ("count_mono", "count_mono_"),
               "count_linear": ("count_flat", "CountLinear"),
               "count_packed": ("count_flat", "CountPacked"),
-              "kmerize": ("count_flat", "kmerize_kernel")}
+              "kmerize": ("count_flat", "kmerize_kernel"),
+              "member_scan": ("emit_member", "member_kernel"),
+              "window_sums": ("est_windows", "window_sums_kernel")}
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1825,14 +1847,15 @@ def check_counter_resume(dic, table, codes):
         del full, half, again
 
 
-def check_flat_engines(fa, reads, dev):
+def check_flat_engines(fa, g, reads, dev):
     """K7, K8 and K9 against their plain versions: timed at k = 30 on the
     smoke's own .qm (the linear table), its PackedTable (host build
     timed) and one 2^24-base batch of the smoke's reads, K7 and K8 also
     at P = 1, 2 and other slice counts; untimed at k = 15, 31, 32 and on
     a wrapping 4096-slot table, at P = 1, 2 and the smoke's; the linear
-    and packed counters' snapshot and resume; then the sort-join
-    crossover. Returns the timed kernel-table rows."""
+    and packed counters' snapshot and resume; K10 on the genome g against
+    the same PackedTable; then the sort-join crossover. Returns the timed
+    kernel-table rows."""
     from quickmer2_tpu_torch.dictionary import Dictionary
     from quickmer2_tpu_torch.kernels.count_flat import (
         linear_partitions_for, packed_partitions_for)
@@ -1849,6 +1872,7 @@ def check_flat_engines(fa, reads, dev):
     parts = (linear_partitions_for(dic.hash_size),
              packed_partitions_for(table.n_buckets))
     check_counter_resume(dic, table, codes)
+    rows.append(check_member_scan(dic, table, g, dev))
     del table
     torch.cuda.empty_cache()
     rows.append(check_kmerize(codes, dic.kmer_size, dev, True, "smoke"))
@@ -1862,6 +1886,367 @@ def check_flat_engines(fa, reads, dev):
         f"n = {best} (0: never)")
     torch.cuda.empty_cache()
     return rows
+
+
+# -- phase 2, the device emit and est's window sums: K10, K11 -------------
+
+def host_members(dic, codes):
+    """The host emit's hit set on `codes`: valid, nonzero windows whose
+    canonical k-mer the .qm table holds (native.lookup_keys)."""
+    from quickmer2_tpu_torch.utils import native
+    canon, valid, _ = native.sliding_canon(codes, dic.kmer_size)
+    _, found = native.lookup_keys(np.asarray(dic.table), canon)
+    return valid & (canon != 0) & found
+
+
+def compare_member_scan(scanner, codes, want, label):
+    """The scanner's mask on `codes` (K10 a chunk) against the plain
+    version chunk by chunk and against the host lookup's `want`."""
+    from quickmer2_tpu_torch.kernels.emit_member import (
+        member_scan_plain, unpack_mask)
+    from quickmer2_tpu_torch.ops import rowpack
+    n_chunks = 0
+    for off, take, seg in scanner.chunks(codes):
+        got = scanner.scan_chunk(seg)
+        pk, bits = rowpack.pack_rows(seg[None])
+        plain = member_scan_plain(
+            torch.from_numpy(pk[0]).to(scanner.device),
+            torch.from_numpy(bits[0]).to(scanner.device), scanner.rows,
+            k=scanner.k, n_buckets=scanner.n_buckets, n_bases=len(seg))
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        if err != 0:
+            raise AssertionError(f"member_scan {label} chunk at {off} "
+                                 "disagrees with its plain version")
+        if not np.array_equal(unpack_mask(got, take), want[off:off + take]):
+            raise AssertionError(f"member_scan {label} chunk at {off} "
+                                 "disagrees with the host lookup")
+        n_chunks += 1
+    log(f"  member_scan {label}: {len(want)} windows in {n_chunks} chunks "
+        f"of {scanner.chunk}, {int(want.sum())} hits; equal to the plain "
+        "version and to the host lookup")
+
+
+def check_member_scan(dic, table, g, dev):
+    """K10 against its plain version and the host lookup: the whole smoke
+    genome chunked as the scanner chunks it (one chunk), against a packed
+    table of the search's .qm k-mers; the genome at chunks of 2^22 with an
+    N run over a seam and inside a halo, the tail chunk SEP-padded; then
+    timed on one 2^24-window chunk of the genome's codes. Returns the
+    kernel-table row."""
+    from quickmer2_tpu_torch.kernels.emit_member import (
+        member_scan, member_scan_plain)
+    from quickmer2_tpu_torch.ops import codec, packed_table, rowpack
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    from quickmer2_tpu_torch.parallel.emit_parallel import (
+        CHUNK, DeviceMembershipScanner)
+    k = dic.kmer_size
+    scanner = DeviceMembershipScanner(table, k, device=dev)
+    compare_member_scan(scanner, g, host_members(dic, g), "genome")
+    seamed = g.copy()
+    seam = CHUNK // 4
+    seamed[seam - 40: seam + 17] = codec.SEP        # an N run over a seam
+    seamed[2 * seam + 11] = codec.SEP               # one inside a halo
+    small = DeviceMembershipScanner(table, k, chunk=seam, device=dev)
+    compare_member_scan(small, seamed, host_members(dic, seamed),
+                        "N runs at seams")
+    # one full chunk of the genome's codes, timed
+    codes = np.concatenate([g, g])[:CHUNK + k - 1]
+    pk, bits = rowpack.pack_rows(codes[None])
+    pk = torch.from_numpy(pk[0]).to(dev)
+    bits = torch.from_numpy(bits[0]).to(dev)
+    kw = dict(k=k, n_buckets=table.n_buckets, n_bases=len(codes))
+    rows = scanner.rows
+    got = member_scan(pk, bits, rows, **kw)
+    plain = member_scan_plain(pk, bits, rows, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, plain)
+    if err != 0:
+        raise AssertionError("member_scan on a full chunk disagrees with "
+                             "its plain version")
+    ms, queued_ms = kernel_ms(lambda: member_scan(pk, bits, rows, **kw), 10)
+    plain_ms = cuda_ms(lambda: member_scan_plain(pk, bits, rows, **kw), 2)
+    # least traffic: the packed chunk, each distinct 32-B candidate row
+    # (h1 of every valid nonzero window, h2 where h1 misses), the mask
+    chi, clo, ok = codec_windows(pk, bits, k, len(codes))
+    nz = ok & ((chi | clo) != 0)
+    chi, clo = chi[nz], clo[nz]
+    h1, h2 = packed_table.bucket_hashes_t(djb_pair(chi, clo),
+                                          table.n_buckets)
+    r1 = rows[h1].to(torch.int64) & 0xFFFFFFFF
+    in_h1 = (((r1[:, 0] == chi) & (r1[:, 1] == clo))
+             | ((r1[:, 4] == chi) & (r1[:, 5] == clo)))
+    n_rows = int(torch.unique(torch.cat([h1, h2[~in_h1]])).numel())
+    n_win = len(codes) - k + 1
+    n_bytes = pk.numel() + bits.numel() + 32 * n_rows + 4 * got.numel()
+    # ~48 int ops a window, as K8: codec and DJB, two buckets, 4 compares
+    b_ms, b_by = bound_ms(n_bytes, 48 * n_win)
+    log(f"  member_scan time {ms:.4f} ms (queued {queued_ms:.4f} ms) a "
+        f"2^24-window chunk, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_rows} rows of "
+        f"{table.n_buckets} buckets)")
+    return {"name": "member_scan", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/emit_member.cu",
+            "replaces": "quickmer2_tpu/parallel/emit_parallel.py:99",
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+EST_SCALE_KMERS = 101_000_000   # human scale, as tests/test_est.py
+EST_SCALE_WINDOW = 1000
+
+
+def window_inputs(depth, qgc, kstarts, kends, dev):
+    """u16 numpy depth / .qgc and window bounds → the wrapper's tensors."""
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a).view(dtype)).to(dev)
+    return (put(np.asarray(depth, np.uint16), np.int16),
+            put(np.asarray(qgc, np.uint16), np.int16),
+            put(np.asarray(kstarts, np.int32), np.int32),
+            put(np.asarray(kends, np.int32), np.int32))
+
+
+def segment_sums_library(depth, qgc, factors, kstarts, kends):
+    """The same function by plain PyTorch calls (the library yardstick):
+    the products, then torch.segment_reduce over windows and the gaps
+    between them."""
+    n = depth.numel()
+    ks, ke = kstarts.to(torch.int64), kends.to(torch.int64)
+    prev = torch.cat([ks.new_zeros(1), ke[:-1]])
+    lengths = torch.stack([ks - prev, ke - ks], 1).reshape(-1)
+    lengths = torch.cat([lengths, (n - ke[-1:])])
+
+    def run():
+        gc = (qgc.to(torch.int64) & 0x1FF).clamp(max=len(factors) - 1)
+        prod = factors[gc] * (depth.to(torch.int64) & 0xFFFF).float()
+        return torch.segment_reduce(prod, "sum", lengths=lengths)[1:-1:2]
+    return run
+
+
+def check_window_sums(depth, qgc, factors, kstarts, kends, dev, label):
+    """K11 on one input: two launches bit for bit the same and equal to
+    the plain version (the same summation order), and within 1e-4
+    (relative) of a float64 truth. Returns the timings."""
+    from quickmer2_tpu_torch.kernels.est_windows import (
+        window_sums, window_sums_plain)
+    args = (depth, qgc, factors, kstarts, kends)
+    got = window_sums(*args)
+    again = window_sums(*args)
+    plain = window_sums_plain(*args)
+    lib = segment_sums_library(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"window_sums {label}: two launches differ")
+    err = float((got - plain).abs().max()) if got.numel() else 0.0
+    if err != 0:
+        raise AssertionError(f"window_sums {label} disagrees with its plain "
+                             f"version (max |diff| {err})")
+    f64 = factors.double()
+    gc = (qgc.to(torch.int64) & 0x1FF).clamp(max=len(factors) - 1)
+    cum = torch.cat([torch.zeros(1, dtype=torch.float64, device=dev),
+                     torch.cumsum(f64[gc] * (depth.to(torch.int64) & 0xFFFF)
+                                  .double(), 0)])
+    truth = cum[kends.long()] - cum[kstarts.long()]
+    live = truth > 0
+    rel = float(((got.double() - truth).abs()[live] / truth[live]).max())
+    lib_err = float(((lib().double() - truth).abs()[live]
+                     / truth[live]).max())
+    log(f"  window_sums {label}: {depth.numel()} k-mers, {kstarts.numel()} "
+        f"windows; two launches identical, equal to the plain version; "
+        f"max relative error against float64 {rel:.3e} (the library "
+        f"composition's {lib_err:.3e})")
+    if not rel <= 1e-4:
+        raise AssertionError(f"window_sums {label}: relative error {rel} "
+                             "against float64 above 1e-4")
+    ms, queued_ms = kernel_ms(lambda: window_sums(*args), 10)
+    plain_ms = cuda_ms(lambda: window_sums_plain(*args), 2)
+    library_ms = cuda_ms(lib, 5)
+    covered = int((kends.long() - kstarts.long()).clamp(min=0).sum())
+    # least traffic: depth and .qgc of each covered k-mer, the bounds, the
+    # sums; ~4 operations a k-mer
+    n_bytes = 4 * covered + 12 * kstarts.numel() + 4 * factors.numel()
+    b_ms, b_by = bound_ms(n_bytes, 4 * covered)
+    log(f"  window_sums {label} time {ms:.4f} ms (queued {queued_ms:.4f} "
+        f"ms), plain {plain_ms:.4f} ms, library composition "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB)")
+    return {"max_abs_err": err, "max_rel_err_f64": rel, "ms": ms,
+            "queued_ms": queued_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def check_window_sums_scale(dev):
+    """K11 on a human-scale array: 101 M k-mers, windows of 1,000."""
+    n, w = EST_SCALE_KMERS, EST_SCALE_WINDOW
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    depth = torch.poisson(torch.full((n,), 25.0, device=dev),
+                          generator=gen).to(torch.int16)
+    qgc = torch.randint(0, 401, (n,), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.int16)
+    factors = torch.linspace(0.4, 2.8, 401, device=dev)
+    kstarts = torch.arange(0, n - w + 1, w, dtype=torch.int32, device=dev)
+    res = check_window_sums(depth, qgc, factors, kstarts, kstarts + w, dev,
+                            f"{n / 1e6:g} M k-mers")
+    del depth, qgc
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_est_windows(fa, sample, dev):
+    """K11 on the flat count's .bin with the smoke's .qgc / .bed (the
+    shapes est gives it). Returns the kernel-table row."""
+    from quickmer2_tpu_torch.io import formats
+    from quickmer2_tpu_torch.pipelines.est import run_est
+    qgc = formats.read_u16(fa + ".qgc")
+    depth = formats.read_u16(sample + ".bin")
+    n = min(len(qgc), len(depth))
+    _, windows = formats.read_windows_bed(fa + ".bed")
+    windows = windows[windows[:, 3] < n]
+    res = run_est(fa, sample, os.path.join(WORK, "tmp.CN.bed"),
+                  verbose=False, device="cuda")
+    factors = torch.from_numpy(np.asarray(res["factors"], np.float32)).to(dev)
+    d, q, ks, ke = window_inputs(depth[:n], qgc[:n], windows[:, 2],
+                                 windows[:, 3], dev)
+    row = check_window_sums(d, q, factors, ks, ke, dev, "smoke .bin")
+    return {"name": "window_sums", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/est_windows.cu",
+            "replaces": "quickmer2_tpu/ops/est_device.py:39", **row}
+
+
+def est_device_sums(world, sample, reset_counts, read_counts):
+    """run_est(device_sums=True) on the flat count, its own path: the
+    chroms, starts and ends of the host est's CN bed, CN within 1e-4; K11
+    must launch. Returns K11's launches."""
+    from quickmer2_tpu_torch.pipelines.est import run_est
+    out = sample + ".dev.CN.bed"
+    reset_counts()
+    t = time.time()
+    stats = run_est(world["fa"], sample, out, verbose=False, device="cuda",
+                    device_sums=True)
+    launches = read_counts()["window_sums"]
+    if launches == 0:
+        raise AssertionError("window_sums never launched in est "
+                             "(device_sums)")
+    host = [ln.split("\t") for ln in open(sample + ".CN.bed")]
+    dev_rows = [ln.split("\t") for ln in open(out)]
+    if [r[:3] for r in host] != [r[:3] for r in dev_rows]:
+        raise AssertionError("est device_sums windows differ from the host "
+                             "est's")
+    diff = max(abs(float(a[3]) - float(b[3]))
+               for a, b in zip(host, dev_rows))
+    if not diff <= 1e-4:
+        raise AssertionError(f"est device_sums CN off the host est's by "
+                             f"{diff}")
+    log(f"phase est (device_sums): {time.time() - t:.2f} s, "
+        f"{len(dev_rows)} windows, max |CN - host CN| {diff:.3e}, "
+        f"window_sums launches {launches} "
+        f"{json.dumps(stats['phases'])}")
+    return launches
+
+
+def search_emit_pair(world, reset_counts, read_counts):
+    """Search at -e 0 with the host emit and with the device emit
+    (--emit-devices 1), their own paths: .qm, .bed and .qgc identical;
+    K10 must launch. Returns K10's launches."""
+    from quickmer2_tpu_torch.config import SearchConfig
+    from quickmer2_tpu_torch.pipelines.search import run_search
+    outs = []
+    for emit_devices in (None, 1):
+        out = os.path.join(WORK, f"e0_{emit_devices or 'host'}")
+        stats = {}
+        reset_counts()
+        t = time.time()
+        run_search(world["fa"], SearchConfig(
+            kmer_size=30, edit_distance=0, window_size=1000,
+            control_bed=world["ctrl"]), out_prefix=out, verbose=False,
+            stats=stats, device="cuda", emit_devices=emit_devices)
+        got = read_counts()["member_scan"]
+        log(f"phase search -e 0 (emit_devices={emit_devices}): "
+            f"{time.time() - t:.1f} s, emit_s {stats['phases']['emit_s']}, "
+            f"emit_table_s {stats['phases'].get('emit_table_s', 0.0)}, "
+            f"member_scan "
+            f"launches {got} {json.dumps(stats)}")
+        outs.append(out)
+    if got == 0:
+        raise AssertionError("member_scan never launched in the device "
+                             "emit's search")
+    for ext in (".qm", ".bed", ".qgc"):
+        with open(outs[0] + ext, "rb") as f, open(outs[1] + ext, "rb") as h:
+            if f.read() != h.read():
+                raise AssertionError(f"the device emit's {ext} differs "
+                                     "from the host emit's")
+        os.remove(outs[0] + ext)
+        os.remove(outs[1] + ext)
+    log("  device emit: .qm, .bed, .qgc identical to the host emit's")
+    return got
+
+
+def check_host_subcommands(world, dic, cn_bed):
+    """sparse 1 on a copy of the smoke's FASTA and .qm (the search's -w
+    and control bed): the search's own .bed and .qgc, and the .qm's
+    chain; then sparse 50, index on a bed of 100 k dictionary k-mers, and
+    colortrack / colorkey on the flat CN bed. Host code: seconds."""
+    from quickmer2_tpu_torch.analytics.colortrack import (
+        make_colortrack, write_color_key)
+    from quickmer2_tpu_torch.dictionary import Dictionary
+    from quickmer2_tpu_torch.pipelines.index import run_index
+    from quickmer2_tpu_torch.pipelines.sparse import run_sparse
+    d = os.path.join(WORK, "sparse")
+    os.makedirs(d)
+    fa = os.path.join(d, "g.fa")
+    os.symlink(world["fa"], fa)
+    os.symlink(world["fa"] + ".qm", fa + ".qm")
+    for thin in (1, 50):
+        t = time.time()
+        out = run_sparse(fa, thin, window_size=1000,
+                         control_bed=world["ctrl"], verbose=False,
+                         device="cuda")
+        log(f"phase sparse {thin}: {time.time() - t:.1f} s, "
+            f"{out.n_kmers} k-mers kept, hash_size {out.hash_size:#x}")
+        if thin == 1:
+            for ext in (".bed", ".qgc"):
+                with open(fa + ext, "rb") as f, \
+                        open(world["fa"] + ext, "rb") as h:
+                    if f.read() != h.read():
+                        raise AssertionError(f"sparse 1 {ext} differs from "
+                                             "the search's")
+            rqm = Dictionary.from_qm(fa + ".rqm")
+            if not np.array_equal(rqm.kmers_in_order, dic.kmers_in_order):
+                raise AssertionError("sparse 1 .rqm chain differs from the "
+                                     ".qm's")
+            log("  sparse 1: .bed and .qgc identical to the search's, .rqm "
+                "chain equal to the .qm's")
+        elif not 0 < out.n_kmers < dic.n_kmers // 10:
+            raise AssertionError(f"sparse 50 kept {out.n_kmers} k-mers")
+    t = time.time()
+    k = dic.kmer_size
+    kmers = dic.kmers_in_order[::max(1, dic.n_kmers // 100_000)][:100_000]
+    lut = np.frombuffer(b"ACTG", np.uint8)
+    digits = (kmers[:, None] >> (2 * np.arange(k - 1, -1, -1, dtype=np.uint64))
+              ) & np.uint64(3)
+    seqs = lut[digits.astype(np.int64)]
+    bed = os.path.join(d, "kmers.bed")
+    with open(bed, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(f"chr1\t{i}\t{i + k}\t{s.tobytes().decode()}\n")
+    idx = run_index(bed, os.path.join(d, "k.qm"), hash_size=1 << 18,
+                    verbose=False, device="cuda")
+    if not np.array_equal(idx.kmers_in_order, kmers):
+        raise AssertionError("index: the .qm chain is not the bed's k-mers")
+    log(f"phase index: {len(kmers)} k-mers in {time.time() - t:.1f} s, "
+        "chain equal to the bed's k-mers")
+    t = time.time()
+    track = make_colortrack(cn_bed, "smoke", os.path.join(d, "s.bedColor"))
+    key = write_color_key(os.path.join(d, "color-track.bed"))
+    n_track = sum(1 for _ in open(track))
+    n_cn = sum(1 for _ in open(cn_bed))
+    if not 0 < n_track <= n_cn or sum(1 for _ in open(key)) != 11:
+        raise AssertionError("colortrack / colorkey wrote unexpected rows")
+    log(f"phase colortrack, colorkey: {n_cn} CN rows merged into {n_track} "
+        f"track rows, in {time.time() - t:.2f} s")
+    shutil.rmtree(d)
 
 
 # -- phase 3, the flat engines, checkpoints, the cohort, entry() ---------
@@ -2059,6 +2444,8 @@ def main() -> int:
         count_linear_step, count_packed_step, kmerize_step)
     from quickmer2_tpu_torch.kernels.count_mono import (
         count_mono_rows, count_mono_step)
+    from quickmer2_tpu_torch.kernels.emit_member import member_scan
+    from quickmer2_tpu_torch.kernels.est_windows import window_sums
     from quickmer2_tpu_torch.kernels.hamming_join import (
         join_bits, join_compare)
     from quickmer2_tpu_torch.kernels.neighbor_bits import (
@@ -2080,7 +2467,7 @@ def main() -> int:
         for fn in (count_mono_step, join_compare, anchored_count,
                    count_mono_rows, neighbor_bits, key_filter, neighbor_sum,
                    join_bits, count_linear_step, count_packed_step,
-                   kmerize_step):
+                   kmerize_step, member_scan, window_sums):
             fn.launches = 0
         anchored_count.branch_launches = dict.fromkeys(
             anchored_count.branch_launches, 0)
@@ -2098,7 +2485,9 @@ def main() -> int:
                 "join_bits": join_bits.launches,
                 "count_linear": count_linear_step.launches,
                 "count_packed": count_packed_step.launches,
-                "kmerize": kmerize_step.launches}
+                "kmerize": kmerize_step.launches,
+                "member_scan": member_scan.launches,
+                "window_sums": window_sums.launches}
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -2136,6 +2525,7 @@ def main() -> int:
         check_filters(uniq, occ, table, 30, dev)
         del uniq, occ, table
         torch.cuda.empty_cache()
+        est_scale = check_window_sums_scale(dev)
         log(f"phase kernels (flat path): {time.time() - t:.1f} s (tolerance: "
             f"exact equality, integer outputs)")
 
@@ -2187,10 +2577,23 @@ def main() -> int:
             cn_check(world, cn_bed, "flat")
             launches.update({k: flat[k] for k in ("count_mono",
                                                   "hamming_join")})
+            # -- 3, est's device window sums, the device emit, and the
+            # host subcommands, each its own path -----------------------
+            sample = os.path.join(WORK, "s")
+            launches["window_sums"] = est_device_sums(
+                world, sample, reset_counts, read_counts)
+            row = check_est_windows(world["fa"], sample, dev)
+            row["scale_101M"] = est_scale
+            rows.append(row)
+            launches["member_scan"] = search_emit_pair(
+                world, reset_counts, read_counts)
+            from quickmer2_tpu_torch.dictionary import Dictionary
+            check_host_subcommands(
+                world, Dictionary.from_qm(world["fa"] + ".qm"), cn_bed)
 
         # -- 2, the flat engines: kernels against their plain versions --
         t = time.time()
-        rows += check_flat_engines(world["fa"], reads, dev)
+        rows += check_flat_engines(world["fa"], world["g"], reads, dev)
         log(f"phase kernels (flat engines): {time.time() - t:.1f} s "
             f"(tolerance: exact equality, integer outputs)")
         if not check_only:

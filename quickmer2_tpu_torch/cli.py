@@ -1,8 +1,10 @@
 """Command-line interface of the PyTorch/CUDA port, mirroring the JAX
-package's (quickmer2_tpu/cli.py) for the ported subcommands:
+package's (quickmer2_tpu/cli.py):
 
   python -m quickmer2_tpu_torch search [-k N] [-s SIZE] [-e N] [-d N] [-w N]
-                                       [-c ctrl.bed] [--device cuda|cpu] ref.fa
+                                       [-c ctrl.bed] [--quirk-editdist]
+                                       [--emit-devices 1] [--json]
+                                       [--device cuda|cpu] ref.fa
   python -m quickmer2_tpu_torch count  [--batch-bases N] [--mode flat|anchored]
                                        [--engine mono|packed|sortjoin|linear|auto]
                                        [--checkpoint PATH] [--checkpoint-every N]
@@ -11,24 +13,28 @@ package's (quickmer2_tpu/cli.py) for the ported subcommands:
   python -m quickmer2_tpu_torch cohort [--batch-bases N] [--mode flat|anchored]
                                        [--read-len N] [--json]
                                        [--device cuda|cpu] ref.fa s1.fq:out1 ...
-  python -m quickmer2_tpu_torch est    [--json] [--device cuda|cpu]
+  python -m quickmer2_tpu_torch est    [--plot] [--json] [--device cuda|cpu]
                                        ref.fa sample_prefix out.bed
+  python -m quickmer2_tpu_torch sparse [-w N] [-c ctrl.bed] [--device cuda|cpu]
+                                       bp ref.fa
+  python -m quickmer2_tpu_torch index  [-s SIZE] [--device cuda|cpu]
+                                       kmers.bed out.qm
+  python -m quickmer2_tpu_torch colortrack --cn cn.bed --name SAMPLE
+  python -m quickmer2_tpu_torch colorkey [out.bed]
 
 --device defaults to cuda and the run fails where there is no card;
---device cpu runs the kernels' plain PyTorch versions. The JAX CLI's
-other subcommands and options are accepted and fail with "not yet
-ported".
+--device cpu runs the kernels' plain PyTorch versions. The multi-device
+options (--emit-devices above 1, --data-devices, --dict-devices) and
+--profile are accepted and fail with "not yet ported".
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 from quickmer2_tpu_torch.config import SearchConfig, parse_size_suffix
-
-_LATER = ("sparse", "index", "colortrack", "colorkey")
-
 
 def _device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -58,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="(not yet ported)")
     s.add_argument("--emit-devices", type=int, default=None,
-                   help="(not yet ported)")
+                   help="1: the pass-2 membership scan on the device "
+                        "(bit-identical artifacts); more: not yet ported")
     _device_arg(s)
     s.add_argument("fasta")
 
@@ -114,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
                          ".qgc companion exists)")
 
     e = sub.add_parser("est", help="GC-corrected copy-number estimation")
-    e.add_argument("--plot", action="store_true", help="(not yet ported)")
+    e.add_argument("--plot", action="store_true", help="write QC png")
     e.add_argument("--json", action="store_true",
                    help="print structured per-phase stats as one JSON line")
     _device_arg(e)
@@ -122,9 +129,26 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("sample_prefix")
     e.add_argument("out_bed")
 
-    for name in _LATER:
-        later = sub.add_parser(name, help="(not yet ported)")
-        later.add_argument("rest", nargs=argparse.REMAINDER)
+    sp = sub.add_parser("sparse", help="thin a dictionary / regenerate companions")
+    sp.add_argument("-w", type=int, default=1000)
+    sp.add_argument("-c", type=str, default=None)
+    _device_arg(sp)
+    sp.add_argument("bp", type=int)
+    sp.add_argument("fasta")
+
+    ix = sub.add_parser("index", help="build a .qm from a k-mer bed list")
+    ix.add_argument("-k", type=int, default=30, help="(overridden by row length)")
+    ix.add_argument("-s", type=str, default="32M")
+    _device_arg(ix)
+    ix.add_argument("bed")
+    ix.add_argument("out_qm")
+
+    ct = sub.add_parser("colortrack", help="CN bed → UCSC color track")
+    ct.add_argument("--cn", required=True)
+    ct.add_argument("--name", required=True)
+
+    ck = sub.add_parser("colorkey", help="write the color legend bed")
+    ck.add_argument("out", nargs="?", default="color-track.bed")
     return p
 
 
@@ -144,13 +168,11 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
 
-    if args.cmd in _LATER:
-        parser.error(f"the {args.cmd} subcommand is not yet ported to "
-                     f"quickmer2_tpu_torch")
-
     if args.cmd == "search":
-        _reject(parser, args, [("--emit-devices", "emit_devices", None),
-                               ("--profile", "profile", None)])
+        if args.emit_devices is not None and args.emit_devices > 1:
+            parser.error("search --emit-devices above 1 is not yet ported "
+                         "to quickmer2_tpu_torch")
+        _reject(parser, args, [("--profile", "profile", None)])
         from quickmer2_tpu_torch.pipelines.search import run_search
         cfg = SearchConfig(kmer_size=args.k, threads=args.t,
                            hash_size=parse_size_suffix(args.s),
@@ -159,7 +181,8 @@ def main(argv=None) -> int:
                            quirk_mod32_editdist=args.quirk_editdist)
         stats = {}
         run_search(args.fasta, cfg, out_prefix=args.out_prefix,
-                   verbose=not args.json, stats=stats, device=args.device)
+                   verbose=not args.json, stats=stats, device=args.device,
+                   emit_devices=args.emit_devices)
         if args.json:
             print(json.dumps(stats))
 
@@ -198,13 +221,37 @@ def main(argv=None) -> int:
             print(json.dumps(stats))
 
     elif args.cmd == "est":
-        _reject(parser, args, [("--plot", "plot", False)])
         from quickmer2_tpu_torch.pipelines.est import run_est
         res = run_est(args.fasta, args.sample_prefix, args.out_bed,
                       verbose=not args.json, device=args.device)
         if args.json:
             print(json.dumps({k: v for k, v in res.items()
                               if k != "factors"}))
+        if args.plot:
+            from quickmer2_tpu_torch.analytics import plots
+            if plots.available():
+                plots.gc_qc_plot(args.sample_prefix + ".txt", res["factors"])
+            else:
+                print("matplotlib unavailable; skipping QC plot",
+                      file=sys.stderr)
+
+    elif args.cmd == "sparse":
+        from quickmer2_tpu_torch.pipelines.sparse import run_sparse
+        run_sparse(args.fasta, args.bp, window_size=args.w,
+                   control_bed=args.c, device=args.device)
+
+    elif args.cmd == "index":
+        from quickmer2_tpu_torch.pipelines.index import run_index
+        run_index(args.bed, args.out_qm, hash_size=parse_size_suffix(args.s),
+                  device=args.device)
+
+    elif args.cmd == "colortrack":
+        from quickmer2_tpu_torch.analytics.colortrack import make_colortrack
+        print(f"wrote {make_colortrack(args.cn, args.name)}")
+
+    elif args.cmd == "colorkey":
+        from quickmer2_tpu_torch.analytics.colortrack import write_color_key
+        print(f"wrote {write_color_key(args.out)}")
     return 0
 
 

@@ -362,26 +362,10 @@ int log2_of(long long x) {
   return s;
 }
 
-bool bad_batch(const void* pk, const void* bits, long long n_bases, int k) {
-  return k < 1 || k > kMaxK || n_bases < k ||
-         n_bases - k + 1 > 0xFFFFFFFFLL ||
-         (((uintptr_t)pk | (uintptr_t)bits) & 7) != 0;
-}
-
 // P: a power of two, 1 <= P <= min(kMaxParts, the table's units).
 bool bad_parts(int n_parts, long long n_units, const void* work) {
   return n_parts < 1 || n_parts > kMaxParts || n_parts > n_units ||
          (n_parts & (n_parts - 1)) != 0 || (n_parts > 1 && work == nullptr);
-}
-
-FlatWindows flat_windows(const void* pk, const void* bits, long long n_bases,
-                         int k) {
-  return {(const uint8_t*)pk, (const uint8_t*)bits, (n_bases + 3) / 4,
-          (n_bases + 7) / 8, n_bases - k + 1, k};
-}
-
-unsigned tiles_of(const FlatWindows& m) {
-  return (unsigned)((m.n + kTile - 1) / kTile);
 }
 
 // One call at P = n_parts slices (eng.shift set for P); work u32[2 * P +

@@ -1,6 +1,7 @@
 // The flat batch's window map and word-parallel codec, shared by
-// csrc/count_mono.cu (K2, and the staging that K2r reuses) and
-// csrc/count_flat.cu (K7, K8 and K9), so that no copy drifts.
+// csrc/count_mono.cu (K2, and the staging that K2r reuses),
+// csrc/count_flat.cu (K7, K8 and K9) and csrc/emit_member.cu (K10), so that
+// no copy drifts.
 //
 // A batch is ops/rowpack.py's layout with one row: base t at bits 2 (t & 3)
 // of byte t >> 2, and its invalid (separator) bit at bit t & 7 of byte
@@ -131,5 +132,24 @@ struct FlatWindows {
     return qm2t::canonical_lsb(x, k);
   }
 };
+
+// A flat batch's C entry checks (K7, K8, K9, K10): 1 <= k <= 32, at most
+// 2^32 - 1 windows, pk and bits 8-B aligned.
+inline bool bad_batch(const void* pk, const void* bits, long long n_bases,
+                      int k) {
+  return k < 1 || k > kMaxK || n_bases < k ||
+         n_bases - k + 1 > 0xFFFFFFFFLL ||
+         (((uintptr_t)pk | (uintptr_t)bits) & 7) != 0;
+}
+
+inline FlatWindows flat_windows(const void* pk, const void* bits,
+                                long long n_bases, int k) {
+  return {(const uint8_t*)pk, (const uint8_t*)bits, (n_bases + 3) / 4,
+          (n_bases + 7) / 8, n_bases - k + 1, k};
+}
+
+inline unsigned tiles_of(const FlatWindows& m) {
+  return (unsigned)((m.n + kTile - 1) / kTile);
+}
 
 }  // namespace

@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build", "kernels")
 SOURCES = ("count_mono", "hamming_join", "anchored", "neighbor_bits",
-           "neighbor_sum", "count_flat")
+           "neighbor_sum", "count_flat", "emit_member", "est_windows")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -125,7 +125,8 @@ def rank_depth_to_slot(depth: torch.Tensor, rank_slots: torch.Tensor,
     return out
 
 
-def _windows(pk, bits, k: int, n_bases: int):
+def batch_windows(pk, bits, k: int, n_bases: int):
+    """(chi, clo, valid) of a batch's windows by the plain codec."""
     codes = rowpack.unpack_rows(pk[None], bits[None], read_len=n_bases)[0]
     return codec.sliding_kmers(codes, k)
 
@@ -135,7 +136,10 @@ def _add(depth: torch.Tensor, lanes: torch.Tensor) -> None:
                                           device=depth.device))
 
 
-def _check_batch(what, pk, bits, k, n_bases, specs):
+def check_batch(what, pk, bits, k, n_bases, specs):
+    """Raise unless pk and bits hold a batch of n_bases codes on one device
+    (8-B aligned) that the kernels take at this k, and `specs` hold
+    (build.check_tensors)."""
     build.check_tensors(what, pk.device, [
         ("pk", pk, torch.uint8, (-(-n_bases // 4),)),
         ("bits", bits, torch.uint8, (-(-n_bases // 8),)), *specs])
@@ -167,7 +171,7 @@ def count_linear_step_plain(pk, bits, table, depth, *, k: int,
                             max_steps: int = MAX_STEPS) -> None:
     """Plain PyTorch version: unpack, kmerize, probe, add at the stop
     slot (the trash counter for an invalid window or an empty slot)."""
-    chi, clo, valid = _windows(pk, bits, k, n_bases)
+    chi, clo, valid = batch_windows(pk, bits, k, n_bases)
     thi, tlo = u32(table[:, 0]), u32(table[:, 1])
     idx, _ = probe_lookup(thi, tlo, chi, clo, hash_size, max_steps)
     s = slot_at(idx, hash_size)
@@ -197,7 +201,7 @@ def count_linear_launch(pk, bits, table, depth, *, k: int, hash_size: int,
                         max_steps: int = MAX_STEPS) -> None:
     """K7 on CUDA tensors at P = n_parts slices (1: the one-pass kernel);
     count_linear_step's launch, which it alone counts."""
-    _check_batch("count_linear_step", pk, bits, k, n_bases, [
+    check_batch("count_linear_step", pk, bits, k, n_bases, [
         ("table", table, torch.int32, (hash_size, 2)),
         ("depth", depth, torch.int32, (hash_size + 1,))])
     if hash_size < 2 or hash_size > 1 << 31 or hash_size & (hash_size - 1):
@@ -222,7 +226,7 @@ def count_packed_step_plain(pk, bits, rows, depth, *, k: int, n_buckets: int,
     at the matching entry (the trash counter for an invalid window or a
     miss)."""
     from quickmer2_tpu_torch.ops.hash import djb_pair
-    chi, clo, valid = _windows(pk, bits, k, n_bases)
+    chi, clo, valid = batch_windows(pk, bits, k, n_bases)
     trash = 2 * n_buckets
     slot = torch.full(chi.shape, trash, dtype=torch.int64, device=chi.device)
     buckets = packed_table.bucket_hashes_t(djb_pair(chi, clo), n_buckets)
@@ -254,7 +258,7 @@ def count_packed_launch(pk, bits, rows, depth, *, k: int, n_buckets: int,
                         n_bases: int, n_parts: int) -> None:
     """K8 on CUDA tensors at P = n_parts slices (1: the one-pass kernel);
     count_packed_step's launch, which it alone counts."""
-    _check_batch("count_packed_step", pk, bits, k, n_bases, [
+    check_batch("count_packed_step", pk, bits, k, n_bases, [
         ("rows", rows, torch.int32, (n_buckets, packed_table.ROW_WIDTH)),
         ("depth", depth, torch.int32, (2 * n_buckets + 1,))])
     if n_buckets < 1 or n_buckets > 1 << 32 or n_buckets & (n_buckets - 1):
@@ -274,7 +278,7 @@ count_packed_step.launches = 0
 
 def kmerize_step_plain(pk, bits, *, k: int, n_bases: int):
     """Plain PyTorch version: unpack, kmerize, zero the invalid keys."""
-    chi, clo, valid = _windows(pk, bits, k, n_bases)
+    chi, clo, valid = batch_windows(pk, bits, k, n_bases)
     dtype = torch.int64 if pk.device.type == "cpu" else torch.int32
     return (store(torch.where(valid, chi, 0), dtype),
             store(torch.where(valid, clo, 0), dtype), valid)
@@ -286,7 +290,7 @@ def kmerize_step(pk: torch.Tensor, bits: torch.Tensor, *, k: int,
     tensors and bool; invalid windows carry key (0, 0)."""
     if pk.device.type == "cpu":
         return kmerize_step_plain(pk, bits, k=k, n_bases=n_bases)
-    _check_batch("kmerize_step", pk, bits, k, n_bases, [])
+    check_batch("kmerize_step", pk, bits, k, n_bases, [])
     n = n_bases - k + 1
     chi = torch.empty(n, dtype=torch.int32, device=pk.device)
     clo = torch.empty(n, dtype=torch.int32, device=pk.device)

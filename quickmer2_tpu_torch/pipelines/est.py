@@ -53,17 +53,19 @@ def mean_depth_from_txt(txt_path: str) -> float:
 
 def run_est(ref_prefix: str, sample_prefix: str, out_bed: str,
             cfg: EstConfig | None = None, verbose: bool = True,
-            device: str = "cuda") -> dict:
+            device: str = "cuda", device_sums: bool = False) -> dict:
     """ref_prefix: path prefix of the dictionary companions (<p>.qgc,
     <p>.bed — the reference passes the FASTA path); sample_prefix: count
     outputs (<p>.bin, <p>.txt).
 
-    The estimate is host numpy (the JAX package's default host path);
-    `device` is resolved like every entry point's ("cuda" raises without
-    a card) so a pipeline meant for the card never runs on the CPU
-    unasked."""
+    By default the window sums are host numpy in float64 (the JAX
+    package's default host path). device_sums=True takes the JAX
+    package's device path (its `device=True`): float32 window sums on
+    `device` by K11 (ops.est_device). `device` is resolved like every
+    entry point's ("cuda" raises without a card) so a pipeline meant for
+    the card never runs on the CPU unasked."""
     import time
-    resolve_device(device)
+    dev = resolve_device(device)
     t0 = time.time()
     cfg = cfg or EstConfig()
     qgc = formats.read_u16(ref_prefix + ".qgc")
@@ -96,16 +98,23 @@ def run_est(ref_prefix: str, sample_prefix: str, out_bed: str,
     windows_e = windows[emit]
     chroms_e = [c for c, m in zip(chroms, emit) if m]
 
-    # float32 products accumulated left-to-right in float64, matching
-    # the C loop bit-for-bit
-    gc_bin = (qgc & formats.GC_BIN_MASK).astype(np.int64)
-    prod = (factors[gc_bin] * depth.astype(np.float32)).astype(np.float64)
-    half_mean = mean_depth / 2.0
-    rows = []
-    for (chrom, (b, e, ks, ke)) in zip(chroms_e, windows_e):
-        wd = float(np.add.reduceat(prod[ks:ke], [0])[0]) if ke > ks else 0.0
-        cn = wd / (ke - ks) / half_mean
-        rows.append((chrom, int(b), int(e), cn))
+    if device_sums:
+        from quickmer2_tpu_torch.ops.est_device import cn_values
+        cns = cn_values(depth, qgc, factors, windows_e, mean_depth, dev)
+        rows = [(c, int(w[0]), int(w[1]), float(cn))
+                for c, w, cn in zip(chroms_e, windows_e, cns)]
+    else:
+        # float32 products accumulated left-to-right in float64, matching
+        # the C loop bit-for-bit
+        gc_bin = (qgc & formats.GC_BIN_MASK).astype(np.int64)
+        prod = (factors[gc_bin] * depth.astype(np.float32)).astype(np.float64)
+        half_mean = mean_depth / 2.0
+        rows = []
+        for (chrom, (b, e, ks, ke)) in zip(chroms_e, windows_e):
+            wd = (float(np.add.reduceat(prod[ks:ke], [0])[0]) if ke > ks
+                  else 0.0)
+            cn = wd / (ke - ks) / half_mean
+            rows.append((chrom, int(b), int(e), cn))
     formats.write_cn_bed(out_bed, rows)
     return {"mean_depth": mean_depth, "n_windows": len(rows),
             "n_kmers": int(n),

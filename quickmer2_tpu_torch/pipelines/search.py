@@ -17,10 +17,13 @@ Port of quickmer2_tpu/pipelines/search.py:
                   on the host; by K6 over every query ("probe"); on the
                   host against the pass-1 table ("host"); or in
                   quirk-compat mode (SURVEY.md Q2, host, k = 30).
-  3. emit       — one genome-order pass on the host: membership lookups
-                  against the pass-1 table, GC bins (ops.gc), control
-                  flags, window rows; dictionary placement by insertion in genome
-                  order (Dictionary.from_kmers_in_order). Slot layout
+  3. emit       — one genome-order pass: membership lookups against the
+                  pass-1 table on the host (default), or with emit_devices
+                  against a packed table of the survivors on the device
+                  (parallel.emit_parallel, kernel K10); then on the host GC
+                  bins (ops.gc), control flags, window rows; dictionary
+                  placement by insertion in genome order
+                  (Dictionary.from_kmers_in_order). Slot layout
                   may differ from a reference-built .qm (whose placement
                   embeds its insert/resize/compact history) but every
                   chain-ordered artifact (.bed/.qgc, downstream .bin/CN)
@@ -146,7 +149,8 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
                use_device_filter: bool = True, filter_batch: int = 1 << 20,
                filter_impl: str = "hamming", verbose: bool = True,
                stats: dict | None = None,
-               device: str = "cuda") -> Dictionary:
+               device: str = "cuda",
+               emit_devices: int | None = None) -> Dictionary:
     """Full search phase. Writes <out>.qm, <out>.bed and, when a control
     bed is configured, <out>.qgc (out defaults to the FASTA path, like
     the reference which names outputs ref.fa.qm etc.). Every filter
@@ -161,11 +165,19 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
     stats: optional dict the run fills with structured per-phase metrics
     (tabulate/filter/emit wall seconds, the filter's split into join_s,
     slow_table_s (the packed table and its key filter) and slow_s, k-mer
-    counts).
+    counts; with the device emit also emit_table_s, the survivor
+    table's host build, inside emit_s).
     device: "cuda" (default; raises without a card) or "cpu" — where the
-    edit filter's kernels run."""
+    edit filter's kernels run, and the device emit's.
+    emit_devices: None or 0 (default) emits with host lookups; 1 scans
+    the genome on `device` (K10) against a packed table of the
+    survivors; more than one is not yet ported and raises."""
     import time
 
+    if emit_devices and emit_devices > 1:
+        raise NotImplementedError(
+            f"run_search: emit_devices={emit_devices} is not yet ported to "
+            "quickmer2_tpu_torch (multi-GPU, ROADMAP Queue 1 item 9)")
     dev = resolve_device(device)
     if filter_impl not in ("hamming", "probe"):
         raise ValueError(f"unknown filter_impl {filter_impl!r}: use "
@@ -251,13 +263,30 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
     ctrl_rows = emit_mod.read_ctrl(cfg.control_bed) if cfg.control_bed else None
     emitter = emit_mod.GenomeOrderEmitter(k, cfg.window_size, ctrl_rows,
                                           cfg.gc_window_bp)
+    scanner = None
+    if emit_devices:
+        from quickmer2_tpu_torch.parallel.emit_parallel import (
+            DeviceMembershipScanner)
+        ts = time.time()
+        survivors = uniq[keep_uniq]
+        shi, slo = codec.split_u64(survivors)
+        stab = PackedTable.build(
+            shi, slo, rank=np.arange(len(survivors), dtype=np.uint32))
+        emit_table_s = time.time() - ts
+        scanner = DeviceMembershipScanner(stab, k, device=dev)
     for name, seq in fasta_io.iter_fasta(fasta_path):
         canon, valid = _chrom_kmers(seq, k)
-        if native.available():
-            pos_slots, found = native.lookup_keys(table, canon)
+        if scanner is not None:
+            # the same hit set as (found in pass 1) & keep_flag
+            hit = scanner.scan(codec.encode_bases(
+                np.frombuffer(seq, dtype=np.uint8)))
         else:
-            pos_slots, found = qhash.probe_lookup_np(table, canon, hash_size)
-        hit = valid & found & keep_flag[pos_slots]
+            if native.available():
+                pos_slots, found = native.lookup_keys(table, canon)
+            else:
+                pos_slots, found = qhash.probe_lookup_np(table, canon,
+                                                         hash_size)
+            hit = valid & found & keep_flag[pos_slots]
         # k-mer END positions are the reference's index (QuicKmer.c:987-1021)
         emitter.add_chrom(name, seq, canon, hit)
 
@@ -279,6 +308,8 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
                        "filter_s": round(filter_s, 4),
                        **{n: round(v, 4) for n, v in split.items()},
                        "emit_s": round(time.time() - t2, 4)}})
+        if scanner is not None:
+            stats["phases"]["emit_table_s"] = round(emit_table_s, 4)
     return dictionary
 
 

@@ -131,6 +131,31 @@ def sliding_canon(codes: np.ndarray, k: int):
     return canon, (flags & 1) != 0, (flags & 2) != 0
 
 
+def thin_hits(bp: np.ndarray, thin: int) -> np.ndarray:
+    """`sparse` thinning (qm2_thin_hits): keep[i] iff bp[i] - the last
+    kept bp >= thin, the last kept starting at 0."""
+    lib = get_lib()
+    bp = np.ascontiguousarray(bp, dtype=np.uint32)
+    keep = np.empty(len(bp), dtype=np.uint8)
+    lib.qm2_thin_hits(_u32p(bp), ctypes.c_int64(len(bp)),
+                      ctypes.c_uint32(thin), _u8p(keep))
+    return keep.astype(bool)
+
+
+def insert_keys_dup(table: np.ndarray, keys: np.ndarray,
+                    return_slots: bool = False):
+    """`index` insertion (qm2_insert_keys_dup): each key goes to the
+    first empty slot of its scan, even past a copy of itself."""
+    lib = get_lib()
+    assert table.dtype == np.uint64 and table.flags.c_contiguous
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    slots = np.empty(len(keys), dtype=np.int64) if return_slots else None
+    lib.qm2_insert_keys_dup(_u64p(table), ctypes.c_uint64(len(table)),
+                            _u64p(keys), ctypes.c_int64(len(keys)),
+                            _i64p(slots) if return_slots else None)
+    return slots
+
+
 class StreamPacker:
     """Streaming FASTA/FASTQ → 2-bit code stream (separator = 4).
 

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither jax nor the JAX package
 (a flat and an anchored count, a sort-join count, a checkpointed count,
 a cohort, a search whose slow queries take the packed-table path and an
-anchored index whose bitmap the Hamming join builds, on the CPU, in a
-fresh interpreter), and its entry points run on
+anchored index whose bitmap the Hamming join builds, a search with the
+device emit, sparse, index and an est with device window sums, on the
+CPU, in a fresh interpreter), and its entry points run on
 the card unless asked for the CPU — on a box without a card they raise
 instead of falling back."""
 
@@ -79,6 +80,32 @@ for join_on, device_build in ((("cpu",), True), ((), False)):
         g, pos, kmers, 25, device_build=device_build,
         device="cpu").genome_tiles.numpy())
 assert (tiles[0] == tiles[1]).all()
+
+# the device emit, sparse, index, est with device window sums
+search.run_search("g.fa", SearchConfig(kmer_size=25, hash_size=1 << 14,
+                                       edit_distance=1, window_size=50),
+                  verbose=False, out_prefix="em", device="cpu",
+                  emit_devices=1)
+with open("g.fa.qm", "rb") as a, open("em.qm", "rb") as b:
+    assert a.read() != b.read()         # the filter removed some k-mers
+from quickmer2_tpu_torch.pipelines.est import run_est
+from quickmer2_tpu_torch.pipelines.index import run_index
+from quickmer2_tpu_torch.pipelines.sparse import run_sparse
+import shutil
+shutil.copy("em.qm", "g.fa.qm")
+shutil.copy("em.bed", "g.fa.bed")
+run_sparse("g.fa", 20, window_size=50, verbose=False, device="cpu")
+with open("k.bed", "w") as f:
+    f.write("c1\t0\t25\t" + lut[g[:25]].tobytes().decode() + "\n")
+run_index("k.bed", "k.qm", hash_size=1 << 10, verbose=False, device="cpu")
+import numpy as np
+from quickmer2_tpu_torch.io import formats
+n = formats.read_windows_bed("g.fa.bed")[1][-1, 3] + 10
+formats.write_u16("g.fa.qgc", (100 + np.arange(n) % 200) | 0x8000)
+formats.write_u16("d.bin", np.full(n, 25, np.uint16))
+res = run_est("g.fa", "d", "d.CN.bed", verbose=False, device="cpu",
+              device_sums=True)
+assert res["n_windows"] > 0, res
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "quickmer2_tpu"
              or m.startswith("quickmer2_tpu."))
@@ -121,6 +148,21 @@ def _entry(name, tmp_path):
     if name == "run_est":
         return lambda: est.run_est(os.path.join(d, "g"), os.path.join(d, "o"),
                                    os.path.join(d, "cn.bed"))
+    if name == "run_sparse":
+        from quickmer2_tpu_torch.pipelines.sparse import run_sparse
+        return lambda: run_sparse(os.path.join(d, "g.fa"), 100)
+    if name == "run_index":
+        from quickmer2_tpu_torch.pipelines.index import run_index
+        return lambda: run_index(os.path.join(d, "k.bed"),
+                                 os.path.join(d, "k.qm"))
+    if name == "DeviceMembershipScanner":
+        from quickmer2_tpu_torch.ops.packed_table import PackedTable
+        from quickmer2_tpu_torch.parallel.emit_parallel import (
+            DeviceMembershipScanner)
+        tab = PackedTable.build(np.zeros(1, np.uint32),
+                                np.ones(1, np.uint32),
+                                rank=np.zeros(1, np.uint32))
+        return lambda: DeviceMembershipScanner(tab, 15)
     if name == "run_cohort":
         from quickmer2_tpu_torch.pipelines.cohort import run_cohort
         return lambda: run_cohort(os.path.join(d, "g.qm"),
@@ -145,7 +187,9 @@ def _entry(name, tmp_path):
 @pytest.mark.parametrize("name", ["run_search", "run_count",
                                   "run_count_anchored", "run_est",
                                   "run_cohort", "DepthCounter",
-                                  "AnchoredIndex", "AnchoredDepthCounter"])
+                                  "AnchoredIndex", "AnchoredDepthCounter",
+                                  "run_sparse", "run_index",
+                                  "DeviceMembershipScanner"])
 def test_default_device_refuses_cpu_fallback(tmp_path, name):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -167,8 +211,8 @@ def test_cli_default_device_refuses_cpu_fallback(tmp_path):
     ["count", "--data-devices", "2", "g.fa", "r.fq", "o"],
     ["count", "--dict-devices", "2", "g.fa", "r.fq", "o"],
     ["count", "--profile", "d", "g.fa", "r.fq", "o"],
-    ["sparse", "100", "g.fa"],
-    ["est", "--plot", "g.fa", "smp", "cn.bed"]])
+    ["search", "--profile", "d", "g.fa"],
+    ["cohort", "--data-devices", "2", "g.fa", "r.fq:o"]])
 def test_cli_rejects_unported(args, capsys):
     from quickmer2_tpu_torch.cli import main
     with pytest.raises(SystemExit) as exc:
