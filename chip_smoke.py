@@ -77,7 +77,20 @@ Phases:
                 bit for bit the same, equal to the plain version (the
                 same summation order), within 1e-4 of a float64 truth,
                 timed beside the best plain-PyTorch composition
-                (products, then torch.segment_reduce);
+                (products, then torch.segment_reduce). The multi-device
+                layer's kernels, each against its plain version at
+                (dp, ds) = (2, 2) on the main path's shapes: K8b (block
+                flat count) on the 2^24-base batch split over two data
+                shards against both bucket blocks of the PackedTable (at
+                its own P, P = 1 and 2; the rank-space partials summing
+                to K8's depth; timed), K12 (packed exact recount) on the
+                exact batch through the whole table (timed) and through
+                each block (summing to the whole), K3a (anchor probes) on
+                each block of the tier-1 batch (timed) and K3 with the
+                summed anchors on each block in tiers 1 and 2 (its codes
+                the one-launch K3's, its diffs summing to that K3's;
+                timed), and K10's scan over two shards of the card
+                (search --emit-devices 2) equal to the host lookup;
   3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
                 bed) → count (flat, mono) → est on a 12 Mb realistic
                 genome (tools/realistic_genome.py, S. cerevisiae scale)
@@ -110,8 +123,17 @@ Phases:
                 after four checkpoints and resumed from them, each .bin
                 equal to the uninterrupted one; a two-sample cohort (the
                 full reads and the subset) in both modes, its .bin, .txt
-                and .CN.bed equal to the single-sample runs'; and
-                entry() once on the card, equal to the CPU;
+                and .CN.bed equal to the single-sample runs'; entry()
+                once on the card, equal to the CPU; then the
+                multi-device layer on one card (`check_multi_device`):
+                the subset counted by the flat ShardedDepthCounter at
+                (dp, ds) = (2, 2) and the ShardedAnchoredCounter at
+                (2, 1) and (2, 2) on [cuda:0] x 4, each .bin equal to the
+                one-card count's and timed beside a one-device count
+                (K8b, K12, K3a and K3 on blocks must launch), a
+                two-process run_count_distributed (two subprocesses on
+                cuda:0, backend gloo) equal to it too, and
+                dryrun_multichip(4) on [cuda:0] x 4;
   5. card     — name and power limit from nvidia-smi.
 `--check-only` stops after the kernel checks (it still runs the search,
 whose dictionary the anchored checks need). Prints the kernel table as
@@ -122,6 +144,7 @@ non-zero before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -228,7 +251,10 @@ PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernelILb0"),
               "neighbor_sum": ("neighbor_sum", "neighbor_sum_kernel"),
               "count_mono": ("count_mono", "count_mono_"),
               "count_linear": ("count_flat", "CountLinear"),
-              "count_packed": ("count_flat", "CountPacked"),
+              "count_packed": ("count_flat", "11CountPackedILb0"),
+              "count_packed_block": ("count_flat", "11CountPackedILb1"),
+              "count_packed_rows": ("count_mono", "exact_packed_kernel"),
+              "anchor_probes": ("anchored", "anchor_probe_kernel"),
               "kmerize": ("count_flat", "kmerize_kernel"),
               "member_scan": ("emit_member", "member_kernel"),
               "window_sums": ("est_windows", "window_sums_kernel")}
@@ -541,7 +567,7 @@ def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-HOST_SLOW_QUERIES = 20_000     # slow queries the host slow path is timed on
+HOST_SLOW_QUERIES = 5_000      # slow queries the host slow path is timed on
 
 
 def slow_queries(uniq, occ, k, dev):
@@ -707,13 +733,17 @@ def check_neighbor_sum_small(k, dev):
         compare_neighbor_sum(uniq[:50_000], table, k, e, "small", dev, {})
 
 
+FILTER_STRIDE = 4    # check_filters takes every 4th unique query
+
+
 def check_filters(uniq, occ, table, k, dev):
-    """The two device filters on the search's unique set: the hamming
-    join with K6 as its slow path and the probe filter (K6 over every
-    query), timed; their sums must be equal."""
+    """The two device filters on every FILTER_STRIDE-th query of the
+    search's unique set (against all of it): the hamming join with K6 as
+    its slow path and the probe filter (K6 over every query), timed;
+    their sums must be equal."""
     from quickmer2_tpu_torch.ops.hamming_join import hamming_neighbor_sums
     from quickmer2_tpu_torch.pipelines.search import _device_filter
-    queries = uniq[occ == 1]
+    queries = uniq[occ == 1][::FILTER_STRIDE]
     st = {}
     t = time.time()
     sums_h = hamming_neighbor_sums(queries, uniq, occ, k, 2,
@@ -1049,7 +1079,8 @@ def compare_qai_builders(fa, dev, reset_counts, read_counts):
     join (K5): identical bytes; each build's seconds (index_s), and the
     join's routing counts from a second, bitmap-only run. The join's
     build is its own path: the counts are reset just before it and read
-    just after. Returns K5's launches there."""
+    just after. The routing counts are taken on the genome's first
+    quarter. Returns K5's launches there."""
     from quickmer2_tpu_torch.dictionary import Dictionary
     from quickmer2_tpu_torch.ops import anchored
     from quickmer2_tpu_torch.ops.hamming_join import hamming_neighbor_bits
@@ -1082,10 +1113,10 @@ def compare_qai_builders(fa, dev, reset_counts, read_counts):
         raise AssertionError("the .qai by the join differs from the sweep's")
     st = {}
     t = time.time()
-    hamming_neighbor_bits(stream, dic.kmers_in_order, dic.kmer_size,
-                          device=dev, stats=st)
-    log(f"  .qai bytes identical; the join's bitmap alone "
-        f"{time.time() - t:.2f} s, {json.dumps(st)}")
+    hamming_neighbor_bits(stream[:len(stream) // 4], dic.kmers_in_order,
+                          dic.kmer_size, device=dev, stats=st)
+    log(f"  .qai bytes identical; the join's bitmap alone on the genome's "
+        f"first quarter {time.time() - t:.2f} s, {json.dumps(st)}")
     return join_launches
 
 
@@ -1389,6 +1420,9 @@ def check_anchored_kernels(fa, g, reads, dev):
     check_anchored_edges(index, counter, g, reads, dev)
     rows.append(check_count_mono_rows(counter, exact, dev))
     check_count_mono_rows_edges(counter, g, dev)
+    rows.append(check_count_packed_rows(index, exact, k, dev))
+    rows.append(check_anchor_probes(index, counter, rows_of(reads[:B]),
+                                    tier2, dev))
     del stream, dict_kmers, index, counter
     torch.cuda.empty_cache()
     return rows
@@ -1587,7 +1621,6 @@ def check_count_packed(table, codes, k, dev, timed, label, parts):
         count_packed_launch, count_packed_step, count_packed_step_plain,
         packed_partitions_for, packed_rank_slots)
     from quickmer2_tpu_torch.ops import packed_table
-    from quickmer2_tpu_torch.ops.hash import djb_pair
     rows = table.device_rows(dev)
     B, n = table.n_buckets, table.n_kmers
     rank_slots = packed_rank_slots(rows, n)
@@ -1629,9 +1662,30 @@ def check_count_packed(table, codes, k, dev, timed, label, parts):
     sweep = {p: round(cuda_ms(lambda: count_packed_launch(
         pk, bits, rows, d_plain, n_parts=p, **kw), 10), 4)
         for p in (1, 2, 8, 16, 32, 128) if p != own}
+    # K8b at full width (blk_lo = 0, block_buckets = B: the same engine
+    # with its block checks compiled in) beside K8, in the order K8, K8b,
+    # K8b, K8: ms back to back, then queued
+    from quickmer2_tpu_torch.kernels.count_flat import (
+        count_packed_block_launch)
+    d_full, d_8 = zero(), zero()
+    count_packed_block_launch(pk, bits, rows, d_full, blk_lo=0,
+                              block_buckets=B, n_parts=own, **kw)
+    count_packed_launch(pk, bits, rows, d_8, n_parts=own, **kw)
+    torch.cuda.synchronize()
+    if max_abs_err(d_full, d_8) != 0:
+        raise AssertionError("K8b at full width disagrees with K8")
+    pair = {"count_packed": lambda: count_packed_launch(
+        pk, bits, rows, d_plain, n_parts=own, **kw),
+        "count_packed_block": lambda: count_packed_block_launch(
+        pk, bits, rows, d_plain, blk_lo=0, block_buckets=B, n_parts=own,
+        **kw)}
+    abba = [(name, [round(x, 4) for x in kernel_ms(pair[name], 10)])
+            for name in ("count_packed", "count_packed_block",
+                         "count_packed_block", "count_packed")]
+    log(f"  count_packed against count_packed_block at full width, ms / "
+        f"queued ms in turn: {abba}")
     nz = ok & ((chi | clo) != 0)
-    h1, h2 = packed_table.bucket_hashes_t(djb_pair(chi[nz], clo[nz]), B)
-    rows_touched = int(torch.unique(torch.cat([h1, h2])).numel())
+    rows_touched = probe_rows(rows, chi[nz], clo[nz])
     d_sec = hit_sectors(want)
     n_win = len(codes) - k + 1
     n_bytes = nbytes + 32 * rows_touched + 64 * d_sec
@@ -1647,7 +1701,7 @@ def check_count_packed(table, codes, k, dev, timed, label, parts):
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
             "plain_ms": plain_ms, "partitions": own, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "translate_ms": tr[0],
-            "translate_bound_ms": tr[1]}
+            "translate_bound_ms": tr[1], "against_block_full_width": abba}
 
 
 def check_kmerize(codes, k, dev, timed, label):
@@ -1869,6 +1923,7 @@ def check_flat_engines(fa, g, reads, dev):
         f"{table.n_buckets} buckets, host build {time.time() - t:.2f} s")
     rows.append(check_count_packed(table, codes, dic.kmer_size, dev, True,
                                    "smoke", []))
+    rows.append(check_count_packed_block(table, codes, dic.kmer_size, dev))
     parts = (linear_partitions_for(dic.hash_size),
              packed_partitions_for(table.n_buckets))
     check_counter_resume(dic, table, codes)
@@ -1936,13 +1991,24 @@ def check_member_scan(dic, table, g, dev):
     kernel-table row."""
     from quickmer2_tpu_torch.kernels.emit_member import (
         member_scan, member_scan_plain)
-    from quickmer2_tpu_torch.ops import codec, packed_table, rowpack
-    from quickmer2_tpu_torch.ops.hash import djb_pair
+    from quickmer2_tpu_torch.ops import codec, rowpack
     from quickmer2_tpu_torch.parallel.emit_parallel import (
         CHUNK, DeviceMembershipScanner)
     k = dic.kmer_size
     scanner = DeviceMembershipScanner(table, k, device=dev)
-    compare_member_scan(scanner, g, host_members(dic, g), "genome")
+    want = host_members(dic, g)
+    compare_member_scan(scanner, g, want, "genome")
+    # search --emit-devices 2's scan: each chunk halo-split over a 2 x 1
+    # mesh of the card, K10 a shard
+    t = time.time()
+    sharded = DeviceMembershipScanner(table, k, data_devices=2,
+                                      devices=[dev, dev])
+    if not np.array_equal(sharded.scan(g), want):
+        raise AssertionError("member_scan over 2 shards disagrees with the "
+                             "host lookup")
+    log(f"  member_scan, data_devices=2 on the card twice: {len(want)} "
+        f"windows, mask equal to the host emit's lookup, "
+        f"{time.time() - t:.2f} s")
     seamed = g.copy()
     seam = CHUNK // 4
     seamed[seam - 40: seam + 17] = codec.SEP        # an N run over a seam
@@ -1970,13 +2036,7 @@ def check_member_scan(dic, table, g, dev):
     # (h1 of every valid nonzero window, h2 where h1 misses), the mask
     chi, clo, ok = codec_windows(pk, bits, k, len(codes))
     nz = ok & ((chi | clo) != 0)
-    chi, clo = chi[nz], clo[nz]
-    h1, h2 = packed_table.bucket_hashes_t(djb_pair(chi, clo),
-                                          table.n_buckets)
-    r1 = rows[h1].to(torch.int64) & 0xFFFFFFFF
-    in_h1 = (((r1[:, 0] == chi) & (r1[:, 1] == clo))
-             | ((r1[:, 4] == chi) & (r1[:, 5] == clo)))
-    n_rows = int(torch.unique(torch.cat([h1, h2[~in_h1]])).numel())
+    n_rows = probe_rows(rows, chi[nz], clo[nz])
     n_win = len(codes) - k + 1
     n_bytes = pk.numel() + bits.numel() + 32 * n_rows + 4 * got.numel()
     # ~48 int ops a window, as K8: codec and DJB, two buckets, 4 compares
@@ -2398,6 +2458,409 @@ def check_entry():
         "CPU")
 
 
+# -- phase 2 and 3, the multi-device layer: K8b, K12, K3a -----------------
+
+DS = 2                      # the dict axis of the kernel checks
+
+
+def probe_rows(rows, chi, clo, lo=0, bb=None) -> int:
+    """The least rows a probe of the nonzero keys (chi, clo) reads in the
+    bucket block [lo, lo + bb) of the whole packed table `rows` [B, 8]
+    (default: the whole table): the distinct h1 rows in the block, and
+    the h2 rows in it only of the keys that h1's row does not hold."""
+    from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.ops import packed_table
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    B = rows.shape[0]
+    bb = B if bb is None else bb
+    h1, h2 = packed_table.bucket_hashes_t(djb_pair(chi, clo), B)
+    r1 = u32(rows[h1])
+    in_h1 = (((r1[:, 0] == chi) & (r1[:, 1] == clo))
+             | ((r1[:, 4] == chi) & (r1[:, 5] == clo)))
+    b = torch.cat([h1, h2[~in_h1]])
+    return int(torch.unique(b[(b >= lo) & (b < lo + bb)]).numel())
+
+
+def check_count_packed_block(table, codes, k, dev):
+    """K8b at the main path's shapes: one 2^24-base batch of the reads
+    split over dp = 2 data shards (split_codes_overlap, a k - 1 halo),
+    each against both bucket blocks of the smoke's PackedTable (ds = 2),
+    against its plain version at the block's own slice count P, at P = 1
+    and 2; the four rank-space partials (block_slot_depth_to_rank) sum to
+    K8's rank-space count of the whole batch. Timed on shard 0 against
+    block 0. Returns the kernel-table row."""
+    from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.kernels.count_flat import (
+        block_slot_depth_to_rank, count_packed_block_launch,
+        count_packed_block_step, count_packed_block_step_plain,
+        count_packed_step, packed_block_entries, packed_partitions_for,
+        packed_rank_slots, slot_depth_to_rank)
+    from quickmer2_tpu_torch.parallel.count_parallel import (
+        split_codes_overlap)
+    B, n = table.n_buckets, table.n_kmers
+    bb = B // DS
+    rows_all = table.device_rows(dev)
+    shards = split_codes_overlap(codes, 2, k)
+    own = packed_partitions_for(bb)
+    total = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    err = 0
+    for i in range(2):
+        pk, bits, nbytes = flat_batch(shards[i], dev)
+        kw = dict(k=k, n_buckets=B, block_buckets=bb,
+                  n_bases=shards.shape[1])
+        for j in range(DS):
+            rows = rows_all[j * bb:(j + 1) * bb]
+
+            def zero():
+                return torch.zeros(2 * bb + 1, dtype=torch.int32, device=dev)
+            d_k, d_p = zero(), zero()
+            count_packed_block_step(pk, bits, rows, d_k, blk_lo=j * bb, **kw)
+            count_packed_block_step_plain(pk, bits, rows, d_p,
+                                          blk_lo=j * bb, **kw)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(d_k, d_p))
+            if err != 0:
+                raise AssertionError(f"count_packed_block shard {i} block "
+                                     f"{j} disagrees with its plain version")
+            compare_parts("count_packed_block", f"shard {i} block {j}",
+                          lambda d, p: count_packed_block_launch(
+                              pk, bits, rows, d, blk_lo=j * bb, n_parts=p,
+                              **kw), d_p, sorted({1, 2, own}), zero)
+            total += u32(block_slot_depth_to_rank(
+                d_k, packed_block_entries(rows), n))
+            if i == 0 and j == 0:
+                first = (pk, bits, nbytes, rows, kw, d_k)
+    pk, bits, _ = flat_batch(codes, dev)
+    d8 = torch.zeros(2 * B + 1, dtype=torch.int32, device=dev)
+    count_packed_step(pk, bits, rows_all, d8, k=k, n_buckets=B,
+                      n_bases=len(codes))
+    want = slot_depth_to_rank(d8, packed_rank_slots(rows_all, n), n)
+    if max_abs_err((total & 0xFFFFFFFF)[:n], want[:n]) != 0:
+        raise AssertionError("count_packed_block's partials do not sum to "
+                             "count_packed's depth")
+    pk, bits, nbytes, rows, kw, d_k = first
+    ms, queued_ms = kernel_ms(lambda: count_packed_block_step(
+        pk, bits, rows, d_k, blk_lo=0, **kw), 10)
+    plain_ms = cuda_ms(lambda: count_packed_block_step_plain(
+        pk, bits, rows, d_k, blk_lo=0, **kw), 2)
+    # least traffic: the packed shard, the block's 32-B rows its valid
+    # nonzero windows must read (probe_rows), the 32-B sector of each slot
+    # word with a hit read and written; ~48 int ops a window, as K8
+    chi, clo, ok = codec_windows(pk, bits, k, kw["n_bases"])
+    nz = ok & ((chi | clo) != 0)
+    rows_touched = probe_rows(rows_all, chi[nz], clo[nz], 0, bb)
+    d_sec = int(torch.unique(torch.nonzero(d_k[:-1]).flatten() // 8)
+                .numel()) + 1
+    n_win = kw["n_bases"] - k + 1
+    n_bytes = nbytes + 32 * rows_touched + 64 * d_sec
+    b_ms, b_by = bound_ms(n_bytes, 48 * n_win)
+    log(f"  count_packed_block: 2 shards of {kw['n_bases']} bases x {DS} "
+        f"blocks of {bb} buckets (P = {own}; checked at P = 1, 2), "
+        f"partials summing to count_packed's depth; time {ms:.4f} ms "
+        f"(queued {queued_ms:.4f} ms) a shard and block, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB, {rows_touched} local rows, {d_sec} "
+        "depth sectors)")
+    return {"name": "count_packed_block", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/count_flat.cu",
+            "replaces": "quickmer2_tpu/parallel/count_parallel.py:63",
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms, "partitions": own, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def check_count_packed_rows(index, rows, k, dev):
+    """K12 on the main path's exact batch: through the whole packed table
+    (ds = 1, the sharded counter's recount at (2, 1); timed, with the
+    wrapper's host time) and through each of its two bucket blocks
+    (ds = 2), each against its plain version; the blocks' accumulators
+    sum to the whole table's. Returns the kernel-table row."""
+    from quickmer2_tpu_torch.kernels import count_mono as cm
+    fmt, pk, aux, in_bytes = packed_on(rows, dev)
+    B = index.n_buckets
+    kw = dict(fmt=fmt, k=k, n_buckets=B, read_len=rows.shape[1])
+
+    def zero():
+        return torch.zeros(index.n_kmers + 2, dtype=torch.int32, device=dev)
+    err = 0
+    accs = []
+    for ds in (1, DS):
+        bb = B // ds
+        total = zero()
+        for j in range(ds):
+            blk = dict(kw, blk_lo=j * bb, block_buckets=bb)
+            a_k, a_p = zero(), zero()
+            cm.count_packed_rows(pk, aux, index.rows[j * bb:(j + 1) * bb],
+                                 a_k, **blk)
+            cm.count_packed_rows_plain(
+                pk, aux, index.rows[j * bb:(j + 1) * bb], a_p, **blk)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(a_k, a_p))
+            total += a_k
+        accs.append(total)
+    if err != 0:
+        raise AssertionError("count_packed_rows disagrees with its plain "
+                             "version")
+    if max_abs_err(accs[0], accs[1]) != 0:
+        raise AssertionError("count_packed_rows' blocks do not sum to the "
+                             "whole table's count")
+    acc = zero()
+
+    def call():
+        cm.count_packed_rows(pk, aux, index.rows, acc, **kw)
+    ms, queued_ms = kernel_ms(call, 10)
+    wrapper_ms = host_ms(call, 50)
+    plain_ms = cuda_ms(lambda: cm.count_packed_rows_plain(
+        pk, aux, index.rows, acc, **kw), 2)
+    # least traffic: the packed rows in, the 32-B table rows the valid
+    # nonzero windows must read (probe_rows), the 32-B sector of each rank
+    # word with a hit read and written; ~48 int ops a valid window
+    chi, clo, ok = cm.row_windows(pk, aux, fmt=fmt, k=k,
+                                  read_len=rows.shape[1])
+    nz = ok & ((chi | clo) != 0)
+    rows_touched = probe_rows(index.rows, chi[nz], clo[nz])
+    hits = int(accs[0].sum())
+    d_sec = int(torch.unique(torch.nonzero(accs[0]).flatten() // 8).numel())
+    n_bytes = in_bytes + 32 * rows_touched + 64 * d_sec
+    b_ms, b_by = bound_ms(n_bytes, 48 * int(ok.sum()))
+    log(f"  count_packed_rows ({fmt}): {len(rows)} rows of {rows.shape[1]}, "
+        f"{int(ok.sum())} valid windows, {hits} hits, whole table and "
+        f"{DS} blocks equal to the plain version, blocks summing to the "
+        f"whole; time {ms:.4f} ms (queued {queued_ms:.4f} ms), wrapper "
+        f"host time {wrapper_ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+        f"{rows_touched} rows, {d_sec} sectors)")
+    return {"name": "count_packed_rows", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/count_mono.cu",
+            "replaces": "quickmer2_tpu/ops/anchored.py:870",
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "host_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_anchor_probes(index, counter, tier1, tier2, dev):
+    """K3a and K3 on bucket blocks at ds = 2, on the main path's tier-1
+    and tier-2 batches: K3a on each block against its plain version, its
+    found summed over the blocks at most 1 a window; K3 with the summed
+    anchors on each block (in both tiers) against its plain version, its
+    codes those of the one-launch K3 and its diffs summing to that K3's.
+    K3a timed on block 0 of the tier-1 batch, K3 on blocks in tier 1
+    too. Returns K3a's kernel-table row."""
+    from quickmer2_tpu_torch.device import store, u32
+    from quickmer2_tpu_torch.kernels import anchored as ka
+    B = index.n_buckets
+    bb = B // DS
+    tab = (index.genome_tiles, index.dblock)
+    err = 0
+    block_ms = {}
+    for tier, rows in ((1, tier1), (2, tier2)):
+        fmt, pk, aux, in_bytes = packed_on(rows, dev)
+        kw = dict(fmt=fmt, **counter._tier_kw(tier))
+        pkw = dict(fmt=fmt, k=kw["k"], read_len=kw["read_len"],
+                   n_buckets=B, anchor_offsets=kw["anchor_offsets"],
+                   block_buckets=bb)
+        f_sum = p_sum = 0
+        for j in range(DS):
+            rows_j = index.rows[j * bb:(j + 1) * bb]
+            f, p = ka.anchor_probes(pk, aux, rows_j, blk_lo=j * bb, **pkw)
+            fp, pp = ka.anchor_probes_plain(pk, aux, rows_j, blk_lo=j * bb,
+                                            **pkw)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(f, fp), max_abs_err(p, pp))
+            f_sum = f_sum + f.long()
+            p_sum = p_sum + u32(p)
+        if int(f_sum.max()) > 1:
+            raise AssertionError("a key was found on two blocks")
+        found = (f_sum > 0).to(torch.uint8)
+        pos = store(p_sum, torch.int32)
+        one = torch.zeros(index.n_kmers + 2, dtype=torch.int32, device=dev)
+        c_one = ka.anchored_count(pk, aux, index.rows, *tab, one, **kw)
+        total = torch.zeros_like(one)
+        for j in range(DS):
+            bkw = dict(kw, anchors=(found, pos), blk_lo=j * bb,
+                       block_buckets=bb, ranges=j == 0)
+            rows_j = index.rows[j * bb:(j + 1) * bb]
+            d_k, d_p = torch.zeros_like(one), torch.zeros_like(one)
+            c_k = ka.anchored_count(pk, aux, rows_j, *tab, d_k, **bkw)
+            c_p = ka.anchored_count_plain(pk, aux, rows_j, *tab, d_p, **bkw)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(d_k, d_p), max_abs_err(c_k, c_p),
+                      max_abs_err(c_k, c_one))
+            total += d_k
+            if j == 0:
+                block_ms[f"tier{tier}"] = kernel_ms(
+                    lambda: ka.anchored_count(pk, aux, rows_j, *tab, d_k,
+                                              **bkw), 10)
+        if max_abs_err(total, one) != 0:
+            raise AssertionError(f"tier {tier}: the blocks' diffs do not "
+                                 "sum to the one-launch K3's")
+        if err != 0:
+            raise AssertionError(f"anchor_probes or anchored_count on "
+                                 f"blocks (tier {tier}) disagrees with its "
+                                 "plain version or the one-launch K3")
+        log(f"  anchor_probes + anchored_count on {DS} blocks, tier {tier} "
+            f"({fmt}): {int(found.sum())} anchors found, codes 0/1/2 = "
+            f"{np.bincount(c_one.cpu().numpy(), minlength=3).tolist()} as "
+            "the one-launch K3's, blocks' diffs summing to its diff, "
+            "equal to the plain versions")
+        if tier == 1:
+            timed = (pk, aux, in_bytes, pkw, rows.shape[0])
+    pk, aux, in_bytes, pkw, R = timed
+    rows0 = index.rows[:bb]
+    ms, queued_ms = kernel_ms(
+        lambda: ka.anchor_probes(pk, aux, rows0, blk_lo=0, **pkw), 10)
+    plain_ms = cuda_ms(
+        lambda: ka.anchor_probes_plain(pk, aux, rows0, blk_lo=0, **pkw), 2)
+    # least traffic: the packed rows in, the block's 32-B rows the valid
+    # anchor windows must read (probe_rows), found (1 B) and pos (4 B) out
+    # a window; ~60 int ops a probe (codec of k bases, DJB, compares)
+    _, chi, clo, valid = ka._read_windows(pk, aux, pkw["fmt"], pkw["k"],
+                                          pkw["read_len"])
+    offs = list(pkw["anchor_offsets"])
+    ok = valid[:, offs]
+    qh, ql = chi[:, offs][ok], clo[:, offs][ok]
+    nz = (qh | ql) != 0
+    rows_touched = probe_rows(index.rows, qh[nz], ql[nz], 0, bb)
+    n_bytes = in_bytes + 32 * rows_touched + 5 * len(offs) * R
+    b_ms, b_by = bound_ms(n_bytes, 60 * int(ok.sum()))
+    block = {t: [round(x, 4) for x in v] for t, v in block_ms.items()}
+    log(f"  anchor_probes time {ms:.4f} ms (queued {queued_ms:.4f} ms) on "
+        f"block 0 of the tier-1 batch, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {rows_touched} "
+        f"local rows, {int(ok.sum())} probes); anchored_count on block 0 "
+        f"with given anchors, ms / queued ms: {block}")
+    return {"name": "anchor_probes", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/anchored.cu",
+            "replaces": "quickmer2_tpu/ops/anchored.py:575",
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "anchored_block_ms": block}
+
+
+DIST_WORKER = r"""
+import sys
+sys.path.insert(0, {root!r})
+from quickmer2_tpu_torch.parallel import distributed as dist
+dist.initialize("file://" + {rdv!r}, 2, int(sys.argv[1]), backend="gloo",
+                device="cuda")
+st = dist.run_count_distributed({qm!r}, {sample!r}, {out!r},
+                                batch_bases=1 << 22, verbose=False,
+                                device="cuda")
+print("DONE", st["process"], st["shard"])
+"""
+
+
+def count_sharded(dic, index, sample, mode, dp, ds, out):
+    """One count of `sample` through a StreamCounter on a dp x ds mesh of
+    cuda:0 (dp = ds = 1: one device, the flat count on the packed engine
+    that the sharded one shards), its .bin written; returns the seconds
+    of the set-up (the counter and its tables; the anchored row width
+    given, so that its counter is built here) and of the stream and
+    finish."""
+    from quickmer2_tpu_torch.io import formats
+    from quickmer2_tpu_torch.pipelines.count import StreamCounter, make_packer
+    t = time.time()
+    sc = StreamCounter(dic, mode=mode, index=index, batch_bases=1 << 22,
+                       read_len=ANCHOR_READ_LEN if index else None,
+                       engine="packed", data_devices=dp, dict_devices=ds,
+                       devices=["cuda:0"] * (dp * ds), device="cuda")
+    setup_s = time.time() - t
+    t = time.time()
+    packer = make_packer("fastq")
+    with open(sample, "rb") as f:
+        while True:
+            data = f.read(1 << 24)
+            if not data:
+                break
+            sc.feed_codes(packer.feed(data))
+    depth = sc.finish()
+    torch.cuda.synchronize()
+    count_s = time.time() - t
+    formats.write_u16(out + ".bin", (depth & 0xFFFF).astype(np.uint16))
+    return setup_s, count_s
+
+
+def check_multi_device(fa, sub, reset_counts, read_counts):
+    """The multi-device layer on one card, on the 50 k-read subset and the
+    smoke's own dictionary and .qai: the flat ShardedDepthCounter at
+    (dp, ds) = (2, 2) and the ShardedAnchoredCounter at (2, 1) and (2, 2),
+    all on [cuda:0] x 4 (the (2, 2) one from an index whose packed rows
+stay on the host), each .bin byte-identical to the one-card count's
+    (timed beside one-device counts through the same StreamCounter: the
+    flat one on the packed engine, the anchored one with its mono
+    table);
+    then a two-process run_count_distributed, two subprocesses on cuda:0
+    meeting over a file:// rendezvous with backend="gloo" (NCCL needs a
+    card a process), rank 0's .bin equal to the one-card flat .bin; and
+    dryrun_multichip(4) on [cuda:0] x 4. The launch counters are reset
+    before the in-process counts and read after them; K8b, K12 and K3a
+    (and K3 on blocks) must have launched. Returns the launches."""
+    from quickmer2_tpu_torch.dictionary import Dictionary
+    from quickmer2_tpu_torch.entry import dryrun_multichip
+    from quickmer2_tpu_torch.ops.anchored import AnchoredIndex
+    t_phase = time.time()
+    dic = Dictionary.from_qm(fa + ".qm")
+    t = time.time()
+    index = AnchoredIndex.load(fa + ".qai", dic, device="cuda")
+    log(f"  multi-device: .qai loaded in {time.time() - t:.1f} s")
+    secs = {}
+    reset_counts()
+    for mode, dp, ds in (("flat", 1, 1), ("flat", 2, 2), ("anchored", 1, 1),
+                         ("anchored", 2, 1), ("anchored", 2, 2)):
+        out = os.path.join(WORK, f"md_{mode}_{dp}x{ds}")
+        # under ds > 1 the index holds no device rows, as run_count
+        # builds it: each block is placed from the host rows
+        ix = (None if mode == "flat" else index if ds == 1
+              else dataclasses.replace(index, rows=None))
+        setup_s, count_s = count_sharded(dic, ix, sub, mode, dp, ds, out)
+        secs[f"{mode} {dp}x{ds}"] = [round(setup_s, 2), round(count_s, 2)]
+        with open(out + ".bin", "rb") as f, \
+                open(os.path.join(WORK, f"sub_{mode}_cuda.bin"), "rb") as h:
+            if f.read() != h.read():
+                raise AssertionError(f"{mode} count at {dp}x{ds} on cuda:0 "
+                                     "differs from the one-card .bin")
+    counts = read_counts()
+    log(f"  multi-device counts (set-up s, count s) on cuda:0: {secs}; "
+        f"each .bin identical to the one-card count's; launches: {counts}")
+    need = ("count_packed_block", "count_packed_rows", "anchor_probes",
+            "anchored_block")
+    if not all(counts[k] > 0 for k in need):
+        raise AssertionError(f"a kernel never launched: {counts}")
+    del index
+    torch.cuda.empty_cache()
+    t = time.time()
+    script = DIST_WORKER.format(root=ROOT, rdv=os.path.join(WORK, "rdv"),
+                                qm=fa + ".qm", sample=sub,
+                                out=os.path.join(WORK, "dist"))
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(i)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (o, e) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed rank failed:\n{e[-3000:]}")
+    with open(os.path.join(WORK, "dist.bin"), "rb") as f, \
+            open(os.path.join(WORK, "sub_flat_cuda.bin"), "rb") as h:
+        if f.read() != h.read():
+            raise AssertionError("the two-process count differs from the "
+                                 "one-card .bin")
+    log(f"  run_count_distributed: 2 gloo processes on cuda:0 "
+        f"({', '.join(o.strip() for o, _ in outs)}), rank 0's .bin "
+        f"identical to the one-card count's, {time.time() - t:.1f} s")
+    t = time.time()
+    dry = dryrun_multichip(4, devices=["cuda:0"] * 4)
+    log(f"  dryrun_multichip(4) on [cuda:0] x 4: {dry}, "
+        f"{time.time() - t:.1f} s")
+    log(f"phase multi-device on one card: {time.time() - t_phase:.1f} s")
+    return {k: counts[k] for k in need}
+
+
 # -- phase 3: the main path ------------------------------------------------
 
 def median_cn(cn_bed, excl, seg):
@@ -2439,11 +2902,13 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from quickmer2_tpu_torch.config import SearchConfig
     from quickmer2_tpu_torch.kernels import build
-    from quickmer2_tpu_torch.kernels.anchored import anchored_count
+    from quickmer2_tpu_torch.kernels.anchored import (
+        anchor_probes, anchored_count)
     from quickmer2_tpu_torch.kernels.count_flat import (
-        count_linear_step, count_packed_step, kmerize_step)
+        count_linear_step, count_packed_block_step, count_packed_step,
+        kmerize_step)
     from quickmer2_tpu_torch.kernels.count_mono import (
-        count_mono_rows, count_mono_step)
+        count_mono_rows, count_mono_step, count_packed_rows)
     from quickmer2_tpu_torch.kernels.emit_member import member_scan
     from quickmer2_tpu_torch.kernels.est_windows import window_sums
     from quickmer2_tpu_torch.kernels.hamming_join import (
@@ -2467,10 +2932,12 @@ def main() -> int:
         for fn in (count_mono_step, join_compare, anchored_count,
                    count_mono_rows, neighbor_bits, key_filter, neighbor_sum,
                    join_bits, count_linear_step, count_packed_step,
-                   kmerize_step, member_scan, window_sums):
+                   kmerize_step, member_scan, window_sums,
+                   count_packed_block_step, count_packed_rows, anchor_probes):
             fn.launches = 0
         anchored_count.branch_launches = dict.fromkeys(
             anchored_count.branch_launches, 0)
+        anchored_count.block_launches = 0
 
     def read_counts():
         return {"count_mono": count_mono_step.launches,
@@ -2487,7 +2954,11 @@ def main() -> int:
                 "count_packed": count_packed_step.launches,
                 "kmerize": kmerize_step.launches,
                 "member_scan": member_scan.launches,
-                "window_sums": window_sums.launches}
+                "window_sums": window_sums.launches,
+                "count_packed_block": count_packed_block_step.launches,
+                "count_packed_rows": count_packed_rows.launches,
+                "anchor_probes": anchor_probes.launches,
+                "anchored_block": anchored_count.block_launches}
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -2677,6 +3148,9 @@ def main() -> int:
             check_resume(world["fa"], sub)
             check_cohort(world["fa"], fq, sub)
             check_entry()
+            # -- 3, the multi-device layer on one card -------------------
+            launches.update(check_multi_device(world["fa"], sub,
+                                               reset_counts, read_counts))
 
         for row in rows:
             row["launches"] = launches.get(row["name"], 0)

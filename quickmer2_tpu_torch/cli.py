@@ -3,15 +3,17 @@ package's (quickmer2_tpu/cli.py):
 
   python -m quickmer2_tpu_torch search [-k N] [-s SIZE] [-e N] [-d N] [-w N]
                                        [-c ctrl.bed] [--quirk-editdist]
-                                       [--emit-devices 1] [--json]
+                                       [--emit-devices N] [--json]
                                        [--device cuda|cpu] ref.fa
   python -m quickmer2_tpu_torch count  [--batch-bases N] [--mode flat|anchored]
                                        [--engine mono|packed|sortjoin|linear|auto]
                                        [--checkpoint PATH] [--checkpoint-every N]
-                                       [--read-len N] [--json]
+                                       [--read-len N] [--data-devices N]
+                                       [--dict-devices N] [--json]
                                        [--device cuda|cpu] ref.fa sample out
   python -m quickmer2_tpu_torch cohort [--batch-bases N] [--mode flat|anchored]
-                                       [--read-len N] [--json]
+                                       [--read-len N] [--data-devices N]
+                                       [--dict-devices N] [--json]
                                        [--device cuda|cpu] ref.fa s1.fq:out1 ...
   python -m quickmer2_tpu_torch est    [--plot] [--json] [--device cuda|cpu]
                                        ref.fa sample_prefix out.bed
@@ -24,8 +26,10 @@ package's (quickmer2_tpu/cli.py):
 
 --device defaults to cuda and the run fails where there is no card;
 --device cpu runs the kernels' plain PyTorch versions. The multi-device
-options (--emit-devices above 1, --data-devices, --dict-devices) and
---profile are accepted and fail with "not yet ported".
+options (--emit-devices, --data-devices, --dict-devices) shard over the
+box's cards from cuda:0 up (with --device cpu, over copies of the CPU)
+and fail when it has too few. --profile is accepted and fails with "not
+yet ported".
 """
 
 from __future__ import annotations
@@ -64,8 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="(not yet ported)")
     s.add_argument("--emit-devices", type=int, default=None,
-                   help="1: the pass-2 membership scan on the device "
-                        "(bit-identical artifacts); more: not yet ported")
+                   help="run the pass-2 membership scan on N devices "
+                        "(k-1 halos; bit-identical artifacts)")
     _device_arg(s)
     s.add_argument("fasta")
 
@@ -79,9 +83,12 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--read-len", type=int, default=None,
                    help="fixed read length for anchored mode (autodetected)")
     c.add_argument("--data-devices", type=int, default=None,
-                   help="(not yet ported)")
+                   help="shard the count over N devices (bit-identical "
+                        "output)")
     c.add_argument("--dict-devices", type=int, default=None,
-                   help="(not yet ported)")
+                   help="shard the dictionary's packed rows over N "
+                        "devices (tables larger than one card; "
+                        "bit-identical output)")
     c.add_argument("--checkpoint", type=str, default=None, metavar="PATH",
                    help="periodic resume checkpoint; rerun with the same "
                         "flags to resume (works for stdin too: the "
@@ -109,10 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
     co.add_argument("--batch-bases", type=int, default=1 << 24)
     co.add_argument("--mode", choices=["flat", "anchored"], default="flat")
     co.add_argument("--read-len", type=int, default=None)
-    co.add_argument("--data-devices", type=int, default=None,
-                    help="(not yet ported)")
+    co.add_argument("--data-devices", type=int, default=None)
     co.add_argument("--dict-devices", type=int, default=None,
-                    help="(not yet ported)")
+                    help="shard the dictionary rows over N devices "
+                         "(bit-identical output)")
     co.add_argument("--json", action="store_true")
     _device_arg(co)
     co.add_argument("fasta", help="reference FASTA path or .qm path")
@@ -169,9 +176,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.cmd == "search":
-        if args.emit_devices is not None and args.emit_devices > 1:
-            parser.error("search --emit-devices above 1 is not yet ported "
-                         "to quickmer2_tpu_torch")
         _reject(parser, args, [("--profile", "profile", None)])
         from quickmer2_tpu_torch.pipelines.search import run_search
         cfg = SearchConfig(kmer_size=args.k, threads=args.t,
@@ -187,9 +191,7 @@ def main(argv=None) -> int:
             print(json.dumps(stats))
 
     elif args.cmd == "count":
-        _reject(parser, args, [("--data-devices", "data_devices", None),
-                               ("--dict-devices", "dict_devices", None),
-                               ("--profile", "profile", None)])
+        _reject(parser, args, [("--profile", "profile", None)])
         from quickmer2_tpu_torch.pipelines.count import run_count
         stats = run_count(
             _qm(args.fasta), args.sample, args.out_prefix,
@@ -197,13 +199,12 @@ def main(argv=None) -> int:
             ref_fasta=args.fasta if args.mode == "anchored" else None,
             read_len=args.read_len, checkpoint_path=args.checkpoint,
             checkpoint_every_bytes=args.checkpoint_every, engine=args.engine,
+            data_devices=args.data_devices, dict_devices=args.dict_devices,
             verbose=not args.json, device=args.device)
         if args.json:
             print(json.dumps(stats))
 
     elif args.cmd == "cohort":
-        _reject(parser, args, [("--data-devices", "data_devices", None),
-                               ("--dict-devices", "dict_devices", None)])
         from quickmer2_tpu_torch.pipelines.cohort import run_cohort
         pairs = []
         for p in args.pairs:
@@ -216,6 +217,7 @@ def main(argv=None) -> int:
             mode=args.mode,
             ref_fasta=args.fasta if args.mode == "anchored" else None,
             read_len=args.read_len, verbose=not args.json,
+            data_devices=args.data_devices, dict_devices=args.dict_devices,
             device=args.device)
         if args.json:
             print(json.dumps(stats))

@@ -57,6 +57,23 @@
 // trash word whose net change is zero; this kernel skips them, so diff is
 // the same word for word.
 //
+// Under a dict-sharded table (quickmer2_tpu/ops/anchored.py::
+// anchored_count_kernel with dict_axis, :548-558, :575-586, :760-763) a
+// block holds only its buckets, so no block can vote on its anchors alone:
+// the JAX function probes them per block and psums found and pos before
+// the vote. Here that is two launches around the sum:
+//   K3a (qm2t_anchor_probes) — a thread per (read, anchor): the anchor
+//       window's canonical code, probed in the block where the window is
+//       valid; found u8[A, R] and pos u32[A, R];
+//   (the caller sums found and pos over the blocks in block order)
+//   K3 on the block (qm2t_anchored_block, template GIVEN) — steps 1-7 with
+//       the summed anchors in place of its own probes; its dirty and tier-2
+//       probes find the block's entries only (packed_probe_block_h), and
+//       only the block with `ranges` set adds the clean runs, since they
+//       come from the replicated dblock. Every block decides the same
+//       spill codes.
+// Unsharded, K3 stays the one launch (GIVEN false) it was.
+//
 // Bound on the H100: per read the packed row (~42 B at 160 bases), up to
 // 4 anchor probes of two random 32-B rows, two genome windows (~3 random
 // 64-B tiles each), a few 16-B dblock rows and 4-B diff words, against
@@ -97,6 +114,36 @@ struct Params {
   int n_anchors, a0, a1, a2, a3;
   int max_runs, max_dirty, max_dirty_runs, dirty_run_width;
 };
+
+// A dict-sharded launch (K3 with GIVEN anchors, K3a): rows holds buckets
+// [blk_lo, blk_lo + blk_last]; afound u8[n_anchors, R] and apos
+// u32[n_anchors, R] are the anchors' found / pos summed over every block;
+// ranges: this block adds the clean runs. A separate type, so that the
+// unsharded kernel's parameters and code stay what they were.
+struct BlockParams : Params {
+  const uint8_t* afound;
+  const unsigned* apos;
+  unsigned blk_lo, blk_last;
+  bool ranges;
+};
+
+template <bool GIVEN>
+struct LaunchParams {
+  typedef Params type;
+};
+template <>
+struct LaunchParams<true> {
+  typedef BlockParams type;
+};
+
+// A probe of the block's rows.
+__device__ __forceinline__ bool block_probe(const BlockParams& p,
+                                            unsigned long long code,
+                                            unsigned* rank, unsigned* pos) {
+  return qm2t::packed_probe_block_h(
+      p.rows, code, qm2t::djb_pair((unsigned)(code >> 32), (unsigned)code),
+      p.bucket_mask, p.blk_lo, p.blk_last, rank, pos);
+}
 
 __device__ __forceinline__ int anchor_at(const Params& p, int i) {
   return i == 0 ? p.a0 : i == 1 ? p.a1 : i == 2 ? p.a2 : p.a3;
@@ -212,8 +259,9 @@ __device__ __forceinline__ int next_end_after(unsigned gm, unsigned ends,
   return lane + 1 < n ? after : kNoPos;
 }
 
-template <int BR, bool LENS>
-__global__ void __launch_bounds__(kThreads) anchored_kernel(const Params p) {
+template <int BR, bool LENS, bool GIVEN>
+__global__ void __launch_bounds__(kThreads)
+    anchored_kernel(const typename LaunchParams<GIVEN>::type p) {
   const int n = p.lanes;
   const long long gt = (long long)blockIdx.x * kThreads + threadIdx.x;
   const int r = (int)(gt / n);
@@ -279,11 +327,16 @@ __global__ void __launch_bounds__(kThreads) anchored_kernel(const Params p) {
     bool f = false;
     unsigned pos = 0;
     if (ai < p.n_anchors && ((v_src >> (a & 31)) & 1u)) {
-      const int s = 2 * (a & 31);
-      const unsigned long long x = s ? (c0 >> s) | (c1 << (64 - s)) : c0;
-      unsigned rk;
-      f = qm2t::packed_probe(p.rows, qm2t::canonical_lsb(x, k),
-                             p.bucket_mask, &rk, &pos);
+      if constexpr (GIVEN) {
+        f = __ldg(p.afound + (size_t)ai * p.R + r) != 0;
+        pos = f ? __ldg(p.apos + (size_t)ai * p.R + r) : 0u;
+      } else {
+        const int s = 2 * (a & 31);
+        const unsigned long long x = s ? (c0 >> s) | (c1 << (64 - s)) : c0;
+        unsigned rk;
+        f = qm2t::packed_probe(p.rows, qm2t::canonical_lsb(x, k),
+                               p.bucket_mask, &rk, &pos);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kMaxAnchors; ++i) {
@@ -418,9 +471,14 @@ __global__ void __launch_bounds__(kThreads) anchored_kernel(const Params p) {
   if (first) p.code[r] = spilled ? (unanch ? 2 : 1) : 0;
   if (spilled) return;
 
-  // 6. clean runs → range-adds at rank boundaries
+  // 6. clean runs → range-adds at rank boundaries (GIVEN: on the first
+  //    block only; they come from the replicated dblock)
   const int later = next_end_after(gm, cend, t0, lane, n);
-  for (unsigned s = cstart; s; s &= s - 1) {
+  unsigned starts = cstart;
+  if constexpr (GIVEN) {
+    if (!p.ranges) starts = 0u;
+  }
+  for (unsigned s = starts; s; s &= s - 1) {
     const int b = __ffs(s) - 1;
     const unsigned e_in = cend & (0xFFFFFFFFu << b);
     const int st = t0 + b;
@@ -462,8 +520,14 @@ __global__ void __launch_bounds__(kThreads) anchored_kernel(const Params p) {
         const int s = 2 * (__ffs(d) - 1);
         const unsigned long long x = s ? (c0 >> s) | (c1 << (64 - s)) : c0;
         unsigned rk, pos;
-        if (qm2t::packed_probe(p.rows, qm2t::canonical_lsb(x, k),
-                               p.bucket_mask, &rk, &pos)) {
+        bool hit;
+        if constexpr (GIVEN) {
+          hit = block_probe(p, qm2t::canonical_lsb(x, k), &rk, &pos);
+        } else {
+          hit = qm2t::packed_probe(p.rows, qm2t::canonical_lsb(x, k),
+                                   p.bucket_mask, &rk, &pos);
+        }
+        if (hit) {
           add_range(p.diff, rk, rk + 1 < trash ? rk + 1 : trash);
         }
       }
@@ -471,16 +535,131 @@ __global__ void __launch_bounds__(kThreads) anchored_kernel(const Params p) {
   }
 }
 
-template <int BR>
-cudaError_t launch(const Params& p, bool lens, cudaStream_t stream) {
+template <int BR, bool GIVEN>
+cudaError_t launch(const typename LaunchParams<GIVEN>::type& p, bool lens,
+                   cudaStream_t stream) {
   const long long threads = (long long)p.R * p.lanes;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
   if (lens) {
-    anchored_kernel<BR, true><<<blocks, kThreads, 0, stream>>>(p);
+    anchored_kernel<BR, true, GIVEN><<<blocks, kThreads, 0, stream>>>(p);
   } else {
-    anchored_kernel<BR, false><<<blocks, kThreads, 0, stream>>>(p);
+    anchored_kernel<BR, false, GIVEN><<<blocks, kThreads, 0, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <bool GIVEN>
+int launch_branch(const typename LaunchParams<GIVEN>::type& p, int branch,
+                  bool lens, cudaStream_t s) {
+  if (branch == kNeighbor) return (int)launch<kNeighbor, GIVEN>(p, lens, s);
+  if (branch == kPoint) return (int)launch<kPoint, GIVEN>(p, lens, s);
+  return (int)launch<kRuns, GIVEN>(p, lens, s);
+}
+
+// K3a: anchor i of read r (a thread each) in one bucket block: found[i, r]
+// = 1 and pos[i, r] = the entry's genome end position where the anchor
+// window is valid and its canonical code sits in the block, else 0 and 0.
+template <bool LENS>
+__global__ void __launch_bounds__(kThreads)
+anchor_probe_kernel(const BlockParams p, uint8_t* __restrict__ found,
+                    unsigned* __restrict__ pos) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= (long long)p.R * p.n_anchors) return;
+  const int r = (int)(t / p.n_anchors);
+  const int i = (int)(t - (long long)r * p.n_anchors);
+  const int a = anchor_at(p, i), k = p.k;
+  bool valid;
+  if (LENS) {
+    valid = a + k <= (int)__ldg((const uint16_t*)p.aux + r);
+  } else {
+    const int nb = (p.L + 7) >> 3;
+    const uint8_t* arow = p.aux + (size_t)r * nb;
+    unsigned long long inval = 0;
+    for (int q = 0; q < 5 && (a >> 3) + q < nb; ++q) {
+      inval |= (unsigned long long)__ldg(arow + (a >> 3) + q) << (8 * q);
+    }
+    valid = ((inval >> (a & 7)) & ((1ull << k) - 1)) == 0;
+  }
+  const int sb = (p.L + 3) >> 2;
+  const uint8_t* prow = p.pk + (size_t)r * sb;
+  unsigned long long lo = 0, hi = 0;
+  for (int q = 0; q < 9 && (a >> 2) + q < sb; ++q) {
+    const unsigned long long b = __ldg(prow + (a >> 2) + q);
+    if (q < 8) {
+      lo |= b << (8 * q);
+    } else {
+      hi = b;
+    }
+  }
+  const int sh = 2 * (a & 3);
+  const unsigned long long x = sh ? (lo >> sh) | (hi << (64 - sh)) : lo;
+  unsigned rk, ps = 0;
+  const bool f = valid && block_probe(p, qm2t::canonical_lsb(x, k), &rk, &ps);
+  found[(size_t)i * p.R + r] = f;
+  pos[(size_t)i * p.R + r] = f ? ps : 0u;
+}
+
+// The checks and Params common to every launch; returns 0 or a CUDA error.
+int setup(Params* p, const void* pk, const void* aux, const void* rows,
+          long long n_buckets, int R, int L, int k, int n_anchors, int a0,
+          int a1, int a2, int a3) {
+  const int W = L - k + 1;
+  const int anchors[kMaxAnchors] = {a0, a1, a2, a3};
+  if (k < 1 || k > 32 || L > kMaxL || W < 1 || R < 1 || n_anchors < 1 ||
+      n_anchors > kMaxAnchors || n_buckets < 1 || n_buckets > (1LL << 32) ||
+      (n_buckets & (n_buckets - 1)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < n_anchors; ++i) {
+    if (anchors[i] < 0 || anchors[i] >= W) return (int)cudaErrorInvalidValue;
+  }
+  *p = Params{};
+  p->pk = (const uint8_t*)pk;
+  p->aux = (const uint8_t*)aux;
+  p->rows = (const uint4*)rows;
+  p->R = R;
+  p->L = L;
+  p->k = k;
+  p->lanes = 1;
+  while (32 * p->lanes < L) p->lanes *= 2;
+  p->pk8 = (uintptr_t)pk % 8 == 0 && ((L + 3) >> 2) % 8 == 0;
+  p->aux4 = (uintptr_t)aux % 4 == 0 && ((L + 7) >> 3) % 4 == 0;
+  p->bucket_mask = (unsigned)(n_buckets - 1);
+  p->n_anchors = n_anchors;
+  p->a0 = a0;
+  p->a1 = a1;
+  p->a2 = a2;
+  p->a3 = a3;
+  return 0;
+}
+
+// The block [blk_lo, blk_lo + block_buckets) of a table of n_buckets.
+bool bad_block(long long n_buckets, long long blk_lo,
+               long long block_buckets) {
+  return block_buckets < 1 || blk_lo < 0 || blk_lo + block_buckets > n_buckets;
+}
+
+// The rest of K3's Params and checks; returns 0 or a CUDA error.
+int setup_pass(Params* p, const void* tiles, long long G, const void* dblock,
+               void* diff, long long n_diff, void* code, int max_runs,
+               int max_dirty, int max_dirty_runs, int dirty_run_width,
+               int branch) {
+  if (G < p->L || G > 0x7FFFFFFFLL || G % 64 != 0 || n_diff < 2 ||
+      n_diff > 0x7FFFFFFFLL || branch < 0 || branch > 2 ||
+      (uintptr_t)tiles % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  p->tiles = (const uint8_t*)tiles;
+  p->dblock = (const uint4*)dblock;
+  p->diff = (unsigned*)diff;
+  p->code = (int8_t*)code;
+  p->glen = (int)G;
+  p->n_diff = (int)n_diff;
+  p->max_runs = max_runs;
+  p->max_dirty = max_dirty;
+  p->max_dirty_runs = max_dirty_runs;
+  p->dirty_run_width = dirty_run_width;
+  return 0;
 }
 
 }  // namespace
@@ -502,47 +681,76 @@ extern "C" int qm2t_anchored(const void* pk, const void* aux, int lens,
                              int a0, int a1, int a2, int a3, int max_runs,
                              int max_dirty, int max_dirty_runs,
                              int dirty_run_width, int branch, void* stream) {
-  const int W = L - k + 1;
-  const int anchors[kMaxAnchors] = {a0, a1, a2, a3};
-  if (k < 1 || k > 32 || L > kMaxL || W < 1 || R < 1 || n_anchors < 1 ||
-      n_anchors > kMaxAnchors || G < L || G > 0x7FFFFFFFLL || G % 64 != 0 ||
-      n_diff < 2 || n_diff > 0x7FFFFFFFLL || n_buckets < 1 ||
-      n_buckets > (1LL << 32) || (n_buckets & (n_buckets - 1)) != 0 ||
-      branch < 0 || branch > 2 || (uintptr_t)tiles % 4 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  for (int i = 0; i < n_anchors; ++i) {
-    if (anchors[i] < 0 || anchors[i] >= W) return (int)cudaErrorInvalidValue;
-  }
   Params p;
-  p.pk = (const uint8_t*)pk;
-  p.aux = (const uint8_t*)aux;
-  p.rows = (const uint4*)rows;
-  p.tiles = (const uint8_t*)tiles;
-  p.dblock = (const uint4*)dblock;
-  p.diff = (unsigned*)diff;
-  p.code = (int8_t*)code;
-  p.R = R;
-  p.L = L;
-  p.k = k;
-  p.glen = (int)G;
-  p.n_diff = (int)n_diff;
-  p.lanes = 1;
-  while (32 * p.lanes < L) p.lanes *= 2;
-  p.pk8 = (uintptr_t)pk % 8 == 0 && ((L + 3) >> 2) % 8 == 0;
-  p.aux4 = (uintptr_t)aux % 4 == 0 && ((L + 7) >> 3) % 4 == 0;
-  p.bucket_mask = (unsigned)(n_buckets - 1);
-  p.n_anchors = n_anchors;
-  p.a0 = a0;
-  p.a1 = a1;
-  p.a2 = a2;
-  p.a3 = a3;
-  p.max_runs = max_runs;
-  p.max_dirty = max_dirty;
-  p.max_dirty_runs = max_dirty_runs;
-  p.dirty_run_width = dirty_run_width;
+  int rc = setup(&p, pk, aux, rows, n_buckets, R, L, k, n_anchors, a0, a1,
+                 a2, a3);
+  if (rc == 0) {
+    rc = setup_pass(&p, tiles, G, dblock, diff, n_diff, code, max_runs,
+                    max_dirty, max_dirty_runs, dirty_run_width, branch);
+  }
+  if (rc != 0) return rc;
+  return launch_branch<false>(p, branch, lens != 0, (cudaStream_t)stream);
+}
+
+// K3 on one bucket block of a dict-sharded table: rows u32[block_buckets,
+// 8] holds buckets [blk_lo, blk_lo + block_buckets) of n_buckets; afound
+// u8[n_anchors, R] and apos u32[n_anchors, R] are the anchors' found / pos
+// summed over every block (K3a's outputs); ranges 1 on the block that adds
+// the clean runs. The rest as qm2t_anchored.
+extern "C" int qm2t_anchored_block(
+    const void* pk, const void* aux, int lens, const void* rows,
+    long long n_buckets, long long blk_lo, long long block_buckets,
+    const void* afound, const void* apos, int ranges, const void* tiles,
+    long long G, const void* dblock, void* diff, long long n_diff,
+    void* code, int R, int L, int k, int n_anchors, int a0, int a1, int a2,
+    int a3, int max_runs, int max_dirty, int max_dirty_runs,
+    int dirty_run_width, int branch, void* stream) {
+  BlockParams p;
+  int rc = setup(&p, pk, aux, rows, n_buckets, R, L, k, n_anchors, a0, a1,
+                 a2, a3);
+  if (rc == 0) {
+    rc = setup_pass(&p, tiles, G, dblock, diff, n_diff, code, max_runs,
+                    max_dirty, max_dirty_runs, dirty_run_width, branch);
+  }
+  if (rc == 0 && bad_block(n_buckets, blk_lo, block_buckets)) {
+    rc = (int)cudaErrorInvalidValue;
+  }
+  if (rc != 0) return rc;
+  p.afound = (const uint8_t*)afound;
+  p.apos = (const unsigned*)apos;
+  p.blk_lo = (unsigned)blk_lo;
+  p.blk_last = (unsigned)(block_buckets - 1);
+  p.ranges = ranges != 0;
+  return launch_branch<true>(p, branch, lens != 0, (cudaStream_t)stream);
+}
+
+// K3a. pk, aux, rows (the block's), the block and the anchors as
+// qm2t_anchored_block; found u8[n_anchors, R] and pos u32[n_anchors, R]
+// (written in full).
+extern "C" int qm2t_anchor_probes(const void* pk, const void* aux, int lens,
+                                  const void* rows, long long n_buckets,
+                                  long long blk_lo, long long block_buckets,
+                                  void* found, void* pos, int R, int L, int k,
+                                  int n_anchors, int a0, int a1, int a2,
+                                  int a3, void* stream) {
+  BlockParams p;
+  int rc = setup(&p, pk, aux, rows, n_buckets, R, L, k, n_anchors, a0, a1,
+                 a2, a3);
+  if (rc == 0 && bad_block(n_buckets, blk_lo, block_buckets)) {
+    rc = (int)cudaErrorInvalidValue;
+  }
+  if (rc != 0) return rc;
+  p.blk_lo = (unsigned)blk_lo;
+  p.blk_last = (unsigned)(block_buckets - 1);
+  const long long threads = (long long)R * n_anchors;
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
-  if (branch == kNeighbor) return (int)launch<kNeighbor>(p, lens != 0, s);
-  if (branch == kPoint) return (int)launch<kPoint>(p, lens != 0, s);
-  return (int)launch<kRuns>(p, lens != 0, s);
+  if (lens) {
+    anchor_probe_kernel<true><<<blocks, kThreads, 0, s>>>(
+        p, (uint8_t*)found, (unsigned*)pos);
+  } else {
+    anchor_probe_kernel<false><<<blocks, kThreads, 0, s>>>(
+        p, (uint8_t*)found, (unsigned*)pos);
+  }
+  return (int)cudaGetLastError();
 }

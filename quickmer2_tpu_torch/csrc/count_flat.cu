@@ -62,6 +62,13 @@
 // With P = 1 one pass probes each window where it is decoded (K8 both
 // rows at once) and counts its trash windows a warp at a time.
 //
+// K8b replaces quickmer2_tpu/parallel/count_parallel.py::
+// make_sharded_count_step's local_step (:63-92), the flat count of one
+// data shard against one bucket block of a dict-sharded packed table: K8
+// given the block's offset and width (CountPacked<true> below), counting in
+// the block's slot space 2 * Bb + 1; kernels/count_flat.py translates it to
+// the JAX step's rank-space partial depth[dp, ds, n + 1].
+//
 // K9 replaces _kmerize_step_pk (:152-156), the sort-join engine's codec:
 // (chi, clo, valid) for every window, an invalid window written as key 0
 // (ops/sortjoin.py's contract), so the plain codec stays off the card.
@@ -128,35 +135,50 @@ struct CountLinear {
   }
 };
 
-// K8: the two candidate buckets of one code; code 0 matches nothing and
-// goes to the trash unprobed. A key sits in one bucket, h1's for all but
-// a few (first fit at build), so a binned window is probed in h1's slice
-// and reads h2's row only where h1's misses (the misses, and the keys
-// placed at h2: a read outside the slice).
+// K8 and K8b: the two candidate buckets of one code; code 0 matches
+// nothing and goes to the trash unprobed. A key sits in one bucket, h1's
+// for all but a few (first fit at build), so a binned window is probed in
+// its slice and reads h2's row only where h1's misses (the misses, and the
+// keys placed at h2: a read outside the slice). K8b (kBlock) counts against
+// one bucket block [blk_lo, blk_lo + blk_last] of the table (rows holds the
+// block's rows only), in the block's slot space 2 * (bucket - blk_lo) +
+// entry: a candidate outside the block (the u32 wrap of bucket - blk_lo)
+// reads no row, and a window is binned in the slice of its first local
+// candidate or goes to the trash unprobed when neither is local, so the
+// trash takes every window the block does not count. K8 is the whole table
+// with those checks compiled out: run at full width, K8b's checks cost 2 %
+// (PERF.md §6).
+template <bool kBlock>
 struct CountPacked {
   const uint4* rows;
-  unsigned bucket_mask;
-  int shift;     // slice of a bucket: bucket >> shift
+  unsigned bucket_mask, blk_lo, blk_last;    // K8: 0 and bucket_mask
+  int shift;     // slice of a local bucket: (bucket - blk_lo) >> shift
 
-  __device__ __forceinline__ unsigned bucket(u64 canon, int c) const {
+  __device__ __forceinline__ unsigned local(u64 canon, int c) const {
     const unsigned h =
         qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon);
-    return (c ? (h * qm2t::kH2Mult) >> 7 : h) & bucket_mask;
+    const unsigned b = (c ? (h * qm2t::kH2Mult) >> 7 : h) & bucket_mask;
+    return kBlock ? b - blk_lo : b;
   }
 
   __device__ __forceinline__ unsigned short part(u64 canon) const {
-    return canon ? (unsigned short)(bucket(canon, 0) >> shift) : kNoPart;
+    if (canon == 0) return kNoPart;
+    const unsigned o1 = local(canon, 0);
+    if (!kBlock || o1 <= blk_last) return (unsigned short)(o1 >> shift);
+    const unsigned o2 = local(canon, 1);
+    return o2 <= blk_last ? (unsigned short)(o2 >> shift) : kNoPart;
   }
 
-  // The matching slot of bucket b, or -1.
-  __device__ __forceinline__ long long entry_of(unsigned b, u64 canon) const {
+  // The matching slot of local bucket o, or -1 (o outside the block).
+  __device__ __forceinline__ long long entry_of(unsigned o, u64 canon) const {
+    if (kBlock && o > blk_last) return -1;
     const unsigned hi = (unsigned)(canon >> 32);
     const unsigned lo = (unsigned)canon;
     long long slot = -1;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const uint4 v = __ldg(rows + 2ull * b + e);
-      if (v.x == hi && v.y == lo) slot = 2LL * b + e;
+      const uint4 v = __ldg(rows + 2ull * o + e);
+      if (v.x == hi && v.y == lo) slot = 2LL * o + e;
     }
     return slot;
   }
@@ -165,14 +187,14 @@ struct CountPacked {
   // the one matching entry, as the JAX probe's later-wins order does.
   __device__ __forceinline__ long long probe(u64 canon) const {
     if (canon == 0) return -1;
-    const long long s1 = entry_of(bucket(canon, 0), canon);
-    const long long s2 = entry_of(bucket(canon, 1), canon);
+    const long long s1 = entry_of(local(canon, 0), canon);
+    const long long s2 = entry_of(local(canon, 1), canon);
     return s2 >= 0 ? s2 : s1;
   }
 
   __device__ __forceinline__ long long probe_binned(u64 canon) const {
-    const long long s1 = entry_of(bucket(canon, 0), canon);
-    return s1 >= 0 ? s1 : entry_of(bucket(canon, 1), canon);
+    const long long s1 = entry_of(local(canon, 0), canon);
+    return s1 >= 0 ? s1 : entry_of(local(canon, 1), canon);
   }
 };
 
@@ -436,10 +458,39 @@ extern "C" int qm2t_count_packed(const void* pk, const void* bits,
       bad_parts(n_parts, n_buckets, work)) {
     return (int)cudaErrorInvalidValue;
   }
-  const CountPacked eng = {(const uint4*)rows, (unsigned)(n_buckets - 1),
-                           log2_of(n_buckets) - log2_of(n_parts)};
+  const CountPacked<false> eng = {
+      (const uint4*)rows, (unsigned)(n_buckets - 1), 0u,
+      (unsigned)(n_buckets - 1), log2_of(n_buckets) - log2_of(n_parts)};
   return count_windows(flat_windows(pk, bits, n_bases, k), eng, depth,
                        2 * n_buckets, n_parts, work, (cudaStream_t)stream);
+}
+
+// K8b. pk, bits as above; rows u32[block_buckets, 8], buckets [blk_lo,
+// blk_lo + block_buckets) of a table of n_buckets (block_buckets a power of
+// two dividing n_buckets, blk_lo a multiple of it); depth u32[2 *
+// block_buckets + 1] in the block's slot space, its last word the trash;
+// n_parts the slice count over the block's buckets; work as K7's.
+extern "C" int qm2t_count_packed_block(const void* pk, const void* bits,
+                                       const void* rows, void* depth,
+                                       long long n_bases, int k,
+                                       long long n_buckets, long long blk_lo,
+                                       long long block_buckets, int n_parts,
+                                       void* work, void* stream) {
+  if (bad_batch(pk, bits, n_bases, k) || n_buckets < 1 ||
+      n_buckets > (1LL << 32) || (n_buckets & (n_buckets - 1)) != 0 ||
+      block_buckets < 1 || (block_buckets & (block_buckets - 1)) != 0 ||
+      n_buckets % block_buckets != 0 || blk_lo < 0 ||
+      blk_lo % block_buckets != 0 || blk_lo + block_buckets > n_buckets ||
+      bad_parts(n_parts, block_buckets, work)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const CountPacked<true> eng = {
+      (const uint4*)rows, (unsigned)(n_buckets - 1), (unsigned)blk_lo,
+      (unsigned)(block_buckets - 1),
+      log2_of(block_buckets) - log2_of(n_parts)};
+  return count_windows(flat_windows(pk, bits, n_bases, k), eng, depth,
+                       2 * block_buckets, n_parts, work,
+                       (cudaStream_t)stream);
 }
 
 // pk, bits as above; chi, clo u32[n_bases - k + 1] and valid u8[n_bases - k

@@ -71,6 +71,18 @@
 // With P = 1 one pass probes every window where it is decoded and writes
 // each mask word by ballot (a block's lanes are whole mask words).
 //
+// K12 replaces quickmer2_tpu/ops/anchored.py::exact_count_rows (:870) as
+// exact_count_rows_packed (:905) runs it, and its dict-sharded form (the
+// block-restricted probe, :880-887): the anchored path's exact recount
+// through the PACKED table, for a counter without the mono table
+// (mono_spill off, and every sharded anchored counter). It is K2r's row
+// window map (512 lanes a block, the words staged once) with the two-choice
+// probe of one bucket block (packed_probe.cuh::packed_probe_block_h) in
+// place of the mono probe; a window found there adds 1 to acc at its rank,
+// a plain count (the caller adds acc to the cumsum of diff at finish). A
+// miss or an invalid window adds nothing: the JAX function sends those to
+// a trash word no caller reads.
+//
 // Bound on the H100 (3.35 TB/s HBM): the least a call must move is the
 // packed batch, each touched row once, the 32-B sector of each bucket's
 // depth words with a hit read and written once, and the mask;
@@ -226,6 +238,30 @@ count_mono_direct_kernel(Map m, const uint4* __restrict__ rows,
     const unsigned word = __ballot_sync(0xFFFFFFFFu, unresolved);
     const long long w = (base + j) >> 5;
     if ((threadIdx.x & 31) == 0 && w < n_words) mask[w] = word;
+  }
+}
+
+// K12: the packed exact recount over read rows, one pass. A valid window
+// whose canonical code sits in the block's rows adds 1 to acc at its rank
+// (plain counts, not slots). Misses add nothing.
+template <class Map>
+__global__ void __launch_bounds__(kThreads)
+exact_packed_kernel(Map m, const uint4* __restrict__ rows,
+                    unsigned* __restrict__ acc, unsigned bucket_mask,
+                    unsigned blk_lo, unsigned blk_last) {
+  __shared__ typename Map::Tile tile;
+  const long long base = (long long)blockIdx.x * m.lanes();
+  const typename Map::Span sp = m.stage(tile, base);
+  for (int j = threadIdx.x; j < m.lanes(); j += kThreads) {
+    u64 canon;
+    unsigned rank, pos;
+    if (m.window(tile, sp, base, j, &canon) &&
+        qm2t::packed_probe_block_h(
+            rows, canon,
+            qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon),
+            bucket_mask, blk_lo, blk_last, &rank, &pos)) {
+      atomicAdd(acc + rank, 1u);
+    }
   }
 }
 
@@ -442,4 +478,55 @@ extern "C" int qm2t_count_mono_rows(const void* pk, const void* aux, int lens,
                                pk_bytes, aux_bytes, n_rows * W, (unsigned)W,
                                recip, pitch, aux_pitch, k};
   return count_direct(m, rows, depth, mask, n_buckets, s);
+}
+
+namespace {
+
+template <class Map>
+int exact_direct(const Map& m, const void* rows, void* acc,
+                 long long n_buckets, long long blk_lo,
+                 long long block_buckets, cudaStream_t s) {
+  const long long tiles = (m.n + m.lanes() - 1) / m.lanes();
+  exact_packed_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
+      m, (const uint4*)rows, (unsigned*)acc, (unsigned)(n_buckets - 1),
+      (unsigned)blk_lo, (unsigned)(block_buckets - 1));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K12. pk, aux as qm2t_count_mono_rows; rows u32[block_buckets, 8], the
+// packed table's buckets [blk_lo, blk_lo + block_buckets) (the whole table:
+// blk_lo = 0, block_buckets = n_buckets); acc u32[n_acc] (updated in place;
+// every rank in the rows < n_acc).
+extern "C" int qm2t_exact_rows_packed(const void* pk, const void* aux,
+                                      int lens, const void* rows,
+                                      long long n_buckets, long long blk_lo,
+                                      long long block_buckets, void* acc,
+                                      int n_rows, int L, int k,
+                                      void* stream) {
+  const long long W = (long long)L - k + 1;
+  if (k < 1 || k > kMaxK || L < k || L > 65535 || n_rows < 1 ||
+      n_rows * W > 0xFFFFFFFFLL || bad_table(n_buckets, 1) ||
+      block_buckets < 1 || blk_lo < 0 || blk_lo + block_buckets > n_buckets) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (((uintptr_t)pk | (uintptr_t)aux) & 7) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  const int pitch = (L + 3) / 4, aux_pitch = lens ? 2 : (L + 7) / 8;
+  const long long pk_bytes = (long long)n_rows * pitch;
+  const long long aux_bytes = (long long)n_rows * aux_pitch;
+  const unsigned recip = (unsigned)(0xFFFFFFFFu / (unsigned)W);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (lens) {
+    const RowWindows<true> m = {(const uint8_t*)pk, (const uint8_t*)aux,
+                                pk_bytes, aux_bytes, n_rows * W,
+                                (unsigned)W, recip, pitch, aux_pitch, k};
+    return exact_direct(m, rows, acc, n_buckets, blk_lo, block_buckets, s);
+  }
+  const RowWindows<false> m = {(const uint8_t*)pk, (const uint8_t*)aux,
+                               pk_bytes, aux_bytes, n_rows * W, (unsigned)W,
+                               recip, pitch, aux_pitch, k};
+  return exact_direct(m, rows, acc, n_buckets, blk_lo, block_buckets, s);
 }

@@ -1,6 +1,7 @@
-// Two-choice packed-table probe, the table's key filter and DJB by deltas,
-// shared by csrc/anchored.cu (K3), csrc/neighbor_bits.cu (K4) and
-// csrc/neighbor_sum.cu (K6).
+// Two-choice packed-table probe (whole table or one bucket block), the
+// table's key filter and DJB by deltas, shared by csrc/anchored.cu (K3,
+// K3a), csrc/neighbor_bits.cu (K4), csrc/neighbor_sum.cu (K6),
+// csrc/count_mono.cu (K12) and csrc/count_flat.cu (K8b).
 //
 // Replaces quickmer2_tpu/ops/packed_table.py::probe_packed (with
 // hash.djb_pair and packed_table.bucket_hashes_jnp), an XLA device function
@@ -83,6 +84,38 @@ __device__ __forceinline__ bool packed_probe_h(const uint4* __restrict__ rows,
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const uint4 v = __ldg(rows + 2ull * cand[c] + e);
+      if (v.x == hi && v.y == lo) {
+        found = true;
+        *rank = v.z;
+        *pos = v.w;
+      }
+    }
+  }
+  return found;
+}
+
+// packed_probe_h against one bucket block of a dict-sharded table: rows
+// holds buckets [blk_lo, blk_lo + blk_last] (replaces
+// quickmer2_tpu/ops/packed_table.py::probe_packed_block). A candidate
+// outside the block, found by the u32 wrap of cand - blk_lo, reads no row
+// and never matches, so a key is found on the one block that holds it. With
+// blk_lo = 0 and blk_last = bucket_mask it is packed_probe_h.
+__device__ __forceinline__ bool packed_probe_block_h(
+    const uint4* __restrict__ rows, unsigned long long code, unsigned h,
+    unsigned bucket_mask, unsigned blk_lo, unsigned blk_last, unsigned* rank,
+    unsigned* pos) {
+  if (code == 0ull) return false;
+  const unsigned hi = (unsigned)(code >> 32);
+  const unsigned lo = (unsigned)code;
+  const unsigned cand[2] = {h & bucket_mask, ((h * kH2Mult) >> 7) & bucket_mask};
+  bool found = false;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const unsigned off = cand[c] - blk_lo;
+    if (off > blk_last) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint4 v = __ldg(rows + 2ull * off + e);
       if (v.x == hi && v.y == lo) {
         found = true;
         *rank = v.z;

@@ -1,5 +1,5 @@
-"""Entry point of the port: one step of the flagship count, with its
-arguments.
+"""Entry points of the port: one step of the flagship count, with its
+arguments, and the multi-device dry run.
 
 entry() is the PyTorch analog of __graft_entry__.entry: the same toy
 genome, dictionary and read codes (made here from numpy), and the
@@ -7,6 +7,10 @@ count's step through the reference's linear probe (kernel K7,
 kernels.count_flat.count_linear_step) on the card, its slot-space depth
 translated to rank order. `fn(*args)` adds the reads' k-mers to the
 depth vector args[-1] and returns it.
+
+dryrun_multichip(n) is the analog of __graft_entry__.dryrun_multichip:
+the toy counts on n devices, factored into data x dict as there, each
+held to the one-device depth.
 """
 
 from __future__ import annotations
@@ -78,3 +82,73 @@ def entry(device: str = "cuda"):
     args = (torch.from_numpy(pk[0]).to(dev), torch.from_numpy(bits[0]).to(dev),
             table, linear_rank_slots(dic, dev), depth)
     return fn, args
+
+
+def _toy_positions(genome, dic, k):
+    """Genome end position of each dictionary k-mer, rank order."""
+    canon, valid = codec.sliding_kmers_np(genome, k)
+    ends = np.flatnonzero(valid & (canon != 0)) + k - 1
+    pos_of = {}
+    for km, e in zip(canon[valid & (canon != 0)], ends):
+        pos_of.setdefault(int(km), int(e))
+    return np.array([pos_of[int(km)] for km in dic.kmers_in_order],
+                    np.uint32)
+
+
+def dryrun_multichip(n_devices: int, devices=None,
+                     device: str = "cuda") -> dict:
+    """The toy counts on n_devices devices of `device`'s type (every card
+    from cuda:0 up, or copies of the CPU; `devices` an explicit list):
+    the flat ShardedDepthCounter on a data x dict mesh, n factored as
+    the JAX dry run does (dict the largest power of two with dict^2 <=
+    2 n), and the ShardedAnchoredCounter on n x 1 and on that mesh, each
+    equal to the one-device counter's depth. Returns the mesh shape and
+    the depth sums."""
+    from quickmer2_tpu_torch.ops.anchored import (
+        AnchoredDepthCounter, AnchoredIndex, rows_from_flat_codes)
+    from quickmer2_tpu_torch.parallel.anchored_parallel import (
+        ShardedAnchoredCounter)
+    from quickmer2_tpu_torch.parallel.count_parallel import (
+        ShardedDepthCounter)
+    from quickmer2_tpu_torch.parallel.mesh import make_mesh
+    from quickmer2_tpu_torch.pipelines.count import DepthCounter
+    dev = resolve_device(device if devices is None else devices[0])
+    if devices is None:
+        make_mesh(n_devices, 1, device=dev)     # too few cards: raise
+    ds = 1
+    while n_devices % (ds * 2) == 0 and (ds * 2) ** 2 <= n_devices * 2:
+        ds *= 2
+    dp = n_devices // ds
+    mesh = make_mesh(dp, ds, devices=devices, device=dev)
+    one = mesh[0, 0]
+
+    dic = _toy_dictionary()
+    codes = _toy_codes(8192)
+    counter = ShardedDepthCounter(dic, mesh, batch_bases=2048)
+    counter.feed_codes(codes)
+    depth = counter.finish()
+    single = DepthCounter(dic, batch_bases=2048, device=one)
+    single.feed_codes(codes)
+    if not np.array_equal(depth, single.finish()):
+        raise AssertionError(f"flat count on data={dp} dict={ds} differs "
+                             "from one device")
+
+    genome = _toy_genome()
+    k = dic.kmer_size
+    index = AnchoredIndex.build(genome, _toy_positions(genome, dic, k),
+                                dic.kmers_in_order, k, neighbor_bits=True,
+                                device=one)
+    rows = rows_from_flat_codes(codes, 100)
+    a = AnchoredDepthCounter(index, k, 100, batch_reads=8, device=one)
+    a.feed_reads(rows)
+    adepth = a.finish()
+    for shape in ((n_devices, 1), (dp, ds)):
+        c = ShardedAnchoredCounter(
+            index, k, 100, make_mesh(*shape, devices=devices, device=dev),
+            batch_reads=8 * shape[0])
+        c.feed_reads(rows)
+        if not np.array_equal(c.finish(), adepth):
+            raise AssertionError(f"anchored count on data={shape[0]} "
+                                 f"dict={shape[1]} differs from one device")
+    return {"data": dp, "dict": ds, "depth_sum": int(depth.sum()),
+            "anchored_depth_sum": int(adepth.sum())}

@@ -14,6 +14,14 @@ JAX function's keywords:
   neighbor_mode and max_dirty 0   tier 1, neighbor-bit discard;
   otherwise                       tier 1, up to max_dirty point probes.
 
+Under a dict-sharded table (the JAX function's dict_axis) `rows` is one
+bucket block [blk_lo, blk_lo + block_buckets) and the read pass is two
+launches around a sum: `anchor_probes` (K3a) probes each read's anchor
+windows in the block, the caller sums found and pos over the blocks in
+block order (the JAX psum), and `anchored_count(..., anchors=(found,
+pos))` votes on the sums, probes its dirty windows in the block only,
+and adds the clean runs only where `ranges` is set (the first block).
+
 `anchored_count_plain` repeats the JAX function op for op (including
 fetch_genome_window's clamped tile gathers and roll), on word tensors of
 either storage (device.py). A tensor on the CPU takes the plain version;
@@ -30,7 +38,7 @@ from quickmer2_tpu_torch.device import U32, popcount32, store, u32
 from quickmer2_tpu_torch.kernels import build
 from quickmer2_tpu_torch.ops import codec, rowpack
 from quickmer2_tpu_torch.ops.packed_table import (
-    ROW_WIDTH, bucket_hashes_t, probe_packed)
+    ROW_WIDTH, bucket_hashes_t, probe_packed_block)
 
 GBLK = 64          # genome tile width (bases)
 DBLK = 64          # prefix-count block size (positions per dblock row)
@@ -42,6 +50,13 @@ _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
                                       ctypes.c_void_p, ctypes.c_longlong,
                                       ctypes.c_void_p]
              + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+# qm2t_anchored_block: qm2t_anchored's, with the block, the summed anchors
+# and `ranges` after n_buckets
+_BLOCK_ARGTYPES = (_ARGTYPES[:5] + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] + _ARGTYPES[5:])
+_PROBE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def branch_of(max_dirty: int, dirty_run_width: int,
@@ -111,41 +126,83 @@ def _pad_left(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.new_zeros(x.shape[0], 1), x], 1)
 
 
-def anchored_count_plain(pk, aux, rows, tiles, dblock, diff, *, fmt: str,
-                         k: int, read_len: int, n_buckets: int,
-                         anchor_offsets, max_runs: int = 4,
-                         max_dirty: int = 8, max_dirty_runs: int = 0,
-                         dirty_run_width: int = 0,
-                         neighbor_mode: bool = False,
-                         trace: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the anchored read pass. With a `trace`
-    dict it also records the indices of the table rows, genome tiles,
-    dblock rows and diff words that the batch needs (for bounds)."""
+def _read_windows(pk, aux, fmt: str, k: int, read_len: int):
+    """The rows unpacked, and (chi, clo, valid) of their windows [R, W]."""
     reads = rowpack.unpack_batch(fmt, pk, aux, read_len=read_len)
-    dev = reads.device
     R, L = reads.shape
     W = L - k + 1
-    n_diff = diff.shape[0]
-    trash = n_diff - 1
-    branch = branch_of(max_dirty, dirty_run_width, neighbor_mode)
-
     chi_f, clo_f, valid_f = codec.sliding_kmers(reads.reshape(-1), k)
 
     def rowwise(a):
         out = a.new_zeros(R * L)
         out[:a.shape[0]] = a
         return out.view(R, L)[:, :W]
-    chi, clo, valid = rowwise(chi_f), rowwise(clo_f), rowwise(valid_f)
+    return reads, rowwise(chi_f), rowwise(clo_f), rowwise(valid_f)
+
+
+def _anchor_probes(rows, chi, clo, valid, offs, n_buckets, blk_lo,
+                   block_buckets):
+    """found bool[A, R] and pos int64[A, R] of the anchor windows in the
+    block: found only where the window is valid, pos 0 where not found."""
+    fs, ps = [], []
+    for j in offs:
+        f, _, p = probe_packed_block(rows, chi[:, j], clo[:, j], n_buckets,
+                                     block_buckets, blk_lo, 0)
+        f = f & valid[:, j]
+        fs.append(f)
+        ps.append(torch.where(f, p, 0))
+    return torch.stack(fs), torch.stack(ps)
+
+
+def anchor_probes_plain(pk, aux, rows, *, fmt: str, k: int, read_len: int,
+                        n_buckets: int, anchor_offsets, blk_lo: int,
+                        block_buckets: int):
+    """Plain PyTorch version of K3a: (found u8[A, R], pos u32 words [A,
+    R])."""
+    _, chi, clo, valid = _read_windows(pk, aux, fmt, k, read_len)
+    found, pos = _anchor_probes(rows, chi, clo, valid,
+                                [int(a) for a in anchor_offsets], n_buckets,
+                                blk_lo, block_buckets)
+    return found.to(torch.uint8), store(pos, rows.dtype)
+
+
+def anchored_count_plain(pk, aux, rows, tiles, dblock, diff, *, fmt: str,
+                         k: int, read_len: int, n_buckets: int,
+                         anchor_offsets, max_runs: int = 4,
+                         max_dirty: int = 8, max_dirty_runs: int = 0,
+                         dirty_run_width: int = 0,
+                         neighbor_mode: bool = False, anchors=None,
+                         blk_lo: int = 0, block_buckets: int = 0,
+                         ranges: bool = True,
+                         trace: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the anchored read pass. With `anchors`
+    (found, pos) summed over the blocks, rows is the block [blk_lo,
+    blk_lo + block_buckets) and `ranges` says whether it adds the clean
+    runs. With a `trace` dict it also records the indices of the table
+    rows, genome tiles, dblock rows and diff words that the batch needs
+    (for bounds)."""
+    reads, chi, clo, valid = _read_windows(pk, aux, fmt, k, read_len)
+    dev = reads.device
+    R, L = reads.shape
+    W = L - k + 1
+    n_diff = diff.shape[0]
+    trash = n_diff - 1
+    branch = branch_of(max_dirty, dirty_run_width, neighbor_mode)
+    block_buckets = block_buckets or n_buckets
+
+    def probe(qhi, qlo, miss_rank):
+        return probe_packed_block(rows, qhi, qlo, n_buckets, block_buckets,
+                                  blk_lo, miss_rank)
 
     # -- anchoring and the majority vote ---------------------------------
     offs = [int(j) for j in anchor_offsets]
     offs_t = torch.tensor(offs, dtype=torch.int64, device=dev)
-    fs, ps = [], []
-    for j in offs:
-        f, _, p = probe_packed(rows, chi[:, j], clo[:, j], n_buckets, 0)
-        fs.append(f)
-        ps.append(torch.where(f, p, 0))
-    fstk, pstk = torch.stack(fs), torch.stack(ps)
+    if anchors is None:
+        fstk, pstk = _anchor_probes(rows, chi, clo, valid, offs, n_buckets,
+                                    blk_lo, block_buckets)
+    else:
+        fstk = anchors[0].to(torch.bool)
+        pstk = torch.where(fstk, u32(anchors[1]), 0)
     av = torch.stack([fstk[i] & valid[:, j] for i, j in enumerate(offs)])
     p_i32 = pstk - ((pstk >> 31) << 32)          # the JAX int32 cast
     s_cand = p_i32 - (k - 1) - offs_t[:, None]
@@ -235,7 +292,7 @@ def anchored_count_plain(pk, aux, rows, tiles, dblock, diff, *, fmt: str,
                           ge[:, None] - ends)
     q_end = torch.where(use_fwd[:, None], s_f[:, None] + ends + (k - 1),
                         ge[:, None] - starts)
-    run_ok = starts >= 0
+    run_ok = (starts >= 0) & ranges
     q_lo = torch.clamp(q_start - 1, 0, G - 1)
     q_hi = torch.clamp(q_end, 0, G - 1)
     lo_r = torch.where(q_start <= 0, 0, rank_at(dblock, q_lo))
@@ -266,8 +323,7 @@ def anchored_count_plain(pk, aux, rows, tiles, dblock, diff, *, fmt: str,
             cols = (sc[:, None] + off_l) % P
             ahi, alo = chi_p.gather(1, cols), clo_p.gather(1, cols)
             lane_ok = exists[:, None] & (off_l <= (d_ends[:, m] - sc)[:, None])
-            f, r, _ = probe_packed(rows, ahi.reshape(-1), alo.reshape(-1),
-                                   n_buckets, trash)
+            f, r, _ = probe(ahi.reshape(-1), alo.reshape(-1), trash)
             point = torch.where(lane_ok.reshape(-1) & f, r, trash)
             add(point, 1)
             add(torch.clamp(point + 1, max=trash), -1)
@@ -282,7 +338,7 @@ def anchored_count_plain(pk, aux, rows, tiles, dblock, diff, *, fmt: str,
             got = j < W
             jc = torch.clamp(j, max=W - 1)[:, None]
             dhi, dlo = chi.gather(1, jc)[:, 0], clo.gather(1, jc)[:, 0]
-            f, r, _ = probe_packed(rows, dhi, dlo, n_buckets, trash)
+            f, r, _ = probe(dhi, dlo, trash)
             point = torch.where(got & f, r, trash)
             add(point, 1)
             add(torch.clamp(point + 1, max=trash), -1)
@@ -323,55 +379,129 @@ def anchored_count(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
                    diff: torch.Tensor, *, fmt: str, k: int, read_len: int,
                    n_buckets: int, anchor_offsets, max_runs: int = 4,
                    max_dirty: int = 8, max_dirty_runs: int = 0,
-                   dirty_run_width: int = 0,
-                   neighbor_mode: bool = False) -> torch.Tensor:
+                   dirty_run_width: int = 0, neighbor_mode: bool = False,
+                   anchors=None, blk_lo: int = 0, block_buckets: int = 0,
+                   ranges: bool = True) -> torch.Tensor:
     """One batch of packed read rows into `diff` (in place); returns the
-    spill codes int8[R]. `.launches` counts the kernel's launches and
-    `.branch_launches` the same launches by branch."""
+    spill codes int8[R]. With `anchors` (found u8[A, R], pos words [A,
+    R], summed over the blocks) rows is the block [blk_lo, blk_lo +
+    block_buckets) of a dict-sharded table, and the clean runs are added
+    only where `ranges` is set. `.launches` counts the kernel's launches,
+    `.branch_launches` the same launches by branch and `.block_launches`
+    those with given anchors."""
     kw = dict(fmt=fmt, k=k, read_len=read_len, n_buckets=n_buckets,
               anchor_offsets=anchor_offsets, max_runs=max_runs,
               max_dirty=max_dirty, max_dirty_runs=max_dirty_runs,
               dirty_run_width=dirty_run_width, neighbor_mode=neighbor_mode)
+    block_buckets = block_buckets or n_buckets
     if pk.device.type == "cpu":
-        return anchored_count_plain(pk, aux, rows, tiles, dblock, diff, **kw)
+        return anchored_count_plain(pk, aux, rows, tiles, dblock, diff,
+                                    anchors=anchors, blk_lo=blk_lo,
+                                    block_buckets=block_buckets,
+                                    ranges=ranges, **kw)
     R, L = pk.shape[0], read_len
     W = L - k + 1
-    anchors = [int(a) for a in anchor_offsets]
+    offs = [int(a) for a in anchor_offsets]
     aux_shape, aux_dtype = rowpack.aux_layout(fmt, R, L)
     n_tiles = tiles.shape[0]
-    build.check_tensors("anchored_count", pk.device, [
-        ("pk", pk, torch.uint8, (R, -(-L // 4))),
-        ("aux", aux, aux_dtype, aux_shape),
-        ("rows", rows, torch.int32, (n_buckets, ROW_WIDTH)),
-        ("tiles", tiles, torch.uint8, (n_tiles, GBLK)),
-        ("dblock", dblock, torch.int32, (dblock.shape[0], 4)),
-        ("diff", diff, torch.int32, (diff.shape[0],))])
+    specs = [("pk", pk, torch.uint8, (R, -(-L // 4))),
+             ("aux", aux, aux_dtype, aux_shape),
+             ("rows", rows, torch.int32, (block_buckets, ROW_WIDTH)),
+             ("tiles", tiles, torch.uint8, (n_tiles, GBLK)),
+             ("dblock", dblock, torch.int32, (dblock.shape[0], 4)),
+             ("diff", diff, torch.int32, (diff.shape[0],))]
+    if anchors is not None:
+        specs += [("found", anchors[0], torch.uint8, (len(offs), R)),
+                  ("pos", anchors[1], torch.int32, (len(offs), R))]
+    build.check_tensors("anchored_count", pk.device, specs)
     if (fmt not in ("lens", "mask") or not 1 <= k <= 32 or not 1 <= W
-            or L > 1024 or R < 1 or not 1 <= len(anchors) <= 4
-            or not all(0 <= a < W for a in anchors)
-            or dblock.shape[0] < n_tiles or diff.shape[0] < 2):
+            or L > 1024 or R < 1 or not 1 <= len(offs) <= 4
+            or not all(0 <= a < W for a in offs)
+            or dblock.shape[0] < n_tiles or diff.shape[0] < 2
+            or not 0 <= blk_lo <= n_buckets - block_buckets):
         raise ValueError(
             f"anchored_count: bad shapes or options (fmt={fmt!r}, k={k}, "
-            f"read_len={read_len}, rows={R}, anchors={anchors})")
+            f"read_len={read_len}, rows={R}, anchors={offs}, block "
+            f"[{blk_lo}, {blk_lo} + {block_buckets}) of {n_buckets})")
     code = torch.empty(R, dtype=torch.int8, device=pk.device)
-    padded = anchors + [0] * (4 - len(anchors))
+    padded = offs + [0] * (4 - len(offs))
     branch = branch_of(max_dirty, dirty_run_width, neighbor_mode)
-    lib = build.load("anchored")
-    lib.qm2t_anchored.argtypes = _ARGTYPES
+    lib = build.load("anchored", {"qm2t_anchored": _ARGTYPES,
+                                  "qm2t_anchored_block": _BLOCK_ARGTYPES,
+                                  "qm2t_anchor_probes": _PROBE_ARGTYPES})
+    rest = (tiles.data_ptr(), n_tiles * GBLK, dblock.data_ptr(),
+            diff.data_ptr(), diff.shape[0], code.data_ptr(), R, L, k,
+            len(offs), *padded, max_runs, max_dirty, max_dirty_runs,
+            dirty_run_width, BRANCHES[branch])
     with torch.cuda.device(pk.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.qm2t_anchored(
-            pk.data_ptr(), aux.data_ptr(), int(fmt == "lens"),
-            rows.data_ptr(), n_buckets, tiles.data_ptr(), n_tiles * GBLK,
-            dblock.data_ptr(), diff.data_ptr(), diff.shape[0],
-            code.data_ptr(), R, L, k, len(anchors), *padded, max_runs,
-            max_dirty, max_dirty_runs, dirty_run_width,
-            BRANCHES[branch], stream)
+        if anchors is None:
+            rc = lib.qm2t_anchored(pk.data_ptr(), aux.data_ptr(),
+                                   int(fmt == "lens"), rows.data_ptr(),
+                                   n_buckets, *rest, stream)
+        else:
+            rc = lib.qm2t_anchored_block(
+                pk.data_ptr(), aux.data_ptr(), int(fmt == "lens"),
+                rows.data_ptr(), n_buckets, blk_lo, block_buckets,
+                anchors[0].data_ptr(), anchors[1].data_ptr(), int(ranges),
+                *rest, stream)
     build.check(lib, rc, "anchored_count")
     anchored_count.launches += 1
     anchored_count.branch_launches[branch] += 1
+    if anchors is not None:
+        anchored_count.block_launches += 1
     return code
 
 
 anchored_count.launches = 0
 anchored_count.branch_launches = dict.fromkeys(BRANCHES, 0)
+anchored_count.block_launches = 0
+
+
+def anchor_probes(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor, *,
+                  fmt: str, k: int, read_len: int, n_buckets: int,
+                  anchor_offsets, blk_lo: int, block_buckets: int):
+    """K3a: the anchor windows of one batch of packed read rows probed in
+    the bucket block `rows` ([blk_lo, blk_lo + block_buckets) of
+    n_buckets): (found u8[A, R], pos words [A, R]), found only where the
+    window is valid, pos 0 where not found."""
+    if pk.device.type == "cpu":
+        return anchor_probes_plain(pk, aux, rows, fmt=fmt, k=k,
+                                   read_len=read_len, n_buckets=n_buckets,
+                                   anchor_offsets=anchor_offsets,
+                                   blk_lo=blk_lo,
+                                   block_buckets=block_buckets)
+    R, L = pk.shape[0], read_len
+    W = L - k + 1
+    offs = [int(a) for a in anchor_offsets]
+    aux_shape, aux_dtype = rowpack.aux_layout(fmt, R, L)
+    build.check_tensors("anchor_probes", pk.device, [
+        ("pk", pk, torch.uint8, (R, -(-L // 4))),
+        ("aux", aux, aux_dtype, aux_shape),
+        ("rows", rows, torch.int32, (block_buckets, ROW_WIDTH))])
+    if (fmt not in ("lens", "mask") or not 1 <= k <= 32 or not 1 <= W
+            or L > 1024 or R < 1 or not 1 <= len(offs) <= 4
+            or not all(0 <= a < W for a in offs)
+            or not 0 <= blk_lo <= n_buckets - block_buckets):
+        raise ValueError(
+            f"anchor_probes: bad shapes or options (fmt={fmt!r}, k={k}, "
+            f"read_len={read_len}, rows={R}, anchors={offs})")
+    found = torch.empty(len(offs), R, dtype=torch.uint8, device=pk.device)
+    pos = torch.empty(len(offs), R, dtype=torch.int32, device=pk.device)
+    padded = offs + [0] * (4 - len(offs))
+    lib = build.load("anchored", {"qm2t_anchored": _ARGTYPES,
+                                  "qm2t_anchored_block": _BLOCK_ARGTYPES,
+                                  "qm2t_anchor_probes": _PROBE_ARGTYPES})
+    with torch.cuda.device(pk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qm2t_anchor_probes(
+            pk.data_ptr(), aux.data_ptr(), int(fmt == "lens"),
+            rows.data_ptr(), n_buckets, blk_lo, block_buckets,
+            found.data_ptr(), pos.data_ptr(), R, L, k, len(offs), *padded,
+            stream)
+    build.check(lib, rc, "anchor_probes")
+    anchor_probes.launches += 1
+    return found, pos
+
+
+anchor_probes.launches = 0

@@ -27,6 +27,14 @@ card a table larger than L2 is probed slice by slice
 (`linear_partitions_for`, `packed_partitions_for`), through a scratch
 buffer cached per device and size.
 
+`count_packed_block_step` (K8b) replaces quickmer2_tpu/parallel/
+count_parallel.py::make_sharded_count_step's local step: K8 against one
+bucket block [blk_lo, blk_lo + block_buckets) of a dict-sharded packed
+table, in the block's slot space u32[2 * block_buckets + 1] (trash last:
+every window the block does not count). `block_slot_depth_to_rank` maps
+it to the JAX step's rank-space partial u32[n_kmers + 1] through the
+block's live entries (`packed_block_entries`).
+
 `kmerize_step` (K9) replaces _kmerize_step_pk, the sort-join engine's
 codec: (chi, clo, valid) of every window, invalid windows as key 0
 (ops.sortjoin's contract).
@@ -56,6 +64,9 @@ _ARGTYPES = {
     "qm2t_count_packed": [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p],
+    "qm2t_count_packed_block": [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 3 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     "qm2t_kmerize": [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]}
 
@@ -222,21 +233,11 @@ count_linear_step.launches = 0
 
 def count_packed_step_plain(pk, bits, rows, depth, *, k: int, n_buckets: int,
                             n_bases: int) -> None:
-    """Plain PyTorch version: unpack, kmerize, probe both buckets, add
-    at the matching entry (the trash counter for an invalid window or a
-    miss)."""
-    from quickmer2_tpu_torch.ops.hash import djb_pair
-    chi, clo, valid = batch_windows(pk, bits, k, n_bases)
-    trash = 2 * n_buckets
-    slot = torch.full(chi.shape, trash, dtype=torch.int64, device=chi.device)
-    buckets = packed_table.bucket_hashes_t(djb_pair(chi, clo), n_buckets)
-    ok = valid & ((chi | clo) != 0)
-    for b in buckets:
-        r = u32(rows[b])
-        for e in range(packed_table.ENTRIES_PER_BUCKET):
-            m = ok & (r[:, 4 * e] == chi) & (r[:, 4 * e + 1] == clo)
-            slot = torch.where(m, 2 * b + e, slot)
-    _add(depth, slot)
+    """Plain PyTorch version: the whole table as the one block of
+    count_packed_block_step_plain, whose slot space is then K8's."""
+    count_packed_block_step_plain(pk, bits, rows, depth, k=k,
+                                  n_buckets=n_buckets, blk_lo=0,
+                                  block_buckets=n_buckets, n_bases=n_bases)
 
 
 def count_packed_step(pk: torch.Tensor, bits: torch.Tensor,
@@ -272,6 +273,97 @@ def count_packed_launch(pk, bits, rows, depth, *, k: int, n_buckets: int,
 
 
 count_packed_step.launches = 0
+
+
+# -- K8b: one bucket block of the packed table ----------------------------
+
+def packed_block_entries(rows: torch.Tensor):
+    """(rank, slot) of every live entry of a block's rows [Bb, 8], int64:
+    its rank field and its slot 2 * local bucket + entry."""
+    e = rows.reshape(-1, 4)
+    slots = torch.nonzero((e[:, 0] | e[:, 1]) != 0).flatten()
+    return e[:, 2].index_select(0, slots).long() & U32, slots
+
+
+def block_slot_depth_to_rank(depth: torch.Tensor, entries,
+                             n_kmers: int) -> torch.Tensor:
+    """Rank-space partial u32[n_kmers + 1] of a block's slot-space depth
+    (same word dtype and device): the ranks of the block's entries take
+    their slots' depth, every other rank 0, and the trash lane the rest
+    (every lane's sum less the k-mers', mod 2^32): the JAX sharded step's
+    partial, bit for bit."""
+    ranks, slots = entries
+    out = torch.zeros(n_kmers + 1, dtype=depth.dtype, device=depth.device)
+    out.index_copy_(0, ranks, depth.index_select(0, slots))
+    out[n_kmers] = (depth.sum(dtype=depth.dtype)
+                    - out[:n_kmers].sum(dtype=depth.dtype))
+    return out & U32 if out.dtype == torch.int64 else out
+
+
+def count_packed_block_step_plain(pk, bits, rows, depth, *, k: int,
+                                  n_buckets: int, blk_lo: int,
+                                  block_buckets: int, n_bases: int) -> None:
+    """Plain PyTorch version: unpack, kmerize, probe the block's
+    candidates, add at the matching local slot (the trash for an invalid
+    window, a miss or a key of another block)."""
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    chi, clo, valid = batch_windows(pk, bits, k, n_bases)
+    trash = 2 * block_buckets
+    slot = torch.full(chi.shape, trash, dtype=torch.int64, device=chi.device)
+    ok = valid & ((chi | clo) != 0)
+    for b in packed_table.bucket_hashes_t(djb_pair(chi, clo), n_buckets):
+        off = (b - blk_lo) & U32
+        local = off < block_buckets
+        r = u32(rows[torch.where(local, off, 0)])
+        for e in range(packed_table.ENTRIES_PER_BUCKET):
+            m = (ok & local & (r[:, 4 * e] == chi)
+                 & (r[:, 4 * e + 1] == clo))
+            slot = torch.where(m, 2 * off + e, slot)
+    _add(depth, slot)
+
+
+def count_packed_block_step(pk: torch.Tensor, bits: torch.Tensor,
+                            rows: torch.Tensor, depth: torch.Tensor, *,
+                            k: int, n_buckets: int, blk_lo: int,
+                            block_buckets: int, n_bases: int) -> None:
+    """One batch into the block's slot-space `depth` u32[2 *
+    block_buckets + 1] (updated in place); rows: the block's [Bb, 8]."""
+    if pk.device.type == "cpu":
+        count_packed_block_step_plain(
+            pk, bits, rows, depth, k=k, n_buckets=n_buckets, blk_lo=blk_lo,
+            block_buckets=block_buckets, n_bases=n_bases)
+        return
+    count_packed_block_launch(
+        pk, bits, rows, depth, k=k, n_buckets=n_buckets, blk_lo=blk_lo,
+        block_buckets=block_buckets, n_bases=n_bases,
+        n_parts=packed_partitions_for(block_buckets))
+    count_packed_block_step.launches += 1
+
+
+def count_packed_block_launch(pk, bits, rows, depth, *, k: int,
+                              n_buckets: int, blk_lo: int,
+                              block_buckets: int, n_bases: int,
+                              n_parts: int) -> None:
+    """K8b on CUDA tensors at P = n_parts slices of the block's buckets;
+    count_packed_block_step's launch, which it alone counts."""
+    check_batch("count_packed_block_step", pk, bits, k, n_bases, [
+        ("rows", rows, torch.int32, (block_buckets, packed_table.ROW_WIDTH)),
+        ("depth", depth, torch.int32, (2 * block_buckets + 1,))])
+    if (n_buckets < 1 or n_buckets > 1 << 32 or n_buckets & (n_buckets - 1)
+            or block_buckets < 1 or n_buckets % block_buckets
+            or blk_lo % block_buckets or blk_lo + block_buckets > n_buckets):
+        raise ValueError(f"count_packed_block_step: bad block [{blk_lo}, "
+                         f"{blk_lo} + {block_buckets}) of {n_buckets}")
+    _check_parts("count_packed_block_step", n_parts, block_buckets)
+    n = n_bases - k + 1
+    work = workspace(pk.device, n) if n_parts > 1 else None
+    _launch("qm2t_count_packed_block", "count_packed_block", pk.device,
+            pk.data_ptr(), bits.data_ptr(), rows.data_ptr(),
+            depth.data_ptr(), n_bases, k, n_buckets, blk_lo, block_buckets,
+            n_parts, None if work is None else work.data_ptr())
+
+
+count_packed_block_step.launches = 0
 
 
 # -- K9: the sort-join engine's codec --------------------------------------

@@ -18,6 +18,12 @@ step over R read rows of width read_len (ops.rowpack.pack_batch layout,
 mask over the R*W window lanes (W = read_len - k + 1), LSB-first u32
 words. On the card it probes in one pass, 512 lanes a block.
 
+`count_packed_rows` (K12) replaces quickmer2_tpu/ops/anchored.py::
+exact_count_rows (as exact_count_rows_packed runs it, and under a dict
+axis): the exact recount of read rows through the PACKED table, or one
+bucket block of it, adding 1 to a plain-count accumulator at the rank of
+every valid window found there. K2r's row-window map with the block probe.
+
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel, or raises.
 """
@@ -31,6 +37,7 @@ import torch
 from quickmer2_tpu_torch.device import store
 from quickmer2_tpu_torch.kernels import build
 from quickmer2_tpu_torch.ops import codec, monotable, rowpack
+from quickmer2_tpu_torch.ops.packed_table import ROW_WIDTH
 
 _ARGTYPES = {
     "qm2t_count_mono": [ctypes.c_void_p] * 5 + [
@@ -38,7 +45,10 @@ _ARGTYPES = {
         ctypes.c_void_p, ctypes.c_void_p],
     "qm2t_count_mono_rows": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
         ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_void_p]}
+        ctypes.c_longlong, ctypes.c_void_p],
+    "qm2t_exact_rows_packed": [ctypes.c_void_p] * 2 + [ctypes.c_int,
+        ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]}
 SLICE_BYTES = 24 << 20     # table + depth bytes of one probed slice
 MAX_PARTS = 256
 _work: dict = {}
@@ -141,10 +151,9 @@ def count_mono_launch(pk, bits, rows, depth, *, k: int, n_buckets: int,
 count_mono_step.launches = 0
 
 
-def count_mono_rows_plain(pk, aux, rows, depth, *, fmt: str, k: int,
-                          n_buckets: int, read_len: int) -> torch.Tensor:
-    """Plain PyTorch version: unpack the rows, kmerize the flat stream,
-    keep the windows inside a row, probe, add, pack."""
+def row_windows(pk, aux, *, fmt: str, k: int, read_len: int):
+    """(chi, clo, valid) of every window j < W = read_len - k + 1 of every
+    row, flat in row order (lane r * W + j), by the plain codec."""
     reads = rowpack.unpack_batch(fmt, pk, aux, read_len=read_len)
     R, L = reads.shape
     W = L - k + 1
@@ -154,7 +163,14 @@ def count_mono_rows_plain(pk, aux, rows, depth, *, fmt: str, k: int,
         out = a.new_zeros(R * L)
         out[:a.shape[0]] = a
         return out.view(R, L)[:, :W].reshape(-1)
-    chi, clo, valid = rowwise(chi), rowwise(clo), rowwise(valid)
+    return rowwise(chi), rowwise(clo), rowwise(valid)
+
+
+def count_mono_rows_plain(pk, aux, rows, depth, *, fmt: str, k: int,
+                          n_buckets: int, read_len: int) -> torch.Tensor:
+    """Plain PyTorch version: unpack the rows, kmerize the flat stream,
+    keep the windows inside a row, probe, add, pack."""
+    chi, clo, valid = row_windows(pk, aux, fmt=fmt, k=k, read_len=read_len)
     found, slot, unresolved = monotable.probe_mono(rows, chi, clo, n_buckets)
     hit = slot[valid & found]
     depth.index_add_(0, hit, torch.ones(hit.shape, dtype=depth.dtype,
@@ -197,3 +213,61 @@ def count_mono_rows(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
 
 
 count_mono_rows.launches = 0
+
+
+def count_packed_rows_plain(pk, aux, rows, acc, *, fmt: str, k: int,
+                            n_buckets: int, read_len: int, blk_lo: int = 0,
+                            block_buckets: int | None = None) -> None:
+    """Plain PyTorch version: the windows of the rows, probed in the
+    block, and 1 added at the rank of each valid one found."""
+    from quickmer2_tpu_torch.ops.packed_table import probe_packed_block
+    chi, clo, valid = row_windows(pk, aux, fmt=fmt, k=k, read_len=read_len)
+    found, rank, _ = probe_packed_block(
+        rows, chi, clo, n_buckets, block_buckets or n_buckets, blk_lo, 0)
+    hit = rank[valid & found]
+    acc.index_add_(0, hit, torch.ones(hit.shape, dtype=acc.dtype,
+                                      device=acc.device))
+
+
+def count_packed_rows(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
+                      acc: torch.Tensor, *, fmt: str, k: int, n_buckets: int,
+                      read_len: int, blk_lo: int = 0,
+                      block_buckets: int | None = None) -> None:
+    """One batch of read rows into the plain-count accumulator `acc` u32
+    (rank order, updated in place), probed against `rows`: the packed
+    table's buckets [blk_lo, blk_lo + block_buckets) (default: the whole
+    table of n_buckets)."""
+    block_buckets = block_buckets or n_buckets
+    if pk.device.type == "cpu":
+        count_packed_rows_plain(pk, aux, rows, acc, fmt=fmt, k=k,
+                                n_buckets=n_buckets, read_len=read_len,
+                                blk_lo=blk_lo, block_buckets=block_buckets)
+        return
+    R, L = pk.shape[0], read_len
+    W = L - k + 1
+    aux_shape, aux_dtype = rowpack.aux_layout(fmt, R, L)
+    build.check_tensors("count_packed_rows", pk.device, [
+        ("pk", pk, torch.uint8, (R, -(-L // 4))),
+        ("aux", aux, aux_dtype, aux_shape),
+        ("rows", rows, torch.int32, (block_buckets, ROW_WIDTH)),
+        ("acc", acc, torch.int32, (acc.shape[0],))])
+    if (fmt not in ("lens", "mask") or not 1 <= k <= 32 or W < 1 or R < 1
+            or not 0 <= blk_lo <= n_buckets - block_buckets):
+        raise ValueError(f"count_packed_rows: bad fmt={fmt!r} k={k} "
+                         f"read_len={read_len} rows={R} block [{blk_lo}, "
+                         f"{blk_lo} + {block_buckets}) of {n_buckets}")
+    if (pk.data_ptr() | aux.data_ptr()) & 7:
+        raise ValueError("count_packed_rows: pk and aux must be 8-byte "
+                         "aligned")
+    lib = build.load("count_mono", _ARGTYPES)
+    with torch.cuda.device(pk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qm2t_exact_rows_packed(
+            pk.data_ptr(), aux.data_ptr(), int(fmt == "lens"),
+            rows.data_ptr(), n_buckets, blk_lo, block_buckets,
+            acc.data_ptr(), R, L, k, stream)
+    build.check(lib, rc, "count_packed_rows")
+    count_packed_rows.launches += 1
+
+
+count_packed_rows.launches = 0

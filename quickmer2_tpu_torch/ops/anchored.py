@@ -17,7 +17,8 @@ per k-mer:
      probed one by one (tier 2);
   5. reads over the caps SPILL: tier-1 spills may be rescued by tier 2,
      the rest (and unanchorable reads) are recounted exactly through the
-     mono table.
+     mono table (or, with mono_spill off and on every sharded counter,
+     through the packed table).
 
 Correctness does not depend on anchoring quality: a clean k-mer equals
 the genome k-mer at its aligned position, whose rank the prefix count
@@ -26,7 +27,8 @@ path's depth, bit for bit.
 
 On the card the read pass is kernel K3 (csrc/anchored.cu via
 kernels.anchored), the exact recount K2r (csrc/count_mono.cu via
-kernels.count_mono.count_mono_rows), and the neighbor bitmap of the index
+kernels.count_mono.count_mono_rows) or, without the mono table, K12 (same
+file, kernels.count_mono.count_packed_rows), and the neighbor bitmap of the index
 K4 behind the table's key filter (csrc/neighbor_bits.cu via
 kernels.neighbor_bits) or, on the device types of JOIN_BITS_DEVICES, the
 Hamming join K5 (ops.hamming_join.hamming_neighbor_bits). Host code here:
@@ -48,7 +50,8 @@ import torch
 from quickmer2_tpu_torch.device import (
     fetched, resolve_device, start_fetch, to_numpy_u32, word_dtype, words)
 from quickmer2_tpu_torch.kernels.anchored import DBLK, GBLK, anchored_count
-from quickmer2_tpu_torch.kernels.count_mono import count_mono_rows
+from quickmer2_tpu_torch.kernels.count_mono import (
+    count_mono_rows, count_packed_rows)
 from quickmer2_tpu_torch.kernels.neighbor_bits import (
     filter_words_for, key_filter, neighbor_bits)
 from quickmer2_tpu_torch.ops import codec, rowpack
@@ -72,7 +75,10 @@ JOIN_BITS_DEVICES: tuple = ()
 @dataclasses.dataclass
 class AnchoredIndex:
     """The anchored path's structures, on `device`."""
-    rows: torch.Tensor           # packed table word tensor [B, 8] incl. pos
+    rows: torch.Tensor | None    # packed table word tensor [B, 8] incl.
+    #                              pos; None when built with place_rows
+    #                              off (a dict-sharded counter places its
+    #                              blocks from host_rows)
     n_buckets: int
     genome_tiles: torch.Tensor   # u8[G/GBLK, GBLK]: bits 0-2 genome code,
     #                              bits 3-6 neighbor-hit flags
@@ -90,7 +96,7 @@ class AnchoredIndex:
     def build(cls, genome_codes: np.ndarray, dict_end_pos: np.ndarray,
               kmers_in_order: np.ndarray, k: int,
               neighbor_bits: bool = True, device_build: bool | None = None,
-              cache_path: str | None = None,
+              cache_path: str | None = None, place_rows: bool = True,
               device: str = "cuda") -> "AnchoredIndex":
         """genome_codes: u8[G] code stream (SEP between chromosomes);
         dict_end_pos: u32[n] genome end position of each dictionary
@@ -105,7 +111,12 @@ class AnchoredIndex:
         JAX package.
 
         cache_path persists tiles and positions as a .qai companion
-        (io.formats.write_qai), byte-identical to the JAX package's."""
+        (io.formats.write_qai), byte-identical to the JAX package's.
+
+        place_rows=False keeps the packed rows on the host only (`rows`
+        None, `host_rows` set), for a counter that shards them over the
+        dict axis; the device neighbor-bit build still places the whole
+        table while it runs."""
         dev = resolve_device(device)
         G = len(genome_codes)
         khi, klo = codec.split_u64(kmers_in_order)
@@ -135,14 +146,15 @@ class AnchoredIndex:
                               neighbor_bits,
                               content_fingerprint(kmers_in_order, k))
         return cls._assemble(tiles, G, dict_end_pos, table, neighbor_bits,
-                             dev)
+                             dev, place_rows)
 
     @classmethod
     def _assemble(cls, tiles, G: int, dict_end_pos, table: PackedTable,
-                  has_neighbor_bits: bool,
-                  dev: torch.device) -> "AnchoredIndex":
+                  has_neighbor_bits: bool, dev: torch.device,
+                  place_rows: bool = True) -> "AnchoredIndex":
         dblock = build_dblock(np.asarray(dict_end_pos), G)
-        return cls(words(table.rows, dev), table.n_buckets,
+        return cls(words(table.rows, dev) if place_rows else None,
+                   table.n_buckets,
                    torch.from_numpy(np.array(tiles, np.uint8)).to(dev), G,
                    words(dblock, dev), len(dict_end_pos),
                    has_neighbor_bits=has_neighbor_bits,
@@ -177,11 +189,12 @@ class AnchoredIndex:
                 "total": rows + tiles + dblock + mono}
 
     @classmethod
-    def load(cls, qai_path: str, dic, device: str = "cuda") -> "AnchoredIndex":
+    def load(cls, qai_path: str, dic, place_rows: bool = True,
+             device: str = "cuda") -> "AnchoredIndex":
         """Load a .qai companion (the port's or the JAX package's); the
-        cheap derivations are rebuilt from it plus the dictionary.
-        Raises ValueError when the artifact does not match the
-        dictionary."""
+        cheap derivations are rebuilt from it plus the dictionary
+        (place_rows as in build). Raises ValueError when the artifact
+        does not match the dictionary."""
         from quickmer2_tpu_torch.io import formats
         dev = resolve_device(device)
         k, G, tiles, pos, nb, fp = formats.read_qai(qai_path)
@@ -198,28 +211,31 @@ class AnchoredIndex:
         khi, klo = codec.split_u64(dic.kmers_in_order)
         rank = np.arange(dic.n_kmers, dtype=np.uint32)
         table = PackedTable.build(khi, klo, rank, pos=pos)
-        return cls._assemble(tiles, G, pos, table, nb, dev)
+        return cls._assemble(tiles, G, pos, table, nb, dev, place_rows)
 
     @classmethod
     def from_dictionary_and_fasta(cls, dic, fasta_path: str,
                                   neighbor_bits: bool = True,
                                   cache_path: str | None = None,
                                   device_build: bool | None = None,
+                                  place_rows: bool = True,
                                   device: str = "cuda") -> "AnchoredIndex":
         """Recover the genome stream and per-rank positions by scanning
         the reference FASTA against the dictionary. With cache_path, a
         matching .qai is loaded instead (no FASTA scan) and a fresh build
-        is persisted there."""
+        is persisted there. place_rows as in build."""
         dev = resolve_device(device)
         if cache_path and os.path.exists(cache_path):
             try:
-                return cls.load(cache_path, dic, device=dev)
+                return cls.load(cache_path, dic, place_rows=place_rows,
+                                device=dev)
             except ValueError:
                 pass  # stale artifact — rebuild and overwrite below
         stream, dict_pos = _genome_stream_and_positions(dic, fasta_path)
         return cls.build(stream, dict_pos, dic.kmers_in_order, dic.kmer_size,
                          neighbor_bits=neighbor_bits, cache_path=cache_path,
-                         device_build=device_build, device=dev)
+                         device_build=device_build, place_rows=place_rows,
+                         device=dev)
 
 
 def _genome_stream_and_positions(dic, fasta_path: str):
@@ -409,8 +425,10 @@ class AnchoredDepthCounter:
     Tier 1 (K3) counts most reads by range-adds; its spilled reads are
     routed on the host in FIFO order, lagged: code 1 into dense tier-2
     batches (K3, run-sliced), code 2 and every tier-2 spill into dense
-    exact batches (K2r through the mono table, plus host side-table
-    lookups of the unresolved lanes). finish() returns the depth vector
+    exact batches: with mono_spill (the default, as in the JAX counter)
+    K2r through the mono table, plus host side-table lookups of the
+    unresolved lanes; without it K12 through the packed table into the
+    plain-count accumulator exact_acc. finish() returns the depth vector
     (u32[n_kmers]), bit-identical to the flat path and to the JAX
     AnchoredDepthCounter; n_spilled / n_spilled2 equal the JAX counter's.
 
@@ -430,7 +448,8 @@ class AnchoredDepthCounter:
                  anchor_offsets: tuple | None = None,
                  neighbor_mode: bool | None = None,
                  spill_lag: int = 16, prefetch_puts: bool = True,
-                 put_depth: int = 4, device: str = "cuda"):
+                 put_depth: int = 4, mono_spill: bool = True,
+                 device: str = "cuda"):
         self.device = resolve_device(device)
         if index.device.type != self.device.type:
             raise ValueError(f"the index lives on {index.device}, the "
@@ -466,19 +485,21 @@ class AnchoredDepthCounter:
                 sorted({0, W // 3, (2 * W) // 3, W - 1} - {-1}))
         self.anchor_offsets = tuple(int(a) for a in anchor_offsets if 0 <= a < W)
         wd = word_dtype(self.device)
-        self.diff = torch.zeros(index.n_kmers + 2, dtype=wd, device=self.device)
-        if index.mono is None:
-            flat = index.host_rows.reshape(-1, 4)
-            live = (flat[:, 0] | flat[:, 1]) != 0
-            mt = MonoTable.build(flat[live, 0], flat[live, 1],
-                                 rank=flat[live, 2])
-            assert mt.n_kmers == index.n_kmers
-            index.mono, index.mono_rows = mt, words(mt.rows, self.device)
-        self._mono = index.mono
-        self._mono_rows = index.mono_rows
-        self.exact_slot = torch.zeros(self._mono.n_slots + 1, dtype=wd,
-                                      device=self.device)
-        self._side_counts = np.zeros(index.n_kmers, np.uint64)
+        self.mono_spill = mono_spill
+        self._init_accumulators()
+        if mono_spill:
+            if index.mono is None:
+                flat = index.host_rows.reshape(-1, 4)
+                live = (flat[:, 0] | flat[:, 1]) != 0
+                mt = MonoTable.build(flat[live, 0], flat[live, 1],
+                                     rank=flat[live, 2])
+                assert mt.n_kmers == index.n_kmers
+                index.mono, index.mono_rows = mt, words(mt.rows, self.device)
+            self._mono = index.mono
+            self._mono_rows = index.mono_rows
+            self.exact_slot = torch.zeros(self._mono.n_slots + 1, dtype=wd,
+                                          device=self.device)
+            self._side_counts = np.zeros(index.n_kmers, np.uint64)
         self._pending: list[np.ndarray] = []
         self._pending_rows = 0
         self._spill: list[np.ndarray] = []
@@ -518,6 +539,61 @@ class AnchoredDepthCounter:
                     max_dirty_runs=self.tier2_dirty_runs,
                     dirty_run_width=self.tier2_run_width)
 
+    # -- the device steps (overridden by the sharded counter) -------------
+
+    def _init_accumulators(self) -> None:
+        """diff u32[n + 2] and, without the mono table, the plain-count
+        accumulator exact_acc u32[n + 2]."""
+        n, wd = self.index.n_kmers, word_dtype(self.device)
+        self.diff = torch.zeros(n + 2, dtype=wd, device=self.device)
+        self.exact_acc = (None if self.mono_spill else
+                          torch.zeros(n + 2, dtype=wd, device=self.device))
+
+    def _kernel_step(self, put, tier) -> list:
+        """One tier-1 or tier-2 batch; its spill codes, as a list of
+        device tensors in read order."""
+        fmt, pk, aux = put
+        ix = self.index
+        return [anchored_count(pk, aux, ix.rows, ix.genome_tiles, ix.dblock,
+                               self.diff, fmt=fmt, **self._tier_kw(tier))]
+
+    def _exact_step(self, put) -> list:
+        """One exact batch; the unresolved-lane masks to drain (the mono
+        recount's), as a list of device tensors."""
+        fmt, pk, aux = put
+        if self.mono_spill:
+            return [count_mono_rows(pk, aux, self._mono_rows, self.exact_slot,
+                                    fmt=fmt, k=self.k,
+                                    n_buckets=self._mono.n_buckets,
+                                    read_len=self.read_len)]
+        count_packed_rows(pk, aux, self.index.rows, self.exact_acc, fmt=fmt,
+                          k=self.k, n_buckets=self.index.n_buckets,
+                          read_len=self.read_len)
+        return []
+
+    def _merged_accumulators(self):
+        """Host diff and exact_acc (None with the mono table), u32."""
+        return (to_numpy_u32(self.diff), None if self.exact_acc is None
+                else to_numpy_u32(self.exact_acc))
+
+    def _snapshot_accumulators(self):
+        """diff and exact_acc in the JAX snapshot's shape."""
+        diff, acc = self._merged_accumulators()
+        # the mono counter's exact_acc is JAX's zero accumulator: its
+        # recount lives in exact_slot and the side counts
+        return diff, np.zeros_like(diff) if acc is None else acc
+
+    def _put_accumulators(self, diff: np.ndarray, acc: np.ndarray) -> None:
+        """Load snapshot accumulators back onto the device."""
+        if self.mono_spill:
+            # depth = cumsum(diff) + exact_acc, so exact_acc folds into
+            # diff as its own first differences (mod 2^32)
+            self.diff = words(diff + np.diff(acc, prepend=np.uint32(0)),
+                              self.device)
+        else:
+            self.diff = words(diff, self.device)
+            self.exact_acc = words(acc, self.device)
+
     def _pack_put(self, batch: np.ndarray):
         """Pack a host batch and start its copy to the device (on the
         transfer thread when prefetching)."""
@@ -545,24 +621,20 @@ class AnchoredDepthCounter:
     def _dispatch_oldest(self) -> None:
         kind, batch, payload = self._put_q.popleft()
         t0 = time.time()
-        fmt, pk, aux = (payload.result() if hasattr(payload, "result")
-                        else payload)
+        put = payload.result() if hasattr(payload, "result") else payload
         t1 = time.time()
         self.phase_s["put_wait"] += t1 - t0
-        ix = self.index
         if kind == "exact":
-            out = count_mono_rows(pk, aux, self._mono_rows, self.exact_slot,
-                                  fmt=fmt, k=self.k,
-                                  n_buckets=self._mono.n_buckets,
-                                  read_len=self.read_len)
+            outs = self._exact_step(put)
             kind_out = "exactmask"
         else:
-            out = anchored_count(pk, aux, ix.rows, ix.genome_tiles,
-                                 ix.dblock, self.diff, fmt=fmt,
-                                 **self._tier_kw(kind))
+            outs = self._kernel_step(put, kind)
             kind_out = kind
         self.phase_s[f"dispatch_{kind}"] += time.time() - t1
-        self._inflight.append((batch, start_fetch(out), kind_out))
+        if not outs:
+            return
+        self._inflight.append((batch, [start_fetch(o) for o in outs],
+                               kind_out))
         if len(self._inflight) > self._lag:
             self._drain_all()
 
@@ -572,14 +644,16 @@ class AnchoredDepthCounter:
         if not self._inflight:
             return
         t0 = time.time()
-        items = [(batch, fetched(h), kind) for batch, h, kind in self._inflight]
+        items = [(batch, [fetched(h) for h in hs], kind)
+                 for batch, hs, kind in self._inflight]
         self._inflight.clear()
         self.phase_s["drain"] += time.time() - t0
-        for batch, out, kind in items:
+        for batch, outs, kind in items:
             if kind == "exactmask":
-                self._drain_exact_mask(batch, to_numpy_u32(out))
+                self._drain_exact_mask(batch, to_numpy_u32(outs[0]))
             else:
-                self._route_spill(batch, out.numpy(), kind)
+                self._route_spill(batch, np.concatenate(
+                    [o.numpy() for o in outs]), kind)
 
     def _drain_exact_mask(self, batch: np.ndarray, mask_words: np.ndarray):
         """Recount this exact batch's unresolved window lanes (LSB-first
@@ -676,14 +750,17 @@ class AnchoredDepthCounter:
             self._xfer.shutdown(wait=True)
             self._xfer = None   # later feeds pack inline
         t0 = time.time()
-        diff = to_numpy_u32(self.diff)
-        slots = to_numpy_u32(self.exact_slot)[:-1]
+        diff, acc = self._merged_accumulators()
+        slots = to_numpy_u32(self.exact_slot)[:-1] if self.mono_spill else None
         self.phase_s["finish_sync"] += time.time() - t0
         n = self.index.n_kmers
         depth = np.cumsum(diff, dtype=np.uint32)[:n]
-        live = self._mono.slot_rank < n
-        depth[self._mono.slot_rank[live]] += slots[live]   # ranks unique
-        depth += self._side_counts.astype(np.uint32)      # u32 wrap (Q8)
+        if acc is not None:
+            depth += acc[:n]
+        if self.mono_spill:
+            live = self._mono.slot_rank < n
+            depth[self._mono.slot_rank[live]] += slots[live]   # ranks unique
+            depth += self._side_counts.astype(np.uint32)      # u32 wrap (Q8)
         return depth
 
     # -- state carried across (the JAX counter's keys) --------------------
@@ -700,39 +777,38 @@ class AnchoredDepthCounter:
         while self._put_q:
             self._dispatch_oldest()
         self._drain_all()
-        diff = to_numpy_u32(self.diff)
-        # the JAX counter's plain-count accumulator of its packed exact
-        # engine; this counter recounts spills through the mono table
-        arrays = {"diff": diff, "exact_acc": np.zeros_like(diff),
+        diff, acc = self._snapshot_accumulators()
+        arrays = {"diff": diff, "exact_acc": acc,
                   "pending": self._cat_rows(self._pending),
                   "spill": self._cat_rows(self._spill),
-                  "spill2": self._cat_rows(self._spill2),
-                  "exact_slot": to_numpy_u32(self.exact_slot),
-                  "side_counts": self._side_counts.copy()}
+                  "spill2": self._cat_rows(self._spill2)}
         meta = {"n_reads": self.n_reads, "n_spilled": self.n_spilled,
                 "n_spilled2": self.n_spilled2, "read_len": self.read_len,
-                "mono_spill": True}
+                "mono_spill": self.mono_spill}
+        if self.mono_spill:
+            arrays["exact_slot"] = to_numpy_u32(self.exact_slot)
+            arrays["side_counts"] = self._side_counts.copy()
         return arrays, meta
 
     def restore(self, arrays: dict, meta: dict) -> None:
         """Resume from a snapshot() — this counter's or the JAX
-        AnchoredDepthCounter's (mono spill recount, same keys)."""
+        AnchoredDepthCounter's taken with the same mono_spill (same
+        keys)."""
         if int(meta["read_len"]) != self.read_len:
             raise ValueError(
                 f"checkpoint read_len {meta['read_len']} != counter "
                 f"read_len {self.read_len}")
-        if not bool(meta.get("mono_spill", False)):
-            raise ValueError("checkpoint was taken without the mono spill "
-                             "recount; this counter always uses it")
-        # depth = cumsum(diff) + exact_acc, so exact_acc folds into diff
-        # as its own first differences (mod 2^32)
-        acc = np.asarray(arrays["exact_acc"], np.uint32)
-        diff = (np.asarray(arrays["diff"], np.uint32)
-                + np.diff(acc, prepend=np.uint32(0)))
-        self.diff = words(diff, self.device)
-        self.exact_slot = words(np.asarray(arrays["exact_slot"]), self.device)
-        self._side_counts = np.asarray(arrays["side_counts"],
-                                       np.uint64).copy()
+        if bool(meta.get("mono_spill", False)) != self.mono_spill:
+            raise ValueError(
+                f"checkpoint mono_spill={meta.get('mono_spill')} != this "
+                f"counter's {self.mono_spill}; resume with the same setting")
+        self._put_accumulators(np.asarray(arrays["diff"], np.uint32),
+                               np.asarray(arrays["exact_acc"], np.uint32))
+        if self.mono_spill:
+            self.exact_slot = words(np.asarray(arrays["exact_slot"]),
+                                    self.device)
+            self._side_counts = np.asarray(arrays["side_counts"],
+                                           np.uint64).copy()
 
         def rows_of(name):
             r = np.asarray(arrays[name], np.uint8).reshape(-1, self.read_len)

@@ -14,8 +14,9 @@ position. Layout, placement and probe semantics are the JAX package's
   * empty entries are (0,0) — k-mer code 0 is reserved (quirk Q3), so a
     query of 0 is masked and can never false-match an empty entry.
 
-`probe_packed` is the plain PyTorch probe; the CUDA kernels inline the
-same probe from csrc/packed_probe.cuh.
+`probe_packed` is the plain PyTorch probe, and `probe_packed_block` the
+same against one bucket block of a dict-sharded table; the CUDA kernels
+inline both from csrc/packed_probe.cuh.
 """
 
 from __future__ import annotations
@@ -214,7 +215,21 @@ def probe_packed(rows: torch.Tensor, khi: torch.Tensor, klo: torch.Tensor,
     """Plain PyTorch probe: two row gathers. rows: word tensor [B, 8];
     khi/klo: int64 u32 values. Returns (found bool[N], rank int64[N],
     pos int64[N]); misses get miss_rank and pos 0. A query of 0 never
-    matches (quirk Q3: empty entries are (0, 0))."""
+    matches (quirk Q3: empty entries are (0, 0)). The whole table is the
+    one block of probe_packed_block."""
+    return probe_packed_block(rows, khi, klo, n_buckets, n_buckets, 0,
+                              miss_rank)
+
+
+def probe_packed_block(local_rows: torch.Tensor, khi: torch.Tensor,
+                       klo: torch.Tensor, n_buckets: int, block_buckets: int,
+                       blk_lo: int, miss_rank: int):
+    """probe_packed against one contiguous bucket block of a dict-sharded
+    table: local_rows holds buckets [blk_lo, blk_lo + block_buckets). A
+    candidate outside the block (the u32 wrap of cand - blk_lo) matches
+    nothing, so a key is found on the one block that holds it and the
+    blocks' (found, rank, pos) combine by a sum. The kernels inline it as
+    csrc/packed_probe.cuh::packed_probe_block_h."""
     from quickmer2_tpu_torch.ops.hash import djb_pair
     i1, i2 = bucket_hashes_t(djb_pair(khi, klo), n_buckets)
     nonzero_q = (khi | klo) != 0
@@ -222,10 +237,13 @@ def probe_packed(rows: torch.Tensor, khi: torch.Tensor, klo: torch.Tensor,
     rank = torch.full(khi.shape, miss_rank, dtype=torch.int64,
                       device=khi.device)
     pos = torch.zeros(khi.shape, dtype=torch.int64, device=khi.device)
-    for idx in (i1, i2):
-        r = u32(rows[idx])
+    for cand in (i1, i2):
+        off = (cand - blk_lo) & 0xFFFFFFFF
+        local = off < block_buckets
+        r = u32(local_rows[torch.where(local, off, 0)])
         for e in range(ENTRIES_PER_BUCKET):
-            m = nonzero_q & (r[:, 4 * e] == khi) & (r[:, 4 * e + 1] == klo)
+            m = (local & nonzero_q & (r[:, 4 * e] == khi)
+                 & (r[:, 4 * e + 1] == klo))
             found = found | m
             rank = torch.where(m, r[:, 4 * e + 2], rank)
             pos = torch.where(m, r[:, 4 * e + 3], pos)

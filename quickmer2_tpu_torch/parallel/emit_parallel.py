@@ -12,6 +12,11 @@ table. Only the bit-packed hit mask comes back: G / 8 bytes for G
 windows. The emitter's other work (GC bins, window rows, control flags)
 stays on the host, over hit positions only.
 
+With data_devices = dp above 1 each chunk is split over the devices of a
+dp x 1 mesh (parallel.mesh) with the k - 1 halo of
+parallel.count_parallel.split_codes_overlap; K10 runs once a shard, on
+the shard's device, and the shards' masks are concatenated.
+
 Output is bit-identical to the host scan (tests/test_torch_emit.py
 compares the artifacts with the JAX package's, byte for byte).
 """
@@ -25,6 +30,8 @@ from quickmer2_tpu_torch.device import resolve_device
 from quickmer2_tpu_torch.kernels.emit_member import member_scan, unpack_mask
 from quickmer2_tpu_torch.ops import rowpack
 from quickmer2_tpu_torch.ops.codec import SEP
+from quickmer2_tpu_torch.parallel.count_parallel import split_codes_overlap
+from quickmer2_tpu_torch.parallel.mesh import make_mesh
 
 # window starts a chunk: K2's batch of 2^24 bases (the chunk size does
 # not change the mask)
@@ -39,17 +46,25 @@ class DeviceMembershipScanner:
     survivor table, computed on `device` chunk by chunk."""
 
     def __init__(self, packed_table, k: int, data_devices: int = 1,
-                 chunk: int = CHUNK, device: str | torch.device = "cuda"):
-        if int(data_devices or 1) > 1:
-            raise NotImplementedError(
-                f"DeviceMembershipScanner: data_devices={data_devices} is "
-                "not yet ported to quickmer2_tpu_torch (multi-GPU, ROADMAP "
-                "Queue 1 item 9)")
+                 chunk: int = CHUNK, device: str | torch.device = "cuda",
+                 devices=None):
+        """data_devices above 1 shards each chunk over a data_devices x 1
+        mesh of `device`'s type (or of the explicit `devices` list)."""
         self.k = k
         self.chunk = chunk
         self.n_buckets = packed_table.n_buckets
         self.device = resolve_device(device)
-        self.rows = packed_table.device_rows(self.device)
+        self.dp = max(int(data_devices or 1), 1)
+        self.mesh = None
+        if self.dp > 1:
+            self.mesh = make_mesh(self.dp, 1, devices=devices,
+                                  device=self.device)
+            self.device = self.mesh[0, 0]
+            self._rows = {d: packed_table.device_rows(d)
+                          for d in self.mesh.distinct()}
+            self.rows = self._rows[self.device]
+        else:
+            self.rows = packed_table.device_rows(self.device)
 
     def chunks(self, codes: np.ndarray):
         """(offset, windows taken, padded codes) of each chunk: the
@@ -65,14 +80,28 @@ class DeviceMembershipScanner:
                 seg = np.pad(seg, (0, pad), constant_values=SEP)
             yield off, take, seg
 
-    def scan_chunk(self, seg: np.ndarray) -> torch.Tensor:
+    def scan_chunk(self, seg: np.ndarray, device=None,
+                   rows=None) -> torch.Tensor:
         """K10 on one chunk of codes: its bit-packed hit mask on the
-        device."""
+        device (default: the scanner's)."""
+        device = device or self.device
         pk, bits = rowpack.pack_rows(seg[None])
-        return member_scan(torch.from_numpy(pk[0]).to(self.device),
-                           torch.from_numpy(bits[0]).to(self.device),
-                           self.rows, k=self.k, n_buckets=self.n_buckets,
-                           n_bases=len(seg))
+        return member_scan(torch.from_numpy(pk[0]).to(device),
+                           torch.from_numpy(bits[0]).to(device),
+                           self.rows if rows is None else rows, k=self.k,
+                           n_buckets=self.n_buckets, n_bases=len(seg))
+
+    def scan_sharded(self, seg: np.ndarray) -> np.ndarray:
+        """The hit mask of a chunk's windows, the chunk split over the
+        mesh's data axis (dp shards of `per` windows each, halo k - 1):
+        bool[dp * per]."""
+        shards = split_codes_overlap(seg, self.dp, self.k)
+        per = shards.shape[1] - self.k + 1
+        masks = []
+        for i in range(self.dp):
+            d = self.mesh[i, 0]
+            masks.append(self.scan_chunk(shards[i], d, self._rows[d]))
+        return np.concatenate([unpack_mask(m, per) for m in masks])
 
     def scan(self, codes: np.ndarray) -> np.ndarray:
         """bool[len(codes) - k + 1]: the canonical k-mer at each window
@@ -80,5 +109,8 @@ class DeviceMembershipScanner:
         W = len(codes) - self.k + 1
         out = np.zeros(max(W, 0), bool)
         for off, take, seg in self.chunks(codes):
-            out[off: off + take] = unpack_mask(self.scan_chunk(seg), take)
+            if self.mesh is None:
+                out[off: off + take] = unpack_mask(self.scan_chunk(seg), take)
+            else:
+                out[off: off + take] = self.scan_sharded(seg)[:take]
         return out

@@ -1,6 +1,6 @@
 """Cohort batching: count + est many samples against one dictionary.
 
-Port of quickmer2_tpu/pipelines/cohort.py on one device. The reference
+Port of quickmer2_tpu/pipelines/cohort.py. The reference
 processes samples one binary invocation at a time; a cohort pays the
 dictionary load and the device structures once: the dictionary, the
 mono table (flat mode) and the anchored index (anchored mode, its .qai
@@ -37,15 +37,8 @@ def run_cohort(qm_path: str, samples: list[tuple[str, str]],
     stats. Writes <out>.bin/.txt and <out><cn_suffix> per sample (the
     last two when the dictionary's .qgc companion exists).
 
-    data_devices / dict_devices above 1 (the JAX package's sharded
-    cohort) are not ported and raise. device: "cuda" (default; raises
-    without a card) or "cpu"."""
-    for name, n in (("data_devices", data_devices),
-                    ("dict_devices", dict_devices)):
-        if n and n > 1:
-            raise NotImplementedError(
-                f"run_cohort: {name}={n} is not yet ported to "
-                f"quickmer2_tpu_torch (one device only)")
+    data_devices / dict_devices shard each sample's count over a data x
+    dict mesh (pipelines.count.run_count's options). device: "cuda" (default; raises without a card) or "cpu"."""
     dev = resolve_device(device)
     dictionary = Dictionary.from_qm(qm_path)
     index = None
@@ -55,8 +48,9 @@ def run_cohort(qm_path: str, samples: list[tuple[str, str]],
         if ref_fasta is None:
             ref_fasta = _companion(qm_path, "")
         index = AnchoredIndex.from_dictionary_and_fasta(
-            dictionary, ref_fasta, cache_path=ref_fasta + ".qai", device=dev)
-    else:
+            dictionary, ref_fasta, cache_path=ref_fasta + ".qai",
+            place_rows=(dict_devices or 1) == 1, device=dev)
+    elif (data_devices or 1) == 1 and (dict_devices or 1) == 1:
         from quickmer2_tpu_torch.ops.monotable import MonoTable
         packed_table = MonoTable.from_dictionary(dictionary)
 
@@ -72,7 +66,9 @@ def run_cohort(qm_path: str, samples: list[tuple[str, str]],
         t_sample = time.time()
         sc = StreamCounter(dictionary, mode=mode, index=index,
                            batch_bases=batch_bases, read_len=read_len,
-                           packed_table=packed_table, device=dev)
+                           packed_table=packed_table,
+                           data_devices=data_devices,
+                           dict_devices=dict_devices, device=dev)
         with open(sample_path, "rb") as f:
             data = f.read(chunk_bytes)
             fmt = "fastq" if data[:1] == b"@" else "fasta-lines"

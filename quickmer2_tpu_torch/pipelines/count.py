@@ -312,6 +312,10 @@ class DepthCounter:
             for off in range(0, len(buf), self.batch_bases):
                 self._run(buf[off : off + self.batch_bases])
             self._pending, self._pending_len = [], 0
+        return self._final_depth()
+
+    def _final_depth(self) -> np.ndarray:
+        """The whole stream's depth, host u32[n_kmers] in rank order."""
         if self.layout == "sortjoin":
             return self._engine.finish()
         if self.layout != "mono":
@@ -367,14 +371,19 @@ class DepthCounter:
         recorded, since the depth orders differ between layouts."""
         residual = np.concatenate([self._carry] + self._pending) \
             if (self._pending_len or len(self._carry)) else np.zeros(0, np.uint8)
+        return {**self._depth_state(), "residual": residual,
+                "windows": self.total_kmer_windows}
+
+    def _depth_state(self) -> dict:
+        """The snapshot's depth in the layout's order, the layout, and
+        the mono layout's side counts."""
         if self.layout == "sortjoin":
             depth = self._engine.snapshot_depth()
         elif self.layout == "mono":
             depth = to_numpy_u32(self.depth)
         else:
             depth = to_numpy_u32(self._rank_depth())
-        snap = {"depth": depth, "residual": residual,
-                "windows": self.total_kmer_windows, "layout": self.layout}
+        snap = {"depth": depth, "layout": self.layout}
         if self.layout == "mono":
             for pend in self._pending_masks:
                 self._drain_mask(*pend)
@@ -386,6 +395,16 @@ class DepthCounter:
         """Resume from a snapshot() dict — this counter's or the JAX
         package's DepthCounter's of the same layout (numpy arrays, same
         keys)."""
+        self._put_depth_state(snap)
+        residual = snap["residual"]
+        # the first k-1 of the residual are the carry; re-split exactly
+        self._carry = np.zeros(0, np.uint8)
+        self._pending = [residual] if len(residual) else []
+        self._pending_len = len(residual)
+        self.total_kmer_windows = int(snap["windows"])
+
+    def _put_depth_state(self, snap: dict) -> None:
+        """restore's depth: checked against the layout, put in place."""
         snap_layout = str(snap.get("layout", ""))
         if snap_layout and snap_layout != self.layout:
             raise ValueError(
@@ -411,12 +430,6 @@ class DepthCounter:
             self._side_counts = np.asarray(snap["side_counts"],
                                            np.uint64).copy()
             self._pending_masks = []
-        residual = snap["residual"]
-        # the first k-1 of the residual are the carry; re-split exactly
-        self._carry = np.zeros(0, np.uint8)
-        self._pending = [residual] if len(residual) else []
-        self._pending_len = len(residual)
-        self.total_kmer_windows = int(snap["windows"])
 
 
 def gc_curve_from_depth(depth_u16: np.ndarray, qgc: np.ndarray):
@@ -441,11 +454,14 @@ def gc_curve_from_depth(depth_u16: np.ndarray, qgc: np.ndarray):
 
 
 class StreamCounter:
-    """Drives one sample's depth accumulation on one device, in flat or
-    anchored mode: the object run_count and run_cohort feed, so both
-    share one set of semantics.
+    """Drives one sample's depth accumulation, in flat or anchored mode,
+    on one device or sharded: the object run_count and run_cohort feed, so
+    all share one set of semantics.
 
-    Flat mode runs a DepthCounter of table layout `engine`. Anchored mode
+    Flat mode runs a DepthCounter of table layout `engine`, or with
+    data_devices / dict_devices above 1 a ShardedDepthCounter (packed
+    bucket blocks; `engine` is then unused, as in the JAX package) over a
+    data x dict mesh of `device`'s type. Anchored mode
     builds its AnchoredDepthCounter at the first chunk, so the row width
     can be autodetected from real reads; reads wider than the row width
     are cut into k-1-overlap segments, so every read rides the anchored
@@ -455,13 +471,20 @@ class StreamCounter:
     def __init__(self, dictionary: Dictionary, *, mode: str = "flat",
                  index=None, batch_bases: int = 1 << 24,
                  read_len: int | None = None, packed_table=None,
-                 engine: str = "mono", device: str = "cuda"):
+                 engine: str = "mono", data_devices: int | None = None,
+                 dict_devices: int | None = None, devices=None,
+                 device: str = "cuda"):
+        """devices: an explicit device list for the mesh (default: the
+        cards of the box, or copies of the CPU)."""
         self.dict = dictionary
         self.mode = mode
         self.batch_bases = batch_bases
         self.read_len = read_len
         self.engine = engine          # flat-path DepthCounter layout
         self.device = resolve_device(device)
+        self.data_devices = data_devices
+        self.dict_devices = dict_devices
+        self._devices = devices
         self.counter = None
         self.row_streamer = None
         if mode == "anchored":
@@ -470,6 +493,11 @@ class StreamCounter:
             self.index = index
             if read_len is not None:
                 self._make_anchored(read_len)
+        elif mode == "flat" and self._sharded():
+            from quickmer2_tpu_torch.parallel.count_parallel import (
+                ShardedDepthCounter)
+            self.counter = ShardedDepthCounter(dictionary, self._mesh(),
+                                               batch_bases=batch_bases)
         elif mode == "flat":
             self.counter = DepthCounter(dictionary, batch_bases=batch_bases,
                                         layout=engine,
@@ -478,14 +506,29 @@ class StreamCounter:
         else:
             raise ValueError(f"unknown count mode {mode!r}")
 
+    def _sharded(self) -> bool:
+        return (self.data_devices or 1) > 1 or (self.dict_devices or 1) > 1
+
+    def _mesh(self):
+        from quickmer2_tpu_torch.parallel.mesh import make_mesh
+        return make_mesh(self.data_devices or 1, self.dict_devices or 1,
+                         devices=self._devices, device=self.device)
+
     def _make_anchored(self, read_len: int) -> None:
         from quickmer2_tpu_torch.ops.anchored import (
             AnchoredDepthCounter, RowStreamer)
         self.read_len = read_len
         self.row_streamer = RowStreamer(read_len,
                                         segment_k=self.dict.kmer_size)
-        self.counter = AnchoredDepthCounter(
-            self.index, self.dict.kmer_size, read_len, device=self.device)
+        if self._sharded():
+            from quickmer2_tpu_torch.parallel.anchored_parallel import (
+                ShardedAnchoredCounter)
+            self.counter = ShardedAnchoredCounter(
+                self.index, self.dict.kmer_size, read_len, self._mesh())
+        else:
+            self.counter = AnchoredDepthCounter(
+                self.index, self.dict.kmer_size, read_len,
+                device=self.device)
 
     def feed_codes(self, codes: np.ndarray) -> None:
         if self.mode != "anchored":
@@ -547,7 +590,7 @@ class StreamCounter:
             arrays["depth"] = snap["depth"]
             arrays["residual"] = snap["residual"]
             meta["windows"] = snap["windows"]
-            meta["layout"] = snap["layout"]
+            meta["layout"] = snap.get("layout", "")
             if "side_counts" in snap:           # mono layout
                 arrays["side_counts"] = snap["side_counts"]
         return arrays, meta
@@ -587,7 +630,9 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
               checkpoint_path: str | None = None,
               checkpoint_every_bytes: int = 1 << 30,
               hbm_limit_bytes: int | None = None,
-              engine: str = "mono", device: str = "cuda") -> dict:
+              engine: str = "mono", data_devices: int | None = None,
+              dict_devices: int | None = None,
+              device: str = "cuda") -> dict:
     """Full count phase: .qm + reads → <out_prefix>.bin (+ .txt if the
     dictionary's .qgc companion exists). Returns summary stats.
 
@@ -607,7 +652,14 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
                       stdin ("-"), whose replayed prefix is read and
                       dropped; the file is removed on success.
     hbm_limit_bytes — when the anchored structures would not fit this
-                      many bytes of device memory, count in flat mode.
+                      many bytes of one device's memory (the rows split
+                      over dict_devices), count in flat mode.
+    data_devices    — shard the read stream over this many devices.
+    dict_devices    — shard the dictionary's packed rows into this many
+                      bucket blocks, one a device (tables larger than one
+                      card). Both: a data x dict mesh of `device`'s type
+                      (every card from cuda:0 up, or copies of the CPU);
+                      output identical to one device.
     device: "cuda" (default; raises without a card) or "cpu".
     """
     dev = resolve_device(device)
@@ -629,7 +681,12 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
                     g_est = struct.unpack("<Q", f.read(16)[8:16])[0]
             else:
                 g_est = os.path.getsize(ref_fasta)
-            est = AnchoredIndex.estimate_hbm_bytes(dictionary.n_kmers, g_est)
+            # per device: the rows term splits over the dict axis (the
+            # index then keeps its rows on the host, each card one
+            # block), so a dict-sharded anchored count can fit where an
+            # unsharded one cannot
+            est = AnchoredIndex.estimate_hbm_bytes(
+                dictionary.n_kmers, g_est, dict_devices=dict_devices or 1)
             if est["total"] > hbm_limit_bytes:
                 fallback = {"reason": "anchored-structures-exceed-hbm",
                             "estimate_bytes": est,
@@ -637,18 +694,21 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
                 mode = "flat"
                 if verbose:
                     print(f"count: anchored structures need "
-                          f"~{est['total'] / 1e9:.1f} GB (> limit "
+                          f"~{est['total'] / 1e9:.1f} GB per device "
+                          f"(ds={est['dict_devices']}, > limit "
                           f"{hbm_limit_bytes / 1e9:.1f} GB) — falling back "
-                          f"to the flat path")
+                          f"to the flat "
+                          f"{'sharded ' if data_devices else ''}path")
         if mode == "anchored":
             ti = time.time()
             index = AnchoredIndex.from_dictionary_and_fasta(
                 dictionary, ref_fasta, cache_path=ref_fasta + ".qai",
-                device=dev)
+                place_rows=(dict_devices or 1) == 1, device=dev)
             index_s = time.time() - ti
     sc = StreamCounter(dictionary, mode=mode, index=index,
                        batch_bases=batch_bases, read_len=read_len,
-                       engine=engine, device=dev)
+                       engine=engine, data_devices=data_devices,
+                       dict_devices=dict_devices, device=dev)
     setup_s = time.time() - t0
     stream = sys.stdin.buffer if sample_path == "-" else open(sample_path, "rb")
     bytes_consumed = 0

@@ -169,15 +169,12 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
     table's host build, inside emit_s).
     device: "cuda" (default; raises without a card) or "cpu" — where the
     edit filter's kernels run, and the device emit's.
-    emit_devices: None or 0 (default) emits with host lookups; 1 scans
-    the genome on `device` (K10) against a packed table of the
-    survivors; more than one is not yet ported and raises."""
+    emit_devices: None or 0 (default) emits with host lookups; N >= 1
+    scans the genome (K10) against a packed table of the survivors, each
+    chunk split over N devices of `device`'s type (every card from
+    cuda:0 up, or N copies of the CPU)."""
     import time
 
-    if emit_devices and emit_devices > 1:
-        raise NotImplementedError(
-            f"run_search: emit_devices={emit_devices} is not yet ported to "
-            "quickmer2_tpu_torch (multi-GPU, ROADMAP Queue 1 item 9)")
     dev = resolve_device(device)
     if filter_impl not in ("hamming", "probe"):
         raise ValueError(f"unknown filter_impl {filter_impl!r}: use "
@@ -273,7 +270,8 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
         stab = PackedTable.build(
             shi, slo, rank=np.arange(len(survivors), dtype=np.uint32))
         emit_table_s = time.time() - ts
-        scanner = DeviceMembershipScanner(stab, k, device=dev)
+        scanner = DeviceMembershipScanner(stab, k, data_devices=emit_devices,
+                                          device=dev)
     for name, seq in fasta_io.iter_fasta(fasta_path):
         canon, valid = _chrom_kmers(seq, k)
         if scanner is not None:

@@ -33,6 +33,7 @@ from quickmer2_tpu_torch.ops import packed_table as tpacked
 from quickmer2_tpu_torch.ops import rowpack as trowpack
 from quickmer2_tpu_torch.pipelines import count as tcount
 from tests import helpers
+from tests.torch_threads import few_threads  # noqa: F401
 
 K = 30
 READ_LEN = 100

@@ -13,6 +13,7 @@ from quickmer2_tpu_torch import dictionary as tdict
 from quickmer2_tpu_torch.ops import packed_table as tpacked
 from quickmer2_tpu_torch.ops.hash import djb_pair_np
 from quickmer2_tpu_torch.utils import native
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def _shared_hash_keys(n: int, k: int = 16):

@@ -20,6 +20,7 @@ from quickmer2_tpu_torch.io import formats
 from quickmer2_tpu_torch.pipelines import count as tcount
 from quickmer2_tpu_torch.utils import checkpoint
 from tests import helpers
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 class Bomb(Exception):

@@ -12,6 +12,7 @@ from quickmer2_tpu.ops import hash as jhash
 from quickmer2_tpu_torch.device import to_numpy_u32
 from quickmer2_tpu_torch.ops import codec as tcodec
 from quickmer2_tpu_torch.ops import hash as thash
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def _stream(seed: int, n: int) -> np.ndarray:

@@ -2,7 +2,8 @@
 run_cohort's .bin, .txt and .CN.bed equal the JAX cohort's and the
 port's own single-sample count + est, in flat and anchored mode; the
 `cohort` subcommand and `count --engine ... --checkpoint ...` write the
-JAX CLI's bytes."""
+JAX CLI's bytes; the sharded cohort (data_devices, dict_devices) writes
+the JAX sharded cohort's."""
 
 import os
 
@@ -18,6 +19,7 @@ from quickmer2_tpu_torch.pipelines.cohort import run_cohort
 from quickmer2_tpu_torch.pipelines.count import run_count
 from quickmer2_tpu_torch.pipelines.est import run_est
 from tests import helpers
+from tests.torch_threads import few_threads  # noqa: F401
 
 _EXTS = (".bin", ".txt", ".CN.bed")
 
@@ -81,10 +83,23 @@ def test_cohort_matches_jax_and_single_runs(world, tmp_path, mode):
 
 @pytest.mark.parametrize("option", ["data_devices", "dict_devices"])
 def test_cohort_sharding_not_ported(world, tmp_path, option):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_cohort(world["fa"] + ".qm",
-                   [(world["samples"][0], str(tmp_path / "o"))],
-                   device="cpu", **{option: 2})
+    """Once a refusal, now the sharded cohort: each sample's count on two
+    copies of the CPU (data_devices in flat mode, dict_devices in
+    anchored mode) writes the JAX sharded cohort's .bin, .txt and
+    .CN.bed."""
+    mode = "flat" if option == "data_devices" else "anchored"
+    d = str(tmp_path)
+    port = [(s, os.path.join(d, f"c{i}"))
+            for i, s in enumerate(world["samples"])]
+    jax = [(s, os.path.join(d, f"j{i}"))
+           for i, s in enumerate(world["samples"])]
+    kw = dict(batch_bases=1 << 14, mode=mode, ref_fasta=world["fa"],
+              verbose=False, **{option: 2})
+    stats = run_cohort(world["fa"] + ".qm", port, device="cpu", **kw)
+    jax_run_cohort(world["fa"] + ".qm", jax, **kw)
+    assert [s["mode"] for s in stats] == [mode, mode]
+    for (_, p), (_, j) in zip(port, jax):
+        _same_files(p, j)
 
 
 def test_cli_cohort_matches_jax_cli(world, tmp_path):

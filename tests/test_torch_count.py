@@ -19,6 +19,7 @@ from quickmer2_tpu_torch.ops import monotable as tmono
 from quickmer2_tpu_torch.ops import packed_table as tpacked
 from quickmer2_tpu_torch.ops import rowpack as trowpack
 from quickmer2_tpu_torch.pipelines import count as tcount
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def _genome(seed: int, n: int) -> np.ndarray:

@@ -27,6 +27,7 @@ from quickmer2_tpu_torch.ops import editdist as ted
 from quickmer2_tpu_torch.ops import hamming_join as thj
 from quickmer2_tpu_torch.ops.packed_table import PackedTable
 from tests import helpers
+from tests.torch_threads import few_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 

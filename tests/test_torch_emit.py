@@ -1,8 +1,9 @@
 """The search's device emit in the port against the JAX package: K10's
 plain version (kernels.emit_member) against JAX's `_member_chunk`, the
 port's DeviceMembershipScanner against JAX's at a chunk of 2^12 windows
-with seams inside N runs, and `run_search(emit_devices=1)` against the
-JAX search's host and device emits, byte for byte. Masks are booleans:
+with seams inside N runs, `run_search(emit_devices=1)` against the
+JAX search's host and device emits, and emit_devices=2 (the chunks
+halo-split over two devices) against JAX's, byte for byte. Masks are booleans:
 the tolerance is exact equality."""
 
 import os
@@ -26,6 +27,7 @@ from quickmer2_tpu_torch.parallel.emit_parallel import (
     DeviceMembershipScanner)
 from quickmer2_tpu_torch.pipelines import search
 from tests import helpers
+from tests.torch_threads import few_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 
@@ -164,11 +166,30 @@ def test_search_device_emit_matches_jax(tmp_path):
 
 
 def test_emit_devices_above_one_not_ported(tmp_path):
-    fa = _genome(tmp_path, np.random.default_rng(6), "g")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        search.run_search(fa, SearchConfig(kmer_size=30, hash_size=1 << 16),
-                          verbose=False, device="cpu", emit_devices=2)
-    tab = PackedTable.build(np.array([0], np.uint32), np.array([5], np.uint32),
-                            rank=np.zeros(1, np.uint32))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DeviceMembershipScanner(tab, 30, data_devices=2, device="cpu")
+    """Once a refusal, now the sharded emit: run_search(emit_devices=2,
+    device="cpu") splits each chunk over two copies of the CPU with a
+    k - 1 halo and writes the JAX search's bytes with emit_devices=2;
+    the scanner's mask equals JAX's sharded scanner's."""
+    fas = {name: _genome(tmp_path, np.random.default_rng(6), name)
+           for name in ("jax", "port")}
+    kw = dict(kmer_size=30, hash_size=1 << 16, edit_distance=0,
+              window_size=100)
+    jsearch.run_search(fas["jax"], JaxSearchConfig(
+        **kw, control_bed=fas["jax"] + ".ctrl.bed"), verbose=False,
+        emit_devices=2)
+    search.run_search(fas["port"], SearchConfig(
+        **kw, control_bed=fas["port"] + ".ctrl.bed"), verbose=False,
+        device="cpu", emit_devices=2)
+    for ext in (".qm", ".bed", ".qgc"):
+        with open(fas["port"] + ext, "rb") as f, \
+                open(fas["jax"] + ext, "rb") as h:
+            assert f.read() == h.read(), ext
+    rng = np.random.default_rng(6)
+    codes = _genome_codes(rng, 30000, 12)
+    jtab, (hi, lo, rank) = _table(codes, 30, rng)
+    want = jemit.DeviceMembershipScanner(jtab, 30, data_devices=2,
+                                         chunk=1 << 12).scan(codes)
+    got = DeviceMembershipScanner(PackedTable.build(hi, lo, rank=rank), 30,
+                                  data_devices=2, chunk=1 << 12,
+                                  device="cpu").scan(codes)
+    np.testing.assert_array_equal(got, want)

@@ -23,6 +23,7 @@ from quickmer2_tpu.pipelines.est import run_est as jax_run_est
 from quickmer2_tpu_torch.kernels.est_windows import (
     window_sums, window_sums_plain)
 from quickmer2_tpu_torch.pipelines.est import run_est
+from tests.torch_threads import few_threads  # noqa: F401
 
 RTOL = 1e-6
 

@@ -38,6 +38,7 @@ from quickmer2_tpu_torch.ops import packed_table as tpacked
 from quickmer2_tpu_torch.pipelines import count as tcount
 from tests.test_torch_engines import _TABLES, _dict_kmers, _packed, _reads, \
     _scan_world
+from tests.torch_threads import few_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 

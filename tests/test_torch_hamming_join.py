@@ -14,6 +14,7 @@ from quickmer2_tpu_torch.device import to_numpy_u32
 from quickmer2_tpu_torch.kernels.hamming_join import join_compare
 from quickmer2_tpu_torch.ops import hamming_join as thj
 from tests import helpers
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def _world(seed: int, k: int, n_bases: int = 2500):

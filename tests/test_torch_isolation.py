@@ -1,11 +1,14 @@
 """The port stands alone: it imports neither jax nor the JAX package
 (a flat and an anchored count, a sort-join count, a checkpointed count,
-a cohort, a search whose slow queries take the packed-table path and an
-anchored index whose bitmap the Hamming join builds, a search with the
-device emit, sparse, index and an est with device window sums, on the
-CPU, in a fresh interpreter), and its entry points run on
-the card unless asked for the CPU — on a box without a card they raise
-instead of falling back."""
+a cohort, flat and anchored counts sharded over a 2 x 2 mesh, a
+one-process run_count_distributed, a search whose slow queries take the
+packed-table path and an anchored index whose bitmap the Hamming join
+builds, a search with the device emit on one device and sharded over
+two, sparse, index and an est with device window sums, on the CPU, in a
+fresh interpreter), and its entry points run on the card unless asked
+for the CPU — on a box without a card they raise instead of falling
+back. The multi-device CLI options run and write the JAX CLI's bytes;
+--profile is still refused."""
 
 import os
 import subprocess
@@ -14,6 +17,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import few_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,7 +57,17 @@ run_count("g.fa.qm", "r.fa", "ck", batch_bases=1 << 13, verbose=False,
 from quickmer2_tpu_torch.pipelines.cohort import run_cohort
 run_cohort("g.fa.qm", [("r.fa", "co")], batch_bases=1 << 13, verbose=False,
            device="cpu")
-for out in ("sj", "ck", "co"):
+# the sharded counters (a 2 x 2 mesh of CPU copies) and one process of
+# the distributed count (no process group: world size 1)
+for mode in ("flat", "anchored"):
+    run_count("g.fa.qm", "r.fa", "sh_" + mode, batch_bases=1 << 13,
+              verbose=False, mode=mode, data_devices=2, dict_devices=2,
+              device="cpu")
+from quickmer2_tpu_torch.parallel.distributed import run_count_distributed
+st = run_count_distributed("g.fa.qm", "r.fa", "dist", batch_bases=1 << 13,
+                           verbose=False, device="cpu")
+assert st["process"] == 0, st
+for out in ("sj", "ck", "co", "sh_flat", "sh_anchored", "dist"):
     with open("flat.bin", "rb") as a, open(out + ".bin", "rb") as b:
         assert a.read() == b.read(), out
 
@@ -88,6 +102,13 @@ search.run_search("g.fa", SearchConfig(kmer_size=25, hash_size=1 << 14,
                   emit_devices=1)
 with open("g.fa.qm", "rb") as a, open("em.qm", "rb") as b:
     assert a.read() != b.read()         # the filter removed some k-mers
+search.run_search("g.fa", SearchConfig(kmer_size=25, hash_size=1 << 14,
+                                       edit_distance=1, window_size=50),
+                  verbose=False, out_prefix="em2", device="cpu",
+                  emit_devices=2)
+for ext in (".qm", ".bed"):
+    with open("em" + ext, "rb") as a, open("em2" + ext, "rb") as b:
+        assert a.read() == b.read(), ext
 from quickmer2_tpu_torch.pipelines.est import run_est
 from quickmer2_tpu_torch.pipelines.index import run_index
 from quickmer2_tpu_torch.pipelines.sparse import run_sparse
@@ -172,6 +193,17 @@ def _entry(name, tmp_path):
                                          1 << 8, 15)
     if name == "DepthCounter":
         return lambda: count.DepthCounter(dic)
+    if name == "ShardedDepthCounter":
+        from quickmer2_tpu_torch.parallel.count_parallel import (
+            ShardedDepthCounter)
+        from quickmer2_tpu_torch.parallel.mesh import make_mesh
+        return lambda: ShardedDepthCounter(dic, make_mesh(2, 1))
+    if name == "run_count_distributed":
+        from quickmer2_tpu_torch.parallel.distributed import (
+            run_count_distributed)
+        return lambda: run_count_distributed(os.path.join(d, "g.qm"),
+                                             os.path.join(d, "r.fa"),
+                                             os.path.join(d, "o"))
     from quickmer2_tpu_torch.ops import anchored
     genome = np.random.default_rng(1).integers(0, 4, 200).astype(np.uint8)
     if name == "AnchoredIndex":
@@ -181,6 +213,12 @@ def _entry(name, tmp_path):
     index = anchored.AnchoredIndex.build(
         genome, np.arange(49, dtype=np.uint32) + 14, dic.kmers_in_order, 15,
         neighbor_bits=False, device="cpu")
+    if name == "ShardedAnchoredCounter":
+        from quickmer2_tpu_torch.parallel.anchored_parallel import (
+            ShardedAnchoredCounter)
+        from quickmer2_tpu_torch.parallel.mesh import make_mesh
+        return lambda: ShardedAnchoredCounter(index, 15, 100,
+                                              make_mesh(2, 1))
     return lambda: anchored.AnchoredDepthCounter(index, 15, 100)
 
 
@@ -189,7 +227,10 @@ def _entry(name, tmp_path):
                                   "run_cohort", "DepthCounter",
                                   "AnchoredIndex", "AnchoredDepthCounter",
                                   "run_sparse", "run_index",
-                                  "DeviceMembershipScanner"])
+                                  "DeviceMembershipScanner",
+                                  "ShardedDepthCounter",
+                                  "ShardedAnchoredCounter",
+                                  "run_count_distributed"])
 def test_default_device_refuses_cpu_fallback(tmp_path, name):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -213,11 +254,17 @@ def test_cli_default_device_refuses_cpu_fallback(tmp_path):
     ["count", "--profile", "d", "g.fa", "r.fq", "o"],
     ["search", "--profile", "d", "g.fa"],
     ["cohort", "--data-devices", "2", "g.fa", "r.fq:o"]])
-def test_cli_rejects_unported(args, capsys):
+def test_cli_rejects_unported(args, capsys, tmp_path):
+    """--profile is still refused; the multi-device options, refused
+    before the multi-device layer was ported, run on a small genome
+    (--device cpu) and write the JAX CLI's bytes."""
     from quickmer2_tpu_torch.cli import main
+    if "--profile" not in args:
+        from tests.test_torch_cli import multi_device_cli_pair
+        multi_device_cli_pair(args, tmp_path)
+        return
     with pytest.raises(SystemExit) as exc:
-        main(args + (["--device", "cpu"] if args[0] in ("search", "count")
-                     else []))
+        main(args + ["--device", "cpu"])
     assert exc.value.code != 0
     assert "not yet ported" in capsys.readouterr().err
 

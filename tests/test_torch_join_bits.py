@@ -20,6 +20,7 @@ from quickmer2_tpu_torch.device import to_numpy_u32
 from quickmer2_tpu_torch.kernels.hamming_join import join_bits
 from quickmer2_tpu_torch.ops import anchored as tanch
 from quickmer2_tpu_torch.ops import hamming_join as thj
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def _genome(seed: int, k: int, n: int):

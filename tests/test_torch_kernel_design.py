@@ -44,6 +44,7 @@ from quickmer2_tpu_torch.kernels.count_mono import (
 from quickmer2_tpu_torch.kernels.hamming_join import join_compare_plain
 from quickmer2_tpu_torch.ops import hamming_join as thj
 from quickmer2_tpu_torch.ops import rowpack
+from tests.torch_threads import few_threads  # noqa: F401
 
 _REV8 = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.uint8)
 _M55 = np.uint64(0x5555555555555555)

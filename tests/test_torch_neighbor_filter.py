@@ -17,6 +17,7 @@ from quickmer2_tpu_torch.ops import anchored as tanch
 from quickmer2_tpu_torch.ops import packed_table as tpacked
 from quickmer2_tpu_torch.ops.hash import djb_pair, djb_pair_np
 from tests import helpers
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def _t64(a) -> torch.Tensor:

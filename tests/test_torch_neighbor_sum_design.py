@@ -29,6 +29,7 @@ from quickmer2_tpu.ops import editdist as jed
 from quickmer2_tpu.ops import hamming_join as jhj
 from quickmer2_tpu.ops import hash as jhash
 from quickmer2_tpu_torch.kernels.neighbor_sum import edit_words
+from tests.torch_threads import few_threads  # noqa: F401
 
 HEADER = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                       "quickmer2_tpu_torch", "csrc", "packed_probe.cuh")

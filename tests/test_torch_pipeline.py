@@ -12,6 +12,7 @@ import pytest
 
 from quickmer2_tpu.cli import main as jax_main
 from tests import helpers
+from tests.torch_threads import few_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,6 +19,7 @@ from quickmer2_tpu_torch.analytics import colortrack
 from quickmer2_tpu_torch.pipelines import index, sparse
 from quickmer2_tpu_torch.utils import native
 from tests import helpers
+from tests.torch_threads import few_threads  # noqa: F401
 
 K = 30
 

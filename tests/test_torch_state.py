@@ -13,6 +13,7 @@ from quickmer2_tpu.pipelines import count as jcount
 from quickmer2_tpu_torch import dictionary as tdict
 from quickmer2_tpu_torch.ops import monotable as tmono
 from quickmer2_tpu_torch.pipelines import count as tcount
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def _world(k: int, seed: int):
