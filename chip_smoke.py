@@ -33,11 +33,15 @@ Phases:
                 (`check_anchored_kernels`): the key filter and K4
                 (neighbor sweep) on the index's table, both again at
                 k = 15 and k = 32 on a small dictionary; K5 (the join's
-                neighbor bits) on a 2,000,000-window tile at pads 64/32
-                (timed, with its layouts' time), on hand-planted buckets
-                (near-all-A queries beside holes, both strands, the
-                differing base in either word) and on the tile's slow
-                windows at pads 240/240; K3 (anchored
+                neighbor bits) and its counting sort (bucket runs) on a
+                2,000,000-window tile at pads 64/32 (timed: the word
+                runs, the query runs and their kernels by
+                torch.profiler, the kernel, and beside them the padded
+                layouts of the previous design), on a planted
+                call (a bucket of 245 words that the pad of 240 cuts,
+                60 queries on both strands, a query one base from
+                all-A) and on the tile's slow windows at pads 240/240,
+                runs and planes each equal to the plain version's; K3 (anchored
                 read pass) timed in tier 1 and tier 2 on the main path's
                 160-wide batches, then untimed on the shapes its lane
                 groups branch on: the mask format (N bases) in all three
@@ -81,9 +85,13 @@ Phases:
                 layer's kernels, each against its plain version at
                 (dp, ds) = (2, 2) on the main path's shapes: K8b (block
                 flat count) on the 2^24-base batch split over two data
-                shards against both bucket blocks of the PackedTable (at
-                its own P, P = 1 and 2; the rank-space partials summing
-                to K8's depth; timed), K12 (packed exact recount) on the
+                shards against every bucket block of the PackedTable at
+                ds = 1, 2 and 4 (at its own P, P = 1 and 2; the
+                rank-space partials summing to K8's depth at each ds;
+                timed at each ds, each pass by torch.profiler, and the
+                batch's four launches at (2, 2) beside one K8 launch on
+                it; shard 0 on block 0 also at P = 16 .. 256, each
+                checked and timed), K12 (packed exact recount) on the
                 exact batch through the whole table (timed) and through
                 each block (summing to the whole), K3a (anchor probes) on
                 each block of the tier-1 batch (timed) and K3 with the
@@ -207,6 +215,29 @@ def kernel_ms(fn, reps: int) -> tuple[float, float]:
     return cuda_ms(fn, reps), cuda_ms(fn, reps, queued=True)
 
 
+def profile_kernels(fn, reps: int) -> dict:
+    """{kernel: device ms a call of fn()} by torch.profiler (CUPTI) over
+    `reps` calls after a warm-up, the kernel named without namespace,
+    template or arguments; {} where the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0)
+        if t > 0:
+            m = re.search(r"(\w+)(<|\()", e.key)
+            name = m.group(1) if m else e.key
+            out[name] = round(out.get(name, 0.0) + t / 1e3 / reps, 4)
+    return out
+
+
 def ptxas_summary(nvcc_log: str) -> list[str]:
     """One line per kernel of nvcc's -Xptxas -v report: registers,
     stack frame and spill bytes; warnings as they are."""
@@ -229,13 +260,13 @@ def ptxas_summary(nvcc_log: str) -> list[str]:
 def ptxas_of(nvcc_log: str, match: str) -> dict:
     """Registers (least and most), stack frame and spill bytes (most)
     over the kernels of an nvcc -Xptxas -v report whose mangled name
-    holds `match`."""
+    the regular expression `match` finds."""
     regs, stack, spill = [], 0, 0
     for line in ptxas_summary(nvcc_log):
         name, _, rest = line.partition(": ")
         m = re.match(r"(\d+) registers, (\d+) bytes stack frame, (\d+) "
                      r"bytes spill stores, (\d+) bytes spill loads", rest)
-        if m and match in name:
+        if m and re.search(match, name):
             regs.append(int(m.group(1)))
             stack = max(stack, int(m.group(2)))
             spill = max(spill, int(m.group(3)), int(m.group(4)))
@@ -246,13 +277,15 @@ def ptxas_of(nvcc_log: str, match: str) -> dict:
 
 
 # the kernels whose rows carry their ptxas report: (source, name match)
-PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernelILb0"),
-              "join_bits": ("hamming_join", "hamming_join_kernelILb1"),
+PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernel"),
+              "join_bits": ("hamming_join", "join_runs_kernel"),
+              "bucket_runs": ("hamming_join",
+                              "run_count|run_scatter|scan_"),
               "neighbor_sum": ("neighbor_sum", "neighbor_sum_kernel"),
               "count_mono": ("count_mono", "count_mono_"),
               "count_linear": ("count_flat", "CountLinear"),
-              "count_packed": ("count_flat", "11CountPackedILb0"),
-              "count_packed_block": ("count_flat", "11CountPackedILb1"),
+              "count_packed": ("count_flat", "11CountPacked"),
+              "count_packed_block": ("count_flat", "block_bin|block_probe"),
               "count_packed_rows": ("count_mono", "exact_packed_kernel"),
               "anchor_probes": ("anchored", "anchor_probe_kernel"),
               "kmerize": ("count_flat", "kmerize_kernel"),
@@ -936,75 +969,111 @@ def check_neighbor_bits_small(k, dev):
 BITS_TILE = 2_000_000     # hamming_neighbor_bits' tile of genome windows
 
 
-def compare_join_bits(lay, nq, k, n_buckets, cpad, cpad_q, label):
-    """K5 against its plain version on one call's layouts (dh, dl, dlive,
-    qh, ql, qfw, qidx); returns (max |kernel - plain|, the kernel's
-    planes, live words and live queries a bucket)."""
+def compare_runs(got, want, label):
+    """bucket_runs (K5's counting sort) against its plain version: the
+    offsets, and the runs' rows up to their end; returns their length."""
+    n = int(want[-1][-1])
+    if not torch.equal(got[-1], want[-1]) or any(
+            max_abs_err(a[:n], b[:n]) != 0 for a, b in zip(got[:-1], want)):
+        raise AssertionError(f"bucket_runs{label} disagrees with its plain "
+                             "version")
+    return n
+
+
+def compare_join_bits(runs_w, runs_q, nq, k, part, label):
+    """K5 against its plain version on one call's runs; returns (max
+    |kernel - plain|, the kernel's planes, the call's live pairs, the
+    buckets holding a live query, the live words in them)."""
+    from quickmer2_tpu_torch.device import u32
     from quickmer2_tpu_torch.kernels.hamming_join import (
-        join_bits, join_bits_plain)
-    kw = dict(k=k, n_buckets=n_buckets, cpad=cpad, cpad_q=cpad_q)
-    p_k = torch.zeros((nq + 1, 4), dtype=torch.int32, device=lay[0].device)
+        join_bits, join_bits_plain, part_keys)
+    dev = runs_w[0].device
+    p_k = torch.zeros((nq + 1, 4), dtype=torch.int32, device=dev)
     p_p = torch.zeros_like(p_k)
-    join_bits(*lay, p_k, **kw)
-    join_bits_plain(*lay, p_p, **kw)
+    join_bits(*runs_w, *runs_q, p_k, k=k, **part)
+    join_bits_plain(*runs_w, *runs_q, p_p, k=k, **part)
     torch.cuda.synchronize()
     err = max_abs_err(p_k[:-1], p_p[:-1])
-    live_w = (lay[2][:-1].view(n_buckets, cpad) != 0).sum(1).to(torch.int64)
-    live_q = (lay[6][:-1].view(n_buckets, cpad_q) != nq).sum(1).to(
-        torch.int64)
-    pairs = live_w * live_q
-    log(f"  join_bits cpad {cpad}/{cpad_q}{label}: {n_buckets} buckets, "
-        f"{nq} queries, {int(pairs.sum())} live pairs (most in a bucket "
-        f"{int(pairs.max())}), {int((p_k[:-1] != 0).any(1).sum())} rows "
-        f"with a bit, max |kernel - plain| = {err}")
+    n = int(u32(runs_q[2][-1]))
+    key = part_keys(runs_q[0][:n, 0], runs_q[0][:n, 1], **part)
+    woff = u32(runs_w[1])
+    per_q = woff[key + 1] - woff[key]
+    buckets = torch.unique(key)
+    pairs = int(per_q.sum())
+    live_w = int((woff[buckets + 1] - woff[buckets]).sum())
+    log(f"  join_bits{label}: {n} live queries in {buckets.numel()} "
+        f"buckets, {live_w} live words there, {pairs} live pairs (most for "
+        f"a query {int(per_q.max()) if n else 0}), "
+        f"{int((p_k[:-1] != 0).any(1).sum())} rows with a bit, max |kernel "
+        f"- plain| = {err}")
     if err != 0:
-        raise AssertionError(f"join_bits {cpad}/{cpad_q}{label} disagrees "
-                             "with its plain version")
-    return err, p_k, live_w, live_q
+        raise AssertionError(f"join_bits{label} disagrees with its plain "
+                             "version")
+    return err, p_k, pairs, int(buckets.numel()), live_w
 
 
-def plant_bits_buckets(lay, nq, k, cpad, cpad_q, rng):
-    """plant_buckets' shapes on a copy of K5's layouts (their live words
-    carry a nonzero flag, their queries a random strand), and bucket 3:
-    word lanes 2 and 5 among holes of code (0, 0); queries one base from
-    all-A (H = 1 from every hole) on both strands, whose only true
-    neighbor is the word in lane 2; and queries that differ from the word
-    in lane 5 in one base of the hi word, on both strands. Returns the
-    layouts, the new query count and the near-all-A queries' indices."""
-    dh, dl, dlive, qh, ql, qfw, qidx = lay
-    (dh, dl, dlive, qh, ql, qidx), nq2 = plant_buckets(
-        (dh, dl, dlive, qh, ql, qidx), nq, cpad, cpad_q, rng)
-    qfw = qfw.clone()
-    planted = qidx[:3 * cpad_q] != nq2
-    qfw[:3 * cpad_q][planted] = torch.from_numpy(
-        rng.integers(0, 2, int(planted.sum()))).to(qfw.device, qfw.dtype)
-    b = 3
-    for t in (dh, dl, dlive):
-        t[b * cpad:(b + 1) * cpad] = 0
-    near_a = 1 << 14                              # base 7 is C
-    far = int(rng.integers(1, 1 << 28))
-    for lane, hi, lo in ((2, 0, near_a | (3 << 24)), (5, far, 12345)):
-        dh[b * cpad + lane], dl[b * cpad + lane] = hi, lo
-        dlive[b * cpad + lane] = 1
-    qidx[qidx == nq2] = nq2 + 4
-    qidx[b * cpad_q:(b + 1) * cpad_q] = nq2 + 4
-    for lane, (hi, lo, fwd) in enumerate(((0, near_a, 1), (0, near_a, 0),
-                                          (far ^ (2 << 8), 12345, 1),
-                                          (far ^ (2 << 8), 12345, 0))):
-        o = b * cpad_q + lane
-        qh[o], ql[o], qfw[o], qidx[o] = hi, lo, fwd, nq2 + lane
-    return (dh, dl, dlive, qh, ql, qfw, qidx), nq2 + 4, (nq2, nq2 + 1)
+def planted_join(w, dict_kmers, k, dev):
+    """K5 and its counting sort on a planted call, part 0 at pads 240/240:
+    a query's bucket holds 245 words, 185 two substitutions from it and
+    then 60 one substitution from it (every offset outside the part, all
+    three other bases), so the pad cuts five of those; 60 queries share
+    that bucket, the query itself on alternating strands, each of which
+    must carry 55 bits; and a query one base from all-A beside a word one
+    substitution from it (no bucket holds a hole now, so the code (0, 0)
+    is no word)."""
+    from quickmer2_tpu_torch.device import words
+    from quickmer2_tpu_torch.kernels.hamming_join import (
+        bucket_runs, bucket_runs_plain)
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.ops import hamming_join as hj
+    s, t = w.ranges[0]
+    q0 = int(dict_kmers[12345])
+    outside = [p for p in range(k) if not s <= p < t]
+    near = [q0 ^ (d << (2 * p)) for p in outside for d in (1, 2, 3)]
+    far = [q0 ^ (1 << (2 * a)) ^ (2 << (2 * b)) for a in outside
+           for b in outside if a < b]
+    planted = np.array(far[:185] + near[:60], np.uint64)
+    wk = np.concatenate([planted, np.array([(1 << 4) | (2 << 2 * t)],
+                                           np.uint64)])
+    qk = np.concatenate([np.full(60, q0, np.uint64),
+                         np.array([1 << 4], np.uint64)])
+    qfwd = np.arange(len(qk)) % 2 == 0
+    part = w._part_bits(0)
+    whi, wlo = codec.split_u64(wk)
+    qhi, qlo = codec.split_u64(qk)
+    wslot = hj._slots_u8(hj._extract_part_np(whi, wlo, s, t))
+    qslot = hj._slots_u8(hj._extract_part_np(qhi, qlo, s, t))
+    args_w = (words(whi, dev), words(wlo, dev),
+              torch.from_numpy(wslot).to(dev))
+    args_q = (words(qhi, dev), words(qlo, dev),
+              torch.from_numpy(qslot).to(dev))
+    fwd_d = torch.from_numpy(qfwd).to(dev)
+    runs_w = bucket_runs(*args_w, cap=240, **part)
+    runs_q = bucket_runs(*args_q, cap=240, fwd=fwd_d, **part)
+    compare_runs(runs_w, bucket_runs_plain(*args_w, cap=240, **part),
+                 ", planted words")
+    compare_runs(runs_q, bucket_runs_plain(*args_q, cap=240, fwd=fwd_d,
+                                           **part), ", planted queries")
+    _, planes, _, _, _ = compare_join_bits(runs_w, runs_q, len(qk), k, part,
+                                           ", planted call at 240/240")
+    from quickmer2_tpu_torch.device import popcount32, u32
+    bits = popcount32(u32(planes[:len(qk)])).sum(1).tolist()
+    if len(near) < 60 or bits[:60] != [55] * 60 or bits[60] != 1:
+        raise AssertionError(f"planted call: bits {bits}")
 
 
 def check_join_bits(stream, dict_kmers, k, dev):
-    """K5 on the first BITS_TILE windows of the genome stream as
-    hamming_neighbor_bits joins them: part 0, word chunk 0 at pads 64/32
-    (timed, with the card time of building its layouts), the same on
-    hand-planted buckets, and the tile's slow windows gathered and joined
-    at pads 240/240 as the escalation does."""
-    from quickmer2_tpu_torch.device import popcount32, u32, words
+    """K5 and its counting sort (bucket_runs) on the first BITS_TILE
+    windows of the genome stream as hamming_neighbor_bits joins them:
+    part 0, word chunk 0 at pads 64/32 (timed: the word runs' build, the
+    query runs' build, which is a call's layout time now that the word
+    runs are cached, the kernel, and the padded layouts that the
+    previous design built per call); a planted call; and the tile's slow
+    windows gathered and joined at pads 240/240 as the escalation does.
+    Returns the kernel-table rows of K5 and of its counting sort."""
+    from quickmer2_tpu_torch.device import words
     from quickmer2_tpu_torch.kernels.hamming_join import (
-        join_bits, join_bits_plain)
+        bucket_runs, bucket_runs_plain, join_bits_plain)
     from quickmer2_tpu_torch.ops import codec
     from quickmer2_tpu_torch.ops import hamming_join as hj
     w = hj._BitsWords(dict_kmers, k, hj.CHUNK_W, dev)
@@ -1012,23 +1081,25 @@ def check_join_bits(stream, dict_kmers, k, dev):
     canon, valid, is_fwd, keys_q, active, slow = w.route_tile(seg, 64, 32)
     chi, clo, fwd = hj._device_kmerize(torch.from_numpy(seg).to(dev), k)
     qslot = w.query_slots(0, keys_q, active)
+    part = w._part_bits(0)
     n_buckets = w.n_bkts[0]
-
-    def layouts():
-        return w.layouts(0, 0, chi, clo, fwd, qslot, 64, 32)
-    lay = layouts()
+    c = w.chunks[0]
     nq = len(canon)
-    err, p_k, live_w, live_q = compare_join_bits(lay, nq, k, n_buckets, 64,
-                                                 32, "")
-    planted, nq_p, near_a = plant_bits_buckets(
-        lay, nq, k, 64, 32, np.random.default_rng(5))
-    _, p_planted, _, _ = compare_join_bits(planted, nq_p, k, n_buckets, 64,
-                                           32, ", planted buckets")
-    bits = popcount32(u32(p_planted[list(near_a)])).sum(1)
-    if bits.tolist() != [1, 1]:
-        raise AssertionError(f"near-all-A queries took bits from holes: "
-                             f"{p_planted[list(near_a)].tolist()}")
-    del planted, p_planted
+
+    def word_runs():                    # built anew, not cached
+        return bucket_runs(w.whi_d[c], w.wlo_d[c], w._w_slots(0, 0), cap=64,
+                           **part)
+
+    def query_runs():
+        return w.query_runs(0, chi, clo, fwd, qslot, 32)
+    runs_w, runs_q = word_runs(), query_runs()
+    n_w = compare_runs(runs_w, bucket_runs_plain(
+        w.whi_d[c], w.wlo_d[c], w._w_slots(0, 0), cap=64, **part), ", words")
+    n_q = compare_runs(runs_q, bucket_runs_plain(
+        chi, clo, qslot, cap=32, fwd=fwd, **part), ", queries")
+    err, p_k, pairs, q_buckets, live_w = compare_join_bits(
+        runs_w, runs_q, nq, k, part, "")
+    planted_join(w, dict_kmers, k, dev)
     left = np.flatnonzero(valid & slow)
     g_keys = w.part_keys_of(canon[left])
     g_act = ~(w.over(240, 0)[g_keys[0]] | w.over(240, 1)[g_keys[1]]
@@ -1036,42 +1107,77 @@ def check_join_bits(stream, dict_kmers, k, dev):
     hq = np.bincount(g_keys[0][g_act], minlength=n_buckets)
     g_act &= hq[g_keys[0]] <= 240
     g_hi, g_lo = codec.split_u64(canon[left])
-    lay240 = w.layouts(0, 0, words(g_hi, dev), words(g_lo, dev),
-                       torch.from_numpy(is_fwd[left]).to(dev),
-                       w.query_slots(0, g_keys, g_act), 240, 240)
-    compare_join_bits(lay240, len(left), k, n_buckets, 240, 240,
-                      f", the tile's {len(left)} slow windows gathered")
-    del lay240
-    kw = dict(k=k, n_buckets=n_buckets, cpad=64, cpad_q=32)
-    ms, queued_ms = kernel_ms(lambda: join_bits(*lay, p_k, **kw), 10)
+    g_args = (words(g_hi, dev), words(g_lo, dev),
+              torch.from_numpy(is_fwd[left]).to(dev),
+              w.query_slots(0, g_keys, g_act))
+    runs_g = w.query_runs(0, *g_args, 240)
+    compare_runs(runs_g, bucket_runs_plain(
+        g_args[0], g_args[1], g_args[3], cap=240, fwd=g_args[2], **part),
+        ", the gathered slow windows")
+    compare_join_bits(w.word_runs(0, 0, 240), runs_g, len(left), k, part,
+                      f" 240/240, the tile's {len(left)} slow windows "
+                      "gathered")
+    del runs_g
+    ms, queued_ms = kernel_ms(lambda: w.join_runs(0, runs_w, runs_q, p_k), 10)
     p_p = torch.zeros_like(p_k)
-    plain_ms = cuda_ms(lambda: join_bits_plain(*lay, p_p, **kw), 1)
-    del lay
-    torch.cuda.empty_cache()
-    layout_ms = cuda_ms(layouts, 3)
-    # K1's least traffic with planes in place of sums: qidx of every
-    # query lane, the live flag of every word lane of a bucket with a
-    # live query, 8 B of codes per live word there and per live query,
-    # each live query's strand flag, and its 16-B planes read and
-    # written once; ~16 int ops a live pair
-    has_q = live_q > 0
-    n_live_w, n_live_q = int(live_w[has_q].sum()), int(live_q.sum())
-    pairs = int((live_w * live_q).sum())
-    n_bytes = (4 * (n_buckets * 32 + 64 * int(has_q.sum()))
-               + 8 * (n_live_w + n_live_q) + 4 * n_live_q + 32 * n_live_q)
+    plain_ms = cuda_ms(lambda: join_bits_plain(*runs_w, *runs_q, p_p, k=k,
+                                               **part), 1)
+    word_ms = cuda_ms(word_runs, 3)
+    query_ms, query_queued_ms = kernel_ms(query_runs, 3)
+    query_passes = profile_kernels(query_runs, 3)
+    sort_plain_ms = cuda_ms(lambda: bucket_runs_plain(
+        chi, clo, qslot, cap=32, fwd=fwd, **part), 1)
+    wslots = w._w_slots(0, 0)
+    padded_ms = cuda_ms(lambda: hj._bucket_layouts(
+        w.whi_d[c], w.wlo_d[c], torch.ones_like(wslots, dtype=torch.int32),
+        wslots, chi, clo, qslot, n_buckets=n_buckets, cpad=64, cpad_q=32,
+        **part), 3)
+    # K5's least traffic: 12 B of code and tag a live query, 4 B of
+    # offsets a bucket holding one (and one more), 8 B a live word there,
+    # and the 16-B planes row of each query that gets a bit, read and
+    # written (no other row is touched; the counting sort's keys are
+    # bucket_runs' own traffic); ~16 int ops a live pair. The padded
+    # design's count beside it: qidx of every query lane, the flag of
+    # every word lane of a bucket with a live query, 8 B of codes a live
+    # word there and a live query, the strand flag and the planes
+    bit_rows = int((p_k[:-1] != 0).any(1).sum())
+    n_bytes = 12 * n_q + 4 * (q_buckets + 1) + 8 * live_w + 32 * bit_rows
     b_ms, b_by = bound_ms(n_bytes, 16 * pairs)
+    padded_bytes = (4 * (n_buckets * 32 + 64 * q_buckets)
+                    + 8 * (live_w + n_q) + 4 * n_q + 32 * n_q)
+    padded_b_ms, _ = bound_ms(padded_bytes, 16 * pairs)
+    # the counting sort's least traffic: each entry's code, slot and flag
+    # read once, the runs (12 B an entering query) and offsets written
+    sort_bytes = 10 * nq + 12 * n_q + 4 * (n_buckets + 1)
+    s_ms, s_by = bound_ms(sort_bytes, 0)
     log(f"  join_bits time {ms:.4f} ms (queued {queued_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{n_bytes / 1e6:.1f} MB, {16 * pairs / 1e9:.2f} G ops; "
-        f"{n_live_w} live words in {int(has_q.sum())} buckets with a live "
-        f"query, {n_live_q} live queries); layouts {layout_ms:.4f} ms; "
-        f"tile: {int(valid.sum())} valid windows, {len(left)} slow")
-    return {"name": "join_bits", "route": "cuda",
-            "source": "quickmer2_tpu_torch/csrc/hamming_join.cu",
-            "replaces": "quickmer2_tpu/ops/hamming_join.py:190",
-            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "plain_ms": plain_ms, "layout_ms": layout_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        f"{n_bytes / 1e6:.1f} MB, {bit_rows} planes rows with a bit, "
+        f"{16 * pairs / 1e9:.2f} G ops); the padded "
+        f"design's count {padded_b_ms:.4f} ms; a call: query runs "
+        f"{query_ms:.4f} ms (queued {query_queued_ms:.4f}) + kernel "
+        f"{queued_ms:.4f} = {query_queued_ms + queued_ms:.4f} ms (word runs, "
+        f"built once a pad, part and chunk: {word_ms:.4f} ms, {n_w} words); "
+        f"the padded layouts of the same call {padded_ms:.4f} ms; "
+        f"the query runs' kernels (torch.profiler, ms a call) "
+        f"{query_passes}; bucket_runs bound {s_ms:.4f} ms ({s_by}), plain "
+        f"{sort_plain_ms:.4f} ms; tile: {int(valid.sum())} valid windows, "
+        f"{len(left)} slow")
+    src = "quickmer2_tpu_torch/csrc/hamming_join.cu"
+    return [{"name": "join_bits", "route": "cuda", "source": src,
+             "replaces": "quickmer2_tpu/ops/hamming_join.py:190",
+             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+             "plain_ms": plain_ms, "layout_ms": query_queued_ms,
+             "call_ms": query_queued_ms + queued_ms,
+             "padded_layout_ms": padded_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "bound_padded_ms": padded_b_ms,
+             "library_ms": None},
+            {"name": "bucket_runs", "route": "cuda", "source": src,
+             "replaces": "quickmer2_tpu/ops/hamming_join.py:210",
+             "max_abs_err": 0, "ms": query_ms, "queued_ms": query_queued_ms,
+             "word_runs_ms": word_ms, "passes": query_passes,
+             "plain_ms": sort_plain_ms,
+             "bound_ms": s_ms, "bound_by": s_by, "library_ms": None}]
 
 
 def compare_qai_builders(fa, dev, reset_counts, read_counts):
@@ -1080,7 +1186,7 @@ def compare_qai_builders(fa, dev, reset_counts, read_counts):
     join's routing counts from a second, bitmap-only run. The join's
     build is its own path: the counts are reset just before it and read
     just after. The routing counts are taken on the genome's first
-    quarter. Returns K5's launches there."""
+    quarter. Returns the launches of K5 and its counting sort there."""
     from quickmer2_tpu_torch.dictionary import Dictionary
     from quickmer2_tpu_torch.ops import anchored
     from quickmer2_tpu_torch.ops.hamming_join import hamming_neighbor_bits
@@ -1106,9 +1212,10 @@ def compare_qai_builders(fa, dev, reset_counts, read_counts):
         os.remove(path)
         log(f"  .qai by {builder}: index_s {secs[builder]:.2f} s, "
             f"{len(blobs[builder])} bytes, launches {counts}")
-    join_launches = counts["join_bits"]
-    if join_launches == 0:
-        raise AssertionError("the join-built .qai never launched K5")
+    join_launches = {n: counts[n] for n in ("join_bits", "bucket_runs")}
+    if not all(join_launches.values()):
+        raise AssertionError(f"the join-built .qai did not launch K5 and "
+                             f"its counting sort: {join_launches}")
     if blobs["sweep"] != blobs["join"]:
         raise AssertionError("the .qai by the join differs from the sweep's")
     st = {}
@@ -1411,7 +1518,7 @@ def check_anchored_kernels(fa, g, reads, dev):
     del filt
     for kk in (15, 32):
         check_neighbor_bits_small(kk, dev)
-    rows.append(check_join_bits(stream, dict_kmers, k, dev))
+    rows += check_join_bits(stream, dict_kmers, k, dev)
     B = counter.batch_reads
     rows.append(check_anchored(index, counter, rows_of(reads[:B]), 1, dev))
     tier2, exact, first = spill_batches(index, counter, reads, dev)
@@ -1662,13 +1769,13 @@ def check_count_packed(table, codes, k, dev, timed, label, parts):
     sweep = {p: round(cuda_ms(lambda: count_packed_launch(
         pk, bits, rows, d_plain, n_parts=p, **kw), 10), 4)
         for p in (1, 2, 8, 16, 32, 128) if p != own}
-    # K8b at full width (blk_lo = 0, block_buckets = B: the same engine
-    # with its block checks compiled in) beside K8, in the order K8, K8b,
-    # K8b, K8: ms back to back, then queued
+    # K8b at full width (blk_lo = 0, block_buckets = B: one block) beside
+    # K8, in the order K8, K8b, K8b, K8: ms back to back, then queued
     from quickmer2_tpu_torch.kernels.count_flat import (
-        count_packed_block_launch)
+        block_displaced_filter, count_packed_block_launch)
+    disp = block_displaced_filter(rows, B, 0)
     d_full, d_8 = zero(), zero()
-    count_packed_block_launch(pk, bits, rows, d_full, blk_lo=0,
+    count_packed_block_launch(pk, bits, rows, disp, d_full, blk_lo=0,
                               block_buckets=B, n_parts=own, **kw)
     count_packed_launch(pk, bits, rows, d_8, n_parts=own, **kw)
     torch.cuda.synchronize()
@@ -1677,8 +1784,8 @@ def check_count_packed(table, codes, k, dev, timed, label, parts):
     pair = {"count_packed": lambda: count_packed_launch(
         pk, bits, rows, d_plain, n_parts=own, **kw),
         "count_packed_block": lambda: count_packed_block_launch(
-        pk, bits, rows, d_plain, blk_lo=0, block_buckets=B, n_parts=own,
-        **kw)}
+        pk, bits, rows, disp, d_plain, blk_lo=0, block_buckets=B,
+        n_parts=own, **kw)}
     abba = [(name, [round(x, 4) for x in kernel_ms(pair[name], 10)])
             for name in ("count_packed", "count_packed_block",
                          "count_packed_block", "count_packed")]
@@ -2481,92 +2588,142 @@ def probe_rows(rows, chi, clo, lo=0, bb=None) -> int:
     return int(torch.unique(b[(b >= lo) & (b < lo + bb)]).numel())
 
 
+BLOCK_SWEEP = (16, 32, 64, 128, 256)    # K8b's slice counts, timed
+
+
 def check_count_packed_block(table, codes, k, dev):
     """K8b at the main path's shapes: one 2^24-base batch of the reads
     split over dp = 2 data shards (split_codes_overlap, a k - 1 halo),
-    each against both bucket blocks of the smoke's PackedTable (ds = 2),
-    against its plain version at the block's own slice count P, at P = 1
-    and 2; the four rank-space partials (block_slot_depth_to_rank) sum to
-    K8's rank-space count of the whole batch. Timed on shard 0 against
-    block 0. Returns the kernel-table row."""
+    each against every bucket block of the smoke's PackedTable at ds = 1,
+    2 and 4, against its plain version at the block's own slice count P
+    and at P = 1 and 2; at each ds the rank-space partials
+    (block_slot_depth_to_rank) sum to K8's rank-space count of the whole
+    batch. Timed on shard 0 against block 0 at each ds, each pass by
+    torch.profiler, and at each P of BLOCK_SWEEP (each checked); at ds =
+    2 the four launches of the batch beside one K8 launch on it. Returns
+    the kernel-table row (ds = 2, the smoke's mesh)."""
     from quickmer2_tpu_torch.device import u32
     from quickmer2_tpu_torch.kernels.count_flat import (
-        block_slot_depth_to_rank, count_packed_block_launch,
-        count_packed_block_step, count_packed_block_step_plain,
-        count_packed_step, packed_block_entries, packed_partitions_for,
-        packed_rank_slots, slot_depth_to_rank)
+        block_displaced_filter, block_slot_depth_to_rank,
+        count_packed_block_launch, count_packed_block_step,
+        count_packed_block_step_plain, count_packed_step,
+        packed_block_entries, packed_partitions_for, packed_rank_slots,
+        slot_depth_to_rank)
     from quickmer2_tpu_torch.parallel.count_parallel import (
         split_codes_overlap)
     B, n = table.n_buckets, table.n_kmers
-    bb = B // DS
     rows_all = table.device_rows(dev)
     shards = split_codes_overlap(codes, 2, k)
-    own = packed_partitions_for(bb)
-    total = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-    err = 0
-    for i in range(2):
-        pk, bits, nbytes = flat_batch(shards[i], dev)
-        kw = dict(k=k, n_buckets=B, block_buckets=bb,
-                  n_bases=shards.shape[1])
-        for j in range(DS):
-            rows = rows_all[j * bb:(j + 1) * bb]
-
-            def zero():
-                return torch.zeros(2 * bb + 1, dtype=torch.int32, device=dev)
-            d_k, d_p = zero(), zero()
-            count_packed_block_step(pk, bits, rows, d_k, blk_lo=j * bb, **kw)
-            count_packed_block_step_plain(pk, bits, rows, d_p,
-                                          blk_lo=j * bb, **kw)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(d_k, d_p))
-            if err != 0:
-                raise AssertionError(f"count_packed_block shard {i} block "
-                                     f"{j} disagrees with its plain version")
-            compare_parts("count_packed_block", f"shard {i} block {j}",
-                          lambda d, p: count_packed_block_launch(
-                              pk, bits, rows, d, blk_lo=j * bb, n_parts=p,
-                              **kw), d_p, sorted({1, 2, own}), zero)
-            total += u32(block_slot_depth_to_rank(
-                d_k, packed_block_entries(rows), n))
-            if i == 0 and j == 0:
-                first = (pk, bits, nbytes, rows, kw, d_k)
+    batches = [flat_batch(shards[i], dev) for i in range(2)]
     pk, bits, _ = flat_batch(codes, dev)
     d8 = torch.zeros(2 * B + 1, dtype=torch.int32, device=dev)
-    count_packed_step(pk, bits, rows_all, d8, k=k, n_buckets=B,
-                      n_bases=len(codes))
+
+    def k8():
+        count_packed_step(pk, bits, rows_all, d8, k=k, n_buckets=B,
+                          n_bases=len(codes))
+    k8()
     want = slot_depth_to_rank(d8, packed_rank_slots(rows_all, n), n)
-    if max_abs_err((total & 0xFFFFFFFF)[:n], want[:n]) != 0:
-        raise AssertionError("count_packed_block's partials do not sum to "
-                             "count_packed's depth")
-    pk, bits, nbytes, rows, kw, d_k = first
-    ms, queued_ms = kernel_ms(lambda: count_packed_block_step(
-        pk, bits, rows, d_k, blk_lo=0, **kw), 10)
-    plain_ms = cuda_ms(lambda: count_packed_block_step_plain(
-        pk, bits, rows, d_k, blk_lo=0, **kw), 2)
-    # least traffic: the packed shard, the block's 32-B rows its valid
-    # nonzero windows must read (probe_rows), the 32-B sector of each slot
-    # word with a hit read and written; ~48 int ops a window, as K8
-    chi, clo, ok = codec_windows(pk, bits, k, kw["n_bases"])
-    nz = ok & ((chi | clo) != 0)
-    rows_touched = probe_rows(rows_all, chi[nz], clo[nz], 0, bb)
-    d_sec = int(torch.unique(torch.nonzero(d_k[:-1]).flatten() // 8)
-                .numel()) + 1
-    n_win = kw["n_bases"] - k + 1
-    n_bytes = nbytes + 32 * rows_touched + 64 * d_sec
-    b_ms, b_by = bound_ms(n_bytes, 48 * n_win)
-    log(f"  count_packed_block: 2 shards of {kw['n_bases']} bases x {DS} "
-        f"blocks of {bb} buckets (P = {own}; checked at P = 1, 2), "
-        f"partials summing to count_packed's depth; time {ms:.4f} ms "
-        f"(queued {queued_ms:.4f} ms) a shard and block, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{n_bytes / 1e6:.1f} MB, {rows_touched} local rows, {d_sec} "
-        "depth sectors)")
-    return {"name": "count_packed_block", "route": "cuda",
-            "source": "quickmer2_tpu_torch/csrc/count_flat.cu",
-            "replaces": "quickmer2_tpu/parallel/count_parallel.py:63",
-            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "plain_ms": plain_ms, "partitions": own, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    err, by_ds = 0, {}
+    for ds in (1, 2, 4):
+        bb = B // ds
+        own = packed_partitions_for(bb)
+        kw = dict(k=k, n_buckets=B, block_buckets=bb,
+                  n_bases=shards.shape[1])
+
+        def zero():
+            return torch.zeros(2 * bb + 1, dtype=torch.int32, device=dev)
+        total = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        depths = []
+        for i in range(2):
+            spk, sbits, _ = batches[i]
+            for j in range(ds):
+                rows = rows_all[j * bb:(j + 1) * bb]
+                disp = block_displaced_filter(rows, B, j * bb)
+                d_k, d_p = zero(), zero()
+                count_packed_block_step(spk, sbits, rows, disp, d_k,
+                                        blk_lo=j * bb, **kw)
+                count_packed_block_step_plain(spk, sbits, rows, disp, d_p,
+                                              blk_lo=j * bb, **kw)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(d_k, d_p))
+                if err != 0:
+                    raise AssertionError(
+                        f"count_packed_block ds {ds} shard {i} block {j} "
+                        "disagrees with its plain version")
+                compare_parts("count_packed_block",
+                              f"ds {ds} shard {i} block {j}",
+                              lambda d, p: count_packed_block_launch(
+                                  spk, sbits, rows, disp, d, blk_lo=j * bb,
+                                  n_parts=p, **kw), d_p, sorted({1, 2, own}),
+                              zero)
+                if i == j == 0:         # the slice-count sweep, each P checked
+                    compare_parts("count_packed_block", f"ds {ds} sweep",
+                                  lambda d, p: count_packed_block_launch(
+                                      spk, sbits, rows, disp, d, blk_lo=0,
+                                      n_parts=p, **kw), d_p, BLOCK_SWEEP,
+                                  zero)
+                    d_s = zero()
+                    sweep = {p: round(cuda_ms(
+                        lambda p=p: count_packed_block_launch(
+                            spk, sbits, rows, disp, d_s, blk_lo=0,
+                            n_parts=p, **kw), 10, queued=True), 4)
+                        for p in BLOCK_SWEEP}
+                total += u32(block_slot_depth_to_rank(
+                    d_k, packed_block_entries(rows), n))
+                depths.append((i, j, rows, disp, d_k))
+        if max_abs_err((total & 0xFFFFFFFF)[:n], want[:n]) != 0:
+            raise AssertionError(f"count_packed_block's partials at ds {ds} "
+                                 "do not sum to count_packed's depth")
+        spk, sbits, nbytes = batches[0]
+        rows, disp, d_k = depths[0][2:]
+        def step():
+            count_packed_block_step(spk, sbits, rows, disp, d_k, blk_lo=0,
+                                    **kw)
+        ms, queued_ms = kernel_ms(step, 10)
+        passes = profile_kernels(step, 5)
+        # least traffic: the packed shard, the block's 32-B rows its
+        # valid nonzero windows must read (probe_rows), the 32-B sector
+        # of each slot word with a hit read and written; ~48 int ops a
+        # window, as K8
+        chi, clo, ok = codec_windows(spk, sbits, k, kw["n_bases"])
+        nz = ok & ((chi | clo) != 0)
+        rows_touched = probe_rows(rows_all, chi[nz], clo[nz], 0, bb)
+        d_sec = int(torch.unique(torch.nonzero(d_k[:-1]).flatten() // 8)
+                    .numel()) + 1
+        n_bytes = nbytes + 32 * rows_touched + 64 * d_sec
+        b_ms, b_by = bound_ms(n_bytes, 48 * (kw["n_bases"] - k + 1))
+        by_ds[ds] = {"ms": ms, "queued_ms": queued_ms, "partitions": own,
+                     "bound_ms": b_ms, "bound_by": b_by, "passes": passes,
+                     "sweep_queued_ms": sweep}
+        log(f"  count_packed_block ds {ds}: 2 shards of {kw['n_bases']} "
+            f"bases x {ds} blocks of {bb} buckets (P = {own}; checked at "
+            f"P = 1, 2), partials summing to count_packed's depth; time "
+            f"{ms:.4f} ms (queued {queued_ms:.4f} ms) a shard and block, "
+            f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+            f"{rows_touched} local rows, {d_sec} depth sectors); passes "
+            f"(torch.profiler, ms a call) {passes}; queued ms at P = "
+            f"{sweep} (each checked)")
+        if ds == 2:
+            plain_ms = cuda_ms(lambda: count_packed_block_step_plain(
+                spk, sbits, rows, disp, d_k, blk_lo=0, **kw), 2)
+
+            def four():
+                for i, j, r, f, d in depths:
+                    count_packed_block_step(*batches[i][:2], r, f, d,
+                                            blk_lo=j * bb, **kw)
+            four_ms = cuda_ms(four, 10, queued=True)
+    k8_ms = cuda_ms(k8, 10, queued=True)
+    log(f"  count_packed_block at (2, 2): the batch's four launches "
+        f"{four_ms:.4f} ms queued, one count_packed on it {k8_ms:.4f} ms")
+    row = {"name": "count_packed_block", "route": "cuda",
+           "source": "quickmer2_tpu_torch/csrc/count_flat.cu",
+           "replaces": "quickmer2_tpu/parallel/count_parallel.py:63",
+           "max_abs_err": err, "plain_ms": plain_ms,
+           "four_launches_queued_ms": four_ms, "k8_batch_queued_ms": k8_ms,
+           "library_ms": None}
+    row.update(by_ds[2])
+    row["by_ds"] = by_ds
+    return row
 
 
 def check_count_packed_rows(index, rows, k, dev):
@@ -2912,7 +3069,7 @@ def main() -> int:
     from quickmer2_tpu_torch.kernels.emit_member import member_scan
     from quickmer2_tpu_torch.kernels.est_windows import window_sums
     from quickmer2_tpu_torch.kernels.hamming_join import (
-        join_bits, join_compare)
+        bucket_runs, join_bits, join_compare)
     from quickmer2_tpu_torch.kernels.neighbor_bits import (
         key_filter, neighbor_bits)
     from quickmer2_tpu_torch.kernels.neighbor_sum import neighbor_sum
@@ -2931,7 +3088,8 @@ def main() -> int:
     def reset_counts():
         for fn in (count_mono_step, join_compare, anchored_count,
                    count_mono_rows, neighbor_bits, key_filter, neighbor_sum,
-                   join_bits, count_linear_step, count_packed_step,
+                   join_bits, bucket_runs, count_linear_step,
+                   count_packed_step,
                    kmerize_step, member_scan, window_sums,
                    count_packed_block_step, count_packed_rows, anchor_probes):
             fn.launches = 0
@@ -2950,6 +3108,7 @@ def main() -> int:
                 "key_filter": key_filter.launches,
                 "neighbor_sum": neighbor_sum.launches,
                 "join_bits": join_bits.launches,
+                "bucket_runs": bucket_runs.launches,
                 "count_linear": count_linear_step.launches,
                 "count_packed": count_packed_step.launches,
                 "kmerize": kmerize_step.launches,
@@ -3079,8 +3238,8 @@ def main() -> int:
         log(f"phase kernels (anchored path): {time.time() - t:.1f} s "
             f"(tolerance: exact equality, integer outputs)")
         t = time.time()
-        launches["join_bits"] = compare_qai_builders(
-            world["fa"], dev, reset_counts, read_counts)
+        launches.update(compare_qai_builders(
+            world["fa"], dev, reset_counts, read_counts))
         log(f"phase .qai builders: {time.time() - t:.1f} s")
 
         if not check_only:

@@ -64,11 +64,40 @@
 //
 // K8b replaces quickmer2_tpu/parallel/count_parallel.py::
 // make_sharded_count_step's local_step (:63-92), the flat count of one
-// data shard against one bucket block of a dict-sharded packed table: K8
-// given the block's offset and width (CountPacked<true> below), counting in
-// the block's slot space 2 * Bb + 1; kernels/count_flat.py translates it to
-// the JAX step's rank-space partial depth[dp, ds, n + 1].
-//
+// data shard against one bucket block [blk_lo, blk_lo + Bb) of a
+// dict-sharded packed table, in the block's slot space 2 * Bb + 1 (trash
+// last: every window the block does not count); kernels/count_flat.py
+// translates it to the JAX step's rank-space partial depth[dp, ds, n + 1].
+// K8's passes decoded every window of the shard three times to probe the
+// share whose candidate bucket is local (3/4 of the shard at ds = 2), so
+// K8b has its own design for the block:
+//   candidates - h1's bucket where it is local; h2's only where it is
+//           local and the key may sit there: a bitmap of the block's keys
+//           placed at h2 (~1 % of them; BlockProbe) rules out the rest,
+//           so at ds = 2 about half the shard is probed, not 3/4;
+//   bin   - a block of 256 threads decodes its 4096 windows once (the
+//           staged tile, K8's codec), keeps those with a candidate and
+//           writes their canonical codes (8 B) sorted by slice at the
+//           tile's own place in the runs buffer, with the tile's P + 1
+//           run offsets. No pass over the shard counts first and no
+//           global fill counter is shared;
+//   probe - block (p, g) takes slice p's runs of 8 consecutive tiles, a
+//           thread an entry, probes h1's row and, where it misses, h2's
+//           if it is a candidate, and adds 1 to the slot's depth word.
+//           Blocks run in about slice order, so the rows and depth words
+//           of about one slice (~24 MB, kernels/count_flat.py::
+//           packed_partitions_for) are in use at a time, as in K8.
+// The probe pass sums its hits into 64 counters, and K8's one-warp trash
+// kernel adds the windows less those to the trash, mod 2^32. Both passes
+// are bound by bytes: the probe by its random 32-B row reads and the
+// depth sectors' first touch, the bin by the codes it writes.
+// A probe pass that holds a slice's depth words in shared memory (P up to
+// 2048, so that 2 * Bb / P words fit in 128 KB, and each nonzero word
+// added to depth once) ran slower at every ds (PERF.md section 6): a
+// batch hits a depth word about once, so the shared adds spare few global
+// ones and the flush touches the same sectors, while gathering a slice's
+// short runs from every tile reads offsets and codes a sector at a time.
+
 // K9 replaces _kmerize_step_pk (:152-156), the sort-join engine's codec:
 // (chi, clo, valid) for every window, an invalid window written as key 0
 // (ops/sortjoin.py's contract), so the plain codec stays off the card.
@@ -135,43 +164,29 @@ struct CountLinear {
   }
 };
 
-// K8 and K8b: the two candidate buckets of one code; code 0 matches
-// nothing and goes to the trash unprobed. A key sits in one bucket, h1's
-// for all but a few (first fit at build), so a binned window is probed in
-// its slice and reads h2's row only where h1's misses (the misses, and the
-// keys placed at h2: a read outside the slice). K8b (kBlock) counts against
-// one bucket block [blk_lo, blk_lo + blk_last] of the table (rows holds the
-// block's rows only), in the block's slot space 2 * (bucket - blk_lo) +
-// entry: a candidate outside the block (the u32 wrap of bucket - blk_lo)
-// reads no row, and a window is binned in the slice of its first local
-// candidate or goes to the trash unprobed when neither is local, so the
-// trash takes every window the block does not count. K8 is the whole table
-// with those checks compiled out: run at full width, K8b's checks cost 2 %
-// (PERF.md §6).
-template <bool kBlock>
+// K8: the two candidate buckets of one code; code 0 matches nothing and
+// goes to the trash unprobed. A key sits in one bucket, h1's for all but a
+// few (first fit at build), so a binned window is probed in its slice and
+// reads h2's row only where h1's misses (the misses, and the keys placed
+// at h2: a read outside the slice).
 struct CountPacked {
   const uint4* rows;
-  unsigned bucket_mask, blk_lo, blk_last;    // K8: 0 and bucket_mask
-  int shift;     // slice of a local bucket: (bucket - blk_lo) >> shift
+  unsigned bucket_mask;
+  int shift;     // slice of a bucket: bucket >> shift
 
-  __device__ __forceinline__ unsigned local(u64 canon, int c) const {
+  __device__ __forceinline__ unsigned bucket(u64 canon, int c) const {
     const unsigned h =
         qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon);
-    const unsigned b = (c ? (h * qm2t::kH2Mult) >> 7 : h) & bucket_mask;
-    return kBlock ? b - blk_lo : b;
+    return (c ? (h * qm2t::kH2Mult) >> 7 : h) & bucket_mask;
   }
 
   __device__ __forceinline__ unsigned short part(u64 canon) const {
     if (canon == 0) return kNoPart;
-    const unsigned o1 = local(canon, 0);
-    if (!kBlock || o1 <= blk_last) return (unsigned short)(o1 >> shift);
-    const unsigned o2 = local(canon, 1);
-    return o2 <= blk_last ? (unsigned short)(o2 >> shift) : kNoPart;
+    return (unsigned short)(bucket(canon, 0) >> shift);
   }
 
-  // The matching slot of local bucket o, or -1 (o outside the block).
+  // The matching slot of bucket o, or -1.
   __device__ __forceinline__ long long entry_of(unsigned o, u64 canon) const {
-    if (kBlock && o > blk_last) return -1;
     const unsigned hi = (unsigned)(canon >> 32);
     const unsigned lo = (unsigned)canon;
     long long slot = -1;
@@ -187,14 +202,82 @@ struct CountPacked {
   // the one matching entry, as the JAX probe's later-wins order does.
   __device__ __forceinline__ long long probe(u64 canon) const {
     if (canon == 0) return -1;
-    const long long s1 = entry_of(local(canon, 0), canon);
-    const long long s2 = entry_of(local(canon, 1), canon);
+    const long long s1 = entry_of(bucket(canon, 0), canon);
+    const long long s2 = entry_of(bucket(canon, 1), canon);
     return s2 >= 0 ? s2 : s1;
   }
 
   __device__ __forceinline__ long long probe_binned(u64 canon) const {
-    const long long s1 = entry_of(local(canon, 0), canon);
-    return s1 >= 0 ? s1 : entry_of(local(canon, 1), canon);
+    const long long s1 = entry_of(bucket(canon, 0), canon);
+    return s1 >= 0 ? s1 : entry_of(bucket(canon, 1), canon);
+  }
+};
+
+// K8b: the candidates of one code local to the bucket block [blk_lo,
+// blk_lo + blk_last] (rows holds the block's rows only), in the block's
+// slot space 2 * (bucket - blk_lo) + entry. A candidate outside the block
+// (the u32 wrap of bucket - blk_lo) reads no row. A key sits at h2 only
+// where h1's bucket was full at build (~1 % of keys on the smoke's
+// table); `displaced` is a bitmap of those keys' hashes in this block
+// (kernels/count_flat.py::block_displaced_filter, no false negatives), so
+// h2 is a candidate only where its bit is set. A window goes to the slice
+// of its first candidate, or to the trash unprobed when it has none: the
+// windows whose h1 lies in another block, about half of those that have a
+// local candidate at ds = 2, mostly go unprobed.
+struct BlockProbe {
+  const uint4* rows;
+  const unsigned* displaced;
+  unsigned bucket_mask, blk_lo, blk_last;
+  int shift;         // slice of a local bucket: (bucket - blk_lo) >> shift
+  int filter_shift;  // 32 - log2 of the bitmap's bits
+
+  __device__ __forceinline__ unsigned local(unsigned h, int c) const {
+    return ((c ? (h * qm2t::kH2Mult) >> 7 : h) & bucket_mask) - blk_lo;
+  }
+
+  __device__ __forceinline__ bool maybe_displaced(unsigned h) const {
+    const unsigned i = (h * qm2t::kFilterMult) >> filter_shift;
+    return (__ldg(displaced + (i >> 5)) >> (i & 31u)) & 1u;
+  }
+
+  // The h2 bucket, where it is local and may hold the key; else past
+  // blk_last.
+  __device__ __forceinline__ unsigned second(unsigned h) const {
+    const unsigned o2 = local(h, 1);
+    return o2 <= blk_last && maybe_displaced(h) ? o2 : blk_last + 1;
+  }
+
+  __device__ __forceinline__ unsigned short part(u64 canon) const {
+    if (canon == 0) return kNoPart;
+    const unsigned h =
+        qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon);
+    const unsigned o1 = local(h, 0);
+    if (o1 <= blk_last) return (unsigned short)(o1 >> shift);
+    const unsigned o2 = second(h);
+    return o2 <= blk_last ? (unsigned short)(o2 >> shift) : kNoPart;
+  }
+
+  // The matching slot of local bucket o, or -1 (o outside the block).
+  __device__ __forceinline__ long long entry_of(unsigned o, u64 canon) const {
+    if (o > blk_last) return -1;
+    const unsigned hi = (unsigned)(canon >> 32);
+    const unsigned lo = (unsigned)canon;
+    long long slot = -1;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint4 v = __ldg(rows + 2ull * o + e);
+      if (v.x == hi && v.y == lo) slot = 2LL * o + e;
+    }
+    return slot;
+  }
+
+  // A binned (nonzero) code: h1's row where local, then h2's where that
+  // misses and h2 is a candidate.
+  __device__ __forceinline__ long long probe(u64 canon) const {
+    const unsigned h =
+        qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon);
+    const long long s1 = entry_of(local(h, 0), canon);
+    return s1 >= 0 ? s1 : entry_of(second(h), canon);
   }
 };
 
@@ -359,6 +442,150 @@ __global__ void trash_kernel(const unsigned* __restrict__ spread,
   if (threadIdx.x == 0) *trash += n - hits;
 }
 
+// K8b's bin pass: block b decodes tile b once and writes its local
+// windows' codes to runs[b * kTile, ...) sorted by slice, slice p's run
+// from tile_off[b * (P + 1) + p] to the next offset. One pass over the
+// tile gives each window its place in its slice's run (a shared atomic on
+// the block's slice counter, which ran faster here than warp_add's
+// __match_any_sync) and keeps its code in shared memory; a block-wide
+// scan of the counts (a slice a thread) gives the run starts; the codes
+// are sorted in shared memory and the tile's runs, one range, are written
+// out coalesced. Runs hold only the tile's local windows. Four blocks an
+// SM (64 registers, a few bytes spilled) ran faster than three.
+__global__ void __launch_bounds__(kThreads, 4)
+block_bin_kernel(FlatWindows m, BlockProbe eng, u64* __restrict__ runs,
+                 unsigned* __restrict__ tile_off, int n_parts) {
+  constexpr int kPer = kTile / kThreads;
+  constexpr int kWarps = kThreads / 32;
+  __shared__ FlatWindows::Tile tile;
+  __shared__ unsigned count[kMaxParts];  // a slice's count, then its start
+  static_assert(kMaxParts <= kThreads, "a slice a thread in the scan");
+  __shared__ unsigned warp_start[kWarps];
+  __shared__ unsigned n_local;         // the tile's local windows
+  __shared__ u64 codes[kTile];
+  const long long base = (long long)blockIdx.x * kTile;
+  for (int p = threadIdx.x; p < n_parts; p += kThreads) count[p] = 0;
+  m.stage(tile, base);
+  unsigned slot[kPer];      // slice << 16 | place in the slice's run
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int j = threadIdx.x + r * kThreads;
+    u64 c = 0;
+    const unsigned s = base + j < m.n && m.valid(tile, j, &c)
+                           ? eng.part(c) : kNoPart;
+    codes[j] = c;
+    slot[r] = s << 16 | (s != kNoPart ? atomicAdd(&count[s], 1u) : 0u);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int p = threadIdx.x;
+  const unsigned v = p < n_parts ? count[p] : 0u;
+  unsigned x = v;                      // the warp's inclusive scan
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_start[threadIdx.x >> 5] = x;
+  __syncthreads();
+  if (threadIdx.x < 32) {              // the warps' totals, exclusive
+    const unsigned t = lane < kWarps ? warp_start[lane] : 0u;
+    unsigned z = t;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, z, d);
+      if (lane >= d) z += y;
+    }
+    if (lane < kWarps) warp_start[lane] = z - t;
+  }
+  __syncthreads();
+  const unsigned at = warp_start[threadIdx.x >> 5] + x - v;
+  unsigned* off = tile_off + (long long)blockIdx.x * (n_parts + 1);
+  if (p < n_parts) {
+    count[p] = at;
+    off[p] = at;
+  }
+  if (threadIdx.x == kThreads - 1) {
+    off[n_parts] = at + v;
+    n_local = at + v;
+  }
+  u64 mine[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) mine[r] = codes[threadIdx.x + r * kThreads];
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {     // sorted by slice, in place
+    const unsigned s = slot[r] >> 16;
+    if (s != kNoPart) codes[count[s] + (slot[r] & 0xFFFFu)] = mine[r];
+  }
+  __syncthreads();
+  for (unsigned j = threadIdx.x; j < n_local; j += kThreads) {
+    runs[base + j] = codes[j];         // coalesced
+  }
+}
+
+// K8b's probe pass takes the runs of kGroupTiles tiles a block: on the
+// smoke's shard 8 ran faster than 16 and 32, and as fast as 4.
+constexpr int kGroupTiles = 8;
+
+// K8b's probe pass: block (p, g) probes slice p's runs of tiles [8g,
+// 8g + 8), a thread an entry; the block's hits go to one of kSpread
+// counters.
+__global__ void __launch_bounds__(kThreads)
+block_probe_kernel(BlockProbe eng, const u64* __restrict__ runs,
+                   const unsigned* __restrict__ tile_off,
+                   unsigned* __restrict__ depth, unsigned* __restrict__ spread,
+                   int n_parts, int n_tiles) {
+  __shared__ long long start[kGroupTiles];
+  __shared__ unsigned first[kGroupTiles + 1];
+  __shared__ unsigned n_hits;
+  const int groups = (n_tiles + kGroupTiles - 1) / kGroupTiles;
+  const int p = blockIdx.x / groups;
+  const int t0 = (blockIdx.x % groups) * kGroupTiles;
+  const int nt = min(kGroupTiles, n_tiles - t0);
+  if (threadIdx.x < 32) {
+    unsigned len = 0;
+    if ((int)threadIdx.x < nt) {
+      const long long t = t0 + threadIdx.x;
+      const unsigned* off = tile_off + t * (n_parts + 1) + p;
+      start[threadIdx.x] = t * kTile + off[0];
+      len = off[1] - off[0];
+    }
+    unsigned x = len;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+      if ((int)threadIdx.x >= d) x += y;
+    }
+    if ((int)threadIdx.x < kGroupTiles) first[threadIdx.x + 1] = x;
+    if (threadIdx.x == 0) {
+      first[0] = 0;
+      n_hits = 0;
+    }
+  }
+  __syncthreads();
+  const unsigned total = first[nt];
+  unsigned hit = 0;
+  for (unsigned e = threadIdx.x; e < total; e += kThreads) {
+    int r = 0;                       // the run holding entry e
+#pragma unroll
+    for (int step = kGroupTiles / 2; step > 0; step >>= 1) {
+      if (r + step < nt && first[r + step] <= e) r += step;
+    }
+    const long long s = eng.probe(__ldg(runs + start[r] + (e - first[r])));
+    if (s >= 0) {
+      atomicAdd(depth + s, 1u);
+      ++hit;
+    }
+  }
+  const unsigned hits = __reduce_add_sync(0xFFFFFFFFu, hit);
+  if ((threadIdx.x & 31) == 0 && hits) atomicAdd(&n_hits, hits);
+  __syncthreads();
+  if (threadIdx.x == 0 && n_hits) {
+    atomicAdd(spread + (blockIdx.x & (kSpread - 1)), n_hits);
+  }
+}
+
 // K9: (chi, clo, valid) of every window, invalid windows as key 0.
 __global__ void __launch_bounds__(kThreads)
 kmerize_kernel(FlatWindows m, unsigned* __restrict__ chi,
@@ -458,9 +685,8 @@ extern "C" int qm2t_count_packed(const void* pk, const void* bits,
       bad_parts(n_parts, n_buckets, work)) {
     return (int)cudaErrorInvalidValue;
   }
-  const CountPacked<false> eng = {
-      (const uint4*)rows, (unsigned)(n_buckets - 1), 0u,
-      (unsigned)(n_buckets - 1), log2_of(n_buckets) - log2_of(n_parts)};
+  const CountPacked eng = {(const uint4*)rows, (unsigned)(n_buckets - 1),
+                           log2_of(n_buckets) - log2_of(n_parts)};
   return count_windows(flat_windows(pk, bits, n_bases, k), eng, depth,
                        2 * n_buckets, n_parts, work, (cudaStream_t)stream);
 }
@@ -469,10 +695,15 @@ extern "C" int qm2t_count_packed(const void* pk, const void* bits,
 // blk_lo + block_buckets) of a table of n_buckets (block_buckets a power of
 // two dividing n_buckets, blk_lo a multiple of it); depth u32[2 *
 // block_buckets + 1] in the block's slot space, its last word the trash;
-// n_parts the slice count over the block's buckets; work as K7's.
+// displaced u32[2^filter_bits / 32] the block's bitmap of keys at h2;
+// n_parts the slice count over the block's buckets; work 8-B aligned
+// scratch: runs u64[tiles * 4096], tile offsets u32[tiles * (n_parts +
+// 1)] and 64 hit counters, tiles = ceil((n_bases - k + 1) / 4096)
+// (kernels/count_flat.py::block_workspace).
 extern "C" int qm2t_count_packed_block(const void* pk, const void* bits,
-                                       const void* rows, void* depth,
-                                       long long n_bases, int k,
+                                       const void* rows,
+                                       const void* displaced, int filter_bits,
+                                       void* depth, long long n_bases, int k,
                                        long long n_buckets, long long blk_lo,
                                        long long block_buckets, int n_parts,
                                        void* work, void* stream) {
@@ -481,16 +712,32 @@ extern "C" int qm2t_count_packed_block(const void* pk, const void* bits,
       block_buckets < 1 || (block_buckets & (block_buckets - 1)) != 0 ||
       n_buckets % block_buckets != 0 || blk_lo < 0 ||
       blk_lo % block_buckets != 0 || blk_lo + block_buckets > n_buckets ||
-      bad_parts(n_parts, block_buckets, work)) {
+      bad_parts(n_parts, block_buckets, work) || work == nullptr ||
+      ((uintptr_t)work & 7) != 0 || filter_bits < 5 || filter_bits > 32) {
     return (int)cudaErrorInvalidValue;
   }
-  const CountPacked<true> eng = {
-      (const uint4*)rows, (unsigned)(n_buckets - 1), (unsigned)blk_lo,
-      (unsigned)(block_buckets - 1),
-      log2_of(block_buckets) - log2_of(n_parts)};
-  return count_windows(flat_windows(pk, bits, n_bases, k), eng, depth,
-                       2 * block_buckets, n_parts, work,
-                       (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  const BlockProbe eng = {(const uint4*)rows, (const unsigned*)displaced,
+                          (unsigned)(n_buckets - 1), (unsigned)blk_lo,
+                          (unsigned)(block_buckets - 1),
+                          log2_of(block_buckets) - log2_of(n_parts),
+                          32 - filter_bits};
+  const FlatWindows m = flat_windows(pk, bits, n_bases, k);
+  const int tiles = (int)tiles_of(m);
+  u64* runs = (u64*)work;
+  unsigned* tile_off = (unsigned*)(runs + (long long)tiles * kTile);
+  unsigned* spread = tile_off + (long long)tiles * (n_parts + 1);
+  const cudaError_t rc =
+      cudaMemsetAsync(spread, 0, kSpread * sizeof(unsigned), s);
+  if (rc != cudaSuccess) return (int)rc;
+  block_bin_kernel<<<tiles, kThreads, 0, s>>>(m, eng, runs, tile_off,
+                                              n_parts);
+  const long long groups = (tiles + kGroupTiles - 1) / kGroupTiles;
+  block_probe_kernel<<<(unsigned)(groups * n_parts), kThreads, 0, s>>>(
+      eng, runs, tile_off, (unsigned*)depth, spread, n_parts, tiles);
+  trash_kernel<<<1, 32, 0, s>>>(spread, (unsigned*)depth + 2 * block_buckets,
+                                (unsigned)m.n);
+  return (int)cudaGetLastError();
 }
 
 // pk, bits as above; chi, clo u32[n_bases - k + 1] and valid u8[n_bases - k

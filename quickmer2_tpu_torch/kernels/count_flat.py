@@ -28,12 +28,15 @@ card a table larger than L2 is probed slice by slice
 buffer cached per device and size.
 
 `count_packed_block_step` (K8b) replaces quickmer2_tpu/parallel/
-count_parallel.py::make_sharded_count_step's local step: K8 against one
-bucket block [blk_lo, blk_lo + block_buckets) of a dict-sharded packed
-table, in the block's slot space u32[2 * block_buckets + 1] (trash last:
-every window the block does not count). `block_slot_depth_to_rank` maps
-it to the JAX step's rank-space partial u32[n_kmers + 1] through the
-block's live entries (`packed_block_entries`).
+count_parallel.py::make_sharded_count_step's local step: the packed
+probe against one bucket block [blk_lo, blk_lo + block_buckets) of a
+dict-sharded packed table, in the block's slot space u32[2 *
+block_buckets + 1] (trash last: every window the block does not count).
+Its kernel decodes the shard once, keeps the windows with a local
+candidate and sorts them by slice (a bin pass writing 8-B codes), then
+probes slice by slice. `block_slot_depth_to_rank` maps it to the JAX
+step's rank-space partial u32[n_kmers + 1] through the block's live
+entries (`packed_block_entries`).
 
 `kmerize_step` (K9) replaces _kmerize_step_pk, the sort-join engine's
 codec: (chi, clo, valid) of every window, invalid windows as key 0
@@ -65,8 +68,9 @@ _ARGTYPES = {
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p],
     "qm2t_count_packed_block": [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 3 + [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [
+        ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p],
     "qm2t_kmerize": [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]}
 
@@ -235,7 +239,7 @@ def count_packed_step_plain(pk, bits, rows, depth, *, k: int, n_buckets: int,
                             n_bases: int) -> None:
     """Plain PyTorch version: the whole table as the one block of
     count_packed_block_step_plain, whose slot space is then K8's."""
-    count_packed_block_step_plain(pk, bits, rows, depth, k=k,
+    count_packed_block_step_plain(pk, bits, rows, None, depth, k=k,
                                   n_buckets=n_buckets, blk_lo=0,
                                   block_buckets=n_buckets, n_bases=n_bases)
 
@@ -300,67 +304,133 @@ def block_slot_depth_to_rank(depth: torch.Tensor, entries,
     return out & U32 if out.dtype == torch.int64 else out
 
 
-def count_packed_block_step_plain(pk, bits, rows, depth, *, k: int,
+def block_displaced_filter(rows: torch.Tensor, n_buckets: int,
+                           blk_lo: int) -> torch.Tensor:
+    """The bitmap of a block's displaced keys, those that sit in their
+    h2 bucket because h1's was full at build: u32 words [2^b / 32], at
+    least 32 bits a displaced key and 1024 words, with bit (DJB *
+    FILTER_MULT mod 2^32) >> (32 - b) set for each. It has no false
+    negatives, so K8b reads h2's row only where a window's bit is set.
+    Plain torch, once a block (rows: the block's [Bb, 8])."""
+    from quickmer2_tpu_torch.kernels.count_mono import pack_lanes
+    from quickmer2_tpu_torch.kernels.neighbor_bits import FILTER_MULT
+    from quickmer2_tpu_torch.ops.hash import djb_pair, mul32
+    e = u32(rows.reshape(-1, 4))
+    bucket = torch.arange(e.shape[0], device=rows.device) // 2 + blk_lo
+    h = djb_pair(e[:, 0], e[:, 1])
+    moved = ((e[:, 0] | e[:, 1]) != 0) & ((h & (n_buckets - 1)) != bucket)
+    n_bits = max(15, (32 * int(moved.sum()) - 1).bit_length())
+    flags = torch.zeros(1 << n_bits, dtype=torch.bool, device=rows.device)
+    flags[mul32(h[moved], FILTER_MULT) >> (32 - n_bits)] = True
+    return pack_lanes(flags, rows.dtype)
+
+
+def _maybe_displaced(h: torch.Tensor, displaced: torch.Tensor | None):
+    """Whether each hash's bit is set in the bitmap (all set for None)."""
+    from quickmer2_tpu_torch.kernels.neighbor_bits import FILTER_MULT
+    from quickmer2_tpu_torch.ops.hash import mul32
+    if displaced is None:
+        return torch.ones(h.shape, dtype=torch.bool, device=h.device)
+    n_bits = (32 * displaced.shape[0]).bit_length() - 1
+    i = mul32(h, FILTER_MULT) >> (32 - n_bits)
+    return ((u32(displaced)[i >> 5] >> (i & 31)) & 1) != 0
+
+
+def count_packed_block_step_plain(pk, bits, rows, displaced, depth, *, k: int,
                                   n_buckets: int, blk_lo: int,
                                   block_buckets: int, n_bases: int) -> None:
-    """Plain PyTorch version: unpack, kmerize, probe the block's
-    candidates, add at the matching local slot (the trash for an invalid
-    window, a miss or a key of another block)."""
+    """Plain PyTorch version, in the kernel's two passes. Bin: decode
+    the windows and keep the valid nonzero ones with a candidate: h1's
+    bucket where it is local, else h2's where it is local and the
+    window's bit in `displaced` (block_displaced_filter; None: every
+    local h2) is set. Probe: h1's row, then h2's where that misses and
+    h2 is a candidate, and add 1 at the matching local slot; every other
+    window (invalid, a miss, a key of another block) adds to the
+    trash."""
     from quickmer2_tpu_torch.ops.hash import djb_pair
     chi, clo, valid = batch_windows(pk, bits, k, n_bases)
     trash = 2 * block_buckets
+    h = djb_pair(chi, clo)
+    o1, o2 = ((b - blk_lo) & U32
+              for b in packed_table.bucket_hashes_t(h, n_buckets))
+    second = (o2 < block_buckets) & _maybe_displaced(h, displaced)
+    binned = torch.nonzero(valid & ((chi | clo) != 0)
+                           & ((o1 < block_buckets) | second)).flatten()
     slot = torch.full(chi.shape, trash, dtype=torch.int64, device=chi.device)
-    ok = valid & ((chi | clo) != 0)
-    for b in packed_table.bucket_hashes_t(djb_pair(chi, clo), n_buckets):
-        off = (b - blk_lo) & U32
-        local = off < block_buckets
-        r = u32(rows[torch.where(local, off, 0)])
+    code = u32(chi[binned]), u32(clo[binned])
+    # h2 first, so that h1's match is the one kept
+    for o, cand in ((o2[binned], second[binned]),
+                    (o1[binned], o1[binned] < block_buckets)):
+        r = u32(rows[torch.where(cand, o, 0)])
         for e in range(packed_table.ENTRIES_PER_BUCKET):
-            m = (ok & local & (r[:, 4 * e] == chi)
-                 & (r[:, 4 * e + 1] == clo))
-            slot = torch.where(m, 2 * off + e, slot)
+            m = cand & (r[:, 4 * e] == code[0]) & (r[:, 4 * e + 1] == code[1])
+            slot[binned] = torch.where(m, 2 * o + e, slot[binned])
     _add(depth, slot)
 
 
 def count_packed_block_step(pk: torch.Tensor, bits: torch.Tensor,
-                            rows: torch.Tensor, depth: torch.Tensor, *,
-                            k: int, n_buckets: int, blk_lo: int,
-                            block_buckets: int, n_bases: int) -> None:
+                            rows: torch.Tensor, displaced: torch.Tensor,
+                            depth: torch.Tensor, *, k: int, n_buckets: int,
+                            blk_lo: int, block_buckets: int,
+                            n_bases: int) -> None:
     """One batch into the block's slot-space `depth` u32[2 *
-    block_buckets + 1] (updated in place); rows: the block's [Bb, 8]."""
+    block_buckets + 1] (updated in place); rows: the block's [Bb, 8],
+    displaced: its block_displaced_filter."""
     if pk.device.type == "cpu":
         count_packed_block_step_plain(
-            pk, bits, rows, depth, k=k, n_buckets=n_buckets, blk_lo=blk_lo,
-            block_buckets=block_buckets, n_bases=n_bases)
+            pk, bits, rows, displaced, depth, k=k, n_buckets=n_buckets,
+            blk_lo=blk_lo, block_buckets=block_buckets, n_bases=n_bases)
         return
     count_packed_block_launch(
-        pk, bits, rows, depth, k=k, n_buckets=n_buckets, blk_lo=blk_lo,
-        block_buckets=block_buckets, n_bases=n_bases,
+        pk, bits, rows, displaced, depth, k=k, n_buckets=n_buckets,
+        blk_lo=blk_lo, block_buckets=block_buckets, n_bases=n_bases,
         n_parts=packed_partitions_for(block_buckets))
     count_packed_block_step.launches += 1
 
 
-def count_packed_block_launch(pk, bits, rows, depth, *, k: int,
+def count_packed_block_launch(pk, bits, rows, displaced, depth, *, k: int,
                               n_buckets: int, blk_lo: int,
                               block_buckets: int, n_bases: int,
                               n_parts: int) -> None:
     """K8b on CUDA tensors at P = n_parts slices of the block's buckets;
     count_packed_block_step's launch, which it alone counts."""
+    n_words = displaced.shape[0]
     check_batch("count_packed_block_step", pk, bits, k, n_bases, [
         ("rows", rows, torch.int32, (block_buckets, packed_table.ROW_WIDTH)),
+        ("displaced", displaced, torch.int32, (n_words,)),
         ("depth", depth, torch.int32, (2 * block_buckets + 1,))])
+    if n_words < 1 or n_words & (n_words - 1) or n_words > 1 << 27:
+        raise ValueError(f"count_packed_block_step: bad bitmap of {n_words} "
+                         "words")
     if (n_buckets < 1 or n_buckets > 1 << 32 or n_buckets & (n_buckets - 1)
             or block_buckets < 1 or n_buckets % block_buckets
             or blk_lo % block_buckets or blk_lo + block_buckets > n_buckets):
         raise ValueError(f"count_packed_block_step: bad block [{blk_lo}, "
                          f"{blk_lo} + {block_buckets}) of {n_buckets}")
     _check_parts("count_packed_block_step", n_parts, block_buckets)
-    n = n_bases - k + 1
-    work = workspace(pk.device, n) if n_parts > 1 else None
     _launch("qm2t_count_packed_block", "count_packed_block", pk.device,
             pk.data_ptr(), bits.data_ptr(), rows.data_ptr(),
+            displaced.data_ptr(), (32 * n_words).bit_length() - 1,
             depth.data_ptr(), n_bases, k, n_buckets, blk_lo, block_buckets,
-            n_parts, None if work is None else work.data_ptr())
+            n_parts, block_workspace(pk.device, n_bases - k + 1,
+                                     n_parts).data_ptr())
+
+
+def block_workspace(device: torch.device, n: int,
+                    n_parts: int) -> torch.Tensor:
+    """K8b's scratch for n windows at P slices: the runs (8 B a window
+    of each 4096-window tile), the tiles' P + 1 run offsets and 64 hit
+    counters; one per device, window count and P."""
+    key = (device, n, n_parts)
+    if key not in _block_work:
+        tiles = -(-n // 4096)
+        _block_work[key] = torch.empty(
+            8 * tiles * 4096 + 4 * (tiles * (n_parts + 1) + 64),
+            dtype=torch.uint8, device=device)
+    return _block_work[key]
+
+
+_block_work: dict = {}
 
 
 count_packed_block_step.launches = 0

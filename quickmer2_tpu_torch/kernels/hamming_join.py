@@ -1,5 +1,5 @@
 """Hamming-join compare chains: the CUDA kernels of csrc/hamming_join.cu
-(K1 and K5) and their plain PyTorch versions.
+(K1, and K5 with its counting sort) and their plain PyTorch versions.
 
 `join_compare` (K1) replaces the slab loop of quickmer2_tpu/ops/
 hamming_join.py::_part_chunk_join (and the Pallas prototype
@@ -8,12 +8,14 @@ layouts it adds, for every live query lane, Σ occ(w)·(6/m) over the
 bucket's word lanes w with 1 ≤ H(q, w) ≤ e into scaled[qidx] (u32,
 wrapping).
 
-`join_bits` (K5) replaces the slab loop of _part_chunk_join_bits: on the
-same layouts, with a live flag in place of occ and a strand flag per
-query lane, it ORs into planes[qidx, b] the bit j of every substitution
-(window offset j, base b) that turns the query window into a word at
-Hamming distance exactly 1. Layouts and terms are described in the CUDA
-source.
+`join_bits` (K5) replaces _part_chunk_join_bits: it ORs into
+planes[q, b] the bit j of every substitution (window offset j, base b)
+that turns query window q into a word of its bucket at Hamming distance
+exactly 1. Its inputs are bucket runs, not padded layouts: each side's
+entries sorted by one part's key, with offsets u32[B + 1] (CSR), built
+on the card by `bucket_runs`, a counting sort that keeps each entry at
+its in-bucket slot, so the runs hold the lanes the padded layout held.
+Terms and layouts are described in the CUDA source.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel, or raises.
@@ -31,8 +33,19 @@ from quickmer2_tpu_torch.kernels import build
 _ARGTYPES = ([ctypes.c_void_p] * 7
              + [ctypes.c_longlong] + [ctypes.c_int] * 4
              + [ctypes.c_uint] * 6 + [ctypes.c_void_p])
-_BITS_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
-                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_RUNS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+_BITS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong,
+                                           ctypes.c_void_p]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+SCAN_TILE = 2048    # counts a block of the counting sort's scan
+
+
+def _lib():
+    return build.load("hamming_join",
+                      {"qm2t_hamming_join": _ARGTYPES,
+                       "qm2t_bucket_runs": _RUNS_ARGTYPES,
+                       "qm2t_hamming_join_bits": _BITS_ARGTYPES})
 
 
 def join_compare_plain(dh, dl, docc, qh, ql, qidx, scaled, *, e: int, masks,
@@ -92,9 +105,7 @@ def join_compare(dh: torch.Tensor, dl: torch.Tensor, docc: torch.Tensor,
     if not (1 <= cpad <= 255 and 1 <= cpad_q <= 255 and e >= 1):
         raise ValueError(f"join_compare: bad cpad={cpad} cpad_q={cpad_q} "
                          f"e={e}")
-    lib = build.load("hamming_join",
-                     {"qm2t_hamming_join": _ARGTYPES,
-                      "qm2t_hamming_join_bits": _BITS_ARGTYPES})
+    lib = _lib()
     flat_masks = [int(v) for pair in masks for v in pair]
     with torch.cuda.device(dh.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -109,79 +120,174 @@ def join_compare(dh: torch.Tensor, dl: torch.Tensor, docc: torch.Tensor,
 join_compare.launches = 0
 
 
+def part_keys(hi: torch.Tensor, lo: torch.Tensor, lo_bit: int,
+              width: int) -> torch.Tensor:
+    """Bits [lo_bit, lo_bit + width) of the (hi, lo) codes (word
+    tensors) as int64: one pigeonhole part's bucket."""
+    return (((u32(hi) << 32) | u32(lo)) >> lo_bit) & ((1 << width) - 1)
+
+
+def bucket_runs_plain(hi, lo, slot, *, lo_bit: int, width: int, cap: int,
+                      fwd=None):
+    """Plain PyTorch version of bucket_runs: a stable sort by (part key,
+    slot) of the entries whose slot is below cap."""
+    n = hi.shape[0]
+    key = part_keys(hi, lo, lo_bit, width)
+    s = slot.to(torch.int64)
+    sel = torch.nonzero(s < cap).flatten()
+    order = sel[torch.argsort(key[sel] * 256 + s[sel])]
+    off = torch.zeros((1 << width) + 1, dtype=torch.int64, device=hi.device)
+    off[1:] = torch.cumsum(torch.bincount(key[sel], minlength=1 << width), 0)
+    codes = torch.zeros((n, 2), dtype=hi.dtype, device=hi.device)
+    codes[:len(order), 0] = hi[order]
+    codes[:len(order), 1] = lo[order]
+    off = store(off, hi.dtype)
+    if fwd is None:
+        return codes, off
+    tags = torch.zeros(n, dtype=torch.int64, device=hi.device)
+    tags[:len(order)] = order | (fwd[order].to(torch.int64) << 31)
+    return codes, store(tags, hi.dtype), off
+
+
+def bucket_runs(hi: torch.Tensor, lo: torch.Tensor, slot: torch.Tensor, *,
+                lo_bit: int, width: int, cap: int, fwd=None):
+    """One side's bucket runs for one part (K5's counting sort): the
+    entries (codes hi[i], lo[i], word tensors) whose in-bucket slot (u8,
+    the rank among equal keys in entry order; 255 for an entry left out)
+    is below cap, sorted by part key and slot. Returns (codes [n, 2],
+    offsets [2^width + 1]) and, with the query side's strand flags fwd
+    (bool), (codes, tags, offsets), a tag being the entry's index with
+    its flag in bit 31. Of the n rows the first offsets[-1] are the
+    runs."""
+    if hi.device.type == "cpu":
+        return bucket_runs_plain(hi, lo, slot, lo_bit=lo_bit, width=width,
+                                 cap=cap, fwd=fwd)
+    n = hi.shape[0]
+    specs = [("hi", hi, torch.int32, (n,)), ("lo", lo, torch.int32, (n,)),
+             ("slot", slot, torch.uint8, (n,))]
+    if fwd is not None:
+        specs.append(("fwd", fwd, torch.bool, (n,)))
+    build.check_tensors("bucket_runs", hi.device, specs)
+    if not (1 <= width <= 24 and 0 <= lo_bit <= 64 - width
+            and 1 <= cap <= 255):
+        raise ValueError(f"bucket_runs: bad part bits [{lo_bit}, "
+                         f"{lo_bit} + {width}) or cap {cap}")
+    n_keys = 1 << width
+    cnt = torch.empty(n_keys, dtype=torch.int32, device=hi.device)
+    sums = torch.empty(-(-n_keys // SCAN_TILE), dtype=torch.int32,
+                       device=hi.device)
+    off = torch.empty(n_keys + 1, dtype=torch.int32, device=hi.device)
+    codes = torch.empty((n, 2), dtype=torch.int32, device=hi.device)
+    tags = (None if fwd is None
+            else torch.empty(n, dtype=torch.int32, device=hi.device))
+    lib = _lib()
+    with torch.cuda.device(hi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qm2t_bucket_runs(
+            hi.data_ptr(), lo.data_ptr(), slot.data_ptr(),
+            None if fwd is None else fwd.data_ptr(), n, lo_bit, width, cap,
+            cnt.data_ptr(), sums.data_ptr(), off.data_ptr(),
+            codes.data_ptr(), None if tags is None else tags.data_ptr(),
+            stream)
+    build.check(lib, rc, "bucket_runs")
+    bucket_runs.launches += 1
+    return (codes, off) if tags is None else (codes, tags, off)
+
+
+bucket_runs.launches = 0
+
+
 def _ctz_onehot(y: torch.Tensor) -> torch.Tensor:
     """Bit position of a one-hot u32 (int64 tensors): popcount(y - 1)."""
     return popcount32((y - 1) & 0xFFFFFFFF)
 
 
-def join_bits_plain(dh, dl, dlive, qh, ql, qfw, qidx, planes, *, k: int,
-                    n_buckets: int, cpad: int, cpad_q: int,
+def pair_bits(qh, ql, fwd, wh, wl, k: int) -> torch.Tensor:
+    """K5's term of each (query, word) pair (int64 u32 values, fwd bool):
+    [n, 4] planes with bit j of plane b set where the pair is at Hamming
+    distance exactly 1 and substituting base b at window offset j turns
+    the query window into the word; 0 elsewhere."""
+    yh = ((qh ^ wh) | ((qh ^ wh) >> 1)) & 0x55555555
+    yl = ((ql ^ wl) | ((ql ^ wl) >> 1)) & 0x55555555
+    ok = popcount32(yh) + popcount32(yl) == 1
+    in_lo = yl != 0
+    sym = torch.where(in_lo, _ctz_onehot(yl) >> 1, (_ctz_onehot(yh) >> 1) + 16)
+    t = (torch.where(in_lo, wl, wh) >> ((sym & 15) << 1)) & 3
+    j = torch.where(fwd, k - 1 - sym, sym) & 31
+    base = torch.where(fwd, t, (t - 2) & 3)
+    bit = torch.where(ok, torch.ones_like(j) << j, 0)
+    return torch.stack([torch.where(base == c, bit, 0) for c in range(4)], -1)
+
+
+def join_bits_plain(wcodes, woff, qcodes, qtags, qoff, planes, *, k: int,
+                    lo_bit: int, width: int,
                     slab_pairs: int = 1 << 22) -> None:
-    """Plain PyTorch version: the JAX slab loop over the buckets that
-    hold at least one live query lane, in slabs of ≤ slab_pairs lane
-    pairs. Within one call a query holds one lane, and distinct words
-    give distinct (offset, base) bits, so a sum over the bucket's words
-    is their OR."""
-    nq = planes.shape[0] - 1
-    qix_all = qidx[:n_buckets * cpad_q].view(n_buckets, cpad_q)
-    buckets = torch.nonzero((qix_all != nq).any(1)).flatten()
-    slab = max(1, slab_pairs // (cpad * cpad_q))
-    words = [u32(a[:n_buckets * cpad]).view(n_buckets, cpad)
-             for a in (dh, dl, dlive)]
-    queries = [u32(a[:n_buckets * cpad_q]).view(n_buckets, cpad_q)
-               for a in (qh, ql, qfw)]
-    for s in range(0, buckets.shape[0], slab):
-        b = buckets[s:s + slab]
-        dhs, dls, dvs = (w[b][:, None, :] for w in words)
-        qhs, qls, qfs = (q[b][:, :, None] for q in queries)
-        yh = ((qhs ^ dhs) | ((qhs ^ dhs) >> 1)) & 0x55555555
-        yl = ((qls ^ dls) | ((qls ^ dls) >> 1)) & 0x55555555
-        ok = (popcount32(yh) + popcount32(yl) == 1) & (dvs != 0)
-        in_lo = yl != 0
-        sym = torch.where(in_lo, _ctz_onehot(yl) >> 1,
-                          (_ctz_onehot(yh) >> 1) + 16)
-        t = (torch.where(in_lo, dls, dhs) >> ((sym & 15) << 1)) & 3
-        fwd = qfs != 0
-        j = torch.where(fwd, k - 1 - sym, sym) & 31
-        base = torch.where(fwd, t, (t - 2) & 3)
-        bit = torch.where(ok, torch.ones_like(j) << j, 0)
-        vals = torch.stack([torch.where(base == c, bit, 0).sum(2)
-                            for c in range(4)], -1).view(-1, 4)
-        qix = qix_all[b].flatten().to(torch.int64)
-        live = qix != nq
-        qix, vals = qix[live], vals[live]
-        planes[qix] = store(u32(planes[qix]) | vals, planes.dtype)
+    """Plain PyTorch version: every query of the runs against its
+    bucket's word run, in slabs of queries of at most slab_pairs pairs
+    (one query's pairs may exceed it). A query holds one entry of the
+    runs, and distinct words give distinct (offset, base) bits, so a sum
+    over its pairs is their OR."""
+    n = int(u32(qoff[-1]))
+    qh, ql = u32(qcodes[:n, 0]), u32(qcodes[:n, 1])
+    tag = u32(qtags[:n])
+    fwd, qix = (tag >> 31) != 0, tag & 0x7FFFFFFF
+    key = part_keys(qh, ql, lo_bit, width)
+    wo = u32(woff)
+    first, cnt = wo[key], wo[key + 1] - wo[key]
+    ends = torch.cumsum(cnt, 0)
+    q0 = 0
+    while q0 < n:
+        lim = (0 if q0 == 0 else int(ends[q0 - 1])) + slab_pairs
+        q1 = max(q0 + 1, int(torch.searchsorted(ends, lim, right=True)))
+        q1 = min(q1, n)
+        c = cnt[q0:q1]
+        qi = torch.repeat_interleave(torch.arange(q1 - q0, device=c.device),
+                                     c)
+        starts = torch.cumsum(c, 0) - c
+        wj = first[q0:q1][qi] + torch.arange(qi.shape[0],
+                                             device=c.device) - starts[qi]
+        bits = pair_bits(qh[q0:q1][qi], ql[q0:q1][qi], fwd[q0:q1][qi],
+                         u32(wcodes[wj, 0]), u32(wcodes[wj, 1]), k)
+        acc = torch.zeros((q1 - q0, 4), dtype=torch.int64, device=c.device)
+        acc.index_add_(0, qi, bits)
+        rows = qix[q0:q1]
+        planes[rows] = store(u32(planes[rows]) | acc, planes.dtype)
+        q0 = q1
 
 
-def join_bits(dh: torch.Tensor, dl: torch.Tensor, dlive: torch.Tensor,
-              qh: torch.Tensor, ql: torch.Tensor, qfw: torch.Tensor,
-              qidx: torch.Tensor, planes: torch.Tensor, *, k: int,
-              n_buckets: int, cpad: int, cpad_q: int) -> None:
-    """OR one (part, word chunk)'s neighbor bits into `planes` (u32 word
-    tensor [nq + 1, 4], in place)."""
-    if dh.device.type == "cpu":
-        join_bits_plain(dh, dl, dlive, qh, ql, qfw, qidx, planes, k=k,
-                        n_buckets=n_buckets, cpad=cpad, cpad_q=cpad_q)
+def join_bits(wcodes: torch.Tensor, woff: torch.Tensor, qcodes: torch.Tensor,
+              qtags: torch.Tensor, qoff: torch.Tensor, planes: torch.Tensor,
+              *, k: int, lo_bit: int, width: int) -> None:
+    """OR one part's neighbor bits of the query runs (qcodes, qtags,
+    qoff) against the word runs (wcodes, woff), both from bucket_runs
+    with this part's bits, into `planes` (u32 word tensor [nq + 1, 4], in
+    place; a query's row is its tag's index)."""
+    if wcodes.device.type == "cpu":
+        join_bits_plain(wcodes, woff, qcodes, qtags, qoff, planes, k=k,
+                        lo_bit=lo_bit, width=width)
         return
-    nd = (n_buckets * cpad + 1,)
-    nql = (n_buckets * cpad_q + 1,)
-    build.check_tensors("join_bits", dh.device, [
-        ("dh", dh, torch.int32, nd), ("dl", dl, torch.int32, nd),
-        ("dlive", dlive, torch.int32, nd), ("qh", qh, torch.int32, nql),
-        ("ql", ql, torch.int32, nql), ("qfw", qfw, torch.int32, nql),
-        ("qidx", qidx, torch.int32, nql),
+    n_keys = (1 << width) + 1
+    n_max = qcodes.shape[0]
+    build.check_tensors("join_bits", wcodes.device, [
+        ("wcodes", wcodes, torch.int32, (wcodes.shape[0], 2)),
+        ("woff", woff, torch.int32, (n_keys,)),
+        ("qcodes", qcodes, torch.int32, (n_max, 2)),
+        ("qtags", qtags, torch.int32, (n_max,)),
+        ("qoff", qoff, torch.int32, (n_keys,)),
         ("planes", planes, torch.int32, (planes.shape[0], 4))])
-    if not (1 <= cpad <= 255 and 1 <= cpad_q <= 255 and 1 <= k <= 32):
-        raise ValueError(f"join_bits: bad cpad={cpad} cpad_q={cpad_q} k={k}")
-    lib = build.load("hamming_join",
-                     {"qm2t_hamming_join": _ARGTYPES,
-                      "qm2t_hamming_join_bits": _BITS_ARGTYPES})
-    with torch.cuda.device(dh.device):
+    if not (1 <= width <= 24 and 0 <= lo_bit <= 64 - width and 1 <= k <= 32):
+        raise ValueError(f"join_bits: bad part bits [{lo_bit}, {lo_bit} + "
+                         f"{width}) or k={k}")
+    if planes.data_ptr() % 16 or planes.shape[0] < n_max:
+        raise ValueError("join_bits: planes must be 16-B aligned with a row "
+                         "for every query")
+    lib = _lib()
+    with torch.cuda.device(wcodes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qm2t_hamming_join_bits(
-            dh.data_ptr(), dl.data_ptr(), dlive.data_ptr(), qh.data_ptr(),
-            ql.data_ptr(), qfw.data_ptr(), qidx.data_ptr(), planes.data_ptr(),
-            n_buckets, cpad, cpad_q, planes.shape[0] - 1, k, stream)
+            wcodes.data_ptr(), woff.data_ptr(), qcodes.data_ptr(),
+            qtags.data_ptr(), qoff[-1:].data_ptr(), n_max, planes.data_ptr(),
+            lo_bit, width, k, stream)
     build.check(lib, rc, "join_bits")
     join_bits.launches += 1
 

@@ -33,7 +33,11 @@ bucket.
 
 `hamming_neighbor_bits` is the same join at Hamming distance exactly 1
 over genome windows, emitting the anchored index's neighbor bitmap
-(kernel K5, kernels.hamming_join.join_bits).
+(kernel K5, kernels.hamming_join.join_bits). Its inputs are bucket
+runs (each side sorted by one part's key, CSR) built on the device by a
+counting sort (kernels.hamming_join.bucket_runs), the word side once
+per (pad, part, word chunk) and the query side once per tile and
+part.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ import torch
 
 from quickmer2_tpu_torch.device import (
     U32, resolve_device, store, to_numpy_u32, u32, word_dtype, words)
-from quickmer2_tpu_torch.kernels.hamming_join import join_bits, join_compare
+from quickmer2_tpu_torch.kernels.hamming_join import (
+    bucket_runs, join_bits, join_compare)
 from quickmer2_tpu_torch.kernels.neighbor_sum import neighbor_sum
 from quickmer2_tpu_torch.ops import codec
 from quickmer2_tpu_torch.ops.editdist import edit_table
@@ -102,16 +107,14 @@ def _part_key(hi: torch.Tensor, lo: torch.Tensor, lo_bit: int,
 
 
 def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
-                    width: int, n_buckets: int, cpad: int, cpad_q: int,
-                    qfwd=None):
+                    width: int, n_buckets: int, cpad: int, cpad_q: int):
     """Scatter one word chunk and the query chunk into padded bucket
     layouts (the first half of quickmer2_tpu _part_chunk_join,
-    hamming_join.py:126-149, and of _part_chunk_join_bits): word lane
-    key*cpad + slot, query lane key*cpad_q + slot; entries whose slot
-    reaches the pad stay out. Returns (dh, dl, docc, qh, ql, qidx) —
-    word tensors of B*cpad + 1 / B*cpad_q + 1 lanes (the last lane is
-    the hole) and int32 qidx, nq on holes — and, given the queries'
-    strand flags qfwd, their lanes qfw after qidx."""
+    hamming_join.py:126-149): word lane key*cpad + slot, query lane
+    key*cpad_q + slot; entries whose slot reaches the pad stay out.
+    Returns (dh, dl, docc, qh, ql, qidx) — word tensors of B*cpad + 1 /
+    B*cpad_q + 1 lanes (the last lane is the hole) and int32 qidx, nq on
+    holes."""
     dtype = whi.dtype
     nq = qhi.shape[0]
     hole_d = n_buckets * cpad
@@ -135,11 +138,7 @@ def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
     qh[qf] = qhi[qsel]
     ql[qf] = qlo[qsel]
     qidx[qf] = torch.nonzero(qsel).flatten().to(torch.int32)
-    if qfwd is None:
-        return dh, dl, docc, qh, ql, qidx
-    qfw = torch.zeros_like(qh)
-    qfw[qf] = qfwd[qsel].to(dtype)
-    return dh, dl, docc, qh, ql, qidx, qfw
+    return dh, dl, docc, qh, ql, qidx
 
 
 def _slots_u8(keys: np.ndarray) -> np.ndarray:
@@ -407,8 +406,10 @@ class _BitsWords:
     genome order, so a chunk's part keys spread like the whole's (the
     sums join interleaves its chunks because its arrays are sorted by
     code). Caches, per pad, the overflowed buckets (unioned over chunks)
-    and, per (part, chunk), the in-bucket slots; joins a query set into
-    per-query bit planes with K5."""
+    and, per (pad, part, chunk), the word runs on the device (K5's
+    counting sort, kernels.hamming_join.bucket_runs); joins a query set
+    into per-query bit planes with K5, building the query runs once a
+    part."""
 
     def __init__(self, dict_kmers: np.ndarray, k: int, chunk_w: int,
                  device: torch.device):
@@ -427,9 +428,9 @@ class _BitsWords:
         dhi, dlo = codec.split_u64(dict_kmers)
         self.whi_d, self.wlo_d = _build_w_device(
             words(dhi, device), words(dlo, device), k=k)
-        self.ones = torch.ones(n_w, dtype=torch.uint8, device=device)
         self._over: dict = {}
         self._slots: dict = {}
+        self._runs: dict = {}
         self.calls = 0
 
     def over(self, cp: int, i: int) -> np.ndarray:
@@ -453,19 +454,34 @@ class _BitsWords:
             self._slots[(i, ci)] = torch.from_numpy(s8).to(self.device)
         return self._slots[(i, ci)]
 
-    def layouts(self, i: int, ci: int, qhi, qlo, qfwd, qslot, cp: int,
-                cpq: int):
-        """Part i's bucket layouts of word chunk ci and the queries (word
-        tensors qhi/qlo, strand flags qfwd and in-bucket slots qslot, 255
-        for a query left out): (dh, dl, dlive, qh, ql, qfw, qidx), K5's
-        argument order."""
+    def _part_bits(self, i: int) -> dict:
         s, t = self.ranges[i]
-        c = self.chunks[ci]
-        dh, dl, dlive, qh, ql, qidx, qfw = _bucket_layouts(
-            self.whi_d[c], self.wlo_d[c], self.ones[c], self._w_slots(i, ci),
-            qhi, qlo, qslot, lo_bit=2 * s, width=2 * (t - s),
-            n_buckets=self.n_bkts[i], cpad=cp, cpad_q=cpq, qfwd=qfwd)
-        return dh, dl, dlive, qh, ql, qfw, qidx
+        return {"lo_bit": 2 * s, "width": 2 * (t - s)}
+
+    def word_runs(self, i: int, ci: int, cp: int):
+        """Part i's word runs of chunk ci at pad cp: (codes, offsets),
+        the live words whose slot is below cp (bucket_runs), built on
+        the device on first use and cached."""
+        key = (cp, i, ci)
+        if key not in self._runs:
+            c = self.chunks[ci]
+            self._runs[key] = bucket_runs(
+                self.whi_d[c], self.wlo_d[c], self._w_slots(i, ci), cap=cp,
+                **self._part_bits(i))
+        return self._runs[key]
+
+    def query_runs(self, i: int, qhi, qlo, qfwd, qslot, cpq: int):
+        """Part i's query runs: (codes, tags, offsets) of the queries
+        (word tensors qhi/qlo, strand flags qfwd) whose slot qslot is
+        below cpq."""
+        return bucket_runs(qhi, qlo, qslot, cap=cpq, fwd=qfwd,
+                           **self._part_bits(i))
+
+    def join_runs(self, i: int, runs_w, runs_q, planes) -> None:
+        """OR part i's bits of query runs against word runs into planes
+        (K5)."""
+        join_bits(*runs_w, *runs_q, planes, k=self.k, **self._part_bits(i))
+        self.calls += 1
 
     def query_slots(self, i: int, keys_q, active) -> torch.Tensor:
         """In-bucket slots of part i for the `active` queries (bool np
@@ -481,12 +497,10 @@ class _BitsWords:
         qfwd their strand flags on the device, keys_q their part keys
         (host)."""
         for i in range(3):
-            qslot = self.query_slots(i, keys_q, active)
+            runs_q = self.query_runs(i, qhi, qlo, qfwd,
+                                     self.query_slots(i, keys_q, active), cpq)
             for ci in range(len(self.chunks)):
-                join_bits(*self.layouts(i, ci, qhi, qlo, qfwd, qslot, cp, cpq),
-                          planes, k=self.k, n_buckets=self.n_bkts[i], cpad=cp,
-                          cpad_q=cpq)
-                self.calls += 1
+                self.join_runs(i, self.word_runs(i, ci, cp), runs_q, planes)
 
     def route_tile(self, seg: np.ndarray, cp: int, cpq: int):
         """A tile of codes (len chunk_q + k - 1): its windows' canonical

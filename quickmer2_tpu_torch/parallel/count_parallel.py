@@ -28,7 +28,8 @@ import torch
 
 from quickmer2_tpu_torch.device import to_numpy_u32, word_dtype, words
 from quickmer2_tpu_torch.kernels.count_flat import (
-    block_slot_depth_to_rank, count_packed_block_step, packed_block_entries)
+    block_displaced_filter, block_slot_depth_to_rank, count_packed_block_step,
+    packed_block_entries)
 from quickmer2_tpu_torch.ops import rowpack
 from quickmer2_tpu_torch.ops.codec import SEP
 from quickmer2_tpu_torch.ops.packed_table import ROW_WIDTH, PackedTable
@@ -85,12 +86,14 @@ class ShardedDepthCounter(DepthCounter):
         self.n_buckets = packed.n_buckets
         bb = self.block_buckets = packed.n_buckets // self.ds
         blocks = packed.rows.reshape(self.ds, bb, ROW_WIDTH)
-        self._rows, self._entries = {}, {}
+        self._rows, self._displaced, self._entries = {}, {}, {}
         for i in range(self.dp):
             for j in range(self.ds):
                 d = mesh[i, j]
                 if (d, j) not in self._rows:
                     self._rows[d, j] = words(blocks[j], d)
+                    self._displaced[d, j] = block_displaced_filter(
+                        self._rows[d, j], packed.n_buckets, j * bb)
                     self._entries[d, j] = packed_block_entries(
                         self._rows[d, j])
         self._zero_partials()
@@ -118,7 +121,8 @@ class ShardedDepthCounter(DepthCounter):
             for j in range(self.ds):
                 d = self.mesh[i, j]
                 count_packed_block_step(
-                    *placed[d], self._rows[d, j], self.depth[i][j], k=self.k,
+                    *placed[d], self._rows[d, j], self._displaced[d, j],
+                    self.depth[i][j], k=self.k,
                     n_buckets=self.n_buckets, blk_lo=j * bb,
                     block_buckets=bb, n_bases=shards.shape[1])
         self.total_kmer_windows += len(batch) - self.k + 1

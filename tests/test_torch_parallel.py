@@ -167,6 +167,109 @@ def test_exact_count_rows_matches_jax(world, ds, fmt):
         assert acc[-1] == 0
 
 
+def _segments(kmers: np.ndarray, k: int) -> np.ndarray:
+    """Codes of each k-mer (MSB-first 2-bit) followed by a separator."""
+    shifts = 2 * np.arange(k - 1, -1, -1, dtype=np.uint64)
+    bases = ((kmers[:, None] >> shifts[None, :]) & np.uint64(3)).astype(
+        np.uint8)
+    sep = np.full((len(kmers), 1), jcodec.SEP, np.uint8)
+    return np.concatenate([bases, sep], 1).reshape(-1)
+
+
+@pytest.mark.parametrize("case,ds", [("reads", 1), ("reads", 2),
+                                     ("reads", 4), ("one_block", 2)])
+def test_block_step_plain_matches_jax_local_step(world, case, ds):
+    """K8b's plain version on each bucket block, translated to rank
+    space, equals the JAX sharded step's partial depth[0, j] on one data
+    shard. "one_block": the shard is the dictionary's keys whose both
+    candidate buckets lie in block 1, each as a k-base segment: block 0
+    gets no local window (all trash) and every valid window is local to
+    block 1 (each a hit)."""
+    from quickmer2_tpu.ops.hash import djb_pair as jdjb
+    from quickmer2_tpu_torch.kernels import count_flat as tkflat
+    jtable = jpacked.PackedTable.from_dictionary(world["jdic"])
+    ttable = tpacked.PackedTable.from_dictionary(world["tdic"])
+    np.testing.assert_array_equal(ttable.rows, jtable.rows)
+    B, n = ttable.n_buckets, ttable.n_kmers
+    bb = B // ds
+    if case == "reads":
+        codes = world["codes"][:20_000]
+    else:
+        km = world["jdic"].kmers_in_order
+        khi, klo = jcodec.split_u64(km)
+        h1, h2 = jpacked.bucket_hashes(np.asarray(jdjb(khi, klo)), B)
+        codes = _segments(km[(h1 >= bb) & (h2 >= bb)][:500], K)
+    mesh = jmesh(1, ds)
+    step = jcpar.make_sharded_count_step(mesh, K, B, bb, n)
+    want = np.asarray(step(
+        jax.device_put(codes[None], NamedSharding(mesh, P("data", None))),
+        jax.device_put(np.zeros((1, 1), np.uint8),
+                       NamedSharding(mesh, P("data", None))),
+        jax.device_put(jtable.rows.reshape(ds, bb, -1),
+                       NamedSharding(mesh, P("dict", None, None))),
+        jax.device_put(np.zeros((1, ds, n + 1), np.uint32),
+                       NamedSharding(mesh, P("data", "dict", None)))))
+    pk, bits = trowpack.pack_rows(codes[None])
+    pk, bits = torch.from_numpy(pk[0]), torch.from_numpy(bits[0])
+    n_win = len(codes) - K + 1
+    for j in range(ds):
+        rows = _t64(ttable.rows[j * bb:(j + 1) * bb])
+        d = torch.zeros(2 * bb + 1, dtype=torch.int64)
+        disp = tkflat.block_displaced_filter(rows, B, j * bb)
+        tkflat.count_packed_block_step(pk, bits, rows, disp, d, k=K,
+                                       n_buckets=B, blk_lo=j * bb,
+                                       block_buckets=bb, n_bases=len(codes))
+        got = tkflat.block_slot_depth_to_rank(
+            d, tkflat.packed_block_entries(rows), n).numpy()
+        np.testing.assert_array_equal(got, want[0, j])
+        if case == "one_block":
+            trash = n_win if j == 0 else n_win - 500
+            assert got[n] == trash and got[:n].sum() == n_win - trash
+    assert want[0, :, :n].sum() > 0
+
+
+@pytest.mark.parametrize("n_parts,bb", [(512, 1 << 13), (256, 1 << 7),
+                                        (48, 1 << 13)])
+def test_block_launch_rejects_bad_slice_counts(n_parts, bb):
+    """K8b takes a power-of-two slice count P up to MAX_PARTS (256) and
+    up to the block's buckets; any other P raises before a launch,
+    whatever the tensors' device."""
+    from quickmer2_tpu_torch.kernels import count_flat as tkflat
+    assert tkflat.MAX_PARTS == 256
+    n_bases = 4096
+    pk = torch.zeros(n_bases // 4, dtype=torch.uint8)
+    bits = torch.zeros(n_bases // 8, dtype=torch.uint8)
+    rows = torch.zeros((bb, 8), dtype=torch.int32)
+    disp = torch.zeros(1024, dtype=torch.int32)
+    depth = torch.zeros(2 * bb + 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="bad slice count"):
+        tkflat.count_packed_block_launch(
+            pk, bits, rows, disp, depth, k=K, n_buckets=4 * bb, blk_lo=bb,
+            block_buckets=bb, n_bases=n_bases, n_parts=n_parts)
+
+
+@pytest.mark.parametrize("ds", [1, 2])
+def test_displaced_filter_holds_every_key_at_h2(world, ds):
+    """block_displaced_filter has a bit for every key of the block that
+    sits in its h2 bucket (no false negatives), and those keys exist."""
+    from quickmer2_tpu_torch.kernels import count_flat as tkflat
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    table = tpacked.PackedTable.from_dictionary(world["tdic"])
+    B = table.n_buckets
+    bb = B // ds
+    n_moved = 0
+    for j in range(ds):
+        rows = _t64(table.rows[j * bb:(j + 1) * bb])
+        disp = tkflat.block_displaced_filter(rows, B, j * bb)
+        e = rows.reshape(-1, 4)
+        h = djb_pair(e[:, 0], e[:, 1])
+        at = torch.arange(e.shape[0]) // 2 + j * bb
+        moved = ((e[:, 0] | e[:, 1]) != 0) & ((h & (B - 1)) != at)
+        assert tkflat._maybe_displaced(h[moved], disp).all()
+        n_moved += int(moved.sum())
+    assert n_moved > 0
+
+
 @pytest.fixture(scope="module")
 def flat_truth(world):
     c = tcount.DepthCounter(world["tdic"], batch_bases=1 << 14, device="cpu")
