@@ -41,7 +41,12 @@ Phases:
                 call (a bucket of 245 words that the pad of 240 cuts,
                 60 queries on both strands, a query one base from
                 all-A) and on the tile's slow windows at pads 240/240,
-                runs and planes each equal to the plain version's; K3 (anchored
+                runs and planes each equal to the plain version's; the
+                counting sort also on a word chunk keyed by 24 bits, a
+                skewed set whose largest coarse bin outgrows the place
+                pass's stage, caps 1 and 255, no entering entry and
+                n = 0, and timed beside one torch.sort of the keys on
+                both sides; K3 (anchored
                 read pass) timed in tier 1 and tier 2 on the main path's
                 160-wide batches, then untimed on the shapes its lane
                 groups branch on: the mask format (N bases) in all three
@@ -76,7 +81,8 @@ Phases:
                 with an N run over a seam, an N inside a halo and a
                 SEP-padded tail, each chunk's bit-packed mask equal to
                 the plain version's and to the host lookup's hit set;
-                timed on one 2^24-window chunk. K11 (est's window sums)
+                timed on one 2^24-window chunk beside torch.isin of
+                its valid codes against the survivors. K11 (est's window sums)
                 on 101 M k-mers in windows of 1,000: two launches
                 bit for bit the same, equal to the plain version (the
                 same summation order), within 1e-4 of a float64 truth,
@@ -92,8 +98,11 @@ Phases:
                 batch's four launches at (2, 2) beside one K8 launch on
                 it; shard 0 on block 0 also at P = 16 .. 256, each
                 checked and timed), K12 (packed exact recount) on the
-                exact batch through the whole table (timed) and through
-                each block (summing to the whole), K3a (anchor probes) on
+                exact batch and on it with 2,000 keys that sit at h2
+                planted (lens and mask formats) through the whole table
+                (timed, with its probe counts) and through each block
+                (summing to the whole; block 0 timed), with and without
+                the bitmap, K3a (anchor probes) on
                 each block of the tier-1 batch (timed) and K3 with the
                 summed anchors on each block in tiers 1 and 2 (its codes
                 the one-launch K3's, its diffs summing to that K3's;
@@ -215,27 +224,45 @@ def kernel_ms(fn, reps: int) -> tuple[float, float]:
     return cuda_ms(fn, reps), cuda_ms(fn, reps, queued=True)
 
 
-def profile_kernels(fn, reps: int) -> dict:
+def profile_kernels(fn, reps: int, label: str) -> dict | None:
     """{kernel: device ms a call of fn()} by torch.profiler (CUPTI) over
     `reps` calls after a warm-up, the kernel named without namespace,
-    template or arguments; {} where the profiler sees no device time."""
+    template or arguments. The calls sit between two idle spans inside
+    the profiled window, as a guard against device timestamps that land
+    just outside it (the profiler drops those events), and the profile
+    is taken again with longer idle spans where it saw no device time.
+    If it still sees none, the failure is logged with the profiler's
+    event counts and None is returned: label's passes are then not
+    measured in this run."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = getattr(e, "cuda_time_total", 0)
-        if t > 0:
-            m = re.search(r"(\w+)(<|\()", e.key)
-            name = m.group(1) if m else e.key
-            out[name] = round(out.get(name, 0.0) + t / 1e3 / reps, 4)
-    return out
+    for pad_s in (0.25, 2.0):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        out = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0)
+            if t > 0:
+                m = re.search(r"(\w+)(<|\()", e.key)
+                name = m.group(1) if m else e.key
+                out[name] = round(out.get(name, 0.0) + t / 1e3 / reps, 4)
+        if out:
+            return out
+        events = prof.events()
+        log(f"  torch.profiler saw no device time for {label} with "
+            f"{pad_s} s idle either side: {len(events)} events, "
+            f"{sum(e.device_type.name == 'CUDA' for e in events)} on the "
+            f"device")
+    log(f"  FAILED to profile {label}: its passes are not measured in this "
+        f"run")
+    return None
 
 
 def ptxas_summary(nvcc_log: str) -> list[str]:
@@ -279,8 +306,7 @@ def ptxas_of(nvcc_log: str, match: str) -> dict:
 # the kernels whose rows carry their ptxas report: (source, name match)
 PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernel"),
               "join_bits": ("hamming_join", "join_runs_kernel"),
-              "bucket_runs": ("hamming_join",
-                              "run_count|run_scatter|scan_"),
+              "bucket_runs": ("hamming_join", "run_(hist|part|place)"),
               "neighbor_sum": ("neighbor_sum", "neighbor_sum_kernel"),
               "count_mono": ("count_mono", "count_mono_"),
               "count_linear": ("count_flat", "CountLinear"),
@@ -1062,15 +1088,94 @@ def planted_join(w, dict_kmers, k, dev):
         raise AssertionError(f"planted call: bits {bits}")
 
 
+def sort_library_ms(hi, lo, slot, cap, part) -> float:
+    """The one library call beside bucket_runs: torch.sort of key * 256 +
+    slot over the entering entries (it yields their order, not the
+    offsets)."""
+    from quickmer2_tpu_torch.kernels.hamming_join import part_keys
+    s = slot.to(torch.int64)
+    v = (part_keys(hi, lo, **part) * 256 + s)[s < cap]
+    return cuda_ms(lambda: torch.sort(v), 5)
+
+
+def largest_bin(off, n, width, tags) -> tuple[int, int, int]:
+    """(bins, entries of the largest coarse bin, stage entries) of one
+    bucket_runs call's offsets under runs_plan."""
+    from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.kernels.hamming_join import runs_plan
+    shift, stage = runs_plan(n, width, tags)
+    o = u32(off)[::1 << shift]
+    return (1 << (width - shift), int((o[1:] - o[:-1]).max()), stage)
+
+
+def check_bucket_runs_edges(w, dev):
+    """bucket_runs against its plain version on edge inputs: the smoke's
+    word chunk keyed by a 24-bit part (2^24 keys, the widest); a skewed
+    query set whose first coarse bin holds more entries than the place
+    pass stages (so they are stored straight); caps 1 and 255; every slot
+    at or over the cap; n = 0."""
+    from quickmer2_tpu_torch.device import to_numpy_u32, words
+    from quickmer2_tpu_torch.kernels.hamming_join import (
+        bucket_runs, bucket_runs_plain)
+    from quickmer2_tpu_torch.ops import hamming_join as hj
+
+    def both(hi, lo, slot, label, fwd=None, **part):
+        got = bucket_runs(hi, lo, slot, fwd=fwd, **part)
+        n = compare_runs(got, bucket_runs_plain(hi, lo, slot, fwd=fwd,
+                                                **part), label)
+        bins, most, stage = largest_bin(got[-1], hi.shape[0], part["width"],
+                                        fwd is not None)
+        log(f"  bucket_runs{label}: {hi.shape[0]} entries, {n} in the runs, "
+            f"{bins} coarse bins, the largest {most} entries (stage "
+            f"{stage}), equal to the plain version")
+        return most, stage
+
+    c = w.chunks[0]
+    live = w.live[c]
+    key24 = hj._extract_part_np(to_numpy_u32(w.whi_d[c]),
+                                to_numpy_u32(w.wlo_d[c]), 0, 12)
+    s24 = np.full(len(live), 255, np.uint8)
+    s24[live] = hj._slots_u8(key24[live])
+    both(w.whi_d[c], w.wlo_d[c], torch.from_numpy(s24).to(dev),
+         ", words at width 24", cap=64, lo_bit=0, width=24)
+    rng = np.random.default_rng(13)
+    n = 2_000_000
+    key = rng.integers(0, 1 << 20, n, dtype=np.int64).astype(np.uint32)
+    key[:600_000] = rng.integers(0, 2048, 600_000)
+    lo = (rng.integers(0, 1 << 32, n, dtype=np.int64).astype(np.uint32)
+          & np.uint32(0xFFF00000)) | key
+    hi = rng.integers(0, 1 << 28, n, dtype=np.int64).astype(np.uint32)
+    slot = hj._slots_u8(key)
+    fwd = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    args = (words(hi, dev), words(lo, dev))
+    most, stage = both(*args, torch.from_numpy(slot).to(dev),
+                       ", a skewed query set", fwd=fwd, cap=255, lo_bit=0,
+                       width=20)
+    if most <= stage:
+        raise AssertionError("bucket_runs: the skewed set's largest bin "
+                             "fits the stage")
+    both(*args, torch.from_numpy(slot).to(dev), ", cap 1", fwd=fwd, cap=1,
+         lo_bit=0, width=20)
+    both(*args, torch.full((n,), 255, dtype=torch.uint8, device=dev),
+         ", every slot over the cap", fwd=fwd, cap=255, lo_bit=0, width=20)
+    e = torch.zeros(0, dtype=torch.int32, device=dev)
+    both(e, e, e.to(torch.uint8), ", n = 0", fwd=e.to(torch.bool), cap=32,
+         lo_bit=0, width=20)
+
+
 def check_join_bits(stream, dict_kmers, k, dev):
     """K5 and its counting sort (bucket_runs) on the first BITS_TILE
     windows of the genome stream as hamming_neighbor_bits joins them:
     part 0, word chunk 0 at pads 64/32 (timed: the word runs' build, the
     query runs' build, which is a call's layout time now that the word
     runs are cached, the kernel, and the padded layouts that the
-    previous design built per call); a planted call; and the tile's slow
-    windows gathered and joined at pads 240/240 as the escalation does.
-    Returns the kernel-table rows of K5 and of its counting sort."""
+    previous design built per call); a planted call; the tile's slow
+    windows gathered and joined at pads 240/240 as the escalation does;
+    the counting sort's edge inputs (check_bucket_runs_edges). The
+    counting sort's row: the query side timed with each pass (torch.
+    profiler) beside one torch.sort of its keys, and the same for the
+    word side under "word_side", each with its bound. Returns the
+    kernel-table rows of K5 and of its counting sort."""
     from quickmer2_tpu_torch.device import words
     from quickmer2_tpu_torch.kernels.hamming_join import (
         bucket_runs, bucket_runs_plain, join_bits_plain)
@@ -1118,15 +1223,23 @@ def check_join_bits(stream, dict_kmers, k, dev):
                       f" 240/240, the tile's {len(left)} slow windows "
                       "gathered")
     del runs_g
+    check_bucket_runs_edges(w, dev)
     ms, queued_ms = kernel_ms(lambda: w.join_runs(0, runs_w, runs_q, p_k), 10)
     p_p = torch.zeros_like(p_k)
     plain_ms = cuda_ms(lambda: join_bits_plain(*runs_w, *runs_q, p_p, k=k,
                                                **part), 1)
-    word_ms = cuda_ms(word_runs, 3)
+    word_ms, word_queued_ms = kernel_ms(word_runs, 3)
+    word_passes = profile_kernels(word_runs, 3, "bucket_runs' word side")
     query_ms, query_queued_ms = kernel_ms(query_runs, 3)
-    query_passes = profile_kernels(query_runs, 3)
+    query_passes = profile_kernels(query_runs, 3,
+                                   "bucket_runs' query side")
     sort_plain_ms = cuda_ms(lambda: bucket_runs_plain(
         chi, clo, qslot, cap=32, fwd=fwd, **part), 1)
+    query_lib_ms = sort_library_ms(chi, clo, qslot, 32, part)
+    word_lib_ms = sort_library_ms(w.whi_d[c], w.wlo_d[c], w._w_slots(0, 0),
+                                  64, part)
+    q_bins = largest_bin(runs_q[-1], nq, part["width"], True)
+    w_bins = largest_bin(runs_w[-1], len(w.whi_d[c]), part["width"], False)
     wslots = w._w_slots(0, 0)
     padded_ms = cuda_ms(lambda: hj._bucket_layouts(
         w.whi_d[c], w.wlo_d[c], torch.ones_like(wslots, dtype=torch.int32),
@@ -1147,9 +1260,13 @@ def check_join_bits(stream, dict_kmers, k, dev):
                     + 8 * (live_w + n_q) + 4 * n_q + 32 * n_q)
     padded_b_ms, _ = bound_ms(padded_bytes, 16 * pairs)
     # the counting sort's least traffic: each entry's code, slot and flag
-    # read once, the runs (12 B an entering query) and offsets written
+    # read once, the runs (12 B an entering query, 8 B a word) and offsets
+    # written
     sort_bytes = 10 * nq + 12 * n_q + 4 * (n_buckets + 1)
     s_ms, s_by = bound_ms(sort_bytes, 0)
+    n_words = len(w.whi_d[c])
+    word_bytes = 9 * n_words + 8 * n_w + 4 * (n_buckets + 1)
+    ws_ms, ws_by = bound_ms(word_bytes, 0)
     log(f"  join_bits time {ms:.4f} ms (queued {queued_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
         f"{n_bytes / 1e6:.1f} MB, {bit_rows} planes rows with a bit, "
@@ -1161,8 +1278,14 @@ def check_join_bits(stream, dict_kmers, k, dev):
         f"the padded layouts of the same call {padded_ms:.4f} ms; "
         f"the query runs' kernels (torch.profiler, ms a call) "
         f"{query_passes}; bucket_runs bound {s_ms:.4f} ms ({s_by}), plain "
-        f"{sort_plain_ms:.4f} ms; tile: {int(valid.sum())} valid windows, "
-        f"{len(left)} slow")
+        f"{sort_plain_ms:.4f} ms, torch.sort of the keys {query_lib_ms:.4f} "
+        f"ms, (bins, largest, stage) {q_bins}; tile: {int(valid.sum())} "
+        f"valid windows, {len(left)} slow")
+    log(f"  bucket_runs word side: {n_words} words, {n_w} in the runs; time "
+        f"{word_ms:.4f} ms (queued {word_queued_ms:.4f} ms), bound "
+        f"{ws_ms:.4f} ms ({ws_by}: {word_bytes / 1e6:.1f} MB), torch.sort "
+        f"of the keys {word_lib_ms:.4f} ms, (bins, largest, stage) "
+        f"{w_bins}; kernels (torch.profiler, ms a call) {word_passes}")
     src = "quickmer2_tpu_torch/csrc/hamming_join.cu"
     return [{"name": "join_bits", "route": "cuda", "source": src,
              "replaces": "quickmer2_tpu/ops/hamming_join.py:190",
@@ -1175,9 +1298,11 @@ def check_join_bits(stream, dict_kmers, k, dev):
             {"name": "bucket_runs", "route": "cuda", "source": src,
              "replaces": "quickmer2_tpu/ops/hamming_join.py:210",
              "max_abs_err": 0, "ms": query_ms, "queued_ms": query_queued_ms,
-             "word_runs_ms": word_ms, "passes": query_passes,
-             "plain_ms": sort_plain_ms,
-             "bound_ms": s_ms, "bound_by": s_by, "library_ms": None}]
+             "passes": query_passes, "plain_ms": sort_plain_ms,
+             "bound_ms": s_ms, "bound_by": s_by, "library_ms": query_lib_ms,
+             "word_side": {"ms": word_ms, "queued_ms": word_queued_ms,
+                           "passes": word_passes, "bound_ms": ws_ms,
+                           "bound_by": ws_by, "library_ms": word_lib_ms}}]
 
 
 def compare_qai_builders(fa, dev, reset_counts, read_counts):
@@ -1771,8 +1896,10 @@ def check_count_packed(table, codes, k, dev, timed, label, parts):
         for p in (1, 2, 8, 16, 32, 128) if p != own}
     # K8b at full width (blk_lo = 0, block_buckets = B: one block) beside
     # K8, in the order K8, K8b, K8b, K8: ms back to back, then queued
+    from quickmer2_tpu_torch.kernels.block_probe import (
+        block_displaced_filter)
     from quickmer2_tpu_torch.kernels.count_flat import (
-        block_displaced_filter, count_packed_block_launch)
+        count_packed_block_launch)
     disp = block_displaced_filter(rows, B, 0)
     d_full, d_8 = zero(), zero()
     count_packed_block_launch(pk, bits, rows, disp, d_full, blk_lo=0,
@@ -2148,16 +2275,24 @@ def check_member_scan(dic, table, g, dev):
     n_bytes = pk.numel() + bits.numel() + 32 * n_rows + 4 * got.numel()
     # ~48 int ops a window, as K8: codec and DJB, two buckets, 4 compares
     b_ms, b_by = bound_ms(n_bytes, 48 * n_win)
+    # the one library call beside it: torch.isin of the chunk's valid
+    # canonical codes against the survivors' (the membership, unpacked)
+    e = rows.reshape(-1, 4).to(torch.int64) & 0xFFFFFFFF
+    live = (e[:, 0] | e[:, 1]) != 0
+    keys = (e[live, 0] << 32) | e[live, 1]
+    q = ((chi << 32) | clo)[ok]
+    library_ms = cuda_ms(lambda: torch.isin(q, keys), 3)
     log(f"  member_scan time {ms:.4f} ms (queued {queued_ms:.4f} ms) a "
         f"2^24-window chunk, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_rows} rows of "
-        f"{table.n_buckets} buckets)")
+        f"{table.n_buckets} buckets), torch.isin of its {q.numel()} valid "
+        f"codes against the {keys.numel()} survivors {library_ms:.4f} ms")
     return {"name": "member_scan", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/emit_member.cu",
             "replaces": "quickmer2_tpu/parallel/emit_parallel.py:99",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 EST_SCALE_KMERS = 101_000_000   # human scale, as tests/test_est.py
@@ -2603,12 +2738,13 @@ def check_count_packed_block(table, codes, k, dev):
     2 the four launches of the batch beside one K8 launch on it. Returns
     the kernel-table row (ds = 2, the smoke's mesh)."""
     from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.kernels.block_probe import (
+        block_displaced_filter)
     from quickmer2_tpu_torch.kernels.count_flat import (
-        block_displaced_filter, block_slot_depth_to_rank,
-        count_packed_block_launch, count_packed_block_step,
-        count_packed_block_step_plain, count_packed_step,
-        packed_block_entries, packed_partitions_for, packed_rank_slots,
-        slot_depth_to_rank)
+        block_slot_depth_to_rank, count_packed_block_launch,
+        count_packed_block_step, count_packed_block_step_plain,
+        count_packed_step, packed_block_entries, packed_partitions_for,
+        packed_rank_slots, slot_depth_to_rank)
     from quickmer2_tpu_torch.parallel.count_parallel import (
         split_codes_overlap)
     B, n = table.n_buckets, table.n_kmers
@@ -2680,7 +2816,7 @@ def check_count_packed_block(table, codes, k, dev):
             count_packed_block_step(spk, sbits, rows, disp, d_k, blk_lo=0,
                                     **kw)
         ms, queued_ms = kernel_ms(step, 10)
-        passes = profile_kernels(step, 5)
+        passes = profile_kernels(step, 5, f"count_packed_block at ds {ds}")
         # least traffic: the packed shard, the block's 32-B rows its
         # valid nonzero windows must read (probe_rows), the 32-B sector
         # of each slot word with a hit read and written; ~48 int ops a
@@ -2726,72 +2862,188 @@ def check_count_packed_block(table, codes, k, dev):
     return row
 
 
+def plant_displaced(rows_all, rows, k, n_plant):
+    """A copy of the read rows with n_plant keys of the table that sit in
+    their h2 bucket (h1's was full at build) written into its first rows,
+    one a row at offset 10: windows that K12 finds only through its
+    bitmap of displaced keys."""
+    from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    e = u32(rows_all.reshape(-1, 4))
+    h = djb_pair(e[:, 0], e[:, 1])
+    at = torch.arange(e.shape[0], device=e.device) // 2
+    moved = (((e[:, 0] | e[:, 1]) != 0)
+             & ((h & (rows_all.shape[0] - 1)) != at))
+    keys = ((e[moved, 0] << 32) | e[moved, 1])[:n_plant].cpu().numpy()
+    shifts = 2 * np.arange(k - 1, -1, -1, dtype=np.uint64)
+    out = rows.copy()
+    out[:len(keys), 10:10 + k] = ((keys.astype(np.uint64)[:, None] >> shifts)
+                                  & np.uint64(3)).astype(np.uint8)
+    return out, len(keys)
+
+
+def k12_counts(rows_all, chi, clo, disp, lo, bb) -> dict:
+    """K12's probe counts on one batch's valid nonzero codes (chi, clo)
+    against the bucket block [lo, lo + bb) of the whole table rows_all:
+    h1 rows read (each local h1), h2 rows read (local, where the bitmap
+    `disp` allows and h1's row, where it is read, is full and lacks the
+    key), hits, distinct rows touched and distinct 32-B acc sectors with
+    a hit."""
+    from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.kernels.block_probe import maybe_displaced
+    from quickmer2_tpu_torch.ops import packed_table
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    h = djb_pair(chi, clo)
+    h1, h2 = packed_table.bucket_hashes_t(h, rows_all.shape[0])
+
+    def match(b):
+        r = u32(rows_all[b])
+        m0 = (r[:, 0] == chi) & (r[:, 1] == clo)
+        full = (r[:, :4].amax(1) != 0) & (r[:, 4:].amax(1) != 0)
+        return (m0 | ((r[:, 4] == chi) & (r[:, 5] == clo)),
+                torch.where(m0, r[:, 2], r[:, 6]), full)
+    in1, rank1, full1 = match(h1)
+    in2, rank2, _ = match(h2)
+    loc1 = (h1 >= lo) & (h1 < lo + bb)
+    loc2 = (h2 >= lo) & (h2 < lo + bb)
+    read2 = loc2 & maybe_displaced(h, disp) & ~(loc1 & (in1 | ~full1))
+    hit1 = loc1 & in1
+    hit = hit1 | (read2 & in2)
+    rank = torch.where(hit1, rank1, rank2)[hit]
+    return {"h1_rows_read": int(loc1.sum()), "h2_rows_read": int(read2.sum()),
+            "hits": int(hit.sum()),
+            "distinct_rows": int(torch.unique(torch.cat(
+                [h1[loc1], h2[read2]])).numel()),
+            "distinct_acc_sectors": int(torch.unique(rank // 8).numel())}
+
+
+def exact_rows_both_rows(pk, aux, rows_j, acc, *, fmt, k, n_buckets,
+                         read_len, blk_lo, block_buckets):
+    """K12's reference that assumes nothing of the table's placement:
+    every valid window probed in both candidate rows, ungated
+    (ops/packed_table.py::probe_packed_block), 1 added at the rank of
+    each one found. K12 and its plain version read h2 only where h1's
+    row is full and the bitmap allows; this holds both shortcuts to the
+    whole table."""
+    from quickmer2_tpu_torch.kernels.count_mono import row_windows
+    from quickmer2_tpu_torch.ops.packed_table import probe_packed_block
+    chi, clo, valid = row_windows(pk, aux, fmt=fmt, k=k, read_len=read_len)
+    found, rank, _ = probe_packed_block(rows_j, chi, clo, n_buckets,
+                                        block_buckets, blk_lo, 0)
+    hit = rank[valid & found]
+    acc.index_add_(0, hit, torch.ones(hit.shape, dtype=acc.dtype,
+                                      device=acc.device))
+
+
 def check_count_packed_rows(index, rows, k, dev):
-    """K12 on the main path's exact batch: through the whole packed table
-    (ds = 1, the sharded counter's recount at (2, 1); timed, with the
-    wrapper's host time) and through each of its two bucket blocks
-    (ds = 2), each against its plain version; the blocks' accumulators
-    sum to the whole table's. Returns the kernel-table row."""
+    """K12 on the main path's exact batch and on that batch with 2,000
+    keys that sit at h2 planted into it, in the lens and the mask format:
+    through the whole packed table (ds = 1, the single-device counter's
+    recount with mono_spill off and the sharded one's at (2, 1)) and
+    through each of its two bucket blocks (ds = 2), with the block's
+    bitmap of displaced keys, each against its plain version and
+    against a probe of both candidate rows with no gate
+    (exact_rows_both_rows: neither the bitmap nor the skip of h2 behind
+    an h1 row with an empty entry drops a hit); the blocks'
+    accumulators sum to the whole table's. Timed on the exact batch at
+    ds = 1 (with the wrapper's host time and the kernel by
+    torch.profiler) and on block 0 at ds = 2, with K12's probe counts.
+    Returns the kernel-table row."""
     from quickmer2_tpu_torch.kernels import count_mono as cm
-    fmt, pk, aux, in_bytes = packed_on(rows, dev)
+    from quickmer2_tpu_torch.kernels.block_probe import (
+        block_displaced_filter)
+    from quickmer2_tpu_torch.ops import codec
     B = index.n_buckets
-    kw = dict(fmt=fmt, k=k, n_buckets=B, read_len=rows.shape[1])
+    planted, n_planted = plant_displaced(index.rows, rows, k, 2000)
+    masked = planted.copy()
+    masked[::7, 60] = codec.SEP
+    disp = {ds: [block_displaced_filter(
+        index.rows[j * (B // ds):(j + 1) * (B // ds)], B, j * (B // ds))
+        for j in range(ds)] for ds in (1, DS)}
 
     def zero():
         return torch.zeros(index.n_kmers + 2, dtype=torch.int32, device=dev)
     err = 0
-    accs = []
-    for ds in (1, DS):
-        bb = B // ds
-        total = zero()
-        for j in range(ds):
-            blk = dict(kw, blk_lo=j * bb, block_buckets=bb)
-            a_k, a_p = zero(), zero()
-            cm.count_packed_rows(pk, aux, index.rows[j * bb:(j + 1) * bb],
-                                 a_k, **blk)
-            cm.count_packed_rows_plain(
-                pk, aux, index.rows[j * bb:(j + 1) * bb], a_p, **blk)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(a_k, a_p))
-            total += a_k
-        accs.append(total)
-    if err != 0:
-        raise AssertionError("count_packed_rows disagrees with its plain "
-                             "version")
-    if max_abs_err(accs[0], accs[1]) != 0:
-        raise AssertionError("count_packed_rows' blocks do not sum to the "
-                             "whole table's count")
+    for label, batch in (("exact batch", rows), ("planted", planted),
+                         ("planted, mask format", masked)):
+        fmt, pk, aux, _ = packed_on(batch, dev)
+        kw = dict(fmt=fmt, k=k, n_buckets=B, read_len=batch.shape[1])
+        accs = []
+        for ds in (1, DS):
+            bb = B // ds
+            total = zero()
+            for j in range(ds):
+                blk = dict(kw, blk_lo=j * bb, block_buckets=bb)
+                rows_j = index.rows[j * bb:(j + 1) * bb]
+                a_k, a_p, a_all = zero(), zero(), zero()
+                cm.count_packed_rows(pk, aux, rows_j, a_k,
+                                     displaced=disp[ds][j], **blk)
+                cm.count_packed_rows_plain(pk, aux, rows_j, a_p,
+                                           displaced=disp[ds][j], **blk)
+                exact_rows_both_rows(pk, aux, rows_j, a_all, **blk)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(a_k, a_p))
+                if err != 0:
+                    raise AssertionError(
+                        f"count_packed_rows ({label}, ds {ds}, block {j}) "
+                        "disagrees with its plain version")
+                if max_abs_err(a_p, a_all) != 0:
+                    raise AssertionError(
+                        f"count_packed_rows ({label}, ds {ds}, block {j}): "
+                        "the gated h2 read drops a hit that both rows' "
+                        "probe finds")
+                total += a_p
+            accs.append(total)
+        if max_abs_err(accs[0], accs[1]) != 0:
+            raise AssertionError(f"count_packed_rows' blocks ({label}) do "
+                                 "not sum to the whole table's count")
+        log(f"  count_packed_rows ({label}, {fmt}): whole table and {DS} "
+            f"blocks equal to the plain version and to both rows' ungated "
+            f"probe, {int(accs[0].sum())} hits")
+    fmt, pk, aux, in_bytes = packed_on(rows, dev)
+    kw = dict(fmt=fmt, k=k, n_buckets=B, read_len=rows.shape[1])
     acc = zero()
 
     def call():
-        cm.count_packed_rows(pk, aux, index.rows, acc, **kw)
+        cm.count_packed_rows(pk, aux, index.rows, acc, displaced=disp[1][0],
+                             **kw)
     ms, queued_ms = kernel_ms(call, 10)
     wrapper_ms = host_ms(call, 50)
+    passes = profile_kernels(call, 5, "count_packed_rows")
     plain_ms = cuda_ms(lambda: cm.count_packed_rows_plain(
-        pk, aux, index.rows, acc, **kw), 2)
+        pk, aux, index.rows, acc, displaced=disp[1][0], **kw), 2)
+    bb = B // DS
+    block_queued_ms = cuda_ms(lambda: cm.count_packed_rows(
+        pk, aux, index.rows[:bb], acc, displaced=disp[DS][0], blk_lo=0,
+        block_buckets=bb, **kw), 10, queued=True)
     # least traffic: the packed rows in, the 32-B table rows the valid
     # nonzero windows must read (probe_rows), the 32-B sector of each rank
     # word with a hit read and written; ~48 int ops a valid window
     chi, clo, ok = cm.row_windows(pk, aux, fmt=fmt, k=k,
                                   read_len=rows.shape[1])
     nz = ok & ((chi | clo) != 0)
+    counts = {ds: k12_counts(index.rows, chi[nz], clo[nz], disp[ds][0], 0,
+                             B // ds) for ds in (1, DS)}
     rows_touched = probe_rows(index.rows, chi[nz], clo[nz])
-    hits = int(accs[0].sum())
-    d_sec = int(torch.unique(torch.nonzero(accs[0]).flatten() // 8).numel())
+    d_sec = counts[1]["distinct_acc_sectors"]
     n_bytes = in_bytes + 32 * rows_touched + 64 * d_sec
     b_ms, b_by = bound_ms(n_bytes, 48 * int(ok.sum()))
     log(f"  count_packed_rows ({fmt}): {len(rows)} rows of {rows.shape[1]}, "
-        f"{int(ok.sum())} valid windows, {hits} hits, whole table and "
-        f"{DS} blocks equal to the plain version, blocks summing to the "
-        f"whole; time {ms:.4f} ms (queued {queued_ms:.4f} ms), wrapper "
-        f"host time {wrapper_ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-        f"{rows_touched} rows, {d_sec} sectors)")
+        f"{nz.numel()} windows, {int(ok.sum())} valid, {int(nz.sum())} "
+        f"valid nonzero; time {ms:.4f} ms (queued {queued_ms:.4f} ms), "
+        f"block 0 of {DS} {block_queued_ms:.4f} ms queued, wrapper host "
+        f"time {wrapper_ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {rows_touched} "
+        f"rows, {d_sec} sectors); kernels (torch.profiler, ms a call) "
+        f"{passes}; probe counts by ds (block 0) {counts}; {n_planted} "
+        f"displaced keys planted")
     return {"name": "count_packed_rows", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/count_mono.cu",
             "replaces": "quickmer2_tpu/ops/anchored.py:870",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
             "host_ms": wrapper_ms, "plain_ms": plain_ms,
+            "block_queued_ms": block_queued_ms, "passes": passes,
+            "probe_counts": counts,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 

@@ -70,7 +70,8 @@
 // translates it to the JAX step's rank-space partial depth[dp, ds, n + 1].
 // K8's passes decoded every window of the shard three times to probe the
 // share whose candidate bucket is local (3/4 of the shard at ds = 2), so
-// K8b has its own design for the block:
+// K8b has its own design for the block (its probe, BlockProbe, lives in
+// block_probe.cuh, which K12 shares):
 //   candidates - h1's bucket where it is local; h2's only where it is
 //           local and the key may sit there: a bitmap of the block's keys
 //           placed at h2 (~1 % of them; BlockProbe) rules out the rest,
@@ -108,13 +109,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_probe.cuh"
 #include "flat_windows.cuh"
 #include "packed_probe.cuh"
 
 namespace {
 
 constexpr int kMaxParts = 256;
-constexpr unsigned short kNoPart = 0xFFFF;
 constexpr int kSpread = 64;              // the probe pass's hit counters
 
 // The JAX package's gather index: -H <= i < 0 wraps to i + H, then the
@@ -210,74 +211,6 @@ struct CountPacked {
   __device__ __forceinline__ long long probe_binned(u64 canon) const {
     const long long s1 = entry_of(bucket(canon, 0), canon);
     return s1 >= 0 ? s1 : entry_of(bucket(canon, 1), canon);
-  }
-};
-
-// K8b: the candidates of one code local to the bucket block [blk_lo,
-// blk_lo + blk_last] (rows holds the block's rows only), in the block's
-// slot space 2 * (bucket - blk_lo) + entry. A candidate outside the block
-// (the u32 wrap of bucket - blk_lo) reads no row. A key sits at h2 only
-// where h1's bucket was full at build (~1 % of keys on the smoke's
-// table); `displaced` is a bitmap of those keys' hashes in this block
-// (kernels/count_flat.py::block_displaced_filter, no false negatives), so
-// h2 is a candidate only where its bit is set. A window goes to the slice
-// of its first candidate, or to the trash unprobed when it has none: the
-// windows whose h1 lies in another block, about half of those that have a
-// local candidate at ds = 2, mostly go unprobed.
-struct BlockProbe {
-  const uint4* rows;
-  const unsigned* displaced;
-  unsigned bucket_mask, blk_lo, blk_last;
-  int shift;         // slice of a local bucket: (bucket - blk_lo) >> shift
-  int filter_shift;  // 32 - log2 of the bitmap's bits
-
-  __device__ __forceinline__ unsigned local(unsigned h, int c) const {
-    return ((c ? (h * qm2t::kH2Mult) >> 7 : h) & bucket_mask) - blk_lo;
-  }
-
-  __device__ __forceinline__ bool maybe_displaced(unsigned h) const {
-    const unsigned i = (h * qm2t::kFilterMult) >> filter_shift;
-    return (__ldg(displaced + (i >> 5)) >> (i & 31u)) & 1u;
-  }
-
-  // The h2 bucket, where it is local and may hold the key; else past
-  // blk_last.
-  __device__ __forceinline__ unsigned second(unsigned h) const {
-    const unsigned o2 = local(h, 1);
-    return o2 <= blk_last && maybe_displaced(h) ? o2 : blk_last + 1;
-  }
-
-  __device__ __forceinline__ unsigned short part(u64 canon) const {
-    if (canon == 0) return kNoPart;
-    const unsigned h =
-        qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon);
-    const unsigned o1 = local(h, 0);
-    if (o1 <= blk_last) return (unsigned short)(o1 >> shift);
-    const unsigned o2 = second(h);
-    return o2 <= blk_last ? (unsigned short)(o2 >> shift) : kNoPart;
-  }
-
-  // The matching slot of local bucket o, or -1 (o outside the block).
-  __device__ __forceinline__ long long entry_of(unsigned o, u64 canon) const {
-    if (o > blk_last) return -1;
-    const unsigned hi = (unsigned)(canon >> 32);
-    const unsigned lo = (unsigned)canon;
-    long long slot = -1;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const uint4 v = __ldg(rows + 2ull * o + e);
-      if (v.x == hi && v.y == lo) slot = 2LL * o + e;
-    }
-    return slot;
-  }
-
-  // A binned (nonzero) code: h1's row where local, then h2's where that
-  // misses and h2 is a candidate.
-  __device__ __forceinline__ long long probe(u64 canon) const {
-    const unsigned h =
-        qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon);
-    const long long s1 = entry_of(local(h, 0), canon);
-    return s1 >= 0 ? s1 : entry_of(second(h), canon);
   }
 };
 
@@ -572,7 +505,9 @@ block_probe_kernel(BlockProbe eng, const u64* __restrict__ runs,
     for (int step = kGroupTiles / 2; step > 0; step >>= 1) {
       if (r + step < nt && first[r + step] <= e) r += step;
     }
-    const long long s = eng.probe(__ldg(runs + start[r] + (e - first[r])));
+    unsigned rank;
+    const long long s =
+        eng.probe(__ldg(runs + start[r] + (e - first[r])), &rank);
     if (s >= 0) {
       atomicAdd(depth + s, 1u);
       ++hit;

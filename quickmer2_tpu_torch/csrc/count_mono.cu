@@ -75,13 +75,20 @@
 // exact_count_rows_packed (:905) runs it, and its dict-sharded form (the
 // block-restricted probe, :880-887): the anchored path's exact recount
 // through the PACKED table, for a counter without the mono table
-// (mono_spill off, and every sharded anchored counter). It is K2r's row
-// window map (512 lanes a block, the words staged once) with the two-choice
-// probe of one bucket block (packed_probe.cuh::packed_probe_block_h) in
-// place of the mono probe; a window found there adds 1 to acc at its rank,
-// a plain count (the caller adds acc to the cumsum of diff at finish). A
-// miss or an invalid window adds nothing: the JAX function sends those to
-// a trash word no caller reads.
+// (mono_spill off, and every sharded anchored counter). A valid nonzero
+// window found in the bucket block adds 1 to acc at its rank, a plain
+// count (the caller adds acc to the cumsum of diff at finish). A miss or
+// an invalid window adds nothing: the JAX function sends those to a trash
+// word no caller reads. Its first design was K2r's one pass with the
+// block probe reading both candidate rows of every window. It is K2r's
+// one pass still, with K8b's probe (block_probe.cuh::BlockProbe): h2's
+// row is read only where h1's misses, is full and the block's bitmap of
+// keys at h2 allows, so on the smoke's exact batch (99 % misses) a window
+// reads one row where it read two. K8b's bin and probe passes over this
+// map (512 windows a tile, a slice's runs of 32 tiles a probe block) ran
+// slower at every slice count from 2 to 256 (PERF.md, section 6): the
+// batch's windows re-read the rows they touch ~6 times and those rows fit
+// L2, so binning by slice only adds a pass.
 //
 // Bound on the H100 (3.35 TB/s HBM): the least a call must move is the
 // packed batch, each touched row once, the 32-B sector of each bucket's
@@ -91,6 +98,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_probe.cuh"
 #include "flat_windows.cuh"
 #include "packed_probe.cuh"
 
@@ -100,7 +108,6 @@ constexpr unsigned kEntries = 8;
 constexpr int kRowTile = 512;               // K2r's lanes per block
 constexpr int kRowStageWords = 576;         // K2r's staged words, each stream
 constexpr int kMaxParts = 256;
-constexpr unsigned short kNoPart = 0xFFFF;
 
 // Probe one valid window's canonical code: depth[slot] += 1 on a hit;
 // returns unresolved = nonzero & miss & every entry of the bucket used.
@@ -241,25 +248,20 @@ count_mono_direct_kernel(Map m, const uint4* __restrict__ rows,
   }
 }
 
-// K12: the packed exact recount over read rows, one pass. A valid window
-// whose canonical code sits in the block's rows adds 1 to acc at its rank
-// (plain counts, not slots). Misses add nothing.
+// K12: the packed exact recount over read rows in one pass. A valid
+// nonzero window whose canonical code sits in the block's rows (h1's row,
+// then h2's where it may hold the key) adds 1 to acc at its rank (plain
+// counts, not slots). Misses add nothing.
 template <class Map>
 __global__ void __launch_bounds__(kThreads)
-exact_packed_kernel(Map m, const uint4* __restrict__ rows,
-                    unsigned* __restrict__ acc, unsigned bucket_mask,
-                    unsigned blk_lo, unsigned blk_last) {
+exact_packed_kernel(Map m, BlockProbe eng, unsigned* __restrict__ acc) {
   __shared__ typename Map::Tile tile;
   const long long base = (long long)blockIdx.x * m.lanes();
   const typename Map::Span sp = m.stage(tile, base);
   for (int j = threadIdx.x; j < m.lanes(); j += kThreads) {
     u64 canon;
-    unsigned rank, pos;
-    if (m.window(tile, sp, base, j, &canon) &&
-        qm2t::packed_probe_block_h(
-            rows, canon,
-            qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon),
-            bucket_mask, blk_lo, blk_last, &rank, &pos)) {
+    unsigned rank;
+    if (m.window(tile, sp, base, j, &canon) && eng.probe(canon, &rank) >= 0) {
       atomicAdd(acc + rank, 1u);
     }
   }
@@ -483,13 +485,11 @@ extern "C" int qm2t_count_mono_rows(const void* pk, const void* aux, int lens,
 namespace {
 
 template <class Map>
-int exact_direct(const Map& m, const void* rows, void* acc,
-                 long long n_buckets, long long blk_lo,
-                 long long block_buckets, cudaStream_t s) {
+int exact_direct(const Map& m, const BlockProbe& eng, void* acc,
+                 cudaStream_t s) {
   const long long tiles = (m.n + m.lanes() - 1) / m.lanes();
-  exact_packed_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
-      m, (const uint4*)rows, (unsigned*)acc, (unsigned)(n_buckets - 1),
-      (unsigned)blk_lo, (unsigned)(block_buckets - 1));
+  exact_packed_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(m, eng,
+                                                           (unsigned*)acc);
   return (int)cudaGetLastError();
 }
 
@@ -497,10 +497,13 @@ int exact_direct(const Map& m, const void* rows, void* acc,
 
 // K12. pk, aux as qm2t_count_mono_rows; rows u32[block_buckets, 8], the
 // packed table's buckets [blk_lo, blk_lo + block_buckets) (the whole table:
-// blk_lo = 0, block_buckets = n_buckets); acc u32[n_acc] (updated in place;
-// every rank in the rows < n_acc).
+// blk_lo = 0, block_buckets = n_buckets); displaced u32[2^filter_bits /
+// 32] the block's bitmap of keys at h2 (kernels/block_probe.py::
+// block_displaced_filter); acc u32[n_acc] (updated in place; every rank in
+// the rows < n_acc).
 extern "C" int qm2t_exact_rows_packed(const void* pk, const void* aux,
                                       int lens, const void* rows,
+                                      const void* displaced, int filter_bits,
                                       long long n_buckets, long long blk_lo,
                                       long long block_buckets, void* acc,
                                       int n_rows, int L, int k,
@@ -508,7 +511,8 @@ extern "C" int qm2t_exact_rows_packed(const void* pk, const void* aux,
   const long long W = (long long)L - k + 1;
   if (k < 1 || k > kMaxK || L < k || L > 65535 || n_rows < 1 ||
       n_rows * W > 0xFFFFFFFFLL || bad_table(n_buckets, 1) ||
-      block_buckets < 1 || blk_lo < 0 || blk_lo + block_buckets > n_buckets) {
+      block_buckets < 1 || blk_lo < 0 || blk_lo + block_buckets > n_buckets ||
+      filter_bits < 5 || filter_bits > 32) {
     return (int)cudaErrorInvalidValue;
   }
   if (((uintptr_t)pk | (uintptr_t)aux) & 7) {
@@ -518,15 +522,19 @@ extern "C" int qm2t_exact_rows_packed(const void* pk, const void* aux,
   const long long pk_bytes = (long long)n_rows * pitch;
   const long long aux_bytes = (long long)n_rows * aux_pitch;
   const unsigned recip = (unsigned)(0xFFFFFFFFu / (unsigned)W);
+  const BlockProbe eng = {(const uint4*)rows, (const unsigned*)displaced,
+                          (unsigned)(n_buckets - 1), (unsigned)blk_lo,
+                          (unsigned)(block_buckets - 1), 0,
+                          32 - filter_bits};
   cudaStream_t s = (cudaStream_t)stream;
   if (lens) {
     const RowWindows<true> m = {(const uint8_t*)pk, (const uint8_t*)aux,
                                 pk_bytes, aux_bytes, n_rows * W,
                                 (unsigned)W, recip, pitch, aux_pitch, k};
-    return exact_direct(m, rows, acc, n_buckets, blk_lo, block_buckets, s);
+    return exact_direct(m, eng, acc, s);
   }
   const RowWindows<false> m = {(const uint8_t*)pk, (const uint8_t*)aux,
                                pk_bytes, aux_bytes, n_rows * W, (unsigned)W,
                                recip, pitch, aux_pitch, k};
-  return exact_direct(m, rows, acc, n_buckets, blk_lo, block_buckets, s);
+  return exact_direct(m, eng, acc, s);
 }

@@ -1,7 +1,7 @@
 // The flat batch's window map and word-parallel codec, shared by
-// csrc/count_mono.cu (K2, and the staging that K2r reuses),
-// csrc/count_flat.cu (K7, K8 and K9) and csrc/emit_member.cu (K10), so that
-// no copy drifts.
+// csrc/count_mono.cu (K2, and the staging that K2r and K12 reuse),
+// csrc/count_flat.cu (K7, K8, K8b and K9) and csrc/emit_member.cu (K10), so
+// that no copy drifts.
 //
 // A batch is ops/rowpack.py's layout with one row: base t at bits 2 (t & 3)
 // of byte t >> 2, and its invalid (separator) bit at bit t & 7 of byte

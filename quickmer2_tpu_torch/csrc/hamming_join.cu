@@ -64,14 +64,41 @@
 //
 // K5's inputs are bucket RUNS, not padded lanes: the entries of one side
 // sorted by their part key (bucket), as a CSR with offsets u32[B + 1]. They
-// are built on the card by a counting sort (qm2t_bucket_runs: a per-key
-// count, an exclusive scan of the counts, a scatter). An entry's position
-// in its run is its in-bucket slot, given by the caller (its rank among
-// the equal keys in entry order, ops/hamming_join.py::_slots_u8, 255 where
-// it is left out); an entry enters iff its slot is below the cap (the pad
-// of the padded layout), so the runs hold exactly the lanes the padded
+// are built on the card by a counting sort (qm2t_bucket_runs). An entry's
+// position in its run is its in-bucket slot, given by the caller (its rank
+// among the equal keys in entry order, ops/hamming_join.py::_slots_u8, 255
+// where it is left out); an entry enters iff its slot is below the cap (the
+// pad of the padded layout), so the runs hold exactly the lanes the padded
 // layout held, in the same order. Word runs are (hi, lo) pairs; query runs
 // add a tag u32, the query's index with its strand flag in bit 31.
+//
+// The counting sort replaces the scatters of _part_chunk_join_bits
+// (:210-236). Its first design (a per-key count, a three-launch
+// scan, a scatter) placed each entry at offsets[key] + slot straight from
+// the entry list: a random 8-B (and 4-B) store an entry, into ~24 MB on
+// the query side and ~94 MB on the word side, more than the 50 MB L2, and
+// most of its time went there (PERF.md). So it places in two levels, over
+// coarse bins, the top bits of the part key (kernels/hamming_join.py::
+// runs_plan picks the bins from n and width), in three passes:
+//   hist  - each block counts its share of the entering entries by bin in
+//           shared memory and adds them to the bins' totals;
+//   part  - a block stages a tile of 4,096 to 16,384 entries in shared
+//           memory, sorts their places by bin there, reserves each bin's
+//           run in that bin's range of a scratch laid out as the runs are
+//           (one atomic add per tile and bin) and writes the runs out
+//           coalesced (16 B an entry: code, tag, slot); a tile holds ~8
+//           entries a bin, so that a bin's run is a 128-B line;
+//   place - a block per bin counts its range's entries by key in shared
+//           memory, writes its keys' offsets, and puts each entry at its
+//           key's offset + slot inside the same range, staged in 192 KB of
+//           shared memory and written out coalesced; a bin of skewed keys
+//           larger than the stage stores straight to the runs inside its
+//           small range.
+// No per-key counter lives in global memory and no scan runs over the
+// 2^width keys; the final positions come from the counts and the slots
+// alone, so no order of the intermediate passes can change the runs. The
+// place pass zeroes the bins' totals and fill counters after their last
+// reader, so the cached scratch needs no clearing between calls.
 //
 // K5's design: a warp per 32 consecutive query run entries. The query
 // runs hold only live queries and come sorted by bucket, so they are the
@@ -333,10 +360,6 @@ int launch_pads(const Layout& L, cudaStream_t stream) {
 
 // -------------------------------------------- K5's counting sort ---------
 
-constexpr int kScanItems = 8;                       // counts a thread
-constexpr int kScanTile = kThreads * kScanItems;    // counts a block
-constexpr int kTopThreads = 1024;
-
 // Bits [lo_bit, lo_bit + width) of the 64-bit code (hi:lo), width <= 32.
 __device__ __forceinline__ unsigned part_key(unsigned hi, unsigned lo,
                                              int lo_bit, int width) {
@@ -346,30 +369,58 @@ __device__ __forceinline__ unsigned part_key(unsigned hi, unsigned lo,
 
 // The entries one side contributes to the runs: codes (hi[i], lo[i]), the
 // in-bucket slot of each (an entry enters iff slot < cap), and, on the
-// query side, the strand flag of each (fwd != nullptr).
+// query side, the strand flag of each (fwd != nullptr). A coarse bin is
+// the top bits of the part key: key >> bin_shift.
 struct Entries {
   const unsigned* hi;
   const unsigned* lo;
   const uint8_t* slot;
   const uint8_t* fwd;
   long long n;
-  int lo_bit, width, cap;
+  int lo_bit, width, cap, bin_shift;
+
+  // Entry i's part key, reading only the code words that hold its bits.
+  __device__ __forceinline__ unsigned key(long long i) const {
+    if (lo_bit + width <= 32) return part_key(0u, __ldg(lo + i), lo_bit, width);
+    if (lo_bit >= 32) return part_key(__ldg(hi + i), 0u, lo_bit, width);
+    return part_key(__ldg(hi + i), __ldg(lo + i), lo_bit, width);
+  }
 };
 
-__global__ void __launch_bounds__(kThreads)
-run_count_kernel(const Entries E, unsigned* __restrict__ cnt) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < E.n;
-       i += (long long)gridDim.x * kThreads) {
-    if (__ldg(E.slot + i) < E.cap) {
-      atomicAdd(cnt + part_key(__ldg(E.hi + i), __ldg(E.lo + i), E.lo_bit,
-                               E.width), 1u);
-    }
-  }
-}
+// The runs' scratch, cached by the caller: the bins' totals and fill
+// counters (zero between calls: the place pass zeroes them after their
+// last reader), the bins' starts in the runs, and the partitioned entries,
+// laid out as the runs are (each bin's entries in its own range, unordered
+// inside it), each (hi, lo, tag, slot).
+struct RunScratch {
+  unsigned* total;                     // u32[kMaxBins]
+  unsigned* fill;                      // u32[kMaxBins]
+  unsigned* bin_start;                 // u32[kMaxBins + 1]
+  uint4* mid;                          // u32[n][4]
+};
 
-// Exclusive scan of the block's 256 thread values; *total gets their sum.
+constexpr int kHistThreads = 512;
+constexpr int kHistBlocks = 512;                       // at most
+constexpr int kPartThreads = 1024;
+constexpr int kMaxPartItems = 16;        // entries a thread, at most
+constexpr int kMaxBins = 2048;
+constexpr int kPlaceThreads = 1024;
+constexpr int kStageBytes = 192 * 1024;    // the place pass's stage
+constexpr int kMaxBinKeys = 8192;          // keys a bin
+// dynamic shared memory: the part pass's tile of `items` entries a
+// thread (hi, lo, slot, strand, the sorted places) and its bins' run
+// starts and bases; the place pass's stage and its keys' counters
+constexpr int part_smem_bytes(int items) {
+  return kPartThreads * items * (4 + 4 + 1 + 1 + 2) + (2 * kMaxBins + 1) * 4;
+}
+constexpr int kPlaceSmem = kStageBytes + kMaxBinKeys * 4;
+
+// Exclusive scan of the block's NT thread values; *total gets their sum.
+template <int NT>
 __device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* total) {
-  __shared__ unsigned warp_sums[kThreads / 32];
+  constexpr int kWarps = NT / 32;
+  static_assert(kWarps <= 32, "one warp scans the warps' sums");
+  __shared__ unsigned warp_sums[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   unsigned x = v;
 #pragma unroll
@@ -380,98 +431,193 @@ __device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* total) {
   if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    unsigned s = lane < kThreads / 32 ? warp_sums[lane] : 0u;
+    unsigned s = lane < kWarps ? warp_sums[lane] : 0u;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const unsigned y = __shfl_up_sync(kFull, s, d);
       if (lane >= d) s += y;
     }
-    if (lane < kThreads / 32) warp_sums[lane] = s;
+    if (lane < kWarps) warp_sums[lane] = s;
   }
   __syncthreads();
   const unsigned before = (warp ? warp_sums[warp - 1] : 0u) + x - v;
-  *total = warp_sums[kThreads / 32 - 1];
+  *total = warp_sums[kWarps - 1];
   __syncthreads();
   return before;
 }
 
-// Scan pass 1: each block's kScanTile counts summed into sums[block].
-__global__ void __launch_bounds__(kThreads)
-scan_reduce_kernel(const unsigned* __restrict__ cnt, long long n,
-                   unsigned* __restrict__ sums) {
-  const long long base = (long long)blockIdx.x * kScanTile;
-  unsigned v = 0;
-#pragma unroll
-  for (int r = 0; r < kScanItems; ++r) {
-    const long long i = base + r * kThreads + threadIdx.x;
-    if (i < n) v += cnt[i];
-  }
-  unsigned total;
-  block_scan(v, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// Scan pass 2, one block: the block sums scanned in place (exclusive).
-__global__ void __launch_bounds__(kTopThreads)
-scan_top_kernel(unsigned* __restrict__ sums, int n_tiles) {
-  __shared__ unsigned part[kTopThreads];
-  const int per = (n_tiles + kTopThreads - 1) / kTopThreads;
-  const int lo = threadIdx.x * per;
-  unsigned v = 0;
-  for (int i = lo; i < lo + per && i < n_tiles; ++i) v += sums[i];
-  part[threadIdx.x] = v;
+// Pass 1, the bins' totals: each block counts its share of the entering
+// entries by coarse bin in shared memory and adds its counts to the
+// totals, one atomic add per block and bin.
+__global__ void __launch_bounds__(kHistThreads)
+run_hist_kernel(const Entries E, unsigned* __restrict__ total, int n_bins) {
+  __shared__ unsigned hist[kMaxBins];
+  for (int b = threadIdx.x; b < n_bins; b += kHistThreads) hist[b] = 0u;
   __syncthreads();
-  for (int d = 1; d < kTopThreads; d <<= 1) {     // Hillis-Steele
-    const unsigned y = threadIdx.x >= d ? part[threadIdx.x - d] : 0u;
-    __syncthreads();
-    part[threadIdx.x] += y;
-    __syncthreads();
+  for (long long i = (long long)blockIdx.x * kHistThreads + threadIdx.x;
+       i < E.n; i += (long long)gridDim.x * kHistThreads) {
+    if (__ldg(E.slot + i) < E.cap) {
+      atomicAdd(&hist[E.key(i) >> E.bin_shift], 1u);
+    }
   }
-  unsigned run = part[threadIdx.x] - v;
-  for (int i = lo; i < lo + per && i < n_tiles; ++i) {
-    const unsigned s = sums[i];
-    sums[i] = run;
-    run += s;
+  __syncthreads();
+  for (int b = threadIdx.x; b < n_bins; b += kHistThreads) {
+    if (hist[b]) atomicAdd(total + b, hist[b]);
   }
 }
 
-// Scan pass 3: off[i] = the counts before i; off[n] = their total. A
-// thread scans kScanItems consecutive counts.
-__global__ void __launch_bounds__(kThreads)
-scan_apply_kernel(const unsigned* __restrict__ cnt, long long n,
-                  const unsigned* __restrict__ sums,
-                  unsigned* __restrict__ off) {
-  const long long first =
-      (long long)blockIdx.x * kScanTile + (long long)threadIdx.x * kScanItems;
-  unsigned c[kScanItems];
+// Pass 2, the partition: block t stages tile t (kItems entries a thread:
+// codes, slots, strands) in shared memory, takes the bins' starts (a scan
+// of the totals; block 0 writes them for the place pass), counts the
+// tile's entering entries by bin (each its place in its bin's run),
+// reserves each bin's run in the bin's range by one atomic add on its
+// fill counter, sorts the places by bin, and writes each run out
+// coalesced. The tile holds 8 entries a bin on average (a 128-B line of
+// the scratch, part_items), 4,096 entries at least.
+template <int kItems>
+__global__ void __launch_bounds__(kPartThreads)
+run_part_kernel(const Entries E, RunScratch S, int n_bins) {
+  constexpr int kPartTile = kPartThreads * kItems;
+  static_assert(kPartTile <= 1 << 14, "a place fits 14 bits");
+  extern __shared__ uint4 part_smem[];
+  unsigned* s_hi = (unsigned*)part_smem;                   // [kPartTile]
+  unsigned* s_lo = s_hi + kPartTile;                       // [kPartTile]
+  unsigned* s_run = s_lo + kPartTile;                      // [kMaxBins + 1]
+  unsigned* s_base = s_run + kMaxBins + 1;                 // [kMaxBins]
+  unsigned short* s_order = (unsigned short*)(s_base + kMaxBins);
+  uint8_t* s_slot = (uint8_t*)(s_order + kPartTile);       // [kPartTile]
+  uint8_t* s_fwd = s_slot + kPartTile;                     // [kPartTile]
+  const int per = (n_bins + kPartThreads - 1) / kPartThreads;
+  const int b0 = threadIdx.x * per;
+  const long long base = (long long)blockIdx.x * kPartTile;
   unsigned v = 0;
-#pragma unroll
-  for (int r = 0; r < kScanItems; ++r) {
-    c[r] = first + r < n ? cnt[first + r] : 0u;
-    v += c[r];
+  for (int b = b0; b < b0 + per && b < n_bins; ++b) {
+    v += __ldcg(S.total + b);
+    s_run[b] = 0u;
   }
-  unsigned total;
-  unsigned run = sums[blockIdx.x] + block_scan(v, &total);
-#pragma unroll
-  for (int r = 0; r < kScanItems; ++r) {
-    if (first + r < n) off[first + r] = run;
-    run += c[r];
+  unsigned sum;
+  unsigned run = block_scan<kPartThreads>(v, &sum);
+  for (int b = b0; b < b0 + per && b < n_bins; ++b) {
+    s_base[b] = run;                 // the bin's start in the runs
+    if (blockIdx.x == 0) S.bin_start[b] = run;
+    run += __ldcg(S.total + b);
   }
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == kThreads - 1) off[n] = run;
+  if (blockIdx.x == 0 && threadIdx.x == 0) S.bin_start[n_bins] = sum;
+  unsigned place[kItems];            // bin << 14 | place in the bin's run
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int j = r * kPartThreads + threadIdx.x;
+    const long long i = base + j;
+    place[r] = kFull;
+    if (i < E.n) {
+      const unsigned h = __ldg(E.hi + i), l = __ldg(E.lo + i);
+      const uint8_t sl = __ldg(E.slot + i);
+      s_hi[j] = h;
+      s_lo[j] = l;
+      s_slot[j] = sl;
+      if (E.fwd) s_fwd[j] = __ldg(E.fwd + i);
+      if (sl < E.cap) {
+        const unsigned b = part_key(h, l, E.lo_bit, E.width) >> E.bin_shift;
+        place[r] = b << 14 | atomicAdd(&s_run[b], 1u);
+      }
+    }
+  }
+  __syncthreads();
+  v = 0;
+  for (int b = b0; b < b0 + per && b < n_bins; ++b) v += s_run[b];
+  unsigned n_local;
+  run = block_scan<kPartThreads>(v, &n_local);
+  for (int b = b0; b < b0 + per && b < n_bins; ++b) {
+    const unsigned c = s_run[b];
+    s_run[b] = run;                  // the bin's run starts here
+    if (c) s_base[b] += atomicAdd(S.fill + b, c);
+    run += c;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    if (place[r] != kFull) {
+      s_order[s_run[place[r] >> 14] + (place[r] & 0x3FFFu)] =
+          (unsigned short)(r * kPartThreads + threadIdx.x);
+    }
+  }
+  __syncthreads();
+  for (unsigned q = threadIdx.x; q < n_local; q += kPartThreads) {
+    const unsigned j = s_order[q];
+    const unsigned h = s_hi[j], l = s_lo[j];
+    const unsigned b = part_key(h, l, E.lo_bit, E.width) >> E.bin_shift;
+    const unsigned tag =
+        E.fwd ? (unsigned)(base + j) | ((unsigned)(s_fwd[j] != 0) << 31) : 0u;
+    S.mid[s_base[b] + (q - s_run[b])] = make_uint4(h, l, tag, s_slot[j]);
+  }
 }
 
-// Each entering entry to position off[key] + slot of the runs.
-__global__ void __launch_bounds__(kThreads)
-run_scatter_kernel(const Entries E, const unsigned* __restrict__ off,
-                   uint2* __restrict__ codes, unsigned* __restrict__ tags) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < E.n;
-       i += (long long)gridDim.x * kThreads) {
-    const unsigned s = __ldg(E.slot + i);
-    if (s >= (unsigned)E.cap) continue;
-    const unsigned hi = __ldg(E.hi + i), lo = __ldg(E.lo + i);
-    const unsigned p = __ldg(off + part_key(hi, lo, E.lo_bit, E.width)) + s;
-    codes[p] = make_uint2(hi, lo);
-    if (tags) tags[p] = (unsigned)i | ((unsigned)(__ldg(E.fwd + i) != 0) << 31);
+// Pass 3, the place: block b takes bin b's range [start, end) of the
+// partitioned entries, counts them by key in shared memory, writes the
+// offsets of the bin's keys (start plus their counts' exclusive scan), and
+// puts each entry at its key's offset + its slot inside that same range:
+// staged in shared memory and written out coalesced where the range fits
+// the stage; else (a bin of skewed keys) stored straight to the runs,
+// inside its small range. The second read of the range comes from L2. It
+// zeroes the bin's total and fill counter for the next call.
+__global__ void __launch_bounds__(kPlaceThreads)
+run_place_kernel(const Entries E, RunScratch S, unsigned* __restrict__ off,
+                 uint2* __restrict__ codes, unsigned* __restrict__ tags,
+                 int stage_cap) {
+  extern __shared__ uint4 place_smem[];
+  uint2* st_codes = (uint2*)place_smem;                    // [stage_cap]
+  unsigned* st_tags = (unsigned*)(st_codes + stage_cap);   // [stage_cap]
+  unsigned* kc = (unsigned*)((uint8_t*)place_smem + kStageBytes);
+  const unsigned b = blockIdx.x;
+  const int n_keys = 1 << E.bin_shift;
+  const long long k0 = (long long)b << E.bin_shift;
+  const unsigned s = __ldcg(S.bin_start + b);
+  const unsigned e = __ldcg(S.bin_start + b + 1);
+  if (threadIdx.x == 0) {            // their last readers are done
+    S.total[b] = 0u;
+    S.fill[b] = 0u;
+  }
+  for (int i = threadIdx.x; i < n_keys; i += kPlaceThreads) kc[i] = 0u;
+  __syncthreads();
+  for (unsigned j = s + threadIdx.x; j < e; j += kPlaceThreads) {
+    const uint4 m = __ldcg(S.mid + j);
+    atomicAdd(&kc[part_key(m.x, m.y, E.lo_bit, E.width) & (n_keys - 1)], 1u);
+  }
+  __syncthreads();
+  const int per = (n_keys + kPlaceThreads - 1) / kPlaceThreads;
+  const int i0 = threadIdx.x * per;
+  unsigned v = 0;
+  for (int i = i0; i < i0 + per && i < n_keys; ++i) v += kc[i];
+  unsigned sum;
+  unsigned run = block_scan<kPlaceThreads>(v, &sum);
+  for (int i = i0; i < i0 + per && i < n_keys; ++i) {
+    const unsigned c = kc[i];
+    kc[i] = run;
+    off[k0 + i] = s + run;
+    run += c;
+  }
+  if (b == gridDim.x - 1 && threadIdx.x == 0) off[k0 + n_keys] = e;
+  __syncthreads();
+  const unsigned len = e - s;
+  const bool staged = len <= (unsigned)stage_cap;
+  for (unsigned j = s + threadIdx.x; j < e; j += kPlaceThreads) {
+    const uint4 m = __ldcg(S.mid + j);
+    const unsigned p =
+        kc[part_key(m.x, m.y, E.lo_bit, E.width) & (n_keys - 1)] + m.w;
+    if (p >= len) continue;           // a slot past its key's run
+    if (staged) {
+      st_codes[p] = make_uint2(m.x, m.y);
+      if (tags) st_tags[p] = m.z;
+    } else {
+      codes[s + p] = make_uint2(m.x, m.y);
+      if (tags) tags[s + p] = m.z;
+    }
+  }
+  if (!staged) return;
+  __syncthreads();
+  for (unsigned j = threadIdx.x; j < len; j += kPlaceThreads) {
+    codes[s + j] = st_codes[j];
+    if (tags) tags[s + j] = st_tags[j];
   }
 }
 
@@ -567,14 +713,54 @@ join_runs_kernel(const Runs R) {
   }
 }
 
-unsigned grid_for(long long n) {
-  const long long g = (n + kThreads - 1) / kThreads;
-  return (unsigned)(g < 1 ? 1 : (g > 65536 ? 65536 : g));
-}
-
 bool bad_pads(long long n_buckets, int cpad, int cpad_q, int nq) {
   return n_buckets < 1 || cpad < 1 || cpad > 255 || cpad_q < 1 ||
          cpad_q > 255 || nq < 0;
+}
+
+// The part pass's entries a thread: 8 entries a bin a tile on average,
+// 4 to 16, so a tile holds 4,096 to 16,384 entries.
+int part_items(int n_bins) {
+  const int items = n_bins * 8 / kPartThreads;
+  return items <= 4 ? 4 : (items <= 8 ? 8 : kMaxPartItems);
+}
+
+template <int kItems>
+void launch_part(const Entries& E, const RunScratch& S, int n_bins,
+                 cudaStream_t s) {
+  const long long tile = (long long)kPartThreads * kItems;
+  const long long tiles = (E.n + tile - 1) / tile;
+  run_part_kernel<kItems><<<(unsigned)(tiles > 0 ? tiles : 1), kPartThreads,
+                            part_smem_bytes(kItems), s>>>(E, S, n_bins);
+}
+
+// The passes that stage more than 48 KB in shared memory must be allowed
+// to, once on each device.
+cudaError_t allow_dynamic_smem() {
+  static bool done[64] = {};
+  int d = 0;
+  cudaError_t rc = cudaGetDevice(&d);
+  if (rc != cudaSuccess || (d < 64 && done[d])) return rc;
+  rc = cudaFuncSetAttribute(run_part_kernel<4>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            part_smem_bytes(4));
+  if (rc == cudaSuccess) {
+    rc = cudaFuncSetAttribute(run_part_kernel<8>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              part_smem_bytes(8));
+  }
+  if (rc == cudaSuccess) {
+    rc = cudaFuncSetAttribute(run_part_kernel<16>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              part_smem_bytes(16));
+  }
+  if (rc == cudaSuccess) {
+    rc = cudaFuncSetAttribute(run_place_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kPlaceSmem);
+  }
+  if (rc == cudaSuccess && d < 64) done[d] = true;
+  return rc;
 }
 
 bool bad_part(int lo_bit, int width) {
@@ -607,38 +793,53 @@ extern "C" int qm2t_hamming_join(const void* dh, const void* dl,
   return launch_pads(L, (cudaStream_t)stream);
 }
 
-// K5's counting sort. hi, lo u32[n] codes; slot u8[n] in-bucket slots;
-// fwd u8[n] strand flags, or null for the word side; cnt u32[2^width]
-// scratch; sums u32[ceil(2^width / 2048)] scratch; off u32[2^width
-// + 1] the runs' offsets; codes u32[n][2] and (with fwd) tags u32[n] the
-// runs, of which the first off[2^width] entries are written.
+// K5's counting sort. hi, lo u32[n] codes; slot u8[n] in-bucket slots
+// (the rank of the entry among the entering entries of its key); fwd u8[n]
+// strand flags, or null for the word side; bin_shift the coarse bins'
+// shift (2^(width - bin_shift) <= 2048 bins of 2^bin_shift <= 8192 keys);
+// total and fill u32[2048] zero at entry and left zero, and bin_start
+// u32[2049], scratch cached by the caller; mid u32[n][4] scratch; off
+// u32[2^width + 1] the runs' offsets; codes u32[n][2] and (with fwd) tags
+// u32[n] the runs, of which the first off[2^width] entries are written.
+// Calls that share the cached scratch run on one stream, one after
+// another.
 extern "C" int qm2t_bucket_runs(const void* hi, const void* lo,
                                 const void* slot, const void* fwd,
                                 long long n, int lo_bit, int width, int cap,
-                                void* cnt, void* sums, void* off, void* codes,
-                                void* tags, void* stream) {
+                                int bin_shift, void* total, void* fill,
+                                void* bin_start, void* mid, void* off,
+                                void* codes, void* tags, void* stream) {
   if (n < 0 || n > 0x7FFFFFFFLL || bad_part(lo_bit, width) || width > 24 ||
-      cap < 1 || cap > 255 || (fwd == nullptr) != (tags == nullptr)) {
+      cap < 1 || cap > 255 || (fwd == nullptr) != (tags == nullptr) ||
+      bin_shift < 0 || bin_shift > width ||
+      (1 << (width - bin_shift)) > kMaxBins ||
+      (1 << bin_shift) > kMaxBinKeys) {
     return (int)cudaErrorInvalidValue;
   }
+  const cudaError_t attr = allow_dynamic_smem();
+  if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long B = 1LL << width;
-  const int n_tiles = (int)((B + kScanTile - 1) / kScanTile);
+  const int n_bins = 1 << (width - bin_shift);
   const Entries E = {(const unsigned*)hi, (const unsigned*)lo,
                      (const uint8_t*)slot, (const uint8_t*)fwd, n, lo_bit,
-                     width, cap};
-  const cudaError_t rc = cudaMemsetAsync(cnt, 0, B * sizeof(unsigned), s);
-  if (rc != cudaSuccess) return (int)rc;
-  if (n > 0) run_count_kernel<<<grid_for(n), kThreads, 0, s>>>(E, (unsigned*)cnt);
-  scan_reduce_kernel<<<n_tiles, kThreads, 0, s>>>((const unsigned*)cnt, B,
-                                                  (unsigned*)sums);
-  scan_top_kernel<<<1, kTopThreads, 0, s>>>((unsigned*)sums, n_tiles);
-  scan_apply_kernel<<<n_tiles, kThreads, 0, s>>>(
-      (const unsigned*)cnt, B, (const unsigned*)sums, (unsigned*)off);
+                     width, cap, bin_shift};
+  const RunScratch S = {(unsigned*)total, (unsigned*)fill,
+                        (unsigned*)bin_start, (uint4*)mid};
+  const long long hist_blocks = (n + 4 * kHistThreads - 1) /
+                                (4 * kHistThreads);
   if (n > 0) {
-    run_scatter_kernel<<<grid_for(n), kThreads, 0, s>>>(
-        E, (const unsigned*)off, (uint2*)codes, (unsigned*)tags);
+    run_hist_kernel<<<(unsigned)(hist_blocks < kHistBlocks ? hist_blocks
+                                                           : kHistBlocks),
+                      kHistThreads, 0, s>>>(E, S.total, n_bins);
   }
+  switch (part_items(n_bins)) {
+    case 4: launch_part<4>(E, S, n_bins, s); break;
+    case 8: launch_part<8>(E, S, n_bins, s); break;
+    default: launch_part<kMaxPartItems>(E, S, n_bins, s);
+  }
+  run_place_kernel<<<n_bins, kPlaceThreads, kPlaceSmem, s>>>(
+      E, S, (unsigned*)off, (uint2*)codes, (unsigned*)tags,
+      kStageBytes / (tags ? 12 : 8));
   return (int)cudaGetLastError();
 }
 

@@ -55,6 +55,7 @@ import torch
 
 from quickmer2_tpu_torch.device import U32, store, u32, words
 from quickmer2_tpu_torch.kernels import build
+from quickmer2_tpu_torch.kernels.block_probe import block_probe_plain
 from quickmer2_tpu_torch.kernels.count_mono import (
     MAX_PARTS, slice_count, workspace)
 from quickmer2_tpu_torch.ops import codec, packed_table, rowpack
@@ -304,68 +305,19 @@ def block_slot_depth_to_rank(depth: torch.Tensor, entries,
     return out & U32 if out.dtype == torch.int64 else out
 
 
-def block_displaced_filter(rows: torch.Tensor, n_buckets: int,
-                           blk_lo: int) -> torch.Tensor:
-    """The bitmap of a block's displaced keys, those that sit in their
-    h2 bucket because h1's was full at build: u32 words [2^b / 32], at
-    least 32 bits a displaced key and 1024 words, with bit (DJB *
-    FILTER_MULT mod 2^32) >> (32 - b) set for each. It has no false
-    negatives, so K8b reads h2's row only where a window's bit is set.
-    Plain torch, once a block (rows: the block's [Bb, 8])."""
-    from quickmer2_tpu_torch.kernels.count_mono import pack_lanes
-    from quickmer2_tpu_torch.kernels.neighbor_bits import FILTER_MULT
-    from quickmer2_tpu_torch.ops.hash import djb_pair, mul32
-    e = u32(rows.reshape(-1, 4))
-    bucket = torch.arange(e.shape[0], device=rows.device) // 2 + blk_lo
-    h = djb_pair(e[:, 0], e[:, 1])
-    moved = ((e[:, 0] | e[:, 1]) != 0) & ((h & (n_buckets - 1)) != bucket)
-    n_bits = max(15, (32 * int(moved.sum()) - 1).bit_length())
-    flags = torch.zeros(1 << n_bits, dtype=torch.bool, device=rows.device)
-    flags[mul32(h[moved], FILTER_MULT) >> (32 - n_bits)] = True
-    return pack_lanes(flags, rows.dtype)
-
-
-def _maybe_displaced(h: torch.Tensor, displaced: torch.Tensor | None):
-    """Whether each hash's bit is set in the bitmap (all set for None)."""
-    from quickmer2_tpu_torch.kernels.neighbor_bits import FILTER_MULT
-    from quickmer2_tpu_torch.ops.hash import mul32
-    if displaced is None:
-        return torch.ones(h.shape, dtype=torch.bool, device=h.device)
-    n_bits = (32 * displaced.shape[0]).bit_length() - 1
-    i = mul32(h, FILTER_MULT) >> (32 - n_bits)
-    return ((u32(displaced)[i >> 5] >> (i & 31)) & 1) != 0
-
-
 def count_packed_block_step_plain(pk, bits, rows, displaced, depth, *, k: int,
                                   n_buckets: int, blk_lo: int,
                                   block_buckets: int, n_bases: int) -> None:
-    """Plain PyTorch version, in the kernel's two passes. Bin: decode
-    the windows and keep the valid nonzero ones with a candidate: h1's
-    bucket where it is local, else h2's where it is local and the
-    window's bit in `displaced` (block_displaced_filter; None: every
-    local h2) is set. Probe: h1's row, then h2's where that misses and
-    h2 is a candidate, and add 1 at the matching local slot; every other
-    window (invalid, a miss, a key of another block) adds to the
-    trash."""
-    from quickmer2_tpu_torch.ops.hash import djb_pair
+    """Plain PyTorch version: decode the windows, probe the valid ones in
+    the block (block_probe_plain: h1's row where local, then h2's where
+    local and the window's bit in `displaced` is set) and add 1 at the
+    matching local slot; every other window (invalid, a miss, a key of
+    another block) adds to the trash."""
     chi, clo, valid = batch_windows(pk, bits, k, n_bases)
-    trash = 2 * block_buckets
-    h = djb_pair(chi, clo)
-    o1, o2 = ((b - blk_lo) & U32
-              for b in packed_table.bucket_hashes_t(h, n_buckets))
-    second = (o2 < block_buckets) & _maybe_displaced(h, displaced)
-    binned = torch.nonzero(valid & ((chi | clo) != 0)
-                           & ((o1 < block_buckets) | second)).flatten()
-    slot = torch.full(chi.shape, trash, dtype=torch.int64, device=chi.device)
-    code = u32(chi[binned]), u32(clo[binned])
-    # h2 first, so that h1's match is the one kept
-    for o, cand in ((o2[binned], second[binned]),
-                    (o1[binned], o1[binned] < block_buckets)):
-        r = u32(rows[torch.where(cand, o, 0)])
-        for e in range(packed_table.ENTRIES_PER_BUCKET):
-            m = cand & (r[:, 4 * e] == code[0]) & (r[:, 4 * e + 1] == code[1])
-            slot[binned] = torch.where(m, 2 * o + e, slot[binned])
-    _add(depth, slot)
+    slot, _ = block_probe_plain(rows, chi, clo, displaced,
+                                n_buckets=n_buckets, blk_lo=blk_lo,
+                                block_buckets=block_buckets)
+    _add(depth, torch.where(valid & (slot >= 0), slot, 2 * block_buckets))
 
 
 def count_packed_block_step(pk: torch.Tensor, bits: torch.Tensor,
@@ -375,7 +327,7 @@ def count_packed_block_step(pk: torch.Tensor, bits: torch.Tensor,
                             n_bases: int) -> None:
     """One batch into the block's slot-space `depth` u32[2 *
     block_buckets + 1] (updated in place); rows: the block's [Bb, 8],
-    displaced: its block_displaced_filter."""
+    displaced: its block_probe.block_displaced_filter."""
     if pk.device.type == "cpu":
         count_packed_block_step_plain(
             pk, bits, rows, displaced, depth, k=k, n_buckets=n_buckets,

@@ -22,7 +22,9 @@ words. On the card it probes in one pass, 512 lanes a block.
 exact_count_rows (as exact_count_rows_packed runs it, and under a dict
 axis): the exact recount of read rows through the PACKED table, or one
 bucket block of it, adding 1 to a plain-count accumulator at the rank of
-every valid window found there. K2r's row-window map with the block probe.
+every valid window found there. K2r's row-window map in one pass with
+K8b's block probe (csrc/block_probe.cuh): h2's row is read only where
+h1's misses, is full and the block's bitmap of keys at h2 allows.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel, or raises.
@@ -46,9 +48,9 @@ _ARGTYPES = {
     "qm2t_count_mono_rows": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
         ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p],
-    "qm2t_exact_rows_packed": [ctypes.c_void_p] * 2 + [ctypes.c_int,
-        ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p]}
+    "qm2t_exact_rows_packed": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_longlong] * 3 + [
+        ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 SLICE_BYTES = 24 << 20     # table + depth bytes of one probed slice
 MAX_PARTS = 256
 _work: dict = {}
@@ -217,14 +219,19 @@ count_mono_rows.launches = 0
 
 def count_packed_rows_plain(pk, aux, rows, acc, *, fmt: str, k: int,
                             n_buckets: int, read_len: int, blk_lo: int = 0,
-                            block_buckets: int | None = None) -> None:
+                            block_buckets: int | None = None,
+                            displaced=None) -> None:
     """Plain PyTorch version: the windows of the rows, probed in the
-    block, and 1 added at the rank of each valid one found."""
-    from quickmer2_tpu_torch.ops.packed_table import probe_packed_block
+    block as the kernel probes them (block_probe.block_probe_plain: h1's
+    row, then h2's where h1's is full and the window's bit in
+    `displaced` allows; None: every such h2), and 1 added at the rank of
+    each valid one found."""
+    from quickmer2_tpu_torch.kernels.block_probe import block_probe_plain
     chi, clo, valid = row_windows(pk, aux, fmt=fmt, k=k, read_len=read_len)
-    found, rank, _ = probe_packed_block(
-        rows, chi, clo, n_buckets, block_buckets or n_buckets, blk_lo, 0)
-    hit = rank[valid & found]
+    slot, rank = block_probe_plain(
+        rows, chi, clo, displaced, n_buckets=n_buckets, blk_lo=blk_lo,
+        block_buckets=block_buckets or n_buckets)
+    hit = rank[valid & (slot >= 0)]
     acc.index_add_(0, hit, torch.ones(hit.shape, dtype=acc.dtype,
                                       device=acc.device))
 
@@ -232,30 +239,41 @@ def count_packed_rows_plain(pk, aux, rows, acc, *, fmt: str, k: int,
 def count_packed_rows(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
                       acc: torch.Tensor, *, fmt: str, k: int, n_buckets: int,
                       read_len: int, blk_lo: int = 0,
-                      block_buckets: int | None = None) -> None:
+                      block_buckets: int | None = None,
+                      displaced: torch.Tensor | None = None) -> None:
     """One batch of read rows into the plain-count accumulator `acc` u32
     (rank order, updated in place), probed against `rows`: the packed
     table's buckets [blk_lo, blk_lo + block_buckets) (default: the whole
-    table of n_buckets)."""
+    table of n_buckets). displaced: the block's
+    block_probe.block_displaced_filter, built once a block by the caller
+    (required on the card)."""
     block_buckets = block_buckets or n_buckets
     if pk.device.type == "cpu":
         count_packed_rows_plain(pk, aux, rows, acc, fmt=fmt, k=k,
                                 n_buckets=n_buckets, read_len=read_len,
-                                blk_lo=blk_lo, block_buckets=block_buckets)
+                                blk_lo=blk_lo, block_buckets=block_buckets,
+                                displaced=displaced)
         return
     R, L = pk.shape[0], read_len
     W = L - k + 1
+    if displaced is None:
+        raise ValueError("count_packed_rows: the block's displaced-key "
+                         "bitmap is required on the card")
+    n_words = displaced.shape[0]
     aux_shape, aux_dtype = rowpack.aux_layout(fmt, R, L)
     build.check_tensors("count_packed_rows", pk.device, [
         ("pk", pk, torch.uint8, (R, -(-L // 4))),
         ("aux", aux, aux_dtype, aux_shape),
         ("rows", rows, torch.int32, (block_buckets, ROW_WIDTH)),
+        ("displaced", displaced, torch.int32, (n_words,)),
         ("acc", acc, torch.int32, (acc.shape[0],))])
     if (fmt not in ("lens", "mask") or not 1 <= k <= 32 or W < 1 or R < 1
             or not 0 <= blk_lo <= n_buckets - block_buckets):
         raise ValueError(f"count_packed_rows: bad fmt={fmt!r} k={k} "
                          f"read_len={read_len} rows={R} block [{blk_lo}, "
                          f"{blk_lo} + {block_buckets}) of {n_buckets}")
+    if n_words < 1 or n_words & (n_words - 1) or n_words > 1 << 27:
+        raise ValueError(f"count_packed_rows: bad bitmap of {n_words} words")
     if (pk.data_ptr() | aux.data_ptr()) & 7:
         raise ValueError("count_packed_rows: pk and aux must be 8-byte "
                          "aligned")
@@ -264,8 +282,9 @@ def count_packed_rows(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qm2t_exact_rows_packed(
             pk.data_ptr(), aux.data_ptr(), int(fmt == "lens"),
-            rows.data_ptr(), n_buckets, blk_lo, block_buckets,
-            acc.data_ptr(), R, L, k, stream)
+            rows.data_ptr(), displaced.data_ptr(),
+            (32 * n_words).bit_length() - 1, n_buckets, blk_lo,
+            block_buckets, acc.data_ptr(), R, L, k, stream)
     build.check(lib, rc, "count_packed_rows")
     count_packed_rows.launches += 1
 

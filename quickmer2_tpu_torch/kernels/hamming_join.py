@@ -15,7 +15,12 @@ exactly 1. Its inputs are bucket runs, not padded layouts: each side's
 entries sorted by one part's key, with offsets u32[B + 1] (CSR), built
 on the card by `bucket_runs`, a counting sort that keeps each entry at
 its in-bucket slot, so the runs hold the lanes the padded layout held.
-Terms and layouts are described in the CUDA source.
+It places in two levels over coarse bins of the part key (`runs_plan`):
+each block sorts its tile by bin into the bins' ranges, then a block a
+bin puts its range in order through shared memory. Every entry's place
+is offsets[key] + slot whatever the passes' order, so its plain version
+`bucket_runs_plain` is a sort. Terms and layouts are described in the
+CUDA source.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel, or raises.
@@ -34,11 +39,13 @@ _ARGTYPES = ([ctypes.c_void_p] * 7
              + [ctypes.c_longlong] + [ctypes.c_int] * 4
              + [ctypes.c_uint] * 6 + [ctypes.c_void_p])
 _RUNS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                  + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8)
 _BITS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong,
                                            ctypes.c_void_p]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-SCAN_TILE = 2048    # counts a block of the counting sort's scan
+MAX_BINS = 2048     # coarse bins, at most
+MAX_BIN_KEYS = 8192    # keys a bin, at most
+STAGE_BYTES = 192 * 1024   # the place pass's stage in shared memory
 
 
 def _lib():
@@ -149,6 +156,22 @@ def bucket_runs_plain(hi, lo, slot, *, lo_bit: int, width: int, cap: int,
     return codes, store(tags, hi.dtype), off
 
 
+def runs_plan(n: int, width: int, tags: bool) -> tuple[int, int]:
+    """The counting sort's coarse bins for n entries and 2^width keys:
+    (bin_shift, stage), a bin being key >> bin_shift and stage the
+    entries the place pass stages (12 B each with tags, else 8). The
+    least power of two of bins whose mean bin is at most half the stage
+    (the part keys are raw code bits, so bins are skewed: a bin over the
+    stage is stored straight) and whose bins hold at most MAX_BIN_KEYS
+    keys; at most MAX_BINS bins and at most a key a bin."""
+    stage = STAGE_BYTES // (12 if tags else 8)
+    bits = max(0, width - (MAX_BIN_KEYS.bit_length() - 1))
+    while (bits < min(width, MAX_BINS.bit_length() - 1)
+           and n >> bits > stage // 2):
+        bits += 1
+    return width - bits, stage
+
+
 def bucket_runs(hi: torch.Tensor, lo: torch.Tensor, slot: torch.Tensor, *,
                 lo_bit: int, width: int, cap: int, fwd=None):
     """One side's bucket runs for one part (K5's counting sort): the
@@ -172,29 +195,49 @@ def bucket_runs(hi: torch.Tensor, lo: torch.Tensor, slot: torch.Tensor, *,
             and 1 <= cap <= 255):
         raise ValueError(f"bucket_runs: bad part bits [{lo_bit}, "
                          f"{lo_bit} + {width}) or cap {cap}")
-    n_keys = 1 << width
-    cnt = torch.empty(n_keys, dtype=torch.int32, device=hi.device)
-    sums = torch.empty(-(-n_keys // SCAN_TILE), dtype=torch.int32,
-                       device=hi.device)
-    off = torch.empty(n_keys + 1, dtype=torch.int32, device=hi.device)
-    codes = torch.empty((n, 2), dtype=torch.int32, device=hi.device)
-    tags = (None if fwd is None
-            else torch.empty(n, dtype=torch.int32, device=hi.device))
+    shift, _ = runs_plan(n, width, fwd is not None)
+    dev = hi.device
+    sc = _run_scratch(dev)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    off, codes, mid = empty((1 << width) + 1), empty(n, 2), empty(n, 4)
+    tags = None if fwd is None else empty(n)
     lib = _lib()
-    with torch.cuda.device(hi.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qm2t_bucket_runs(
             hi.data_ptr(), lo.data_ptr(), slot.data_ptr(),
             None if fwd is None else fwd.data_ptr(), n, lo_bit, width, cap,
-            cnt.data_ptr(), sums.data_ptr(), off.data_ptr(),
+            shift, sc["total"].data_ptr(), sc["fill"].data_ptr(),
+            sc["bin_start"].data_ptr(), mid.data_ptr(), off.data_ptr(),
             codes.data_ptr(), None if tags is None else tags.data_ptr(),
             stream)
+    if rc:
+        # a failed call may leave the bins' totals nonzero: drop them, so
+        # that the next call starts from zeroed scratch
+        del _scratch[dev]
     build.check(lib, rc, "bucket_runs")
     bucket_runs.launches += 1
     return (codes, off) if tags is None else (codes, tags, off)
 
 
 bucket_runs.launches = 0
+
+
+def _run_scratch(device: torch.device) -> dict:
+    """The counting sort's cached scratch on a device: the bins' totals
+    and fill counters (zero between calls: the kernels leave them so)
+    and the bins' starts. Calls that share it run on one stream."""
+    if device not in _scratch:
+        def zeros(n):
+            return torch.zeros(n, dtype=torch.int32, device=device)
+        _scratch[device] = {"total": zeros(MAX_BINS), "fill": zeros(MAX_BINS),
+                            "bin_start": zeros(MAX_BINS + 1)}
+    return _scratch[device]
+
+
+_scratch: dict = {}
 
 
 def _ctz_onehot(y: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,7 @@ import torch
 from quickmer2_tpu_torch.device import (
     fetched, resolve_device, start_fetch, to_numpy_u32, word_dtype, words)
 from quickmer2_tpu_torch.kernels.anchored import DBLK, GBLK, anchored_count
+from quickmer2_tpu_torch.kernels.block_probe import block_displaced_filter
 from quickmer2_tpu_torch.kernels.count_mono import (
     count_mono_rows, count_packed_rows)
 from quickmer2_tpu_torch.kernels.neighbor_bits import (
@@ -486,6 +487,7 @@ class AnchoredDepthCounter:
         self.anchor_offsets = tuple(int(a) for a in anchor_offsets if 0 <= a < W)
         wd = word_dtype(self.device)
         self.mono_spill = mono_spill
+        self._exact_filter = None   # K12's bitmap of keys at h2, built once
         self._init_accumulators()
         if mono_spill:
             if index.mono is None:
@@ -566,9 +568,14 @@ class AnchoredDepthCounter:
                                     fmt=fmt, k=self.k,
                                     n_buckets=self._mono.n_buckets,
                                     read_len=self.read_len)]
-        count_packed_rows(pk, aux, self.index.rows, self.exact_acc, fmt=fmt,
-                          k=self.k, n_buckets=self.index.n_buckets,
-                          read_len=self.read_len)
+        ix = self.index
+        if self._exact_filter is None:
+            self._exact_filter = block_displaced_filter(ix.rows, ix.n_buckets,
+                                                        0)
+        count_packed_rows(pk, aux, ix.rows, self.exact_acc, fmt=fmt,
+                          k=self.k, n_buckets=ix.n_buckets,
+                          read_len=self.read_len,
+                          displaced=self._exact_filter)
         return []
 
     def _merged_accumulators(self):

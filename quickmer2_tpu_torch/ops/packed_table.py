@@ -70,7 +70,16 @@ class PackedTable:
         Raises ValueError when more than MAX_SHARED_HASH keys share one
         DJB value (no bucket count can place them: both candidates come
         from that value) or when MAX_DOUBLINGS doublings do not place
-        every key."""
+        every key.
+
+        The table keeps an invariant that the block probe (kernels/
+        block_probe.py, csrc/block_probe.cuh) relies on: a key sits in
+        its h2 bucket only where its h1 bucket is full. A key goes to h2
+        only when h1 has no room (_try_place), a cuckoo move puts its
+        evicter in the place it leaves (_cuckoo_evict), and no entry is
+        ever emptied. A change to the placement must keep it, or the
+        probe would miss keys at h2 behind an h1 row with an empty
+        entry."""
         from quickmer2_tpu_torch.ops.hash import djb_pair_np
         n = len(khi)
         if pos is None:
@@ -113,7 +122,9 @@ class PackedTable:
 def _try_place(khi, klo, rank, pos, h, n_buckets):
     """Vectorized two-choice first-fit: several rounds of 'everyone not
     yet placed tries its next candidate slot; ties broken by scatter
-    order'. Deterministic (stable order by key index)."""
+    order'. Deterministic (stable order by key index). A key takes h2
+    only where h1 is full, and a bucket's fill only grows (the block
+    probe's invariant, PackedTable.build)."""
     n = len(khi)
     fill = np.zeros(n_buckets, np.int64)
     slot_of = np.full(n, -1, np.int64)       # bucket*C + entry
@@ -162,7 +173,10 @@ def _cuckoo_evict(pending, slot_of, h1, h2, n_buckets) -> bool:
     """Place the (rare, ~0.1%) keys whose both buckets filled during the
     greedy rounds, by deterministic cuckoo random-walk eviction. Mutates
     slot_of in place; returns False if a walk exceeds the kick budget
-    (caller doubles the table)."""
+    (caller doubles the table). A walk starts at the key's h1 and a
+    victim moves out only where its evicter takes its entry, so a key
+    moved to h2 leaves its h1 full (the block probe's invariant,
+    PackedTable.build)."""
     C = ENTRIES_PER_BUCKET
     occupant = np.full(n_buckets * C, -1, np.int64)
     placed = slot_of >= 0

@@ -42,6 +42,7 @@ import torch
 from quickmer2_tpu_torch.device import (
     store, to_numpy_u32, u32, word_dtype, words)
 from quickmer2_tpu_torch.kernels.anchored import anchor_probes, anchored_count
+from quickmer2_tpu_torch.kernels.block_probe import block_displaced_filter
 from quickmer2_tpu_torch.kernels.count_mono import count_packed_rows
 from quickmer2_tpu_torch.ops import rowpack
 from quickmer2_tpu_torch.ops.anchored import AnchoredDepthCounter
@@ -73,6 +74,7 @@ class ShardedAnchoredCounter(AnchoredDepthCounter):
         super().__init__(index, k, read_len, batch_reads=batch_reads, **kw)
         bb = self.block_buckets
         self._rows, self._tiles, self._dblock = {}, {}, {}
+        self._displaced = {}      # K12's bitmap of each block's keys at h2
         for i in range(self.dp):
             for j in range(self.ds):
                 d = mesh[i, j]
@@ -84,6 +86,8 @@ class ShardedAnchoredCounter(AnchoredDepthCounter):
                         words(index.host_rows[j * bb:(j + 1) * bb], d)
                         if index.rows is None
                         else index.rows[j * bb:(j + 1) * bb].to(d))
+                    self._displaced[d, j] = block_displaced_filter(
+                        self._rows[d, j], index.n_buckets, j * bb)
 
     # -- the device steps, over the grid ----------------------------------
 
@@ -165,7 +169,8 @@ class ShardedAnchoredCounter(AnchoredDepthCounter):
                     *shard[d], self._rows[d, j],
                     self.exact_acc[i][j], fmt=fmt, k=self.k,
                     n_buckets=self.index.n_buckets, read_len=self.read_len,
-                    blk_lo=j * bb, block_buckets=bb)
+                    blk_lo=j * bb, block_buckets=bb,
+                    displaced=self._displaced[d, j])
         return []
 
     def _partials(self):

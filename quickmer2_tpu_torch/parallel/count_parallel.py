@@ -27,9 +27,9 @@ import numpy as np
 import torch
 
 from quickmer2_tpu_torch.device import to_numpy_u32, word_dtype, words
+from quickmer2_tpu_torch.kernels.block_probe import block_displaced_filter
 from quickmer2_tpu_torch.kernels.count_flat import (
-    block_displaced_filter, block_slot_depth_to_rank, count_packed_block_step,
-    packed_block_entries)
+    block_slot_depth_to_rank, count_packed_block_step, packed_block_entries)
 from quickmer2_tpu_torch.ops import rowpack
 from quickmer2_tpu_torch.ops.codec import SEP
 from quickmer2_tpu_torch.ops.packed_table import ROW_WIDTH, PackedTable

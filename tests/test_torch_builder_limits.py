@@ -90,3 +90,29 @@ def test_dictionary_below_capacity_matches_jax():
     want = jdict.Dictionary.from_kmers_in_order(kmers, 64, 25)
     np.testing.assert_array_equal(got.table, want.table)
     np.testing.assert_array_equal(got.chain_slots, want.chain_slots)
+
+
+@pytest.mark.parametrize("n_keys,load", [(3000, 0.5), (4000, 0.98)])
+def test_packed_table_puts_keys_at_h2_only_behind_a_full_h1(monkeypatch,
+                                                           n_keys, load):
+    """The block probe reads h2's row only where h1's is full: every key
+    the build puts in its h2 bucket has a full h1 bucket, at the usual
+    load and at one near 1, cuckoo walks included (both run some)."""
+    walks = []
+    evict = tpacked._cuckoo_evict
+
+    def counted(pending, *args):
+        walks.append(len(pending))
+        return evict(pending, *args)
+    monkeypatch.setattr(tpacked, "_cuckoo_evict", counted)
+    hi, lo = _spread_keys(n_keys, n_keys)
+    t = tpacked.PackedTable.build(hi, lo, np.arange(n_keys, dtype=np.uint32),
+                                  load=load)
+    e = t.rows.reshape(-1, 4)
+    live = (e[:, 0] | e[:, 1]) != 0
+    h1, _ = tpacked.bucket_hashes(djb_pair_np(e[:, 0], e[:, 1]), t.n_buckets)
+    at_h2 = live & (h1 != np.arange(len(e)) // 2)
+    full = live.reshape(-1, 2).all(1)
+    assert at_h2.any()
+    assert full[h1[at_h2].astype(np.int64)].all()
+    assert sum(walks) > 0

@@ -187,6 +187,8 @@ def test_block_step_plain_matches_jax_local_step(world, case, ds):
     block 1 (each a hit)."""
     from quickmer2_tpu.ops.hash import djb_pair as jdjb
     from quickmer2_tpu_torch.kernels import count_flat as tkflat
+    from quickmer2_tpu_torch.kernels.block_probe import (
+        block_displaced_filter)
     jtable = jpacked.PackedTable.from_dictionary(world["jdic"])
     ttable = tpacked.PackedTable.from_dictionary(world["tdic"])
     np.testing.assert_array_equal(ttable.rows, jtable.rows)
@@ -215,7 +217,7 @@ def test_block_step_plain_matches_jax_local_step(world, case, ds):
     for j in range(ds):
         rows = _t64(ttable.rows[j * bb:(j + 1) * bb])
         d = torch.zeros(2 * bb + 1, dtype=torch.int64)
-        disp = tkflat.block_displaced_filter(rows, B, j * bb)
+        disp = block_displaced_filter(rows, B, j * bb)
         tkflat.count_packed_block_step(pk, bits, rows, disp, d, k=K,
                                        n_buckets=B, blk_lo=j * bb,
                                        block_buckets=bb, n_bases=len(codes))
@@ -252,7 +254,7 @@ def test_block_launch_rejects_bad_slice_counts(n_parts, bb):
 def test_displaced_filter_holds_every_key_at_h2(world, ds):
     """block_displaced_filter has a bit for every key of the block that
     sits in its h2 bucket (no false negatives), and those keys exist."""
-    from quickmer2_tpu_torch.kernels import count_flat as tkflat
+    from quickmer2_tpu_torch.kernels import block_probe as tkprobe
     from quickmer2_tpu_torch.ops.hash import djb_pair
     table = tpacked.PackedTable.from_dictionary(world["tdic"])
     B = table.n_buckets
@@ -260,12 +262,12 @@ def test_displaced_filter_holds_every_key_at_h2(world, ds):
     n_moved = 0
     for j in range(ds):
         rows = _t64(table.rows[j * bb:(j + 1) * bb])
-        disp = tkflat.block_displaced_filter(rows, B, j * bb)
+        disp = tkprobe.block_displaced_filter(rows, B, j * bb)
         e = rows.reshape(-1, 4)
         h = djb_pair(e[:, 0], e[:, 1])
         at = torch.arange(e.shape[0]) // 2 + j * bb
         moved = ((e[:, 0] | e[:, 1]) != 0) & ((h & (B - 1)) != at)
-        assert tkflat._maybe_displaced(h[moved], disp).all()
+        assert tkprobe.maybe_displaced(h[moved], disp).all()
         n_moved += int(moved.sum())
     assert n_moved > 0
 
