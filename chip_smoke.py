@@ -79,10 +79,15 @@ Phases:
                 scan) on K8's PackedTable of the .qm k-mers: the whole
                 genome as the scanner chunks it, and at chunks of 2^22
                 with an N run over a seam, an N inside a halo and a
-                SEP-padded tail, each chunk's bit-packed mask equal to
-                the plain version's and to the host lookup's hit set;
-                timed on one 2^24-window chunk beside torch.isin of
-                its valid codes against the survivors. K11 (est's window sums)
+                SEP-padded tail, and a 2^22 chunk with the table's keys
+                at h2 and absent codes behind a full h1 planted, each
+                chunk's bit-packed mask equal to the plain version's,
+                to a probe of both rows with no gate and (but the
+                planted chunk) to the host lookup's hit set; timed on
+                one 2^24-window chunk (each pass by torch.profiler, at
+                P = 64 too, checked, its h2 reads with the gate and
+                without) beside torch.isin of its valid nonzero
+                codes against the survivors. K11 (est's window sums)
                 on 101 M k-mers in windows of 1,000: two launches
                 bit for bit the same, equal to the plain version (the
                 same summation order), within 1e-4 of a float64 truth,
@@ -102,8 +107,15 @@ Phases:
                 planted (lens and mask formats) through the whole table
                 (timed, with its probe counts) and through each block
                 (summing to the whole; block 0 timed), with and without
-                the bitmap, K3a (anchor probes) on
-                each block of the tier-1 batch (timed) and K3 with the
+                the bitmap, K3a (anchor probes) with each block's
+                bitmap on each block at ds = 2 and 4 of the tier-1 and
+                tier-2 batches and of the tier-1 batch with 4,000 keys
+                that sit at h2 planted at the anchors (lens and mask
+                formats; at ds = 2 also cut to rows of 150, whose
+                bases and invalid bits K3a loads byte by byte),
+                against its plain version and both rows'
+                ungated probe (block 0 of 2 timed, with its wrapper's
+                host time and h2 reads) and K3 with the
                 summed anchors on each block in tiers 1 and 2 (its codes
                 the one-launch K3's, its diffs summing to that K3's;
                 timed), and K10's scan over two shards of the card
@@ -311,11 +323,12 @@ PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernel"),
               "count_mono": ("count_mono", "count_mono_"),
               "count_linear": ("count_flat", "CountLinear"),
               "count_packed": ("count_flat", "11CountPacked"),
-              "count_packed_block": ("count_flat", "block_bin|block_probe"),
+              "count_packed_block": ("count_flat",
+                                     "bin_kernelIy|block_probe_kernel"),
               "count_packed_rows": ("count_mono", "exact_packed_kernel"),
               "anchor_probes": ("anchored", "anchor_probe_kernel"),
               "kmerize": ("count_flat", "kmerize_kernel"),
-              "member_scan": ("emit_member", "member_kernel"),
+              "member_scan": ("emit_member", "bin_kernelIt|member_probe"),
               "window_sums": ("est_windows", "window_sums_kernel")}
 
 
@@ -2188,9 +2201,23 @@ def host_members(dic, codes):
     return valid & (canon != 0) & found
 
 
+def member_ungated(rows, pk, bits, k, n_bases, n_buckets):
+    """The hit mask of a chunk by a probe of both candidate rows with no
+    gate (ops/packed_table.py::probe_packed, as JAX's _member_chunk), and
+    the chunk's (chi, clo, valid nonzero)."""
+    from quickmer2_tpu_torch.kernels.emit_member import pack_mask
+    from quickmer2_tpu_torch.ops.packed_table import probe_packed
+    chi, clo, ok = codec_windows(pk, bits, k, n_bases)
+    nz = ok & ((chi | clo) != 0)
+    found, _, _ = probe_packed(rows, chi, clo, n_buckets, 0)
+    return pack_mask(found & nz), chi, clo, nz
+
+
 def compare_member_scan(scanner, codes, want, label):
     """The scanner's mask on `codes` (K10 a chunk) against the plain
-    version chunk by chunk and against the host lookup's `want`."""
+    version (with the scanner's bitmap of keys at h2) and a probe of both
+    rows with no gate chunk by chunk, and against the host lookup's
+    `want`."""
     from quickmer2_tpu_torch.kernels.emit_member import (
         member_scan_plain, unpack_mask)
     from quickmer2_tpu_torch.ops import rowpack
@@ -2198,34 +2225,96 @@ def compare_member_scan(scanner, codes, want, label):
     for off, take, seg in scanner.chunks(codes):
         got = scanner.scan_chunk(seg)
         pk, bits = rowpack.pack_rows(seg[None])
+        pk = torch.from_numpy(pk[0]).to(scanner.device)
+        bits = torch.from_numpy(bits[0]).to(scanner.device)
         plain = member_scan_plain(
-            torch.from_numpy(pk[0]).to(scanner.device),
-            torch.from_numpy(bits[0]).to(scanner.device), scanner.rows,
-            k=scanner.k, n_buckets=scanner.n_buckets, n_bases=len(seg))
+            pk, bits, scanner.rows, k=scanner.k, n_buckets=scanner.n_buckets,
+            n_bases=len(seg), displaced=scanner.displaced)
+        ungated = member_ungated(scanner.rows, pk, bits, scanner.k, len(seg),
+                                 scanner.n_buckets)[0]
         torch.cuda.synchronize()
         err = max_abs_err(got, plain)
         if err != 0:
             raise AssertionError(f"member_scan {label} chunk at {off} "
                                  "disagrees with its plain version")
-        if not np.array_equal(unpack_mask(got, take), want[off:off + take]):
+        if max_abs_err(got, ungated) != 0:
+            raise AssertionError(f"member_scan {label} chunk at {off}: the "
+                                 "gated h2 read drops a hit that both "
+                                 "rows' probe finds")
+        if (want is not None and not np.array_equal(
+                unpack_mask(got, take), want[off:off + take])):
             raise AssertionError(f"member_scan {label} chunk at {off} "
                                  "disagrees with the host lookup")
         n_chunks += 1
-    log(f"  member_scan {label}: {len(want)} windows in {n_chunks} chunks "
-        f"of {scanner.chunk}, {int(want.sum())} hits; equal to the plain "
-        "version and to the host lookup")
+    n = len(codes) - scanner.k + 1
+    log(f"  member_scan {label}: {n} windows in {n_chunks} chunks of "
+        f"{scanner.chunk}; equal to the plain version, to both rows' "
+        "ungated probe" + ("" if want is None else
+                           f" and to the host lookup ({int(want.sum())} "
+                           "hits)"))
+
+
+def plant_members(table_rows, g, k, n, rng):
+    """Genome codes g[:n + k - 1] with, every 128 bases, a key that sits
+    in its h2 bucket (h1's was full at build), and 64 bases after each a
+    canonical code absent from the table whose h1 bucket is full (a
+    window that misses behind a full h1): the windows K10's bitmap of
+    keys at h2 must let through, and those whose h2 read it mostly
+    skips. Returns the codes and the counts of each planted."""
+    from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.ops.hamming_join import _rc_np
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    B = table_rows.shape[0]
+    e = u32(table_rows.reshape(-1, 4))
+    h = djb_pair(e[:, 0], e[:, 1])
+    at = torch.arange(e.shape[0], device=e.device) // 2
+    moved = ((e[:, 0] | e[:, 1]) != 0) & ((h & (B - 1)) != at)
+    keys = ((e[moved, 0] << 32) | e[moved, 1]).cpu().numpy()
+    full = ((table_rows[:, :4] != 0).any(1)
+            & (table_rows[:, 4:] != 0).any(1))
+    top = (1 << (2 * k)) - 1
+    cand = rng.integers(1, top, 400_000, dtype=np.int64).astype(np.uint64)
+    cand = np.minimum(cand, _rc_np(cand, k)).astype(np.int64)  # canonical
+    ch = torch.from_numpy(cand >> 32).to(e.device)
+    cl = torch.from_numpy(cand & 0xFFFFFFFF).to(e.device)
+    hb = djb_pair(ch, cl) & (B - 1)
+    behind = cand[full[hb].cpu().numpy()]
+    behind = behind[~np.isin(behind.astype(np.uint64),
+                             ((e[:, 0] << 32) | e[:, 1]).cpu().numpy()
+                             .astype(np.uint64))]
+    out = g[:n + k - 1].copy()
+    shifts = 2 * np.arange(k - 1, -1, -1, dtype=np.uint64)
+    slots = np.arange(0, n - 64, 64)
+    for start, src in ((slots[0::2], keys), (slots[1::2], behind)):
+        src = src[:len(start)].astype(np.uint64)
+        bases = ((src[:, None] >> shifts) & np.uint64(3)).astype(np.uint8)
+        out[start[:len(src), None] + np.arange(k)] = bases
+    return out, min(len(keys), len(slots[0::2])), min(len(behind),
+                                                      len(slots[1::2]))
+
+
+MEMBER_NEIGHBOUR = 64                   # K10 timed at a second P too
 
 
 def check_member_scan(dic, table, g, dev):
-    """K10 against its plain version and the host lookup: the whole smoke
-    genome chunked as the scanner chunks it (one chunk), against a packed
-    table of the search's .qm k-mers; the genome at chunks of 2^22 with an
-    N run over a seam and inside a halo, the tail chunk SEP-padded; then
-    timed on one 2^24-window chunk of the genome's codes. Returns the
-    kernel-table row."""
+    """K10 against its plain version (with the scanner's bitmap of keys
+    at h2), against a probe of both rows with no gate and against the
+    host lookup: the whole smoke genome chunked as the scanner chunks it
+    (one chunk), against a packed table of the search's .qm k-mers; two
+    shards of it (data_devices 2); the genome at chunks of 2^22 with an
+    N run over a seam and inside a halo, the tail chunk SEP-padded; a
+    2^22-window chunk with the table's keys at h2 and absent codes behind
+    a full h1 planted. Then timed on one 2^24-window chunk of the
+    genome's codes at the scanner's slice count, each pass by
+    torch.profiler, and at P = MEMBER_NEIGHBOUR (checked), with its h2
+    row reads with the gate and without it. Returns the kernel-table
+    row."""
     from quickmer2_tpu_torch.kernels.emit_member import (
-        member_scan, member_scan_plain)
-    from quickmer2_tpu_torch.ops import codec, rowpack
+        _member_scan_launch, member_partitions_for, member_scan,
+        member_scan_plain)
+    from quickmer2_tpu_torch.kernels.block_probe import maybe_displaced
+    from quickmer2_tpu_torch.ops import codec, packed_table, rowpack
+    from quickmer2_tpu_torch.ops.hash import djb_pair
     from quickmer2_tpu_torch.parallel.emit_parallel import (
         CHUNK, DeviceMembershipScanner)
     k = dic.kmer_size
@@ -2250,27 +2339,60 @@ def check_member_scan(dic, table, g, dev):
     small = DeviceMembershipScanner(table, k, chunk=seam, device=dev)
     compare_member_scan(small, seamed, host_members(dic, seamed),
                         "N runs at seams")
+    planted, n_at_h2, n_behind = plant_members(
+        scanner.rows, g, k, seam, np.random.default_rng(1414))
+    compare_member_scan(small, planted, None,
+                        f"{n_at_h2} keys at h2 and {n_behind} absent codes "
+                        "behind a full h1 planted")
     # one full chunk of the genome's codes, timed
     codes = np.concatenate([g, g])[:CHUNK + k - 1]
     pk, bits = rowpack.pack_rows(codes[None])
     pk = torch.from_numpy(pk[0]).to(dev)
     bits = torch.from_numpy(bits[0]).to(dev)
-    kw = dict(k=k, n_buckets=table.n_buckets, n_bases=len(codes))
-    rows = scanner.rows
-    got = member_scan(pk, bits, rows, **kw)
-    plain = member_scan_plain(pk, bits, rows, **kw)
+    B = table.n_buckets
+    kw = dict(k=k, n_buckets=B, n_bases=len(codes))
+    rows, disp = scanner.rows, scanner.displaced
+    got = member_scan(pk, bits, rows, displaced=disp, **kw)
+    plain = member_scan_plain(pk, bits, rows, displaced=disp, **kw)
+    ungated, chi, clo, nz = member_ungated(rows, pk, bits, k, len(codes), B)
     torch.cuda.synchronize()
     err = max_abs_err(got, plain)
-    if err != 0:
+    if err != 0 or max_abs_err(got, ungated) != 0:
         raise AssertionError("member_scan on a full chunk disagrees with "
-                             "its plain version")
-    ms, queued_ms = kernel_ms(lambda: member_scan(pk, bits, rows, **kw), 10)
-    plain_ms = cuda_ms(lambda: member_scan_plain(pk, bits, rows, **kw), 2)
+                             "its plain version or both rows' probe")
+    own = member_partitions_for(B)
+
+    def call():
+        member_scan(pk, bits, rows, displaced=disp, **kw)
+    ms, queued_ms = kernel_ms(call, 10)
+    passes = profile_kernels(call, 5, "member_scan")
+
+    def launch():
+        return _member_scan_launch(pk, bits, rows, disp,
+                                   n_parts=MEMBER_NEIGHBOUR, **kw)
+    if max_abs_err(launch(), ungated) != 0:
+        raise AssertionError(f"member_scan at P = {MEMBER_NEIGHBOUR} "
+                             "disagrees with both rows' probe")
+    sweep = {MEMBER_NEIGHBOUR: round(cuda_ms(launch, 10, queued=True), 4)}
+    plain_ms = cuda_ms(lambda: member_scan_plain(pk, bits, rows,
+                                                 displaced=disp, **kw), 2)
+    # h2 row reads: without the gate every valid nonzero window that h1's
+    # row lacks; with it only where h1's row is also full and the
+    # window's bit is set
+    h = djb_pair(chi, clo)
+    h1, _ = packed_table.bucket_hashes_t(h, B)
+    r1 = rows[h1].to(torch.int64) & 0xFFFFFFFF
+    in1 = (((r1[:, 0] == chi) & (r1[:, 1] == clo))
+           | ((r1[:, 4] == chi) & (r1[:, 5] == clo)))
+    full1 = (r1[:, :4] != 0).any(1) & (r1[:, 4:] != 0).any(1)
+    h2_reads = {"ungated": int((nz & ~in1).sum()),
+                "gated": int((nz & ~in1 & full1
+                              & maybe_displaced(h, disp)).sum())}
+    del r1, in1, full1, h, h1
     # least traffic: the packed chunk, each distinct 32-B candidate row
-    # (h1 of every valid nonzero window, h2 where h1 misses), the mask
-    chi, clo, ok = codec_windows(pk, bits, k, len(codes))
-    nz = ok & ((chi | clo) != 0)
-    n_rows = probe_rows(rows, chi[nz], clo[nz])
+    # (h1 of every valid nonzero window, h2 where h1 lacks the code, is
+    # full and the bitmap lets it through: probe_rows), the mask
+    n_rows = probe_rows(rows, chi[nz], clo[nz], displaced=disp)
     n_win = len(codes) - k + 1
     n_bytes = pk.numel() + bits.numel() + 32 * n_rows + 4 * got.numel()
     # ~48 int ops a window, as K8: codec and DJB, two buckets, 4 compares
@@ -2280,17 +2402,21 @@ def check_member_scan(dic, table, g, dev):
     e = rows.reshape(-1, 4).to(torch.int64) & 0xFFFFFFFF
     live = (e[:, 0] | e[:, 1]) != 0
     keys = (e[live, 0] << 32) | e[live, 1]
-    q = ((chi << 32) | clo)[ok]
+    q = ((chi << 32) | clo)[nz]
     library_ms = cuda_ms(lambda: torch.isin(q, keys), 3)
     log(f"  member_scan time {ms:.4f} ms (queued {queued_ms:.4f} ms) a "
-        f"2^24-window chunk, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_rows} rows of "
-        f"{table.n_buckets} buckets), torch.isin of its {q.numel()} valid "
-        f"codes against the {keys.numel()} survivors {library_ms:.4f} ms")
+        f"2^24-window chunk at P = {own}, passes (torch.profiler, ms a "
+        f"call) {passes}; queued ms at P = {sweep} (checked); h2 row "
+        f"reads {h2_reads}; plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_rows} rows of {B} buckets), "
+        f"torch.isin of its {q.numel()} valid nonzero codes against the "
+        f"{keys.numel()} survivors {library_ms:.4f} ms")
     return {"name": "member_scan", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/emit_member.cu",
             "replaces": "quickmer2_tpu/parallel/emit_parallel.py:99",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "partitions": own, "passes": passes,
+            "sweep_queued_ms": sweep, "h2_row_reads": h2_reads,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms}
 
@@ -2705,21 +2831,31 @@ def check_entry():
 DS = 2                      # the dict axis of the kernel checks
 
 
-def probe_rows(rows, chi, clo, lo=0, bb=None) -> int:
+def probe_rows(rows, chi, clo, lo=0, bb=None, displaced=None) -> int:
     """The least rows a probe of the nonzero keys (chi, clo) reads in the
     bucket block [lo, lo + bb) of the whole packed table `rows` [B, 8]
     (default: the whole table): the distinct h1 rows in the block, and
-    the h2 rows in it only of the keys that h1's row does not hold."""
+    the h2 rows in it of the keys that h1's row does not hold. Given the
+    block's bitmap of keys at h2 (`displaced`, the gated probes K8b, K10,
+    K12 and K3a), only of those keys that may sit at h2: h1's row full
+    where it lies in the block (a key sits at h2 only behind a full h1)
+    and the key's bit set."""
     from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.kernels.block_probe import maybe_displaced
     from quickmer2_tpu_torch.ops import packed_table
     from quickmer2_tpu_torch.ops.hash import djb_pair
     B = rows.shape[0]
     bb = B if bb is None else bb
-    h1, h2 = packed_table.bucket_hashes_t(djb_pair(chi, clo), B)
+    h = djb_pair(chi, clo)
+    h1, h2 = packed_table.bucket_hashes_t(h, B)
     r1 = u32(rows[h1])
-    in_h1 = (((r1[:, 0] == chi) & (r1[:, 1] == clo))
-             | ((r1[:, 4] == chi) & (r1[:, 5] == clo)))
-    b = torch.cat([h1, h2[~in_h1]])
+    need2 = ~(((r1[:, 0] == chi) & (r1[:, 1] == clo))
+              | ((r1[:, 4] == chi) & (r1[:, 5] == clo)))
+    if displaced is not None:
+        full1 = (r1[:, :4] != 0).any(1) & (r1[:, 4:] != 0).any(1)
+        local1 = (h1 >= lo) & (h1 < lo + bb)
+        need2 &= (full1 | ~local1) & maybe_displaced(h, displaced)
+    b = torch.cat([h1, h2[need2]])
     return int(torch.unique(b[(b >= lo) & (b < lo + bb)]).numel())
 
 
@@ -2823,7 +2959,8 @@ def check_count_packed_block(table, codes, k, dev):
         # window, as K8
         chi, clo, ok = codec_windows(spk, sbits, k, kw["n_bases"])
         nz = ok & ((chi | clo) != 0)
-        rows_touched = probe_rows(rows_all, chi[nz], clo[nz], 0, bb)
+        rows_touched = probe_rows(rows_all, chi[nz], clo[nz], 0, bb,
+                                  disp)
         d_sec = int(torch.unique(torch.nonzero(d_k[:-1]).flatten() // 8)
                     .numel()) + 1
         n_bytes = nbytes + 32 * rows_touched + 64 * d_sec
@@ -2862,11 +2999,11 @@ def check_count_packed_block(table, codes, k, dev):
     return row
 
 
-def plant_displaced(rows_all, rows, k, n_plant):
+def plant_displaced(rows_all, rows, k, n_plant, offsets=(10,)):
     """A copy of the read rows with n_plant keys of the table that sit in
     their h2 bucket (h1's was full at build) written into its first rows,
-    one a row at offset 10: windows that K12 finds only through its
-    bitmap of displaced keys."""
+    one a row at each of `offsets`: windows that K12 (and K3a, with its
+    anchor offsets) finds only through its bitmap of displaced keys."""
     from quickmer2_tpu_torch.device import u32
     from quickmer2_tpu_torch.ops.hash import djb_pair
     e = u32(rows_all.reshape(-1, 4))
@@ -2876,10 +3013,15 @@ def plant_displaced(rows_all, rows, k, n_plant):
              & ((h & (rows_all.shape[0] - 1)) != at))
     keys = ((e[moved, 0] << 32) | e[moved, 1])[:n_plant].cpu().numpy()
     shifts = 2 * np.arange(k - 1, -1, -1, dtype=np.uint64)
+    bases = ((keys.astype(np.uint64)[:, None] >> shifts)
+             & np.uint64(3)).astype(np.uint8)
     out = rows.copy()
-    out[:len(keys), 10:10 + k] = ((keys.astype(np.uint64)[:, None] >> shifts)
-                                  & np.uint64(3)).astype(np.uint8)
-    return out, len(keys)
+    n = 0
+    for t, a in enumerate(offsets):
+        b = bases[t::len(offsets)][:len(out)]
+        out[:len(b), a:a + k] = b
+        n += len(b)
+    return out, n
 
 
 def k12_counts(rows_all, chi, clo, disp, lo, bb) -> dict:
@@ -3024,7 +3166,8 @@ def check_count_packed_rows(index, rows, k, dev):
     nz = ok & ((chi | clo) != 0)
     counts = {ds: k12_counts(index.rows, chi[nz], clo[nz], disp[ds][0], 0,
                              B // ds) for ds in (1, DS)}
-    rows_touched = probe_rows(index.rows, chi[nz], clo[nz])
+    rows_touched = probe_rows(index.rows, chi[nz], clo[nz],
+                              displaced=disp[1][0])
     d_sec = counts[1]["distinct_acc_sectors"]
     n_bytes = in_bytes + 32 * rows_touched + 64 * d_sec
     b_ms, b_by = bound_ms(n_bytes, 48 * int(ok.sum()))
@@ -3047,103 +3190,206 @@ def check_count_packed_rows(index, rows, k, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def check_anchor_probes(index, counter, tier1, tier2, dev):
-    """K3a and K3 on bucket blocks at ds = 2, on the main path's tier-1
-    and tier-2 batches: K3a on each block against its plain version, its
-    found summed over the blocks at most 1 a window; K3 with the summed
-    anchors on each block (in both tiers) against its plain version, its
-    codes those of the one-launch K3 and its diffs summing to that K3's.
-    K3a timed on block 0 of the tier-1 batch, K3 on blocks in tier 1
-    too. Returns K3a's kernel-table row."""
-    from quickmer2_tpu_torch.device import store, u32
+def anchor_windows(pk, aux, pkw):
+    """(chi, clo, valid) of the anchor windows of a packed batch, [A, R]
+    each, by the plain codec."""
     from quickmer2_tpu_torch.kernels import anchored as ka
-    B = index.n_buckets
-    bb = B // DS
-    tab = (index.genome_tiles, index.dblock)
-    err = 0
-    block_ms = {}
-    for tier, rows in ((1, tier1), (2, tier2)):
-        fmt, pk, aux, in_bytes = packed_on(rows, dev)
-        kw = dict(fmt=fmt, **counter._tier_kw(tier))
-        pkw = dict(fmt=fmt, k=kw["k"], read_len=kw["read_len"],
-                   n_buckets=B, anchor_offsets=kw["anchor_offsets"],
-                   block_buckets=bb)
-        f_sum = p_sum = 0
-        for j in range(DS):
-            rows_j = index.rows[j * bb:(j + 1) * bb]
-            f, p = ka.anchor_probes(pk, aux, rows_j, blk_lo=j * bb, **pkw)
-            fp, pp = ka.anchor_probes_plain(pk, aux, rows_j, blk_lo=j * bb,
-                                            **pkw)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(f, fp), max_abs_err(p, pp))
-            f_sum = f_sum + f.long()
-            p_sum = p_sum + u32(p)
-        if int(f_sum.max()) > 1:
-            raise AssertionError("a key was found on two blocks")
-        found = (f_sum > 0).to(torch.uint8)
-        pos = store(p_sum, torch.int32)
-        one = torch.zeros(index.n_kmers + 2, dtype=torch.int32, device=dev)
-        c_one = ka.anchored_count(pk, aux, index.rows, *tab, one, **kw)
-        total = torch.zeros_like(one)
-        for j in range(DS):
-            bkw = dict(kw, anchors=(found, pos), blk_lo=j * bb,
-                       block_buckets=bb, ranges=j == 0)
-            rows_j = index.rows[j * bb:(j + 1) * bb]
-            d_k, d_p = torch.zeros_like(one), torch.zeros_like(one)
-            c_k = ka.anchored_count(pk, aux, rows_j, *tab, d_k, **bkw)
-            c_p = ka.anchored_count_plain(pk, aux, rows_j, *tab, d_p, **bkw)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(d_k, d_p), max_abs_err(c_k, c_p),
-                      max_abs_err(c_k, c_one))
-            total += d_k
-            if j == 0:
-                block_ms[f"tier{tier}"] = kernel_ms(
-                    lambda: ka.anchored_count(pk, aux, rows_j, *tab, d_k,
-                                              **bkw), 10)
-        if max_abs_err(total, one) != 0:
-            raise AssertionError(f"tier {tier}: the blocks' diffs do not "
-                                 "sum to the one-launch K3's")
-        if err != 0:
-            raise AssertionError(f"anchor_probes or anchored_count on "
-                                 f"blocks (tier {tier}) disagrees with its "
-                                 "plain version or the one-launch K3")
-        log(f"  anchor_probes + anchored_count on {DS} blocks, tier {tier} "
-            f"({fmt}): {int(found.sum())} anchors found, codes 0/1/2 = "
-            f"{np.bincount(c_one.cpu().numpy(), minlength=3).tolist()} as "
-            "the one-launch K3's, blocks' diffs summing to its diff, "
-            "equal to the plain versions")
-        if tier == 1:
-            timed = (pk, aux, in_bytes, pkw, rows.shape[0])
-    pk, aux, in_bytes, pkw, R = timed
-    rows0 = index.rows[:bb]
-    ms, queued_ms = kernel_ms(
-        lambda: ka.anchor_probes(pk, aux, rows0, blk_lo=0, **pkw), 10)
-    plain_ms = cuda_ms(
-        lambda: ka.anchor_probes_plain(pk, aux, rows0, blk_lo=0, **pkw), 2)
-    # least traffic: the packed rows in, the block's 32-B rows the valid
-    # anchor windows must read (probe_rows), found (1 B) and pos (4 B) out
-    # a window; ~60 int ops a probe (codec of k bases, DJB, compares)
     _, chi, clo, valid = ka._read_windows(pk, aux, pkw["fmt"], pkw["k"],
                                           pkw["read_len"])
     offs = list(pkw["anchor_offsets"])
-    ok = valid[:, offs]
-    qh, ql = chi[:, offs][ok], clo[:, offs][ok]
+    return chi[:, offs].T, clo[:, offs].T, valid[:, offs].T
+
+
+def check_anchor_probes(index, counter, tier1, tier2, dev):
+    """K3a and K3 on bucket blocks, on the main path's tier-1 and tier-2
+    batches and on the tier-1 batch with 4,000 keys that sit at h2
+    planted at the anchor offsets (lens and mask format): K3a on each
+    block at ds = 2 and 4, with the block's bitmap of displaced keys,
+    against its plain version and against a probe of both candidate
+    rows with no gate (kernels/anchored.py::_anchor_probes), its found
+    summed over the blocks at most 1 a window; at ds = 2 K3 with the
+    summed anchors on each block against its plain version, its codes
+    those of the one-launch K3 and its diffs summing to that K3's. The
+    planted batch cut to rows of 150 (lens and mask format: K3a's byte
+    loads) at ds = 2 against the same two. K3a timed on block 0 of the tier-1 batch at ds = 2, with its wrapper's
+    host time and its h2 row reads with the gate and without (both
+    local candidates), K3 on blocks in tier 1 too. Returns K3a's
+    kernel-table row."""
+    from quickmer2_tpu_torch.device import store, u32
+    from quickmer2_tpu_torch.kernels import anchored as ka
+    from quickmer2_tpu_torch.kernels.block_probe import (
+        block_displaced_filter)
+    from quickmer2_tpu_torch.ops import codec, packed_table
+    from quickmer2_tpu_torch.ops.hash import djb_pair
+    B = index.n_buckets
+    tab = (index.genome_tiles, index.dblock)
+    disp = {ds: [block_displaced_filter(
+        index.rows[j * (B // ds):(j + 1) * (B // ds)], B, j * (B // ds))
+        for j in range(ds)] for ds in (DS, 4)}
+    offs = list(counter.anchor_offsets)
+    planted, n_planted = plant_displaced(index.rows, tier1, counter.k, 4000,
+                                         offsets=offs)
+    masked = planted.copy()
+    masked[::7, offs[1] + 5] = codec.SEP
+    err = 0
+    block_ms = {}
+    for tier, label, rows in ((1, "tier 1", tier1), (2, "tier 2", tier2),
+                              (1, "planted", planted),
+                              (1, "planted, mask format", masked)):
+        fmt, pk, aux, in_bytes = packed_on(rows, dev)
+        kw = dict(fmt=fmt, **counter._tier_kw(tier))
+        pkw = dict(fmt=fmt, k=kw["k"], read_len=kw["read_len"],
+                   n_buckets=B, anchor_offsets=kw["anchor_offsets"])
+        chi, clo, valid = anchor_windows(pk, aux, pkw)
+        for ds in (DS, 4):
+            bb = B // ds
+            f_sum = p_sum = 0
+            for j in range(ds):
+                rows_j = index.rows[j * bb:(j + 1) * bb]
+                blk = dict(pkw, blk_lo=j * bb, block_buckets=bb)
+                f, p = ka.anchor_probes(pk, aux, rows_j,
+                                        displaced=disp[ds][j], **blk)
+                fp, pp = ka.anchor_probes_plain(pk, aux, rows_j,
+                                                displaced=disp[ds][j], **blk)
+                fu, pu = ka._anchor_probes(rows_j, chi.T, clo.T, valid.T,
+                                           list(range(len(offs))), B,
+                                           j * bb, bb)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(f, fp), max_abs_err(p, pp))
+                if err != 0:
+                    raise AssertionError(f"anchor_probes ({label}, ds {ds}, "
+                                         f"block {j}) disagrees with its "
+                                         "plain version")
+                if (max_abs_err(f, fu.to(torch.uint8)) != 0
+                        or max_abs_err(p, pu) != 0):
+                    raise AssertionError(
+                        f"anchor_probes ({label}, ds {ds}, block {j}): the "
+                        "gated h2 read drops a hit that both rows' probe "
+                        "finds")
+                f_sum = f_sum + f.long()
+                p_sum = p_sum + u32(p)
+            if int(f_sum.max()) > 1:
+                raise AssertionError("a key was found on two blocks")
+            log(f"  anchor_probes ({label}, {fmt}) on {ds} blocks: "
+                f"{int(f_sum.sum())} anchors found, equal to the plain "
+                "version and to both rows' ungated probe")
+            if ds != DS or tier == 1 and label != "tier 1":
+                continue
+            found = (f_sum > 0).to(torch.uint8)
+            pos = store(p_sum, torch.int32)
+            one = torch.zeros(index.n_kmers + 2, dtype=torch.int32,
+                              device=dev)
+            c_one = ka.anchored_count(pk, aux, index.rows, *tab, one, **kw)
+            total = torch.zeros_like(one)
+            for j in range(DS):
+                bkw = dict(kw, anchors=(found, pos), blk_lo=j * bb,
+                           block_buckets=bb, ranges=j == 0)
+                rows_j = index.rows[j * bb:(j + 1) * bb]
+                d_k, d_p = torch.zeros_like(one), torch.zeros_like(one)
+                c_k = ka.anchored_count(pk, aux, rows_j, *tab, d_k, **bkw)
+                c_p = ka.anchored_count_plain(pk, aux, rows_j, *tab, d_p,
+                                              **bkw)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(d_k, d_p), max_abs_err(c_k, c_p),
+                          max_abs_err(c_k, c_one))
+                total += d_k
+                if j == 0:
+                    block_ms[f"tier{tier}"] = kernel_ms(
+                        lambda: ka.anchored_count(pk, aux, rows_j, *tab,
+                                                  d_k, **bkw), 10)
+            if max_abs_err(total, one) != 0:
+                raise AssertionError(f"tier {tier}: the blocks' diffs do "
+                                     "not sum to the one-launch K3's")
+            if err != 0:
+                raise AssertionError(f"anchored_count on blocks (tier "
+                                     f"{tier}) disagrees with its plain "
+                                     "version or the one-launch K3")
+            log(f"  anchored_count on {DS} blocks, tier {tier} ({fmt}): "
+                f"codes 0/1/2 = "
+                f"{np.bincount(c_one.cpu().numpy(), minlength=3).tolist()} "
+                "as the one-launch K3's, blocks' diffs summing to its "
+                "diff, equal to the plain version")
+        if label == "tier 1":
+            timed = (pk, aux, in_bytes, pkw, rows.shape[0], chi, clo, valid)
+    # rows of 150 bases (a --read-len that is no multiple of 32): K3a's
+    # byte loads of the packed bases and of the invalid bits
+    for label, rows in (("planted, rows of 150", planted[:, :150]),
+                        ("planted, rows of 150, mask format",
+                         masked[:, :150])):
+        fmt, pk, aux, _ = packed_on(np.ascontiguousarray(rows), dev)
+        L = rows.shape[1]
+        pkw = dict(fmt=fmt, k=counter.k, read_len=L, n_buckets=B,
+                   anchor_offsets=[a for a in offs if a <= L - counter.k])
+        chi, clo, valid = anchor_windows(pk, aux, pkw)
+        bb = B // DS
+        f_sum = 0
+        for j in range(DS):
+            rows_j = index.rows[j * bb:(j + 1) * bb]
+            blk = dict(pkw, blk_lo=j * bb, block_buckets=bb)
+            f, p = ka.anchor_probes(pk, aux, rows_j, displaced=disp[DS][j],
+                                    **blk)
+            fp, pp = ka.anchor_probes_plain(pk, aux, rows_j,
+                                            displaced=disp[DS][j], **blk)
+            fu, pu = ka._anchor_probes(
+                rows_j, chi.T, clo.T, valid.T,
+                list(range(len(pkw["anchor_offsets"]))), B, j * bb, bb)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(f, fp), max_abs_err(p, pp))
+            if err != 0:
+                raise AssertionError(f"anchor_probes ({label}, block {j}) "
+                                     "disagrees with its plain version")
+            if (max_abs_err(f, fu.to(torch.uint8)) != 0
+                    or max_abs_err(p, pu) != 0):
+                raise AssertionError(
+                    f"anchor_probes ({label}, block {j}) disagrees with "
+                    "both rows' ungated probe")
+            f_sum = f_sum + f.long()
+        if int(f_sum.max()) > 1:
+            raise AssertionError("a key was found on two blocks")
+        log(f"  anchor_probes ({label}, {fmt}) on {DS} blocks: "
+            f"{int(f_sum.sum())} anchors found at offsets "
+            f"{pkw['anchor_offsets']}, equal to the plain version and to "
+            "both rows' ungated probe")
+    pk, aux, in_bytes, pkw, R, chi, clo, valid = timed
+    bb = B // DS
+    rows0 = index.rows[:bb]
+    pkw = dict(pkw, blk_lo=0, block_buckets=bb)
+
+    def call():
+        ka.anchor_probes(pk, aux, rows0, displaced=disp[DS][0], **pkw)
+    ms, queued_ms = kernel_ms(call, 10)
+    wrapper_ms = host_ms(call, 50)
+    plain_ms = cuda_ms(lambda: ka.anchor_probes_plain(
+        pk, aux, rows0, displaced=disp[DS][0], **pkw), 2)
+    # least traffic: the packed rows in, the block's 32-B rows the valid
+    # anchor windows must read (probe_rows), found (1 B) and pos (4 B) out
+    # a window; ~60 int ops a probe (codec of k bases, DJB, compares)
+    qh, ql = chi[valid], clo[valid]
     nz = (qh | ql) != 0
-    rows_touched = probe_rows(index.rows, qh[nz], ql[nz], 0, bb)
+    rows_touched = probe_rows(index.rows, qh[nz], ql[nz], 0, bb,
+                              disp[DS][0])
     n_bytes = in_bytes + 32 * rows_touched + 5 * len(offs) * R
-    b_ms, b_by = bound_ms(n_bytes, 60 * int(ok.sum()))
+    b_ms, b_by = bound_ms(n_bytes, 60 * int(valid.sum()))
+    reads = k12_counts(index.rows, qh[nz], ql[nz], disp[DS][0], 0, bb)
+    h1, h2 = packed_table.bucket_hashes_t(djb_pair(qh[nz], ql[nz]), B)
+    ungated = int(((h1 < bb).sum() + (h2 < bb).sum()).item())
     block = {t: [round(x, 4) for x in v] for t, v in block_ms.items()}
     log(f"  anchor_probes time {ms:.4f} ms (queued {queued_ms:.4f} ms) on "
-        f"block 0 of the tier-1 batch, plain {plain_ms:.4f} ms, bound "
+        f"block 0 of {DS} of the tier-1 batch, wrapper host time "
+        f"{wrapper_ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {rows_touched} "
-        f"local rows, {int(ok.sum())} probes); anchored_count on block 0 "
+        f"local rows, {int(valid.sum())} probes); rows read with the gate "
+        f"{reads}, without it (both local candidates) {ungated}; "
+        f"{n_planted} displaced keys planted; anchored_count on block 0 "
         f"with given anchors, ms / queued ms: {block}")
     return {"name": "anchor_probes", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/anchored.cu",
             "replaces": "quickmer2_tpu/ops/anchored.py:575",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "anchored_block_ms": block}
+            "host_ms": wrapper_ms, "plain_ms": plain_ms,
+            "probe_counts": dict(reads, ungated_rows_read=ungated),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "anchored_block_ms": block}
 
 
 DIST_WORKER = r"""

@@ -62,10 +62,22 @@
 // block holds only its buckets, so no block can vote on its anchors alone:
 // the JAX function probes them per block and psums found and pos before
 // the vote. Here that is two launches around the sum:
-//   K3a (qm2t_anchor_probes) — a thread per (read, anchor): the anchor
-//       window's canonical code, probed in the block where the window is
-//       valid; found u8[A, R] and pos u32[A, R];
-//   (the caller sums found and pos over the blocks in block order)
+//   K3a (qm2t_anchor_probes) — a thread per (read, anchor), a read's
+//       anchors on adjacent lanes: the anchor window's k bases from at
+//       most two aligned 8-B words of the packed row (its invalid bits, in
+//       the mask format, from two 4-B words; byte loads only for a row
+//       that is not so aligned), its canonical code probed where the
+//       window is valid with K8b's and K12's block probe
+//       (block_probe.cuh::BlockProbe::probe_pos): h1's row where it is
+//       local, h2's only where h1's is full and lacks the code and the
+//       block's bitmap of keys at h2 (kernels/block_probe.py::
+//       block_displaced_filter, which the sharded counter builds once a
+//       block) allows; found u8[A, R] and pos u32[A, R]. A key sits at h2
+//       only behind an h1 bucket that was full when it was placed (ops/
+//       packed_table.py::PackedTable.build, which builds the .qai's
+//       table), so the gate drops no hit;
+//   (the caller combines found and pos over the blocks; a key sits in one
+//       block, so their sum is their bitwise or)
 //   K3 on the block (qm2t_anchored_block, template GIVEN) — steps 1-7 with
 //       the summed anchors in place of its own probes; its dirty and tier-2
 //       probes find the block's entries only (packed_probe_block_h), and
@@ -88,6 +100,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_probe.cuh"
 #include "packed_probe.cuh"
 
 namespace {
@@ -556,45 +569,67 @@ int launch_branch(const typename LaunchParams<GIVEN>::type& p, int branch,
   return (int)launch<kRuns, GIVEN>(p, lens, s);
 }
 
-// K3a: anchor i of read r (a thread each) in one bucket block: found[i, r]
-// = 1 and pos[i, r] = the entry's genome end position where the anchor
+// K3a: anchor i of read r (thread r * A + i) in one bucket block: found[i,
+// r] = 1 and pos[i, r] = the entry's genome end position where the anchor
 // window is valid and its canonical code sits in the block, else 0 and 0.
 template <bool LENS>
 __global__ void __launch_bounds__(kThreads)
-anchor_probe_kernel(const BlockParams p, uint8_t* __restrict__ found,
-                    unsigned* __restrict__ pos) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)p.R * p.n_anchors) return;
-  const int r = (int)(t / p.n_anchors);
-  const int i = (int)(t - (long long)r * p.n_anchors);
-  const int a = anchor_at(p, i), k = p.k;
+anchor_probe_kernel(const Params p, const BlockProbe eng,
+                    uint8_t* __restrict__ found, unsigned* __restrict__ pos) {
+  const unsigned t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= (unsigned)(p.R * p.n_anchors)) return;   // < 2^31 (the entry)
+  const int r = (int)(t / (unsigned)p.n_anchors);
+  const int i = (int)t - r * p.n_anchors;
+  const int a = anchor_at(p, i), k = p.k;   // a + k <= L
   bool valid;
   if (LENS) {
     valid = a + k <= (int)__ldg((const uint16_t*)p.aux + r);
   } else {
     const int nb = (p.L + 7) >> 3;
-    const uint8_t* arow = p.aux + (size_t)r * nb;
     unsigned long long inval = 0;
-    for (int q = 0; q < 5 && (a >> 3) + q < nb; ++q) {
-      inval |= (unsigned long long)__ldg(arow + (a >> 3) + q) << (8 * q);
+    if (p.aux4) {          // bits a.. of two 4-B words
+      const unsigned* w = (const unsigned*)(p.aux + (size_t)r * nb);
+      const int q = a >> 5, sh = a & 31;
+      const unsigned hi = sh + k > 32 ? __ldg(w + q + 1) : 0u;
+      inval = (((unsigned long long)hi << 32) | __ldg(w + q)) >> sh;
+    } else {
+      const uint8_t* arow = p.aux + (size_t)r * nb;
+      for (int q = 0; q < 5 && (a >> 3) + q < nb; ++q) {
+        inval |= (unsigned long long)__ldg(arow + (a >> 3) + q) << (8 * q);
+      }
+      inval >>= a & 7;
     }
-    valid = ((inval >> (a & 7)) & ((1ull << k) - 1)) == 0;
+    valid = (inval & ((1ull << k) - 1)) == 0;
   }
   const int sb = (p.L + 3) >> 2;
-  const uint8_t* prow = p.pk + (size_t)r * sb;
-  unsigned long long lo = 0, hi = 0;
-  for (int q = 0; q < 9 && (a >> 2) + q < sb; ++q) {
-    const unsigned long long b = __ldg(prow + (a >> 2) + q);
-    if (q < 8) {
-      lo |= b << (8 * q);
-    } else {
-      hi = b;
+  unsigned long long x;
+  if (p.pk8) {             // bases a.. of two 8-B words
+    const unsigned long long* w =
+        (const unsigned long long*)(p.pk + (size_t)r * sb);
+    const int q = a >> 5, sh = 2 * (a & 31);
+    const unsigned long long lo = __ldg(w + q);
+    x = sh + 2 * k > 64 ? (lo >> sh) | (__ldg(w + q + 1) << (64 - sh))
+                        : lo >> sh;
+  } else {
+    const uint8_t* prow = p.pk + (size_t)r * sb;
+    unsigned long long lo = 0, hi = 0;
+    for (int q = 0; q < 9 && (a >> 2) + q < sb; ++q) {
+      const unsigned long long b = __ldg(prow + (a >> 2) + q);
+      if (q < 8) {
+        lo |= b << (8 * q);
+      } else {
+        hi = b;
+      }
     }
+    const int sh = 2 * (a & 3);
+    x = sh ? (lo >> sh) | (hi << (64 - sh)) : lo;
   }
-  const int sh = 2 * (a & 3);
-  const unsigned long long x = sh ? (lo >> sh) | (hi << (64 - sh)) : lo;
   unsigned rk, ps = 0;
-  const bool f = valid && block_probe(p, qm2t::canonical_lsb(x, k), &rk, &ps);
+  bool f = false;
+  if (valid) {
+    const unsigned long long canon = qm2t::canonical_lsb(x, k);
+    f = canon != 0 && eng.probe_pos(canon, &rk, &ps) >= 0;
+  }
   found[(size_t)i * p.R + r] = f;
   pos[(size_t)i * p.R + r] = f ? ps : 0u;
 }
@@ -725,32 +760,38 @@ extern "C" int qm2t_anchored_block(
 }
 
 // K3a. pk, aux, rows (the block's), the block and the anchors as
-// qm2t_anchored_block; found u8[n_anchors, R] and pos u32[n_anchors, R]
-// (written in full).
+// qm2t_anchored_block; displaced u32[2^filter_bits / 32] the block's bitmap
+// of keys at h2; found u8[n_anchors, R] and pos u32[n_anchors, R] (written
+// in full).
 extern "C" int qm2t_anchor_probes(const void* pk, const void* aux, int lens,
-                                  const void* rows, long long n_buckets,
+                                  const void* rows, const void* displaced,
+                                  int filter_bits, long long n_buckets,
                                   long long blk_lo, long long block_buckets,
                                   void* found, void* pos, int R, int L, int k,
                                   int n_anchors, int a0, int a1, int a2,
                                   int a3, void* stream) {
-  BlockParams p;
+  Params p;
   int rc = setup(&p, pk, aux, rows, n_buckets, R, L, k, n_anchors, a0, a1,
                  a2, a3);
-  if (rc == 0 && bad_block(n_buckets, blk_lo, block_buckets)) {
+  if (rc == 0 && (bad_block(n_buckets, blk_lo, block_buckets) ||
+                  filter_bits < 5 || filter_bits > 32 ||
+                  (long long)R * n_anchors > 0x7FFFFFFFLL)) {
     rc = (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
-  p.blk_lo = (unsigned)blk_lo;
-  p.blk_last = (unsigned)(block_buckets - 1);
+  const BlockProbe eng = {(const uint4*)rows, (const unsigned*)displaced,
+                          p.bucket_mask, (unsigned)blk_lo,
+                          (unsigned)(block_buckets - 1), 0,
+                          32 - filter_bits};
   const long long threads = (long long)R * n_anchors;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if (lens) {
     anchor_probe_kernel<true><<<blocks, kThreads, 0, s>>>(
-        p, (uint8_t*)found, (unsigned*)pos);
+        p, eng, (uint8_t*)found, (unsigned*)pos);
   } else {
     anchor_probe_kernel<false><<<blocks, kThreads, 0, s>>>(
-        p, (uint8_t*)found, (unsigned*)pos);
+        p, eng, (uint8_t*)found, (unsigned*)pos);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 // The probe of one bucket block of the packed table, shared by
 // csrc/count_flat.cu (K8b: a flat batch binned by slice, depth in the
-// block's slot space) and csrc/count_mono.cu (K12: read rows in one pass,
-// plain counts at the key's rank), so that no copy drifts.
+// block's slot space), csrc/count_mono.cu (K12: read rows in one pass,
+// plain counts at the key's rank), csrc/emit_member.cu (K10: the whole
+// table as one block, membership only) and csrc/anchored.cu (K3a: the
+// entry's genome position too, probe_pos), so that no copy drifts.
 //
 // BlockProbe holds the candidates of one code local to the bucket block
 // [blk_lo, blk_lo + blk_last] (rows holds the block's rows only), in the
@@ -21,7 +23,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flat_windows.cuh"
 #include "packed_probe.cuh"
 
 namespace {
@@ -51,7 +52,8 @@ struct BlockProbe {
     return o2 <= blk_last && maybe_displaced(h) ? o2 : blk_last + 1;
   }
 
-  __device__ __forceinline__ unsigned short part(u64 canon) const {
+  __device__ __forceinline__ unsigned short part(
+      unsigned long long canon) const {
     if (canon == 0) return kNoPart;
     const unsigned h =
         qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon);
@@ -62,12 +64,14 @@ struct BlockProbe {
   }
 
   // The matching entry of local bucket o: its slot (-1 for none, or o
-  // outside the block) and its rank; *full says whether both entries of
-  // the bucket are in use (an empty entry is all zero: code 0 is no key,
-  // quirk Q3).
-  __device__ __forceinline__ long long entry_of(unsigned o, u64 canon,
-                                                unsigned* rank,
-                                                bool* full) const {
+  // outside the block) and its rank (POS: its genome position, the w
+  // word, too); *full says whether both entries of the bucket are in use
+  // (an empty entry is all zero: code 0 is no key, quirk Q3).
+  template <bool POS = false>
+  __device__ __forceinline__ long long entry_of(unsigned o,
+                                                unsigned long long canon,
+                                                unsigned* rank, bool* full,
+                                                unsigned* pos = nullptr) const {
     if (o > blk_last) return -1;
     const unsigned hi = (unsigned)(canon >> 32);
     const unsigned lo = (unsigned)canon;
@@ -79,6 +83,7 @@ struct BlockProbe {
       if (v.x == hi && v.y == lo) {
         slot = 2LL * o + e;
         *rank = v.z;
+        if (POS) *pos = v.w;
       }
       *full = *full && (v.x | v.y | v.z | v.w) != 0u;
     }
@@ -91,15 +96,25 @@ struct BlockProbe {
   // _try_place, its cuckoo moves included), so where h1's row is read and
   // has an empty entry h2 is not read at all, and its bitmap word neither.
   // Keys are unique, so the first match is the one.
-  __device__ __forceinline__ long long probe(u64 canon,
-                                             unsigned* rank) const {
+  template <bool POS = false>
+  __device__ __forceinline__ long long probe(unsigned long long canon,
+                                             unsigned* rank,
+                                             unsigned* pos = nullptr) const {
     const unsigned h =
         qm2t::djb_pair((unsigned)(canon >> 32), (unsigned)canon);
     const unsigned o1 = local(h, 0);
     bool full = true;
-    const long long s1 = entry_of(o1, canon, rank, &full);
+    const long long s1 = entry_of<POS>(o1, canon, rank, &full, pos);
     if (s1 >= 0 || !full) return s1;
-    return entry_of(second(h), canon, rank, &full);
+    return entry_of<POS>(second(h), canon, rank, &full, pos);
+  }
+
+  // probe, and the matching entry's genome position in *pos (K3a; K8b,
+  // K10 and K12 need the slot or the rank alone).
+  __device__ __forceinline__ long long probe_pos(unsigned long long canon,
+                                                 unsigned* rank,
+                                                 unsigned* pos) const {
+    return probe<true>(canon, rank, pos);
   }
 };
 

@@ -71,7 +71,8 @@
 // K8's passes decoded every window of the shard three times to probe the
 // share whose candidate bucket is local (3/4 of the shard at ds = 2), so
 // K8b has its own design for the block (its probe, BlockProbe, lives in
-// block_probe.cuh, which K12 shares):
+// block_probe.cuh, which K12, K10 and K3a share; its bin pass and its
+// probe pass's run lookup in block_bins.cuh, which K10 shares):
 //   candidates - h1's bucket where it is local; h2's only where it is
 //           local and the key may sit there: a bitmap of the block's keys
 //           placed at h2 (~1 % of them; BlockProbe) rules out the rest,
@@ -109,13 +110,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "block_probe.cuh"
+#include "block_bins.cuh"
 #include "flat_windows.cuh"
 #include "packed_probe.cuh"
 
 namespace {
 
-constexpr int kMaxParts = 256;
 constexpr int kSpread = 64;              // the probe pass's hit counters
 
 // The JAX package's gather index: -H <= i < 0 wraps to i + H, then the
@@ -375,95 +375,9 @@ __global__ void trash_kernel(const unsigned* __restrict__ spread,
   if (threadIdx.x == 0) *trash += n - hits;
 }
 
-// K8b's bin pass: block b decodes tile b once and writes its local
-// windows' codes to runs[b * kTile, ...) sorted by slice, slice p's run
-// from tile_off[b * (P + 1) + p] to the next offset. One pass over the
-// tile gives each window its place in its slice's run (a shared atomic on
-// the block's slice counter, which ran faster here than warp_add's
-// __match_any_sync) and keeps its code in shared memory; a block-wide
-// scan of the counts (a slice a thread) gives the run starts; the codes
-// are sorted in shared memory and the tile's runs, one range, are written
-// out coalesced. Runs hold only the tile's local windows. Four blocks an
-// SM (64 registers, a few bytes spilled) ran faster than three.
-__global__ void __launch_bounds__(kThreads, 4)
-block_bin_kernel(FlatWindows m, BlockProbe eng, u64* __restrict__ runs,
-                 unsigned* __restrict__ tile_off, int n_parts) {
-  constexpr int kPer = kTile / kThreads;
-  constexpr int kWarps = kThreads / 32;
-  __shared__ FlatWindows::Tile tile;
-  __shared__ unsigned count[kMaxParts];  // a slice's count, then its start
-  static_assert(kMaxParts <= kThreads, "a slice a thread in the scan");
-  __shared__ unsigned warp_start[kWarps];
-  __shared__ unsigned n_local;         // the tile's local windows
-  __shared__ u64 codes[kTile];
-  const long long base = (long long)blockIdx.x * kTile;
-  for (int p = threadIdx.x; p < n_parts; p += kThreads) count[p] = 0;
-  m.stage(tile, base);
-  unsigned slot[kPer];      // slice << 16 | place in the slice's run
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int j = threadIdx.x + r * kThreads;
-    u64 c = 0;
-    const unsigned s = base + j < m.n && m.valid(tile, j, &c)
-                           ? eng.part(c) : kNoPart;
-    codes[j] = c;
-    slot[r] = s << 16 | (s != kNoPart ? atomicAdd(&count[s], 1u) : 0u);
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int p = threadIdx.x;
-  const unsigned v = p < n_parts ? count[p] : 0u;
-  unsigned x = v;                      // the warp's inclusive scan
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_start[threadIdx.x >> 5] = x;
-  __syncthreads();
-  if (threadIdx.x < 32) {              // the warps' totals, exclusive
-    const unsigned t = lane < kWarps ? warp_start[lane] : 0u;
-    unsigned z = t;
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, z, d);
-      if (lane >= d) z += y;
-    }
-    if (lane < kWarps) warp_start[lane] = z - t;
-  }
-  __syncthreads();
-  const unsigned at = warp_start[threadIdx.x >> 5] + x - v;
-  unsigned* off = tile_off + (long long)blockIdx.x * (n_parts + 1);
-  if (p < n_parts) {
-    count[p] = at;
-    off[p] = at;
-  }
-  if (threadIdx.x == kThreads - 1) {
-    off[n_parts] = at + v;
-    n_local = at + v;
-  }
-  u64 mine[kPer];
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) mine[r] = codes[threadIdx.x + r * kThreads];
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {     // sorted by slice, in place
-    const unsigned s = slot[r] >> 16;
-    if (s != kNoPart) codes[count[s] + (slot[r] & 0xFFFFu)] = mine[r];
-  }
-  __syncthreads();
-  for (unsigned j = threadIdx.x; j < n_local; j += kThreads) {
-    runs[base + j] = codes[j];         // coalesced
-  }
-}
-
-// K8b's probe pass takes the runs of kGroupTiles tiles a block: on the
-// smoke's shard 8 ran faster than 16 and 32, and as fast as 4.
-constexpr int kGroupTiles = 8;
-
 // K8b's probe pass: block (p, g) probes slice p's runs of tiles [8g,
-// 8g + 8), a thread an entry; the block's hits go to one of kSpread
-// counters.
+// 8g + 8) (block_bins.cuh, after bin_kernel<u64>), a thread an entry; the
+// block's hits go to one of kSpread counters.
 __global__ void __launch_bounds__(kThreads)
 block_probe_kernel(BlockProbe eng, const u64* __restrict__ runs,
                    const unsigned* __restrict__ tile_off,
@@ -472,42 +386,17 @@ block_probe_kernel(BlockProbe eng, const u64* __restrict__ runs,
   __shared__ long long start[kGroupTiles];
   __shared__ unsigned first[kGroupTiles + 1];
   __shared__ unsigned n_hits;
-  const int groups = (n_tiles + kGroupTiles - 1) / kGroupTiles;
-  const int p = blockIdx.x / groups;
-  const int t0 = (blockIdx.x % groups) * kGroupTiles;
-  const int nt = min(kGroupTiles, n_tiles - t0);
-  if (threadIdx.x < 32) {
-    unsigned len = 0;
-    if ((int)threadIdx.x < nt) {
-      const long long t = t0 + threadIdx.x;
-      const unsigned* off = tile_off + t * (n_parts + 1) + p;
-      start[threadIdx.x] = t * kTile + off[0];
-      len = off[1] - off[0];
-    }
-    unsigned x = len;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-      if ((int)threadIdx.x >= d) x += y;
-    }
-    if ((int)threadIdx.x < kGroupTiles) first[threadIdx.x + 1] = x;
-    if (threadIdx.x == 0) {
-      first[0] = 0;
-      n_hits = 0;
-    }
-  }
+  const RunGroup g(n_tiles);
+  if (threadIdx.x == 0) n_hits = 0;
+  g.load(start, first, tile_off, n_parts);
   __syncthreads();
-  const unsigned total = first[nt];
+  const unsigned total = first[g.nt];
   unsigned hit = 0;
   for (unsigned e = threadIdx.x; e < total; e += kThreads) {
-    int r = 0;                       // the run holding entry e
-#pragma unroll
-    for (int step = kGroupTiles / 2; step > 0; step >>= 1) {
-      if (r + step < nt && first[r + step] <= e) r += step;
-    }
+    int r;
     unsigned rank;
     const long long s =
-        eng.probe(__ldg(runs + start[r] + (e - first[r])), &rank);
+        eng.probe(__ldg(runs + g.at(start, first, e, &r)), &rank);
     if (s >= 0) {
       atomicAdd(depth + s, 1u);
       ++hit;
@@ -665,8 +554,8 @@ extern "C" int qm2t_count_packed_block(const void* pk, const void* bits,
   const cudaError_t rc =
       cudaMemsetAsync(spread, 0, kSpread * sizeof(unsigned), s);
   if (rc != cudaSuccess) return (int)rc;
-  block_bin_kernel<<<tiles, kThreads, 0, s>>>(m, eng, runs, tile_off,
-                                              n_parts);
+  bin_kernel<u64><<<tiles, kThreads, 0, s>>>(m, eng, runs, tile_off,
+                                             n_parts);
   const long long groups = (tiles + kGroupTiles - 1) / kGroupTiles;
   block_probe_kernel<<<(unsigned)(groups * n_parts), kThreads, 0, s>>>(
       eng, runs, tile_off, (unsigned*)depth, spread, n_parts, tiles);

@@ -31,11 +31,13 @@ a CUDA tensor launches the kernel, or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from quickmer2_tpu_torch.device import U32, popcount32, store, u32
 from quickmer2_tpu_torch.kernels import build
+from quickmer2_tpu_torch.kernels.block_probe import block_probe_plain
 from quickmer2_tpu_torch.ops import codec, rowpack
 from quickmer2_tpu_torch.ops.packed_table import (
     ROW_WIDTH, bucket_hashes_t, probe_packed_block)
@@ -54,9 +56,18 @@ _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
 # and `ranges` after n_buckets
 _BLOCK_ARGTYPES = (_ARGTYPES[:5] + [ctypes.c_longlong] * 2
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] + _ARGTYPES[5:])
-_PROBE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+_PROBE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """csrc/anchored.cu's library, resolved once (built on first use)."""
+    return build.load("anchored", {"qm2t_anchored": _ARGTYPES,
+                                   "qm2t_anchored_block": _BLOCK_ARGTYPES,
+                                   "qm2t_anchor_probes": _PROBE_ARGTYPES})
 
 
 def branch_of(max_dirty: int, dirty_run_width: int,
@@ -156,14 +167,21 @@ def _anchor_probes(rows, chi, clo, valid, offs, n_buckets, blk_lo,
 
 def anchor_probes_plain(pk, aux, rows, *, fmt: str, k: int, read_len: int,
                         n_buckets: int, anchor_offsets, blk_lo: int,
-                        block_buckets: int):
+                        block_buckets: int, displaced=None):
     """Plain PyTorch version of K3a: (found u8[A, R], pos u32 words [A,
-    R])."""
+    R]), each valid anchor window probed as the kernel probes it
+    (block_probe_plain with the block's bitmap `displaced`; None: every
+    local h2 behind a full h1 row that lacks the code)."""
     _, chi, clo, valid = _read_windows(pk, aux, fmt, k, read_len)
-    found, pos = _anchor_probes(rows, chi, clo, valid,
-                                [int(a) for a in anchor_offsets], n_buckets,
-                                blk_lo, block_buckets)
-    return found.to(torch.uint8), store(pos, rows.dtype)
+    offs = [int(a) for a in anchor_offsets]
+    shape = (len(offs), chi.shape[0])
+    slot, _, pos = block_probe_plain(
+        rows, chi[:, offs].T.reshape(-1), clo[:, offs].T.reshape(-1),
+        displaced, n_buckets=n_buckets, blk_lo=blk_lo,
+        block_buckets=block_buckets)
+    found = (slot.view(shape) >= 0) & valid[:, offs].T
+    return (found.to(torch.uint8),
+            store(torch.where(found, pos.view(shape), 0), rows.dtype))
 
 
 def anchored_count_plain(pk, aux, rows, tiles, dblock, diff, *, fmt: str,
@@ -426,9 +444,7 @@ def anchored_count(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
     code = torch.empty(R, dtype=torch.int8, device=pk.device)
     padded = offs + [0] * (4 - len(offs))
     branch = branch_of(max_dirty, dirty_run_width, neighbor_mode)
-    lib = build.load("anchored", {"qm2t_anchored": _ARGTYPES,
-                                  "qm2t_anchored_block": _BLOCK_ARGTYPES,
-                                  "qm2t_anchor_probes": _PROBE_ARGTYPES})
+    lib = _lib()
     rest = (tiles.data_ptr(), n_tiles * GBLK, dblock.data_ptr(),
             diff.data_ptr(), diff.shape[0], code.data_ptr(), R, L, k,
             len(offs), *padded, max_runs, max_dirty, max_dirty_runs,
@@ -460,45 +476,61 @@ anchored_count.block_launches = 0
 
 def anchor_probes(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor, *,
                   fmt: str, k: int, read_len: int, n_buckets: int,
-                  anchor_offsets, blk_lo: int, block_buckets: int):
+                  anchor_offsets, blk_lo: int, block_buckets: int,
+                  displaced: torch.Tensor | None = None):
     """K3a: the anchor windows of one batch of packed read rows probed in
     the bucket block `rows` ([blk_lo, blk_lo + block_buckets) of
     n_buckets): (found u8[A, R], pos words [A, R]), found only where the
-    window is valid, pos 0 where not found."""
+    window is valid, pos 0 where not found. displaced: the block's
+    block_probe.block_displaced_filter, built once a block by the caller
+    (required on the card).
+
+    On the card the wrapper's host time is most of a call (the kernel
+    is a few microseconds), so it checks the tensors inline and resolves
+    its library once."""
     if pk.device.type == "cpu":
         return anchor_probes_plain(pk, aux, rows, fmt=fmt, k=k,
                                    read_len=read_len, n_buckets=n_buckets,
                                    anchor_offsets=anchor_offsets,
                                    blk_lo=blk_lo,
-                                   block_buckets=block_buckets)
-    R, L = pk.shape[0], read_len
-    W = L - k + 1
-    offs = [int(a) for a in anchor_offsets]
+                                   block_buckets=block_buckets,
+                                   displaced=displaced)
+    if displaced is None:
+        raise ValueError("anchor_probes: the block's displaced-key bitmap "
+                         "is required on the card")
+    offs = (*map(int, anchor_offsets), 0, 0, 0)
+    R, L, A = pk.shape[0], read_len, len(anchor_offsets)
+    dev = pk.device
+    n_words = displaced.shape[0]
     aux_shape, aux_dtype = rowpack.aux_layout(fmt, R, L)
-    build.check_tensors("anchor_probes", pk.device, [
-        ("pk", pk, torch.uint8, (R, -(-L // 4))),
-        ("aux", aux, aux_dtype, aux_shape),
-        ("rows", rows, torch.int32, (block_buckets, ROW_WIDTH))])
-    if (fmt not in ("lens", "mask") or not 1 <= k <= 32 or not 1 <= W
-            or L > 1024 or R < 1 or not 1 <= len(offs) <= 4
-            or not all(0 <= a < W for a in offs)
-            or not 0 <= blk_lo <= n_buckets - block_buckets):
+    for name, t, dtype, shape in (
+            ("pk", pk, torch.uint8, (R, -(-L // 4))),
+            ("aux", aux, aux_dtype, aux_shape),
+            ("rows", rows, torch.int32, (block_buckets, ROW_WIDTH)),
+            ("displaced", displaced, torch.int32, (n_words,))):
+        if (t.dtype != dtype or t.shape != shape or t.device != dev
+                or not t.is_contiguous()):
+            build.check_tensors("anchor_probes", dev,
+                                [(name, t, dtype, shape)])
+    if (fmt not in ("lens", "mask") or not 1 <= k <= 32 or L - k < 0
+            or L > 1024 or R < 1 or not 1 <= A <= 4
+            or not all(0 <= a <= L - k for a in offs[:A])
+            or not 0 <= blk_lo <= n_buckets - block_buckets
+            or n_words < 1 or n_words & (n_words - 1) or n_words > 1 << 27):
         raise ValueError(
             f"anchor_probes: bad shapes or options (fmt={fmt!r}, k={k}, "
-            f"read_len={read_len}, rows={R}, anchors={offs})")
-    found = torch.empty(len(offs), R, dtype=torch.uint8, device=pk.device)
-    pos = torch.empty(len(offs), R, dtype=torch.int32, device=pk.device)
-    padded = offs + [0] * (4 - len(offs))
-    lib = build.load("anchored", {"qm2t_anchored": _ARGTYPES,
-                                  "qm2t_anchored_block": _BLOCK_ARGTYPES,
-                                  "qm2t_anchor_probes": _PROBE_ARGTYPES})
-    with torch.cuda.device(pk.device):
+            f"read_len={read_len}, rows={R}, anchors={offs[:A]}, "
+            f"bitmap of {n_words} words)")
+    found = torch.empty(A, R, dtype=torch.uint8, device=dev)
+    pos = torch.empty(A, R, dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qm2t_anchor_probes(
-            pk.data_ptr(), aux.data_ptr(), int(fmt == "lens"),
-            rows.data_ptr(), n_buckets, blk_lo, block_buckets,
-            found.data_ptr(), pos.data_ptr(), R, L, k, len(offs), *padded,
-            stream)
+            pk.data_ptr(), aux.data_ptr(), fmt == "lens", rows.data_ptr(),
+            displaced.data_ptr(), (32 * n_words).bit_length() - 1,
+            n_buckets, blk_lo, block_buckets, found.data_ptr(),
+            pos.data_ptr(), R, L, k, A, *offs[:4], stream)
     build.check(lib, rc, "anchor_probes")
     anchor_probes.launches += 1
     return found, pos

@@ -1,7 +1,9 @@
-"""The block probe that K8b (kernels/count_flat.py::count_packed_block_step)
-and K12 (kernels/count_mono.py::count_packed_rows) share: the plain
-PyTorch side of csrc/block_probe.cuh::BlockProbe, and the bitmap of a
-bucket block's displaced keys that gates its h2 read.
+"""The block probe that K8b (kernels/count_flat.py::count_packed_block_step),
+K12 (kernels/count_mono.py::count_packed_rows), K10 (kernels/
+emit_member.py::member_scan, the whole table as one block) and K3a
+(kernels/anchored.py::anchor_probes, with the entry's position) share:
+the plain PyTorch side of csrc/block_probe.cuh::BlockProbe, and the
+bitmap of a bucket block's displaced keys that gates its h2 read.
 
 A key of the packed table sits in its h2 bucket only where its h1
 bucket was full when it was placed, and a bucket never empties
@@ -54,8 +56,9 @@ def block_probe_plain(rows, chi, clo, displaced, *, n_buckets: int,
     values): h1's bucket where it is local, then h2's where it is local,
     the code's bit in `displaced` (block_displaced_filter; None: every
     local h2) is set and h1's row, where it is local, is full; code 0
-    matches nothing. Returns (slot, rank), int64: the local slot 2 *
-    bucket + entry of the matching entry and its rank, slot -1 where
+    matches nothing. Returns (slot, rank, pos), int64: the local slot 2 *
+    bucket + entry of the matching entry, its rank and its genome
+    position (its fourth word; BlockProbe::probe_pos), slot -1 where
     none matches."""
     chi, clo = u32(chi), u32(clo)
     h = djb_pair(chi, clo)
@@ -67,6 +70,7 @@ def block_probe_plain(rows, chi, clo, displaced, *, n_buckets: int,
     full1 = (r1[:, :4] != 0).any(1) & (r1[:, 4:] != 0).any(1)
     slot = torch.full(chi.shape, -1, dtype=torch.int64, device=chi.device)
     rank = torch.zeros_like(slot)
+    pos = torch.zeros_like(slot)
     # h2 first, so that h1's match is the one kept
     for o, cand in ((o2, nz & (o2 < block_buckets) & (full1 | ~c1)
                      & maybe_displaced(h, displaced)), (o1, c1)):
@@ -75,4 +79,5 @@ def block_probe_plain(rows, chi, clo, displaced, *, n_buckets: int,
             m = cand & (r[:, 4 * e] == chi) & (r[:, 4 * e + 1] == clo)
             slot = torch.where(m, 2 * o + e, slot)
             rank = torch.where(m, r[:, 4 * e + 2], rank)
-    return slot, rank
+            pos = torch.where(m, r[:, 4 * e + 3], pos)
+    return slot, rank, pos

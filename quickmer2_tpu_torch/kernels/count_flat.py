@@ -314,9 +314,9 @@ def count_packed_block_step_plain(pk, bits, rows, displaced, depth, *, k: int,
     matching local slot; every other window (invalid, a miss, a key of
     another block) adds to the trash."""
     chi, clo, valid = batch_windows(pk, bits, k, n_bases)
-    slot, _ = block_probe_plain(rows, chi, clo, displaced,
-                                n_buckets=n_buckets, blk_lo=blk_lo,
-                                block_buckets=block_buckets)
+    slot, _, _ = block_probe_plain(rows, chi, clo, displaced,
+                                   n_buckets=n_buckets, blk_lo=blk_lo,
+                                   block_buckets=block_buckets)
     _add(depth, torch.where(valid & (slot >= 0), slot, 2 * block_buckets))
 
 

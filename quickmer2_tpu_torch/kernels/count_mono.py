@@ -228,7 +228,7 @@ def count_packed_rows_plain(pk, aux, rows, acc, *, fmt: str, k: int,
     each valid one found."""
     from quickmer2_tpu_torch.kernels.block_probe import block_probe_plain
     chi, clo, valid = row_windows(pk, aux, fmt=fmt, k=k, read_len=read_len)
-    slot, rank = block_probe_plain(
+    slot, rank, _ = block_probe_plain(
         rows, chi, clo, displaced, n_buckets=n_buckets, blk_lo=blk_lo,
         block_buckets=block_buckets or n_buckets)
     hit = rank[valid & (slot >= 0)]

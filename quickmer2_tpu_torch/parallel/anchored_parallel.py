@@ -17,11 +17,12 @@ packed rows split into bucket blocks over its "dict" axis.
 
 Under ds > 1 no block can vote on its anchors alone, so each data slice
 takes K3a (kernels.anchored.anchor_probes) on every block, the blocks'
-found and pos summed in block order (the JAX psum), then K3 on every
-block with those sums (its dirty and tier-2 probes find the block's
-entries only; the first block adds the clean runs). Every block decides
-the same spill codes; they combine by a max, which keeps code 2 (the JAX
-counter's bool pmax folds it into 1; the depth is the same).
+found and pos combined by a bitwise or (the JAX psum: a key sits in one
+block, so at most one block finds an anchor and the sum is the or), then
+K3 on every block with those sums (its dirty and tier-2 probes find the
+block's entries only; the first block adds the clean runs). Every block
+decides the same spill codes; they combine by a max, which keeps code 2
+(the JAX counter's bool pmax folds it into 1; the depth is the same).
 
 As in the JAX counter the exact recount runs through the packed table
 (K12, kernels.count_mono.count_packed_rows, on each block), so the
@@ -39,8 +40,7 @@ import time
 import numpy as np
 import torch
 
-from quickmer2_tpu_torch.device import (
-    store, to_numpy_u32, u32, word_dtype, words)
+from quickmer2_tpu_torch.device import to_numpy_u32, word_dtype, words
 from quickmer2_tpu_torch.kernels.anchored import anchor_probes, anchored_count
 from quickmer2_tpu_torch.kernels.block_probe import block_displaced_filter
 from quickmer2_tpu_torch.kernels.count_mono import count_packed_rows
@@ -74,7 +74,7 @@ class ShardedAnchoredCounter(AnchoredDepthCounter):
         super().__init__(index, k, read_len, batch_reads=batch_reads, **kw)
         bb = self.block_buckets
         self._rows, self._tiles, self._dblock = {}, {}, {}
-        self._displaced = {}      # K12's bitmap of each block's keys at h2
+        self._displaced = {}    # each block's bitmap of keys at h2: K3a, K12
         for i in range(self.dp):
             for j in range(self.ds):
                 d = mesh[i, j]
@@ -131,7 +131,7 @@ class ShardedAnchoredCounter(AnchoredDepthCounter):
                     self._tiles[d], self._dblock[d], self.diff[i][0], **kw))
                 continue
             d0 = self.mesh[i, 0]
-            f_sum = p_sum = None
+            found = pos = None
             for j in range(self.ds):            # the psum, in block order
                 d = self.mesh[i, j]
                 f, p = anchor_probes(
@@ -139,12 +139,12 @@ class ShardedAnchoredCounter(AnchoredDepthCounter):
                     k=kw["k"], read_len=kw["read_len"],
                     n_buckets=kw["n_buckets"],
                     anchor_offsets=kw["anchor_offsets"], blk_lo=j * bb,
-                    block_buckets=bb)
-                f, p = f.to(d0).to(torch.int32), u32(p.to(d0))
-                f_sum = f if f_sum is None else f_sum + f
-                p_sum = p if p_sum is None else p_sum + p
-            found = (f_sum > 0).to(torch.uint8)
-            pos = store(p_sum, word_dtype(d0))
+                    block_buckets=bb, displaced=self._displaced[d, j])
+                if found is None:
+                    found, pos = f.to(d0), p.to(d0)
+                else:       # one block holds a key: the sum is an or
+                    found |= f.to(d0)
+                    pos |= p.to(d0)
             code = None
             for j in range(self.ds):
                 d = self.mesh[i, j]

@@ -8,7 +8,9 @@ with a k - 1 code halo (no window lost at a seam) and SEP padding at
 the tail; each chunk is packed to 2 bits a base on the host
 (ops.rowpack.pack_rows), and K10 (kernels.emit_member.member_scan)
 probes every window's canonical k-mer against the packed survivor
-table. Only the bit-packed hit mask comes back: G / 8 bytes for G
+table, reading a key's h2 row only where the table's bitmap of keys at
+h2 (kernels.block_probe.block_displaced_filter, built once a device)
+allows. Only the bit-packed hit mask comes back: G / 8 bytes for G
 windows. The emitter's other work (GC bins, window rows, control flags)
 stays on the host, over hit positions only.
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from quickmer2_tpu_torch.device import resolve_device
+from quickmer2_tpu_torch.kernels.block_probe import block_displaced_filter
 from quickmer2_tpu_torch.kernels.emit_member import member_scan, unpack_mask
 from quickmer2_tpu_torch.ops import rowpack
 from quickmer2_tpu_torch.ops.codec import SEP
@@ -65,6 +68,12 @@ class DeviceMembershipScanner:
             self.rows = self._rows[self.device]
         else:
             self.rows = packed_table.device_rows(self.device)
+            self._rows = {self.device: self.rows}
+        # K10 reads h2 only where this bitmap of the keys at h2 allows:
+        # one a device that holds rows
+        self._displaced = {d: block_displaced_filter(r, self.n_buckets, 0)
+                           for d, r in self._rows.items()}
+        self.displaced = self._displaced[self.device]
 
     def chunks(self, codes: np.ndarray):
         """(offset, windows taken, padded codes) of each chunk: the
@@ -80,16 +89,16 @@ class DeviceMembershipScanner:
                 seg = np.pad(seg, (0, pad), constant_values=SEP)
             yield off, take, seg
 
-    def scan_chunk(self, seg: np.ndarray, device=None,
-                   rows=None) -> torch.Tensor:
+    def scan_chunk(self, seg: np.ndarray, device=None) -> torch.Tensor:
         """K10 on one chunk of codes: its bit-packed hit mask on the
-        device (default: the scanner's)."""
+        device (default: the scanner's), against that device's rows."""
         device = device or self.device
         pk, bits = rowpack.pack_rows(seg[None])
         return member_scan(torch.from_numpy(pk[0]).to(device),
                            torch.from_numpy(bits[0]).to(device),
-                           self.rows if rows is None else rows, k=self.k,
-                           n_buckets=self.n_buckets, n_bases=len(seg))
+                           self._rows[device], k=self.k,
+                           n_buckets=self.n_buckets, n_bases=len(seg),
+                           displaced=self._displaced[device])
 
     def scan_sharded(self, seg: np.ndarray) -> np.ndarray:
         """The hit mask of a chunk's windows, the chunk split over the
@@ -100,7 +109,7 @@ class DeviceMembershipScanner:
         masks = []
         for i in range(self.dp):
             d = self.mesh[i, 0]
-            masks.append(self.scan_chunk(shards[i], d, self._rows[d]))
+            masks.append(self.scan_chunk(shards[i], d))
         return np.concatenate([unpack_mask(m, per) for m in masks])
 
     def scan(self, codes: np.ndarray) -> np.ndarray:

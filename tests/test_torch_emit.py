@@ -1,5 +1,6 @@
 """The search's device emit in the port against the JAX package: K10's
-plain version (kernels.emit_member) against JAX's `_member_chunk`, the
+plain version (kernels.emit_member) against JAX's `_member_chunk`, also
+with the bitmap of keys at h2 on a table with displaced keys planted, the
 port's DeviceMembershipScanner against JAX's at a chunk of 2^12 windows
 with seams inside N runs, `run_search(emit_devices=1)` against the
 JAX search's host and device emits, and emit_devices=2 (the chunks
@@ -84,6 +85,101 @@ def test_member_scan_plain_matches_jax(k):
     assert torch.equal(again, got)
 
 
+def _planted(k, seed):
+    """Genome codes with N runs and a survivor table, built by the JAX
+    package, with displaced keys planted: for 40 h1 buckets that hold at
+    least four of the genome's distinct k-mers, three of them go into the
+    table (so at least one sits at h2, behind a full h1) and the fourth
+    stays out (its windows miss behind a full h1); half of the other
+    k-mers and 300 random keys fill the table. Returns (codes, table,
+    keys, planted keys, the left-out k-mers)."""
+    from quickmer2_tpu.ops.hash import djb_pair_np
+    from quickmer2_tpu.ops.packed_table import bucket_hashes
+    rng = np.random.default_rng(seed)
+    codes = _genome_codes(rng, 9000 + k, 30)
+    canon, valid = jcodec.sliding_kmers_np(codes, k)
+    kmers = np.unique(canon[valid & (canon != 0)])
+    top = np.uint64((1 << (2 * k)) - 1)
+    extra = np.setdiff1d(rng.integers(1, 1 << 62, 300, dtype=np.int64)
+                         .astype(np.uint64) & top, kmers)
+    half = rng.random(len(kmers)) < 0.5
+    B = 1 << int(np.ceil(np.log2(half.sum() + len(extra))))
+    for _ in range(3):      # the bucket count the table will have
+        h1, _ = bucket_hashes(djb_pair_np(*jcodec.split_u64(kmers)), B)
+        buckets, counts = np.unique(h1, return_counts=True)
+        chosen = buckets[counts >= 4][:40]
+        plant = np.concatenate([kmers[h1 == b][:3] for b in chosen])
+        out = np.array([kmers[h1 == b][3] for b in chosen], np.uint64)
+        keys = np.union1d(np.union1d(kmers[half & ~np.isin(h1, chosen)],
+                                     extra), plant)
+        if 1 << int(np.ceil(np.log2(len(keys)))) == B:
+            break
+        B = 1 << int(np.ceil(np.log2(len(keys))))
+    hi, lo = jcodec.split_u64(keys)
+    rank = np.arange(len(keys), dtype=np.uint32)
+    tab = JaxPackedTable.build(hi, lo, rank=rank)
+    assert tab.n_buckets == B and len(plant) == 120
+    return codes, tab, (hi, lo, rank), plant, out
+
+
+@pytest.mark.parametrize("k", [15, 30, 32])
+def test_member_scan_plain_with_the_bitmap_matches_jax(k):
+    """K10's plain version with the table's bitmap of keys at h2 (as the
+    scanner builds it) against JAX _member_chunk, which probes both rows
+    with no gate, on a table with displaced keys planted: windows that
+    hit keys at h2 and windows that miss behind a full h1 are both
+    present, and the masks are equal."""
+    import jax.numpy as jnp
+    from quickmer2_tpu_torch.device import to_numpy_u32
+    from quickmer2_tpu_torch.kernels.block_probe import (
+        block_displaced_filter)
+    codes, tab, _, plant, out = _planted(k, 100 + k)
+    B = tab.n_buckets
+    rows = words(tab.rows, CPU)
+    disp = block_displaced_filter(rows, B, 0)
+    # the keys the build put at h2, and the windows on them or on the
+    # left-out k-mers (the misses behind a full h1)
+    e = to_numpy_u32(rows).reshape(-1, 4)
+    key = (e[:, 0].astype(np.uint64) << np.uint64(32)) | e[:, 1]
+    from quickmer2_tpu.ops.hash import djb_pair_np
+    h = djb_pair_np(e[:, 0], e[:, 1])
+    at_h2 = key[(key != 0) & ((h & np.uint32(B - 1))
+                              != np.arange(len(e)) // 2)]
+    canon, valid = jcodec.sliding_kmers_np(codes, k)
+    assert np.isin(canon[valid], at_h2).sum() >= 20
+    assert np.isin(canon[valid], out).sum() >= 20
+    assert np.isin(at_h2, plant).any()
+    want = np.asarray(jemit._member_chunk(
+        jnp.asarray(codes), jnp.asarray(tab.rows), k=k, n_buckets=B))
+    pk, bits = rowpack.pack_rows(codes[None])
+    kw = dict(k=k, n_buckets=B, n_bases=len(codes))
+    n = len(codes) - k + 1
+    got = member_scan_plain(torch.from_numpy(pk[0]),
+                            torch.from_numpy(bits[0]), rows,
+                            displaced=disp, **kw)
+    np.testing.assert_array_equal(unpack_mask(got, n), want)
+    assert want[np.isin(canon, at_h2)[:n]].all()
+    assert not want[np.isin(canon, out)[:n]].any()
+    again = member_scan(torch.from_numpy(pk[0]), torch.from_numpy(bits[0]),
+                        rows, displaced=disp, **kw)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_scanner_with_displaced_keys_matches_jax(dp):
+    """DeviceMembershipScanner (its bitmap built per device) at
+    data_devices 1 and 2 on the planted table against JAX's scanner
+    at the same shape, at a chunk of 2^12 windows."""
+    codes, tab, keys, _, _ = _planted(30, 7)
+    want = jemit.DeviceMembershipScanner(tab, 30, data_devices=dp,
+                                         chunk=1 << 12).scan(codes)
+    scanner = DeviceMembershipScanner(PackedTable.build(*keys), 30,
+                                      data_devices=dp, chunk=1 << 12,
+                                      device="cpu")
+    np.testing.assert_array_equal(scanner.scan(codes), want)
+    assert want.sum() > 100
+
+
 def test_pack_mask_round_trip():
     rng = np.random.default_rng(1)
     for n in (1, 31, 32, 33, 1000):
@@ -165,8 +261,8 @@ def test_search_device_emit_matches_jax(tmp_path):
                 assert f.read() == got, (ext, ref)
 
 
-def test_emit_devices_above_one_not_ported(tmp_path):
-    """Once a refusal, now the sharded emit: run_search(emit_devices=2,
+def test_search_emit_devices_two_matches_jax(tmp_path):
+    """The sharded emit: run_search(emit_devices=2,
     device="cpu") splits each chunk over two copies of the CPU with a
     k - 1 halo and writes the JAX search's bytes with emit_devices=2;
     the scanner's mask equals JAX's sharded scanner's."""

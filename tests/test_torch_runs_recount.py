@@ -238,7 +238,8 @@ def planted():
     rows[err] = (rows[err] + 1) % 4
     masked = rows.copy()
     masked[::5, 37] = tcodec.SEP
-    return {"index": index, "B": B, "rows": {"lens": rows, "mask": masked}}
+    return {"index": index, "B": B, "rows": {"lens": rows, "mask": masked},
+            "kmers": kmers, "bases": bases}
 
 
 @pytest.mark.parametrize("ds", [1, 2])
@@ -329,3 +330,90 @@ def test_exact_rows_packed_with_the_bitmap_matches_jax(planted, fmt, ds):
     moved = (((e[:, 0] | e[:, 1]) != 0)
              & ((h & np.uint32(B - 1)) != np.arange(len(e)) // 2))
     assert total[e[moved, 2]].sum() > 0
+
+
+def _anchor_rows(planted, rng):
+    """Read rows of READ_LEN whose anchor windows (offsets 0, K, 2K, 3K)
+    are whole k-mers: the keys that sit at h2, other keys, codes absent
+    from the table whose h1 bucket is full (a miss behind a full h1)
+    and random codes; a lens and a mask copy (a separator in one anchor
+    window of every fifth row). Returns (rows by format, offsets)."""
+    index, B = planted["index"], planted["B"]
+    e = to_numpy_u32(index.rows).reshape(-1, 4)
+    key = (e[:, 0].astype(np.uint64) << np.uint64(32)) | e[:, 1]
+    h = djb_pair_np(e[:, 0], e[:, 1])
+    at_h2 = key[(key != 0) & ((h & np.uint32(B - 1))
+                              != np.arange(len(e)) // 2)]
+    full = (e.reshape(B, 8)[:, :4].any(1) & e.reshape(B, 8)[:, 4:].any(1))
+    top = (1 << (2 * K)) - 1
+    cand = rng.integers(1, top, 200_000, dtype=np.int64).astype(np.uint64)
+    cand = np.minimum(cand, jhj._rc_np(cand, K))
+    ch = djb_pair_np(*tcodec.split_u64(cand))
+    behind = cand[full[ch & np.uint32(B - 1)] & ~np.isin(cand, key)][:300]
+    pool = np.concatenate([np.repeat(at_h2, 4), behind,
+                           rng.choice(planted["kmers"], 600), cand[-100:]])
+    n_rows = len(pool) // 4
+    anchors = rng.permutation(pool)[:4 * n_rows].reshape(n_rows, 4)
+    shifts = 2 * np.arange(K - 1, -1, -1, dtype=np.uint64)
+    rows = rng.integers(0, 4, (n_rows, READ_LEN)).astype(np.uint8)
+    for i in range(4):
+        rows[:, i * K:(i + 1) * K] = ((anchors[:, i, None] >> shifts)
+                                      & np.uint64(3)).astype(np.uint8)
+    masked = rows.copy()
+    masked[::5, K + 3] = tcodec.SEP
+    return {"lens": rows, "mask": masked}, (0, K, 2 * K, 3 * K)
+
+
+@pytest.mark.parametrize("ds", [2, 4])
+@pytest.mark.parametrize("fmt", ["lens", "mask"])
+def test_anchor_probes_with_the_bitmap_match_the_ungated_probe(planted, fmt,
+                                                               ds):
+    """K3a's plain version with each block's bitmap of displaced keys (as
+    the sharded counter passes it), block by block, against JAX's
+    probe_packed_block of both candidate rows with no gate on the anchor
+    windows: equal found and pos, found summed over the blocks at most
+    1, every anchor on a key found once (the planted keys at h2 among
+    them), no miss behind a full h1 found."""
+    from quickmer2_tpu.ops import packed_table as jpacked
+    from quickmer2_tpu_torch.kernels import anchored as tkanch
+    index, B = planted["index"], planted["B"]
+    rows, offs = _anchor_rows(planted, np.random.default_rng(ds))
+    f, pk, aux = trowpack.pack_batch(rows[fmt])
+    assert f == fmt
+    pk, aux_t = torch.from_numpy(pk), trowpack.aux_tensor(fmt, aux)
+    windows = np.stack([rows[fmt][:, a:a + K] for a in offs])
+    valid = (windows != tcodec.SEP).all(2)
+    shifts = 2 * np.arange(K - 1, -1, -1, dtype=np.uint64)
+    code = (np.where(valid[..., None], windows, 0).astype(np.uint64)
+            << shifts).sum(2, dtype=np.uint64)
+    code = np.minimum(code, jhj._rc_np(code, K))
+    qhi, qlo = tcodec.split_u64(code.reshape(-1))
+    jrows = jnp.asarray(to_numpy_u32(index.rows))
+    bb = B // ds
+    total = np.zeros(code.shape, np.int64)
+    for j in range(ds):
+        blk = dict(fmt=fmt, k=K, read_len=READ_LEN, n_buckets=B,
+                   anchor_offsets=offs, blk_lo=j * bb, block_buckets=bb)
+        rows_j = index.rows[j * bb:(j + 1) * bb]
+        disp = tkprobe.block_displaced_filter(rows_j, B, j * bb)
+        found, pos = tkanch.anchor_probes_plain(pk, aux_t, rows_j,
+                                                displaced=disp, **blk)
+        jf, _, jp = jpacked.probe_packed_block(
+            jrows[j * bb:(j + 1) * bb], jnp.asarray(qhi), jnp.asarray(qlo),
+            B, bb, j * bb, 0)
+        jf = np.asarray(jf).reshape(code.shape) & valid
+        np.testing.assert_array_equal(found.numpy(), jf)
+        np.testing.assert_array_equal(
+            to_numpy_u32(pos), np.where(jf, np.asarray(jp).reshape(
+                code.shape), 0))
+        again = tkanch.anchor_probes(pk, aux_t, rows_j, displaced=disp, **blk)
+        assert torch.equal(again[0], found) and torch.equal(again[1], pos)
+        total += found.numpy()
+    assert total.max() == 1
+    e = to_numpy_u32(index.rows).reshape(-1, 4)
+    key = (e[:, 0].astype(np.uint64) << np.uint64(32)) | e[:, 1]
+    h = djb_pair_np(e[:, 0], e[:, 1])
+    at_h2 = key[(key != 0) & ((h & np.uint32(B - 1))
+                              != np.arange(len(e)) // 2)]
+    np.testing.assert_array_equal(total, np.isin(code, key) & valid)
+    assert (np.isin(code, at_h2) & valid).sum() >= 100
