@@ -17,7 +17,8 @@ Phases:
                 one-pass kernel), the last two on batches that are not a
                 multiple of 64 bases. Then K1 (Hamming join) on the
                 search's own layouts at pads 64/32 (timed, with the card
-                time of building its layouts) and 128/64, each also on
+                time of building its layouts) and 128/64 (on every 4th
+                distinct k-mer), each also on
                 hand-planted buckets: > 1024 live pairs, 36 pairs, live
                 words without a live query. K6 (per-neighbor sum) on the
                 search's own slow set (timed), against the host slow path
@@ -56,9 +57,13 @@ Phases:
                 timed on the main path's exact batch, with its
                 wrapper's host time; then untimed at k = 15, 30, 31, 32 on rows of 64, 150 (a
                 38-B pitch), 160 and 1024, lens and mask format, on a
-                short batch of 1001 reads (R * W no multiple of 32). Then
-                the smoke's .qai built with K4 and with the join (its
-                own path: K5 must launch), identical bytes, both times;
+                short batch of 1001 reads (R * W no multiple of 32).
+                In phase 4 the small world's .qai built through
+                AnchoredIndex.build with the join (its own path: K5
+                must launch), identical to the bytes of the .qai that
+                the small world's anchored count's K4 built, both
+                index_s (with --check-only both are built on the
+                smoke's own .qai here);
                 The flat engines' kernels need the search's .qm and
                 run after the flat path (`check_flat_engines`): K7
                 (linear probe) on the smoke's .qm, K8 (packed count) on
@@ -118,14 +123,16 @@ Phases:
                 host time and h2 reads) and K3 with the
                 summed anchors on each block in tiers 1 and 2 (its codes
                 the one-launch K3's, its diffs summing to that K3's;
-                timed), and K10's scan over two shards of the card
+                block 0 timed, beside its plain version and a bound
+                from the block's own inputs), and K10's scan over two shards of the card
                 (search --emit-devices 2) equal to the host lookup;
   3. main     — the flat path: search (k=30, e=2, d=100, w=1000, control
                 bed) → count (flat, mono) → est on a 12 Mb realistic
                 genome (tools/realistic_genome.py, S. cerevisiae scale)
                 with ~20x simulated 150 bp reads; then count with each
-                other flat engine (linear, packed, sortjoin, auto), each
-                .bin equal to the mono one and each layout's kernel
+                other flat engine (linear, packed, sortjoin; auto on the
+                50 k reads of phase 4's small world), each .bin equal to the mono
+                one and each layout's kernel
                 launched on its own path; then the anchored path:
                 count --mode anchored (its .qai built on the card) → est
                 on the same reads. The launch counters are reset just
@@ -135,7 +142,18 @@ Phases:
                 anchored .bin must equal the flat .bin byte for byte;
                 CN is checked on the baseline windows
                 (2 ± 0.1) and on a segment with 3x extra read depth
-                (6 ± 0.5), for both paths; after the flat est, est with
+                (6 ± 0.5), for both paths; after the flat est, the
+                search and the count again under --profile, each a
+                `python -m quickmer2_tpu_torch` process of its own, one
+                after the other (`check_profile`): their outputs the unprofiled runs'
+                bytes, each trace one torch.profiler JSON file whose
+                regions are the JAX package's five in order, none
+                overlapping, K1, K6 and the key filter inside
+                search.filter's device span, K2 inside count.stream's
+                and as many K2 launches as the count fed batches; each
+                process's wall beside the unprofiled run's, the trace's
+                size, its kernels by name and each region's
+                device-busy share; then est with
                 device_sums (K11 launched; windows of the host est, CN
                 within 1e-4), K11 on the count's .bin with the smoke's
                 .qgc / .bed (checked as at 101 M, timed: its kernel row),
@@ -145,14 +163,19 @@ Phases:
                 .qgc again, the .rqm chain the .qm's), sparse 50, index
                 on a bed of 100 k dictionary k-mers (its chain the bed's
                 k-mers), colortrack and colorkey on the flat CN bed;
-  4. cpu      — a 50 k-read subset counted with device="cuda" and with
-                device="cpu" gives byte-identical .bin files, in flat and
-                in anchored mode; then that subset's flat (mono, linear)
+  4. cpu      — on a small world (`make_small_world`: the genome's
+                first 2 Mb searched as in phase 3, 50 k reads of it;
+                these checks hold a path against another, and a count's
+                set-up scales with the dictionary) the reads counted
+                with device="cuda" and with device="cpu" give
+                byte-identical .bin files, in flat and in anchored
+                mode; then its .qai by the join against its anchored
+                count's (above); then the subset's flat (mono, linear)
                 and anchored counts interrupted by a reader that raises
                 after four checkpoints and resumed from them, each .bin
                 equal to the uninterrupted one; a two-sample cohort (the
-                full reads and the subset) in both modes, its .bin, .txt
-                and .CN.bed equal to the single-sample runs'; entry()
+                subset twice) in both modes, its .bin, .txt and .CN.bed
+                equal to the single-sample run's; entry()
                 once on the card, equal to the CPU; then the
                 multi-device layer on one card (`check_multi_device`):
                 the subset counted by the flat ShardedDepthCounter at
@@ -187,6 +210,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke")
+T0 = time.time()                 # the log's clock
 
 HBM_BYTES_S = 3.35e12            # H100 SXM HBM3
 # int32 ALU: 132 SMs x 64 lanes x 1.98 GHz (the data sheet's 67 TFLOP/s
@@ -202,10 +226,15 @@ GENOME_BASES = 12_000_000
 READ_LEN = 150
 COVERAGE = 20
 ERR = 0.003
+# phase 4 (cpu against card, resume, cohort, multi-device) runs on a
+# slice of the genome: set-ups that build the dictionary's tables
+# dominate its counts at the full dictionary
+SMALL_BASES = 2_000_000
+SMALL_READS = 50_000
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.time() - T0:7.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, reps: int, warm: int = 1, queued: bool = False) -> float:
@@ -338,6 +367,13 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def distinct(a: np.ndarray) -> np.ndarray:
+    """np.unique(a) by a sort: numpy >= 2.3's np.unique hashes first,
+    and on ~16 M random u64 keys that took ~35 s on the card's host."""
+    a = np.sort(a)
+    return a[np.concatenate(([True], a[1:] != a[:-1]))[:len(a)]]
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest |a - b| over u32 word tensors."""
     from quickmer2_tpu_torch.device import u32
@@ -384,6 +420,42 @@ def make_world(rng):
         f.write("chrZ\t0\t100\n")
     return {"g": g, "fa": fa, "ctrl": ctrl, "excl": excl,
             "seg": (seg_start, seg_start + seg_len)}
+
+
+def make_small_world(world, rng):
+    """The genome's first SMALL_BASES as a FASTA of its own, its control
+    bed the main one's cut to it, searched as the main path searches (its
+    .qm, .qgc, .bed), and SMALL_READS reads of it: the input of phase 4,
+    whose checks hold one path against another and whose count set-ups
+    scale with the dictionary. Returns (FASTA, FASTQ)."""
+    from tools.realistic_genome import to_fasta
+    from quickmer2_tpu_torch.config import SearchConfig
+    from quickmer2_tpu_torch.pipelines.search import run_search
+    t = time.time()
+    g = world["g"][:SMALL_BASES]
+    fa = os.path.join(WORK, "m.fa")
+    to_fasta(fa, g)
+    ctrl = os.path.join(WORK, "m_ctrl.bed")
+    with open(ctrl, "w") as f:
+        prev = 0
+        for a, b in world["excl"]:
+            if a >= len(g):
+                break
+            f.write(f"chr1\t{prev}\t{a}\n")
+            prev = b
+        if prev < len(g):
+            f.write(f"chr1\t{prev}\t{len(g)}\n")
+    stats = {}
+    run_search(fa, SearchConfig(
+        kmer_size=30, edit_distance=2, edit_depth_threshold=100,
+        window_size=1000, control_bed=ctrl), verbose=False, stats=stats,
+        device="cuda")
+    sub = os.path.join(WORK, "sub.fq")
+    write_fastq(sub, simulate_reads(rng, g, SMALL_READS, READ_LEN, ERR))
+    log(f"phase small world: the first {len(g)} bases searched "
+        f"({stats['n_kmers']} k-mers) and {SMALL_READS} reads of them in "
+        f"{time.time() - t:.1f} s")
+    return fa, sub
 
 
 def simulate_reads(rng, g, n_reads, read_len, err):
@@ -433,7 +505,7 @@ def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
     hits = canon[valid & (canon != 0) & (rng.random(len(canon)) < 0.3)]
     top = (1 << (2 * k)) - 1
     rand = rng.integers(1, 1 << 62, n_keys, dtype=np.int64).astype(np.uint64)
-    keys = np.unique(np.concatenate([hits, rand & np.uint64(top)]))
+    keys = distinct(np.concatenate([hits, rand & np.uint64(top)]))
     keys = keys[rng.permutation(len(keys))[:n_keys]]
     hi, lo = codec.split_u64(keys)
     table = MonoTable.build(hi, lo)
@@ -1318,50 +1390,50 @@ def check_join_bits(stream, dict_kmers, k, dev):
                            "bound_by": ws_by, "library_ms": word_lib_ms}}]
 
 
-def compare_qai_builders(fa, dev, reset_counts, read_counts):
+def compare_qai_builders(fa, dev, reset_counts, read_counts, sweep=None):
     """The smoke's .qai built with K4 (the sweep) and with the Hamming
-    join (K5): identical bytes; each build's seconds (index_s), and the
-    join's routing counts from a second, bitmap-only run. The join's
-    build is its own path: the counts are reset just before it and read
-    just after. The routing counts are taken on the genome's first
-    quarter. Returns the launches of K5 and its counting sort there."""
+    join (K5), each through AnchoredIndex.build: identical bytes, each
+    build's seconds (index_s, its packed table included). `sweep`:
+    (K4's .qai, its index_s), the anchored count's; built here when
+    None. The join's build is its own path (JOIN_BITS_DEVICES on the
+    card, rows left on the host): the counts are reset just before it
+    and read just after. Returns the launches of K5 and its counting
+    sort."""
     from quickmer2_tpu_torch.dictionary import Dictionary
     from quickmer2_tpu_torch.ops import anchored
-    from quickmer2_tpu_torch.ops.hamming_join import hamming_neighbor_bits
     dic = Dictionary.from_qm(fa + ".qm")
     stream, pos = anchored._genome_stream_and_positions(dic, fa)
-    blobs, secs = {}, {}
-    for builder, join_on in (("sweep", ()), ("join", ("cuda",))):
-        path = os.path.join(WORK, f"{builder}.qai")
+
+    def build(name, join_on):
+        path = os.path.join(WORK, f"{name}.qai")
         anchored.JOIN_BITS_DEVICES = join_on
-        reset_counts()
         t = time.time()
         try:
             anchored.AnchoredIndex.build(stream, pos, dic.kmers_in_order,
                                          dic.kmer_size, cache_path=path,
-                                         device=dev)
+                                         place_rows=False, device=dev)
             torch.cuda.synchronize()
         finally:
             anchored.JOIN_BITS_DEVICES = ()
-        secs[builder] = time.time() - t
-        counts = read_counts()
-        with open(path, "rb") as f:
-            blobs[builder] = f.read()
-        os.remove(path)
-        log(f"  .qai by {builder}: index_s {secs[builder]:.2f} s, "
-            f"{len(blobs[builder])} bytes, launches {counts}")
+        return path, time.time() - t
+
+    if sweep is None:
+        sweep = build("sweep", ())
+    reset_counts()
+    join = build("join", ("cuda",))
+    counts = read_counts()
     join_launches = {n: counts[n] for n in ("join_bits", "bucket_runs")}
     if not all(join_launches.values()):
         raise AssertionError(f"the join-built .qai did not launch K5 and "
                              f"its counting sort: {join_launches}")
-    if blobs["sweep"] != blobs["join"]:
-        raise AssertionError("the .qai by the join differs from the sweep's")
-    st = {}
-    t = time.time()
-    hamming_neighbor_bits(stream[:len(stream) // 4], dic.kmers_in_order,
-                          dic.kmer_size, device=dev, stats=st)
-    log(f"  .qai bytes identical; the join's bitmap alone on the genome's "
-        f"first quarter {time.time() - t:.2f} s, {json.dumps(st)}")
+    with open(sweep[0], "rb") as f, open(join[0], "rb") as h:
+        blob = f.read()
+        if blob != h.read():
+            raise AssertionError("the .qai by the join differs from K4's")
+    os.remove(join[0])
+    log(f"  .qai by the join identical to K4's ({len(blob)} bytes): "
+        f"index_s by K4 {sweep[1]:.2f} s, by the join {join[1]:.2f} s, "
+        f"launches {counts}")
     return join_launches
 
 
@@ -1397,6 +1469,23 @@ def spill_batches(index, counter, reads, dev):
     return out[0], out[1], first
 
 
+def anchored_bound(trace, in_bytes, rows, anchor_bytes=0):
+    """K3's bound on one batch from its plain version's trace. Least
+    traffic: the packed rows in and a code out per row; each touched
+    32-B table row (the block's, on a bucket block), 64-B genome tile
+    and 16-B dblock row read once; each changed diff word read and
+    written once; given anchors (`anchor_bytes`) read once. Least work:
+    ~16 int ops per base (unpack, two strand compares, window bits) and
+    ~60 per probe. Returns (ms, bound by, bytes, ops, unique counts)."""
+    uniq = {name: int(torch.unique(trace[name]).numel())
+            for name in ("probe_rows", "tiles", "dblock_rows")}
+    n_bytes = (in_bytes + len(rows) + anchor_bytes
+               + 32 * uniq["probe_rows"] + 64 * uniq["tiles"]
+               + 16 * uniq["dblock_rows"] + 8 * trace["diff_words"].numel())
+    n_ops = 16 * rows.size + 60 * trace["probes"]
+    return (*bound_ms(n_bytes, n_ops), n_bytes, n_ops, uniq)
+
+
 def check_anchored(index, counter, rows, tier, dev):
     """K3 in tier `tier` (the counter's own options) on one batch."""
     from quickmer2_tpu_torch.kernels.anchored import (
@@ -1427,18 +1516,7 @@ def check_anchored(index, counter, rows, tier, dev):
         lambda: anchored_count(pk, aux, *tab, d_kernel, **kw), 10)
     plain_ms = cuda_ms(
         lambda: anchored_count_plain(pk, aux, *tab, d_plain, **kw), 1, warm=0)
-    # least traffic: the packed rows in and a code out per row; each
-    # touched 32-B table row, 64-B genome tile and 16-B dblock row read
-    # once; each changed diff word read and written once. Least work:
-    # ~16 int ops per base (unpack, two strand compares, window bits)
-    # and ~60 per probe
-    uniq = {name: int(torch.unique(trace[name]).numel())
-            for name in ("probe_rows", "tiles", "dblock_rows")}
-    n_bytes = (in_bytes + len(rows) + 32 * uniq["probe_rows"]
-               + 64 * uniq["tiles"] + 16 * uniq["dblock_rows"]
-               + 8 * trace["diff_words"].numel())
-    n_ops = 16 * rows.size + 60 * trace["probes"]
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    b_ms, b_by, n_bytes, n_ops, uniq = anchored_bound(trace, in_bytes, rows)
     log(f"  anchored tier {tier} time {ms:.4f} ms (queued "
         f"{queued_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
@@ -1567,7 +1645,7 @@ def check_count_mono_rows_edges(counter, g, dev):
             mono_rows = counter._mono_rows
         else:
             canon, valid = codec.sliding_kmers_np(region, k)
-            hi, lo = codec.split_u64(np.unique(canon[valid & (canon != 0)]))
+            hi, lo = codec.split_u64(distinct(canon[valid & (canon != 0)]))
             mono = MonoTable.build(hi, lo, load=1.0)
             mono_rows = words(mono.rows, dev)
         for lens in (np.ascontiguousarray(reads[:, :64]), reads,
@@ -1666,8 +1744,8 @@ def check_anchored_kernels(fa, g, reads, dev):
     rows.append(check_count_mono_rows(counter, exact, dev))
     check_count_mono_rows_edges(counter, g, dev)
     rows.append(check_count_packed_rows(index, exact, k, dev))
-    rows.append(check_anchor_probes(index, counter, rows_of(reads[:B]),
-                                    tier2, dev))
+    rows += check_anchor_probes(index, counter, rows_of(reads[:B]), tier2,
+                                dev)
     del stream, dict_kmers, index, counter
     torch.cuda.empty_cache()
     return rows
@@ -2006,7 +2084,7 @@ def check_flat_engines_small(rng, k, n_keys, n_bases, dev, parts):
     hits = canon[valid & (canon != 0) & (rng.random(len(canon)) < 0.3)]
     top = (1 << (2 * k)) - 1
     rand = rng.integers(1, 1 << 62, n_keys, dtype=np.int64).astype(np.uint64)
-    keys = np.unique(np.concatenate([hits, rand & np.uint64(top)]))
+    keys = distinct(np.concatenate([hits, rand & np.uint64(top)]))
     keys = keys[keys != 0]
     keys = keys[rng.permutation(len(keys))[:n_keys]]
     dic = Dictionary.from_kmers_in_order(keys, 1 << 21, k)
@@ -2031,7 +2109,7 @@ def check_count_linear_wrap(rng, dev, parts):
     H, k, empty = 4096, 15, (3000, 3500)
     g = rng.integers(0, 4, 4 * H).astype(np.uint8)
     canon, valid, _ = native.sliding_canon(g, k)
-    keys = np.unique(canon[valid & (canon != 0)])
+    keys = distinct(canon[valid & (canon != 0)])
     keys = keys[rng.permutation(len(keys))]
     table = np.zeros(H, np.uint64)
     placed = keys[:H // 4]
@@ -2679,22 +2757,25 @@ def check_host_subcommands(world, dic, cn_bed):
 
 # -- phase 3, the flat engines, checkpoints, the cohort, entry() ---------
 
-ENGINES = ("linear", "packed", "sortjoin", "auto")
+# each other flat engine counts the smoke's reads; auto, which picks mono
+# by the dictionary's size alone, counts the small world's 50 k reads
+ENGINES = ("linear", "packed", "sortjoin")
 # the kernel that each flat layout's count launches
 LAYOUT_KERNEL = {"mono": "count_mono", "linear": "count_linear",
                  "packed": "count_packed", "sortjoin": "kmerize"}
 
 
-def count_engines(fa, fq, n_windows, reset_counts, read_counts):
-    """run_count with each other flat engine on the smoke's reads, each
-    its own path (counts reset just before, read just after): its .bin
-    must equal the mono s.bin, and its layout's kernel must launch.
+def count_engines(fa, fq, n_windows, reset_counts, read_counts,
+                  engines=ENGINES, mono="s"):
+    """run_count of `fq` with each of `engines`, each its own path
+    (counts reset just before, read just after): its .bin must equal the
+    mono count's (`mono`.bin), and its layout's kernel must launch.
     Returns the launches of K7, K8 and K9 on their engines' paths."""
     from quickmer2_tpu_torch.pipelines.count import run_count
-    with open(os.path.join(WORK, "s.bin"), "rb") as f:
+    with open(os.path.join(WORK, mono + ".bin"), "rb") as f:
         want = f.read()
     launches = {}
-    for engine in ENGINES:
+    for engine in engines:
         out = os.path.join(WORK, f"e_{engine}")
         reset_counts()
         t = time.time()
@@ -2744,7 +2825,7 @@ class LimitedFile:
 
 
 def check_resume(fa, sub):
-    """Flat (mono, linear) and anchored counts of the 50 k-read subset
+    """Flat (mono, linear) and anchored counts of the small world's 50 k reads
     interrupted after a few checkpoints, then resumed from them: each
     .bin must equal the uninterrupted count's."""
     import builtins
@@ -2787,16 +2868,17 @@ def check_resume(fa, sub):
             f"{time.time() - t:.1f} s")
 
 
-def check_cohort(fa, fq, sub):
-    """A two-sample cohort (the full reads and the 50 k subset) in both
-    modes: its .bin, .txt and .CN.bed equal the single-sample runs'."""
+def check_cohort(fa, sub):
+    """A two-sample cohort (the small world's reads twice: a sample's state must
+    not leak into the next) in both modes: each sample's .bin, .txt and
+    .CN.bed equal the single-sample run's."""
     from quickmer2_tpu_torch.pipelines.cohort import run_cohort
-    singles = {"flat": ("s", "sub_flat_cuda"),
-               "anchored": ("a", "sub_anchored_cuda")}
+    singles = {"flat": ("sub_flat_cuda",) * 2,
+               "anchored": ("sub_anchored_cuda",) * 2}
     for mode, single in singles.items():
         t = time.time()
         outs = [os.path.join(WORK, f"co_{mode}_{i}") for i in range(2)]
-        stats = run_cohort(fa + ".qm", list(zip((fq, sub), outs)), mode=mode,
+        stats = run_cohort(fa + ".qm", list(zip((sub, sub), outs)), mode=mode,
                            ref_fasta=fa if mode == "anchored" else None,
                            verbose=False, device="cuda")
         for out, ref in zip(outs, single):
@@ -3211,10 +3293,14 @@ def check_anchor_probes(index, counter, tier1, tier2, dev):
     summed anchors on each block against its plain version, its codes
     those of the one-launch K3 and its diffs summing to that K3's. The
     planted batch cut to rows of 150 (lens and mask format: K3a's byte
-    loads) at ds = 2 against the same two. K3a timed on block 0 of the tier-1 batch at ds = 2, with its wrapper's
-    host time and its h2 row reads with the gate and without (both
-    local candidates), K3 on blocks in tier 1 too. Returns K3a's
-    kernel-table row."""
+    loads) at ds = 2 against the same two. K3a timed on block 0 of the
+    tier-1 batch at ds = 2, with its wrapper's host time and its h2 row
+    reads with the gate and without (both local candidates); K3 on
+    block 0 with the summed anchors timed in tiers 1 and 2, beside its
+    plain version and a bound from the block's own inputs (its local
+    rows, the given anchors, the tiles, dblock rows and diff words its
+    reads need). Returns the kernel-table rows of K3a and of K3 on a
+    block (tier 1; tier 2 under "tier2")."""
     from quickmer2_tpu_torch.device import store, u32
     from quickmer2_tpu_torch.kernels import anchored as ka
     from quickmer2_tpu_torch.kernels.block_probe import (
@@ -3232,7 +3318,7 @@ def check_anchor_probes(index, counter, tier1, tier2, dev):
     masked = planted.copy()
     masked[::7, offs[1] + 5] = codec.SEP
     err = 0
-    block_ms = {}
+    block = {}
     for tier, label, rows in ((1, "tier 1", tier1), (2, "tier 2", tier2),
                               (1, "planted", planted),
                               (1, "planted, mask format", masked)):
@@ -3294,9 +3380,27 @@ def check_anchor_probes(index, counter, tier1, tier2, dev):
                           max_abs_err(c_k, c_one))
                 total += d_k
                 if j == 0:
-                    block_ms[f"tier{tier}"] = kernel_ms(
+                    tr = {}
+                    ka.anchored_count_plain(pk, aux, rows_j, *tab, d_p,
+                                            trace=tr, **bkw)
+                    ms_b, queued_b = kernel_ms(
                         lambda: ka.anchored_count(pk, aux, rows_j, *tab,
                                                   d_k, **bkw), 10)
+                    plain_b = cuda_ms(lambda: ka.anchored_count_plain(
+                        pk, aux, rows_j, *tab, d_p, **bkw), 1, warm=0)
+                    # the given anchors: found (1 B) and pos (4 B) a window
+                    b_ms, b_by, n_bytes, n_ops, uniq = anchored_bound(
+                        tr, in_bytes, rows, 5 * found.numel())
+                    block[tier] = {
+                        "ms": ms_b, "queued_ms": queued_b,
+                        "plain_ms": plain_b, "bound_ms": b_ms,
+                        "bound_by": b_by}
+                    log(f"  anchored_count on block 0 of {DS}, tier {tier} "
+                        f"({fmt}), given anchors: time {ms_b:.4f} ms "
+                        f"(queued {queued_b:.4f} ms), plain {plain_b:.4f} "
+                        f"ms, bound {b_ms:.4f} ms ({b_by}: "
+                        f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.4f} G ops; "
+                        f"{uniq}, {tr['probes']} probes)")
             if max_abs_err(total, one) != 0:
                 raise AssertionError(f"tier {tier}: the blocks' diffs do "
                                      "not sum to the one-launch K3's")
@@ -3373,23 +3477,25 @@ def check_anchor_probes(index, counter, tier1, tier2, dev):
     reads = k12_counts(index.rows, qh[nz], ql[nz], disp[DS][0], 0, bb)
     h1, h2 = packed_table.bucket_hashes_t(djb_pair(qh[nz], ql[nz]), B)
     ungated = int(((h1 < bb).sum() + (h2 < bb).sum()).item())
-    block = {t: [round(x, 4) for x in v] for t, v in block_ms.items()}
     log(f"  anchor_probes time {ms:.4f} ms (queued {queued_ms:.4f} ms) on "
         f"block 0 of {DS} of the tier-1 batch, wrapper host time "
         f"{wrapper_ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {rows_touched} "
         f"local rows, {int(valid.sum())} probes); rows read with the gate "
         f"{reads}, without it (both local candidates) {ungated}; "
-        f"{n_planted} displaced keys planted; anchored_count on block 0 "
-        f"with given anchors, ms / queued ms: {block}")
-    return {"name": "anchor_probes", "route": "cuda",
-            "source": "quickmer2_tpu_torch/csrc/anchored.cu",
-            "replaces": "quickmer2_tpu/ops/anchored.py:575",
-            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "host_ms": wrapper_ms, "plain_ms": plain_ms,
-            "probe_counts": dict(reads, ungated_rows_read=ungated),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "anchored_block_ms": block}
+        f"{n_planted} displaced keys planted")
+    return [{"name": "anchor_probes", "route": "cuda",
+             "source": "quickmer2_tpu_torch/csrc/anchored.cu",
+             "replaces": "quickmer2_tpu/ops/anchored.py:575",
+             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+             "host_ms": wrapper_ms, "plain_ms": plain_ms,
+             "probe_counts": dict(reads, ungated_rows_read=ungated),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
+            {"name": "anchored_block", "route": "cuda",
+             "source": "quickmer2_tpu_torch/csrc/anchored.cu",
+             "replaces": "quickmer2_tpu/ops/anchored.py:548",
+             "max_abs_err": err, **block[1], "library_ms": None,
+             "tier2": block[2]}]
 
 
 DIST_WORKER = r"""
@@ -3436,8 +3542,8 @@ def count_sharded(dic, index, sample, mode, dp, ds, out):
 
 
 def check_multi_device(fa, sub, reset_counts, read_counts):
-    """The multi-device layer on one card, on the 50 k-read subset and the
-    smoke's own dictionary and .qai: the flat ShardedDepthCounter at
+    """The multi-device layer on one card, on the small world's 50 k reads,
+    dictionary and .qai: the flat ShardedDepthCounter at
     (dp, ds) = (2, 2) and the ShardedAnchoredCounter at (2, 1) and (2, 2),
     all on [cuda:0] x 4 (the (2, 2) one from an index whose packed rows
 stay on the host), each .bin byte-identical to the one-card count's
@@ -3516,7 +3622,230 @@ stay on the host), each .bin byte-identical to the one-card count's
     return {k: counts[k] for k in need}
 
 
+def check_small_world(world, rng, dev, reset_counts, read_counts):
+    """Phase 4 on the small world (`make_small_world`): its reads counted
+    on the card and on the CPU in both modes (equal .bin), est; its .qai
+    by the join against its anchored count's K4 .qai; the auto engine;
+    resumed counts; the cohort; entry(); the multi-device layer on one
+    card. Returns the launches of K5, its sort and the multi-device
+    kernels."""
+    from quickmer2_tpu_torch.pipelines.count import run_count
+    from quickmer2_tpu_torch.pipelines.est import run_est
+    sfa, sub = make_small_world(world, rng)
+    t = time.time()
+    for mode in ("flat", "anchored"):
+        bins = []
+        for device in ("cuda", "cpu"):
+            out = os.path.join(WORK, f"sub_{mode}_{device}")
+            st = run_count(sfa + ".qm", sub, out,
+                           batch_bases=1 << 22, verbose=False,
+                           mode=mode, device=device)
+            if (mode, device) == ("anchored", "cuda"):
+                index_s = st["phases"]["index_s"]
+            with open(out + ".bin", "rb") as f:
+                bins.append(f.read())
+        if bins[0] != bins[1]:
+            raise AssertionError(f"{mode}: cuda and cpu .bin differ")
+        run_est(sfa, os.path.join(WORK, f"sub_{mode}_cuda"),
+                os.path.join(WORK, f"sub_{mode}_cuda.CN.bed"),
+                verbose=False, device="cuda")
+        log(f"phase cpu ({mode}): {SMALL_READS} reads, cuda and "
+            f"cpu .bin identical ({len(bins[0])} bytes) in "
+            f"{time.time() - t:.1f} s")
+        t = time.time()
+    # the .qai by the join against the one the anchored count's K4 built
+    launches = compare_qai_builders(
+        sfa, dev, reset_counts, read_counts,
+        sweep=(sfa + ".qai", index_s))
+    log(f"phase .qai builders: {time.time() - t:.1f} s")
+    # the auto engine's count (it picks mono)
+    count_engines(sfa, sub, SMALL_READS * (READ_LEN - 30 + 1),
+                  reset_counts, read_counts, engines=("auto",),
+                  mono="sub_flat_cuda")
+
+    # resumed counts, the cohort, entry()
+    check_resume(sfa, sub)
+    check_cohort(sfa, sub)
+    check_entry()
+    # the multi-device layer on one card
+    launches.update(check_multi_device(sfa, sub, reset_counts, read_counts))
+    return launches
+
+
 # -- phase 3: the main path ------------------------------------------------
+
+# -- phase 3, --profile: the search and the count under torch.profiler ----
+
+PROFILE_REGIONS = {"search": ("search.tabulate", "search.filter",
+                              "search.emit"),
+                   "count": ("count.stream", "count.finish")}
+# the hand-written kernels each traced region must hold on the card: K1,
+# K6 and the key filter in the search's edit filter; K2 in the count's
+# read loop, one launch a batch: its probe pass (P > 1) or its one pass
+PROFILE_KERNELS = {"search.filter": ("hamming_join_kernel",
+                                     "neighbor_sum_kernel",
+                                     "key_filter_kernel"),
+                   "count.stream": ("count_mono_",)}
+K2_LAUNCH = re.compile(r"count_mono_(probe|direct)_kernel")   # a short name
+DEVICE_BUSY = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's trace name without return type, namespace,
+    template and parameter lists."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0].split("<")[0]
+
+
+def busy_share(events, lo, hi) -> float:
+    """The share of [lo, hi] (µs) that the union of the device's kernel,
+    copy and memset intervals covers."""
+    spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                   for e in events if e.get("cat") in DEVICE_BUSY
+                   and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / (hi - lo) if hi > lo else 0.0
+
+
+def profiled_runs(runs):
+    """`python -m quickmer2_tpu_torch <args> --profile DIR --json` for
+    each {name: args} of `runs`, each in a process of its own (a fresh
+    profiler: late in a long process one loses device events, PERF.md
+    I1), one after the other, so each has the card and the host to
+    itself as the unprofiled runs had. Returns {name: (wall s, the
+    run's stats, the trace's events, the trace's bytes)}."""
+    results = {}
+    for name, args in runs.items():
+        prof = os.path.join(WORK, f"prof_{name}.trace")
+        t = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "quickmer2_tpu_torch", args[0],
+             "--profile", prof, "--json", *args[1:]], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=600)
+        wall = time.time() - t
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"{name} --profile failed:\n{proc.stdout[-3000:]}")
+        stats = json.loads([ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("{")][-1])
+        paths = [os.path.join(prof, f) for f in os.listdir(prof)
+                 if f.endswith(".pt.trace.json")]
+        if len(paths) != 1:
+            raise AssertionError(f"{prof} holds {len(paths)} traces, not one")
+        with open(paths[0]) as f:
+            events = json.load(f)["traceEvents"]
+        results[name] = (wall, stats, events, os.path.getsize(paths[0]))
+    return results
+
+
+def check_trace(label, events, regions):
+    """The trace's pipeline regions: exactly `regions` in order, none
+    overlapping the next; the kernels of PROFILE_KERNELS inside their
+    region's device span (its gpu_user_annotation). Returns ({region:
+    {"kernels": {name: n} inside its device span, "busy": the
+    device-busy share of that span}}, {kernel name: n} over the whole
+    trace)."""
+    host = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                  if e.get("cat") == "user_annotation")
+    names = tuple(n for _, _, n in host)
+    if names != regions:
+        raise AssertionError(f"{label}: the trace's regions {names}, not "
+                             f"{regions}")
+    if any(a[1] > b[0] for a, b in zip(host, host[1:])):
+        raise AssertionError(f"{label}: overlapping regions {host}")
+    dev = {}
+    for e in events:
+        if e.get("cat") == "gpu_user_annotation":      # one a stream
+            a, b = dev.get(e["name"], (e["ts"], e["ts"] + e["dur"]))
+            dev[e["name"]] = (min(a, e["ts"]), max(b, e["ts"] + e["dur"]))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        n = kernel_name(e["name"])
+        by_name[n] = by_name.get(n, 0) + 1
+    out = {}
+    for _, _, name in host:
+        if name not in dev:
+            if name in PROFILE_KERNELS:
+                raise AssertionError(f"{label}: {name} has no device span")
+            out[name] = {"kernels": {}, "busy": None}
+            continue
+        d_lo, d_hi = dev[name]
+        inside = {}
+        for e in kernels:
+            if d_lo <= e["ts"] and e["ts"] + e["dur"] <= d_hi:
+                n = kernel_name(e["name"])
+                inside[n] = inside.get(n, 0) + 1
+        for want in PROFILE_KERNELS.get(name, ()):
+            if not any(want in n for n in inside):
+                raise AssertionError(f"{label}: no {want} inside {name}'s "
+                                     f"device span: {inside}")
+        out[name] = {"kernels": dict(sorted(inside.items())),
+                     "device_span_ms": round((d_hi - d_lo) / 1e3, 3),
+                     "busy": round(busy_share(events, d_lo, d_hi), 6)}
+    return out, by_name
+
+
+def check_profile(world, fq, k, unprofiled):
+    """--profile on the card: `search` with the smoke's flags and
+    `count` (flat, mono) on the smoke's reads, each in a process of its
+    own, one after the other. Their outputs must be the unprofiled
+    runs' bytes, and their traces hold the five regions in the JAX package's order with K1, K6
+    and the key filter inside search.filter and K2 inside count.stream,
+    as many K2 launches as the count fed batches (from the total_windows
+    it prints). `unprofiled`: {"search": s, "count": s} of the main
+    path's runs. Logs wall times, trace sizes, kernels by name and
+    device-busy shares."""
+    torch.cuda.empty_cache()
+    batch = 1 << 24                   # run_count's default, as unprofiled
+    runs = {
+        "search": (["search", "-k", "30", "-e", "2", "-d", "100", "-w",
+                    "1000", "-c", world["ctrl"], "--out-prefix",
+                    os.path.join(WORK, "prof_search"), world["fa"]],
+                   [(os.path.join(WORK, "prof_search") + ext,
+                     world["fa"] + ext) for ext in (".qm", ".qgc", ".bed")]),
+        "count": (["count", "--batch-bases", str(batch), world["fa"], fq,
+                   os.path.join(WORK, "prof_count")],
+                  [(os.path.join(WORK, "prof_count") + ext,
+                    os.path.join(WORK, "s") + ext) for ext in (".bin", ".txt")])}
+    done = profiled_runs({cmd: args for cmd, (args, _) in runs.items()})
+    for cmd, (args, pairs) in runs.items():
+        wall, stats, events, size = done[cmd]
+        for got, want in pairs:
+            with open(got, "rb") as f, open(want, "rb") as h:
+                if f.read() != h.read():
+                    raise AssertionError(f"{cmd} --profile: {got} differs "
+                                         f"from the unprofiled {want}")
+        regions, by_name = check_trace(cmd, events, PROFILE_REGIONS[cmd])
+        run_s = (stats["elapsed_s"] if cmd == "count" else
+                 sum(stats["phases"][p] for p in ("tabulate_s", "filter_s",
+                                                  "emit_s")))
+        log(f"phase profile ({cmd}): {wall:.1f} s for the process, the run "
+            f"{run_s:.2f} s by its stats against {unprofiled[cmd]:.2f} s "
+            f"unprofiled (in the smoke's process); outputs identical; "
+            f"trace {size / 1e6:.2f} MB, "
+            f"{len(events)} events; device kernels by name {by_name}")
+        for name, r in regions.items():
+            log(f"  {name}: {r}")
+        if cmd == "count":
+            per = batch - k + 1
+            if stats["total_windows"] % per:
+                raise AssertionError(f"total_windows {stats['total_windows']}"
+                                     f" is no whole number of batches")
+            fed = stats["total_windows"] // per
+            k2 = sum(n for name, n in by_name.items()
+                     if K2_LAUNCH.fullmatch(name))
+            if k2 != fed:
+                raise AssertionError(f"the trace holds {k2} K2 launches, the "
+                                     f"count fed {fed} batches")
+            log(f"  K2 launches in the trace {k2} = batches fed {fed} "
+                f"(total_windows {stats['total_windows']} / {per})")
+
 
 def median_cn(cn_bed, excl, seg):
     rows = [ln.split() for ln in open(cn_bed)]
@@ -3645,7 +3974,9 @@ def main() -> int:
                              dev, False)
         uniq, occ, _ = _tabulate_streaming(fasta_io.iter_fasta(world["fa"]), 30)
         rows.append(check_hamming_join(uniq, occ, 30, 64, 32, dev, True))
-        check_hamming_join(uniq, occ, 30, 128, 64, dev, False)
+        # pads 128/64 untimed, on every 4th distinct k-mer (the join plan
+        # is host work that scales with the set)
+        check_hamming_join(uniq[::4], occ[::4], 30, 128, 64, dev, False)
         row, table = check_neighbor_sum(uniq, occ, 30, dev)
         rows.append(row)
         for kk in (15, 32):
@@ -3705,6 +4036,11 @@ def main() -> int:
             cn_check(world, cn_bed, "flat")
             launches.update({k: flat[k] for k in ("count_mono",
                                                   "hamming_join")})
+            # -- 3, the same search and count under --profile ------------
+            check_profile(world, fq, 30, {
+                "search": sum(sstats["phases"][p] for p in (
+                    "tabulate_s", "filter_s", "emit_s")),
+                "count": cstats["elapsed_s"]})
             # -- 3, est's device window sums, the device emit, and the
             # host subcommands, each its own path -----------------------
             sample = os.path.join(WORK, "s")
@@ -3735,10 +4071,11 @@ def main() -> int:
                                        dev)
         log(f"phase kernels (anchored path): {time.time() - t:.1f} s "
             f"(tolerance: exact equality, integer outputs)")
-        t = time.time()
-        launches.update(compare_qai_builders(
-            world["fa"], dev, reset_counts, read_counts))
-        log(f"phase .qai builders: {time.time() - t:.1f} s")
+        if check_only:
+            t = time.time()
+            launches.update(compare_qai_builders(
+                world["fa"], dev, reset_counts, read_counts))
+            log(f"phase .qai builders: {time.time() - t:.1f} s")
 
         if not check_only:
             # -- 3. the anchored path: count --mode anchored → est -------
@@ -3778,36 +4115,10 @@ def main() -> int:
             # table, once for the anchored index's
             launches.update({k: anch[k] + launches.get(k, 0) for k in need})
 
-            # -- 4. the card against the port's own CPU path --------------
-            t = time.time()
-            sub = os.path.join(WORK, "sub.fq")
-            write_fastq(sub, reads[:50_000])
-            for mode in ("flat", "anchored"):
-                bins = []
-                for device in ("cuda", "cpu"):
-                    out = os.path.join(WORK, f"sub_{mode}_{device}")
-                    run_count(world["fa"] + ".qm", sub, out,
-                              batch_bases=1 << 22, verbose=False, mode=mode,
-                              device=device)
-                    with open(out + ".bin", "rb") as f:
-                        bins.append(f.read())
-                if bins[0] != bins[1]:
-                    raise AssertionError(f"{mode}: cuda and cpu .bin differ")
-                run_est(world["fa"], os.path.join(WORK, f"sub_{mode}_cuda"),
-                        os.path.join(WORK, f"sub_{mode}_cuda.CN.bed"),
-                        verbose=False, device="cuda")
-                log(f"phase cpu ({mode}): 50000 reads, cuda and cpu .bin "
-                    f"identical ({len(bins[0])} bytes) in "
-                    f"{time.time() - t:.1f} s")
-                t = time.time()
-
-            # -- 3, resumed counts, the cohort, entry() ------------------
-            check_resume(world["fa"], sub)
-            check_cohort(world["fa"], fq, sub)
-            check_entry()
-            # -- 3, the multi-device layer on one card -------------------
-            launches.update(check_multi_device(world["fa"], sub,
-                                               reset_counts, read_counts))
+            # -- 4. the card against the port's own CPU path, on the small
+            # world ------------------------------------------------------
+            launches.update(check_small_world(world, rng, dev,
+                                              reset_counts, read_counts))
 
         for row in rows:
             row["launches"] = launches.get(row["name"], 0)

@@ -4,13 +4,15 @@ package's (quickmer2_tpu/cli.py):
   python -m quickmer2_tpu_torch search [-k N] [-s SIZE] [-e N] [-d N] [-w N]
                                        [-c ctrl.bed] [--quirk-editdist]
                                        [--emit-devices N] [--json]
-                                       [--device cuda|cpu] ref.fa
+                                       [--profile DIR] [--device cuda|cpu]
+                                       ref.fa
   python -m quickmer2_tpu_torch count  [--batch-bases N] [--mode flat|anchored]
                                        [--engine mono|packed|sortjoin|linear|auto]
                                        [--checkpoint PATH] [--checkpoint-every N]
                                        [--read-len N] [--data-devices N]
                                        [--dict-devices N] [--json]
-                                       [--device cuda|cpu] ref.fa sample out
+                                       [--profile DIR] [--device cuda|cpu]
+                                       ref.fa sample out
   python -m quickmer2_tpu_torch cohort [--batch-bases N] [--mode flat|anchored]
                                        [--read-len N] [--data-devices N]
                                        [--dict-devices N] [--json]
@@ -28,8 +30,9 @@ package's (quickmer2_tpu/cli.py):
 --device cpu runs the kernels' plain PyTorch versions. The multi-device
 options (--emit-devices, --data-devices, --dict-devices) shard over the
 box's cards from cuda:0 up (with --device cpu, over copies of the CPU)
-and fail when it has too few. --profile is accepted and fails with "not
-yet ported".
+and fail when it has too few. --profile DIR (search, count) writes a
+torch.profiler Chrome trace of the run into DIR
+(utils/profiling.py); the outputs are the same bytes without it.
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--json", action="store_true",
                    help="print structured per-phase stats as one JSON line")
     s.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="(not yet ported)")
+                   help="write a torch.profiler trace of the run "
+                        "(TensorBoard / Perfetto) to DIR")
     s.add_argument("--emit-devices", type=int, default=None,
                    help="run the pass-2 membership scan on N devices "
                         "(k-1 halos; bit-identical artifacts)")
@@ -105,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print the run's structured stats as one JSON "
                         "line on stdout")
     c.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="(not yet ported)")
+                   help="write a torch.profiler trace of the run "
+                        "(per-kernel device timing) to DIR")
     _device_arg(c)
     c.add_argument("fasta", help="reference FASTA path or .qm path")
     c.add_argument("sample", help="FASTA/FASTQ reads ('-' for stdin)")
@@ -159,14 +164,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _reject(parser: argparse.ArgumentParser, args, options) -> None:
-    """Exit with a clear error for options this slice does not run."""
-    for flag, attr, default in options:
-        if getattr(args, attr) != default:
-            parser.error(f"{args.cmd} {flag} is not yet ported to "
-                         f"quickmer2_tpu_torch")
-
-
 def _qm(fasta: str) -> str:
     return fasta if fasta.endswith(".qm") else fasta + ".qm"
 
@@ -176,31 +173,34 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.cmd == "search":
-        _reject(parser, args, [("--profile", "profile", None)])
         from quickmer2_tpu_torch.pipelines.search import run_search
+        from quickmer2_tpu_torch.utils.profiling import trace
         cfg = SearchConfig(kmer_size=args.k, threads=args.t,
                            hash_size=parse_size_suffix(args.s),
                            edit_distance=args.e, edit_depth_threshold=args.d,
                            window_size=args.w, control_bed=args.c,
                            quirk_mod32_editdist=args.quirk_editdist)
         stats = {}
-        run_search(args.fasta, cfg, out_prefix=args.out_prefix,
-                   verbose=not args.json, stats=stats, device=args.device,
-                   emit_devices=args.emit_devices)
+        with trace(args.profile, args.device):
+            run_search(args.fasta, cfg, out_prefix=args.out_prefix,
+                       verbose=not args.json, stats=stats, device=args.device,
+                       emit_devices=args.emit_devices)
         if args.json:
             print(json.dumps(stats))
 
     elif args.cmd == "count":
-        _reject(parser, args, [("--profile", "profile", None)])
         from quickmer2_tpu_torch.pipelines.count import run_count
-        stats = run_count(
-            _qm(args.fasta), args.sample, args.out_prefix,
-            batch_bases=args.batch_bases, mode=args.mode,
-            ref_fasta=args.fasta if args.mode == "anchored" else None,
-            read_len=args.read_len, checkpoint_path=args.checkpoint,
-            checkpoint_every_bytes=args.checkpoint_every, engine=args.engine,
-            data_devices=args.data_devices, dict_devices=args.dict_devices,
-            verbose=not args.json, device=args.device)
+        from quickmer2_tpu_torch.utils.profiling import trace
+        with trace(args.profile, args.device):
+            stats = run_count(
+                _qm(args.fasta), args.sample, args.out_prefix,
+                batch_bases=args.batch_bases, mode=args.mode,
+                ref_fasta=args.fasta if args.mode == "anchored" else None,
+                read_len=args.read_len, checkpoint_path=args.checkpoint,
+                checkpoint_every_bytes=args.checkpoint_every,
+                engine=args.engine, data_devices=args.data_devices,
+                dict_devices=args.dict_devices, verbose=not args.json,
+                device=args.device)
         if args.json:
             print(json.dumps(stats))
 

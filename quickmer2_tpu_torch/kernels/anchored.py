@@ -367,16 +367,21 @@ def anchored_count_plain(pk, aux, rows, tiles, dblock, diff, *, fmt: str,
     diff.copy_(store(u32(diff) + acc, diff.dtype))
 
     if trace is not None:
-        # what the batch must touch: the rows of every real probe, the
-        # tiles under every in-range window of an anchored read, the
-        # dblock rows of every range-add and every diff word it changes
-        hs, ls = [chi[:, j][av[i]] for i, j in enumerate(offs)], \
-            [clo[:, j][av[i]] for i, j in enumerate(offs)]
+        # what the batch must touch: the block's rows of every real probe
+        # (the anchors' only where they are not given), the tiles under
+        # every in-range window of an anchored read, the dblock rows of
+        # every range-add and every diff word it changes
+        hs, ls = [chi.new_zeros(0)], [clo.new_zeros(0)]
+        if anchors is None:
+            hs += [chi[:, j][av[i]] for i, j in enumerate(offs)]
+            ls += [clo[:, j][av[i]] for i, j in enumerate(offs)]
         qh = torch.cat(hs + probed_hi)
         ql = torch.cat(ls + probed_lo)
         from quickmer2_tpu_torch.ops.hash import djb_pair
         h1, h2 = bucket_hashes_t(djb_pair(qh, ql), n_buckets)
-        trace["probe_rows"] = torch.cat([h1, h2])
+        cand = torch.cat([h1, h2])
+        trace["probe_rows"] = cand[(cand >= blk_lo)
+                                   & (cand < blk_lo + block_buckets)]
         tiles_of = []
         for lo, ok in ((s_f, fwd_in_range), (ge - (L - 1), rc_in_range)):
             sel = lo[ok & a_found]

@@ -39,6 +39,7 @@ kernels' plain PyTorch versions.
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import struct
 import sys
@@ -61,6 +62,7 @@ from quickmer2_tpu_torch.ops.monotable import MonoTable
 from quickmer2_tpu_torch.ops.packed_table import PackedTable
 from quickmer2_tpu_torch.ops.sortjoin import SortJoinEngine
 from quickmer2_tpu_torch.utils import checkpoint, native
+from quickmer2_tpu_torch.utils.profiling import annotate
 
 
 _SEP_ARR = np.array([SEP], np.uint8)
@@ -465,8 +467,10 @@ class StreamCounter:
     builds its AnchoredDepthCounter at the first chunk, so the row width
     can be autodetected from real reads; reads wider than the row width
     are cut into k-1-overlap segments, so every read rides the anchored
-    path (the JAX package's flat overflow counter is never fed under
-    segmentation, and the port has none)."""
+    path and nothing feeds a flat overflow counter. A JAX checkpoint
+    whose overflow counter is live (ovf_* arrays) restores it as a mono
+    DepthCounter, which adds its depth at finish and is snapshot again,
+    as the JAX StreamCounter does."""
 
     def __init__(self, dictionary: Dictionary, *, mode: str = "flat",
                  index=None, batch_bases: int = 1 << 24,
@@ -485,8 +489,10 @@ class StreamCounter:
         self.data_devices = data_devices
         self.dict_devices = dict_devices
         self._devices = devices
+        self._packed_table = packed_table
         self.counter = None
         self.row_streamer = None
+        self.overflow_counter = None
         if mode == "anchored":
             if index is None:
                 raise ValueError("anchored mode needs an AnchoredIndex")
@@ -548,7 +554,10 @@ class StreamCounter:
             tail = self.row_streamer.finish()
             if len(tail):
                 self.counter.feed_reads(tail)
-        return self.counter.finish()
+        depth = self.counter.finish()
+        if self.overflow_counter is not None:
+            depth = depth + self.overflow_counter.finish()
+        return depth
 
     @property
     def stats(self) -> dict:
@@ -571,9 +580,10 @@ class StreamCounter:
     # -- checkpoint/resume (the JAX StreamCounter's arrays and meta) -----
 
     def snapshot(self) -> tuple[dict, dict]:
-        """(arrays, meta) capturing the counter and the row streamer.
-        Restore on an identically configured StreamCounter (same mode and
-        engine), of this package or the JAX one, resumes bit for bit."""
+        """(arrays, meta) capturing the counter, the row streamer and a
+        restored overflow counter. Restore on an identically configured
+        StreamCounter (same mode and engine), of this package or the JAX
+        one, resumes bit for bit."""
         arrays: dict = {}
         meta: dict = {"mode": self.mode}
         if self.mode == "anchored":
@@ -593,16 +603,17 @@ class StreamCounter:
             meta["layout"] = snap.get("layout", "")
             if "side_counts" in snap:           # mono layout
                 arrays["side_counts"] = snap["side_counts"]
+        if self.overflow_counter is not None:
+            osnap = self.overflow_counter.snapshot()
+            arrays["ovf_depth"] = osnap["depth"]
+            arrays["ovf_residual"] = osnap["residual"]
+            meta["ovf_windows"] = osnap["windows"]
+            arrays["ovf_side_counts"] = osnap["side_counts"]
         return arrays, meta
 
     def restore(self, arrays: dict, meta: dict) -> None:
         if meta["mode"] != self.mode:
             raise ValueError(f"checkpoint mode {meta['mode']!r} != {self.mode!r}")
-        if any(k.startswith("ovf_") for k in arrays):
-            raise ValueError(
-                "checkpoint carries a flat overflow counter (ovf_* arrays), "
-                "which this package does not have (it segments long reads "
-                "instead); resume it with quickmer2_tpu")
         if self.mode == "anchored":
             if "anch" in meta:
                 if self.counter is None:
@@ -620,6 +631,15 @@ class StreamCounter:
             if "side_counts" in arrays:
                 snap["side_counts"] = arrays["side_counts"]
             self.counter.restore(snap)
+        if "ovf_depth" in arrays:
+            self.overflow_counter = DepthCounter(
+                self.dict, batch_bases=self.batch_bases,
+                packed_table=self._packed_table, device=self.device)
+            self.overflow_counter.restore(
+                {"depth": arrays["ovf_depth"],
+                 "residual": arrays["ovf_residual"],
+                 "windows": meta["ovf_windows"],
+                 "side_counts": arrays["ovf_side_counts"]})
 
 
 def run_count(qm_path: str, sample_path: str, out_prefix: str,
@@ -714,6 +734,7 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
     bytes_consumed = 0
     next_ckpt = checkpoint_every_bytes
     resumed = checkpoint.load(checkpoint_path) if checkpoint_path else None
+    regions = contextlib.ExitStack()      # count.stream, on every path
     try:
         if resumed is not None:
             bytes_consumed, arrays, meta = resumed
@@ -736,6 +757,7 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
             fmt = fmt or ("fastq" if data[:1] == b"@" else "fasta-lines")
             packer = make_packer(fmt)
         t_stream = time.time()
+        regions.enter_context(annotate("count.stream"))
         while data:
             sc.feed_codes(packer.feed(data))
             bytes_consumed += len(data)
@@ -749,9 +771,11 @@ def run_count(qm_path: str, sample_path: str, out_prefix: str,
     finally:
         if sample_path != "-":
             stream.close()
+        regions.close()
     stream_s = time.time() - t_stream
     tf = time.time()
-    depth = sc.finish()
+    with annotate("count.finish"):
+        depth = sc.finish()
     finish_s = time.time() - tf
     if checkpoint_path and os.path.exists(checkpoint_path):
         os.remove(checkpoint_path)

@@ -52,6 +52,7 @@ from quickmer2_tpu_torch.ops.hamming_join import _rc_np, hamming_neighbor_sums
 from quickmer2_tpu_torch.ops.packed_table import PackedTable
 from quickmer2_tpu_torch.pipelines import emit as emit_mod
 from quickmer2_tpu_torch.utils import native
+from quickmer2_tpu_torch.utils.profiling import annotate
 
 
 def _chrom_kmers(seq: bytes, k: int):
@@ -186,8 +187,9 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
     # -- stage 1: tabulate (streamed per chromosome; the generator is
     # re-opened for pass 2, so at most ONE chromosome's sequence is in
     # host memory at a time) ------------------------------------------
-    uniq, occr_vals, n_positions = _tabulate_streaming(
-        fasta_io.iter_fasta(fasta_path), k)
+    with annotate("search.tabulate"):
+        uniq, occr_vals, n_positions = _tabulate_streaming(
+            fasta_io.iter_fasta(fasta_path), k)
     hash_size = _final_hash_size(cfg.hash_size, len(uniq))
     if verbose:
         print(f"search: {n_positions} k-mer positions, {len(uniq)} distinct, "
@@ -208,45 +210,48 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
     filter_stats: dict = {}
     split = {"join_s": 0.0, "slow_table_s": 0.0, "slow_s": 0.0}
     if cfg.edit_distance > 0:
-        e = cfg.edit_distance
-        unique_kmers = uniq[keep_uniq]
-        if cfg.quirk_mod32_editdist and k != 30:
-            raise ValueError(
-                "quirk-compat edit filter is defined for k=30 only")
-        if cfg.quirk_mod32_editdist or not use_device_filter:
-            occr = np.zeros(hash_size, dtype=np.uint8)
-            occr[slots] = occr_vals
-            ts = time.time()
-            if cfg.quirk_mod32_editdist:
-                sums = neighbor_occr_sum_quirk_np(unique_kmers, table, occr,
-                                                  hash_size, k, e)
-            else:
-                sums = _host_filter(unique_kmers, table, occr, hash_size, k, e)
-            split["slow_s"] = time.time() - ts
-        else:
-            ptab = None
-            if (filter_impl == "probe"
-                    or dev.type in PACKED_SLOW_PATH_DEVICES):
+        with annotate("search.filter"):
+            e = cfg.edit_distance
+            unique_kmers = uniq[keep_uniq]
+            if cfg.quirk_mod32_editdist and k != 30:
+                raise ValueError(
+                    "quirk-compat edit filter is defined for k=30 only")
+            if cfg.quirk_mod32_editdist or not use_device_filter:
+                occr = np.zeros(hash_size, dtype=np.uint8)
+                occr[slots] = occr_vals
                 ts = time.time()
-                ptab = _occ_table(uniq, occr_vals, dev)
-                split["slow_table_s"] = time.time() - ts
-            if filter_impl == "hamming":
-                rows, n_buckets, filt = ptab or (None, 0, None)
-                sums = hamming_neighbor_sums(
-                    unique_kmers, uniq, occr_vals, k, e, packed_rows=rows,
-                    n_buckets_packed=n_buckets, packed_filter=filt,
-                    device=dev, stats=filter_stats)
-                split["join_s"] = filter_stats.pop("join_s")
-                split["slow_s"] = filter_stats.pop("slow_s")
-            else:
-                ts = time.time()
-                sums = _device_filter(unique_kmers, ptab, k, e, filter_batch)
+                if cfg.quirk_mod32_editdist:
+                    sums = neighbor_occr_sum_quirk_np(
+                        unique_kmers, table, occr, hash_size, k, e)
+                else:
+                    sums = _host_filter(unique_kmers, table, occr,
+                                        hash_size, k, e)
                 split["slow_s"] = time.time() - ts
-        survive = sums < cfg.edit_depth_threshold
-        kill = np.zeros(len(uniq), dtype=bool)
-        kill[np.flatnonzero(keep_uniq)[~survive]] = True
-        keep_uniq = keep_uniq & ~kill
-        n_removed = int((~survive).sum())
+            else:
+                ptab = None
+                if (filter_impl == "probe"
+                        or dev.type in PACKED_SLOW_PATH_DEVICES):
+                    ts = time.time()
+                    ptab = _occ_table(uniq, occr_vals, dev)
+                    split["slow_table_s"] = time.time() - ts
+                if filter_impl == "hamming":
+                    rows, n_buckets, filt = ptab or (None, 0, None)
+                    sums = hamming_neighbor_sums(
+                        unique_kmers, uniq, occr_vals, k, e, packed_rows=rows,
+                        n_buckets_packed=n_buckets, packed_filter=filt,
+                        device=dev, stats=filter_stats)
+                    split["join_s"] = filter_stats.pop("join_s")
+                    split["slow_s"] = filter_stats.pop("slow_s")
+                else:
+                    ts = time.time()
+                    sums = _device_filter(unique_kmers, ptab, k, e,
+                                          filter_batch)
+                    split["slow_s"] = time.time() - ts
+            survive = sums < cfg.edit_depth_threshold
+            kill = np.zeros(len(uniq), dtype=bool)
+            kill[np.flatnonzero(keep_uniq)[~survive]] = True
+            keep_uniq = keep_uniq & ~kill
+            n_removed = int((~survive).sum())
         if verbose:
             print(f"search: edit filter removed {n_removed} "
                   f"of {len(unique_kmers)} unique k-mers")
@@ -258,44 +263,46 @@ def run_search(fasta_path: str, cfg: SearchConfig, out_prefix: str | None = None
 
     # -- stage 3: genome-order emission (host) ------------------------
     ctrl_rows = emit_mod.read_ctrl(cfg.control_bed) if cfg.control_bed else None
-    emitter = emit_mod.GenomeOrderEmitter(k, cfg.window_size, ctrl_rows,
-                                          cfg.gc_window_bp)
-    scanner = None
-    if emit_devices:
-        from quickmer2_tpu_torch.parallel.emit_parallel import (
-            DeviceMembershipScanner)
-        ts = time.time()
-        survivors = uniq[keep_uniq]
-        shi, slo = codec.split_u64(survivors)
-        stab = PackedTable.build(
-            shi, slo, rank=np.arange(len(survivors), dtype=np.uint32))
-        emit_table_s = time.time() - ts
-        scanner = DeviceMembershipScanner(stab, k, data_devices=emit_devices,
-                                          device=dev)
-    for name, seq in fasta_io.iter_fasta(fasta_path):
-        canon, valid = _chrom_kmers(seq, k)
-        if scanner is not None:
-            # the same hit set as (found in pass 1) & keep_flag
-            hit = scanner.scan(codec.encode_bases(
-                np.frombuffer(seq, dtype=np.uint8)))
-        else:
-            if native.available():
-                pos_slots, found = native.lookup_keys(table, canon)
+    with annotate("search.emit"):
+        emitter = emit_mod.GenomeOrderEmitter(k, cfg.window_size, ctrl_rows,
+                                              cfg.gc_window_bp)
+        scanner = None
+        if emit_devices:
+            from quickmer2_tpu_torch.parallel.emit_parallel import (
+                DeviceMembershipScanner)
+            ts = time.time()
+            survivors = uniq[keep_uniq]
+            shi, slo = codec.split_u64(survivors)
+            stab = PackedTable.build(
+                shi, slo, rank=np.arange(len(survivors), dtype=np.uint32))
+            emit_table_s = time.time() - ts
+            scanner = DeviceMembershipScanner(
+                stab, k, data_devices=emit_devices, device=dev)
+        for name, seq in fasta_io.iter_fasta(fasta_path):
+            canon, valid = _chrom_kmers(seq, k)
+            if scanner is not None:
+                # the same hit set as (found in pass 1) & keep_flag
+                hit = scanner.scan(codec.encode_bases(
+                    np.frombuffer(seq, dtype=np.uint8)))
             else:
-                pos_slots, found = qhash.probe_lookup_np(table, canon,
-                                                         hash_size)
-            hit = valid & found & keep_flag[pos_slots]
-        # k-mer END positions are the reference's index (QuicKmer.c:987-1021)
-        emitter.add_chrom(name, seq, canon, hit)
+                if native.available():
+                    pos_slots, found = native.lookup_keys(table, canon)
+                else:
+                    pos_slots, found = qhash.probe_lookup_np(table, canon,
+                                                             hash_size)
+                hit = valid & found & keep_flag[pos_slots]
+            # k-mer END positions are the reference's index
+            # (QuicKmer.c:987-1021)
+            emitter.add_chrom(name, seq, canon, hit)
 
-    if verbose:
-        print(f"search: total output {emitter.count} k-mers")
+        if verbose:
+            print(f"search: total output {emitter.count} k-mers")
 
-    dictionary = Dictionary.from_kmers_in_order(
-        emitter.ordered(), hash_size, k, cfg.edit_distance,
-        cfg.edit_depth_threshold)
-    dictionary.to_qm(out_prefix + ".qm")
-    emitter.write(out_prefix)
+        dictionary = Dictionary.from_kmers_in_order(
+            emitter.ordered(), hash_size, k, cfg.edit_distance,
+            cfg.edit_depth_threshold)
+        dictionary.to_qm(out_prefix + ".qm")
+        emitter.write(out_prefix)
     if stats is not None:
         stats.update({
             "n_positions": int(n_positions), "n_distinct": int(len(uniq)),

@@ -1,9 +1,10 @@
 """Count checkpoint/resume across the two packages: a count interrupted
 mid-stream by one package resumes in the other from its checkpoint file
 and writes the uninterrupted .bin, byte for byte; flat with each table
-layout and anchored, from a file and from stdin. A layout mismatch and
-the JAX package's flat overflow counter (ovf_* arrays) are refused; the
-anchored count falls back to flat under a device-memory limit."""
+layout and anchored, from a file and from stdin, and with the JAX
+package's overflow counter (ovf_* arrays) live, in either mode. A layout
+mismatch is refused; the anchored count falls back to flat under a device-memory
+limit."""
 
 import builtins
 import io
@@ -188,19 +189,67 @@ def test_resume_refuses_other_layout(world, tmp_path):
              **_kw(world, ckpt, engine="packed"))
 
 
-def test_resume_refuses_overflow_counter(world, tmp_path):
-    """A JAX checkpoint whose flat overflow side-counter is live (ovf_*
-    arrays) must not be resumed with that counter dropped."""
+def _resume_with_overflow_counter(world, tmp_path, mode):
+    """A JAX checkpoint of `mode` whose overflow side-counter is live
+    (ovf_* arrays; a JAX StreamCounter's, fed by hand) resumes in the
+    port to the JAX package's depth, the counter's depth added at
+    finish, and the port's snapshot carries the counter's arrays
+    again."""
+    import shutil
+    from quickmer2_tpu.dictionary import Dictionary as JaxDictionary
+    from quickmer2_tpu_torch.ops.anchored import AnchoredIndex
     ckpt = str(tmp_path / "count.ckpt")
-    _interrupt("jax", world, str(tmp_path / "part"), 5, **_kw(world, ckpt))
+    _interrupt("jax", world, str(tmp_path / "part"), 5,
+               **_kw(world, ckpt, mode=mode))
     offset, arrays, meta = checkpoint.load(ckpt)
-    arrays["ovf_depth"] = np.zeros(4, np.uint32)
-    arrays["ovf_residual"] = np.zeros(0, np.uint8)
-    meta["state"]["ovf_windows"] = 0
+    jdic = JaxDictionary.from_qm(world["qm"])
+    jsc = jcount.StreamCounter(jdic, batch_bases=1 << 13)
+    jsc.overflow_counter = jcount.DepthCounter(jdic, batch_bases=1 << 13)
+    with open(world["sample"], "rb") as f:
+        jsc.overflow_counter.feed_codes(
+            jcount.make_packer("fastq").feed(f.read(30_000)))
+    ovf, ovf_meta = jsc.snapshot()
+    ovf = {k: v for k, v in ovf.items() if k.startswith("ovf_")}
+    assert set(ovf) == {"ovf_depth", "ovf_residual", "ovf_side_counts"}
+    arrays.update(ovf)
+    meta["state"]["ovf_windows"] = ovf_meta["ovf_windows"]
     checkpoint.save(ckpt, offset, arrays, meta)
-    with pytest.raises(ValueError, match="ovf_"):
-        _run("port", world["qm"], world["sample"], str(tmp_path / "o"),
-             **_kw(world, ckpt))
+
+    dic = tcount.Dictionary.from_qm(world["qm"])
+    index = (AnchoredIndex.from_dictionary_and_fasta(dic, world["fa"],
+                                                     device="cpu")
+             if mode == "anchored" else None)
+    sc = tcount.StreamCounter(dic, mode=mode, index=index,
+                              batch_bases=1 << 13, device="cpu")
+    sc.restore(arrays, meta["state"])
+    again, again_meta = sc.snapshot()
+    assert again_meta["ovf_windows"] == ovf_meta["ovf_windows"]
+    for name, a in ovf.items():
+        np.testing.assert_array_equal(again[name], a)
+    bins = {}
+    for package in ("jax", "port"):
+        shutil.copy(ckpt, ckpt + "." + package)
+        out = str(tmp_path / package)
+        _run(package, world["qm"], world["sample"], out,
+             **_kw(world, ckpt + "." + package, mode=mode))
+        bins[package] = formats.read_u16(out + ".bin")
+    np.testing.assert_array_equal(bins["port"], bins["jax"])
+    assert (bins["port"] != world["truth"]).any()
+
+
+def test_resume_refuses_overflow_counter(world, tmp_path):
+    """Refused until the port restored it (the name is the refusal
+    test's): a flat JAX checkpoint with a live overflow counter, which
+    the JAX package restores in either mode, resumes in the port."""
+    _resume_with_overflow_counter(world, tmp_path, "flat")
+
+
+def test_resume_anchored_overflow_counter(world, tmp_path):
+    """The shape the JAX package writes: its StreamCounter makes an
+    overflow counter in anchored mode only (reads wider than the row
+    width), so an anchored checkpoint with ovf_* arrays resumes in the
+    port through the anchored finish."""
+    _resume_with_overflow_counter(world, tmp_path, "anchored")
 
 
 def test_checkpoint_format_is_the_jax_format(tmp_path):

@@ -3,9 +3,10 @@ slice, against the JAX CLI on the same inputs: `search --emit-devices
 1`, `sparse`, `index`, `colortrack` and `colorkey` write the JAX CLI's
 bytes (run with `--device cpu` where they take it), and so do the
 multi-device options (`--emit-devices 2`, `--data-devices`,
-`--dict-devices`) on a mesh of CPU copies; `--profile` still exits with
-"not yet ported"."""
+`--dict-devices`) on a mesh of CPU copies, and `search --profile` (each
+CLI writing its trace beside them)."""
 
+import glob
 import os
 import shutil
 
@@ -102,10 +103,12 @@ def test_cli_colortrack_colorkey_match_jax(tmp_path, capsys):
 
 
 def multi_device_cli_pair(args, tmp_path) -> None:
-    """Run `args` (paths named g.fa, r.fq, o and r.fq:o) with the JAX CLI
-    and with the port's (--device cpu: a mesh of copies of the CPU) in
-    two directories that hold the same small genome, reads and (but for
-    a search) dictionary; every file the two wrote has the same bytes."""
+    """Run `args` (paths named g.fa, r.fq, o, r.fq:o and the profile
+    directory prof) with the JAX CLI and with the port's (--device cpu:
+    a mesh of copies of the CPU) in two directories that hold the same
+    small genome, reads and (but for a search) dictionary; every file
+    the two wrote has the same bytes, and with --profile each wrote its
+    trace into prof."""
     from quickmer2_tpu.config import SearchConfig as JaxSearchConfig
     from quickmer2_tpu.pipelines import search as jsearch
     rng = np.random.default_rng(8)
@@ -132,7 +135,7 @@ def multi_device_cli_pair(args, tmp_path) -> None:
         else:
             out += ["--batch-bases", "16384"]
         for a in args[1:]:
-            if a in ("g.fa", "r.fq", "o"):
+            if a in ("g.fa", "r.fq", "o", "prof"):
                 a = str(d / a)
             elif a == "r.fq:o":
                 a = f"{d / 'r.fq'}:{d / 'o'}"
@@ -140,8 +143,12 @@ def multi_device_cli_pair(args, tmp_path) -> None:
         return out
     assert jax_main(paths(dirs[0])) == 0
     assert main(paths(dirs[1]) + ["--device", "cpu"]) == 0
-    made = [sorted(set(os.listdir(d)) - set(inputs[n]))
+    made = [sorted(set(os.listdir(d)) - set(inputs[n]) - {"prof"})
             for n, d in zip("jp", dirs)]
+    if "--profile" in args:
+        assert glob.glob(str(dirs[0] / "prof" / "plugins" / "profile" / "*"
+                             / "*.trace.json.gz"))
+        assert len(glob.glob(str(dirs[1] / "prof" / "*.pt.trace.json"))) == 1
     assert made[0] == made[1] and made[0], made
     for f in made[0]:
         with open(dirs[0] / f, "rb") as a, open(dirs[1] / f, "rb") as b:
@@ -150,19 +157,13 @@ def multi_device_cli_pair(args, tmp_path) -> None:
 
 @pytest.mark.parametrize("args", [
     ["search", "--emit-devices", "2", "g.fa"],
-    ["search", "--profile", "d", "g.fa"],
+    ["search", "--profile", "prof", "g.fa"],
     ["count", "--data-devices", "2", "g.fa", "r.fq", "o"],
     ["cohort", "--dict-devices", "2", "g.fa", "r.fq:o"]])
-def test_cli_multi_device_and_profile_not_ported(args, capsys, tmp_path):
-    """--profile still exits with "not yet ported"; the multi-device
-    options, once refused too, now run and write the JAX CLI's bytes."""
-    if "--profile" not in args:
-        multi_device_cli_pair(args, tmp_path)
-        return
-    with pytest.raises(SystemExit) as exc:
-        main(args + ["--device", "cpu"])
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_multi_device_and_profile_not_ported(args, tmp_path):
+    """--profile and the multi-device options, each once refused, run
+    and write the JAX CLI's bytes."""
+    multi_device_cli_pair(args, tmp_path)
 
 
 def test_cli_est_plot_without_matplotlib(tmp_path, capsys, monkeypatch):

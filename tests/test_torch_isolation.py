@@ -7,8 +7,9 @@ builds, a search with the device emit on one device and sharded over
 two, sparse, index and an est with device window sums, on the CPU, in a
 fresh interpreter), and its entry points run on the card unless asked
 for the CPU — on a box without a card they raise instead of falling
-back. The multi-device CLI options run and write the JAX CLI's bytes;
---profile is still refused."""
+back. The multi-device CLI options run and write the JAX CLI's bytes,
+and a profiled search and count (--profile) load neither jax nor the
+JAX package either."""
 
 import os
 import subprocess
@@ -145,6 +146,23 @@ def test_port_never_imports_jax(tmp_path):
     assert "LEAKED []" in out.stdout
 
 
+_PROFILED_CLI = r"""
+import glob
+import sys
+from quickmer2_tpu_torch.cli import main
+args = sys.argv[1:]
+if args[0] == "count":       # its dictionary, unprofiled
+    main(["search", "-k", "25", "-s", "16K", "-e", "0", "-w", "50",
+          "--json", "--device", "cpu", "g.fa"])
+assert main(args + ["--device", "cpu"]) == 0
+assert len(glob.glob("prof/*.pt.trace.json")) == 1
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "quickmer2_tpu"
+             or m.startswith("quickmer2_tpu."))
+print("LEAKED", bad)
+"""
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the no-card refusal is moot")
@@ -251,22 +269,31 @@ def test_cli_default_device_refuses_cpu_fallback(tmp_path):
     ["search", "--emit-devices", "2", "g.fa"],
     ["count", "--data-devices", "2", "g.fa", "r.fq", "o"],
     ["count", "--dict-devices", "2", "g.fa", "r.fq", "o"],
-    ["count", "--profile", "d", "g.fa", "r.fq", "o"],
-    ["search", "--profile", "d", "g.fa"],
+    ["count", "--profile", "prof", "g.fa", "r.fq", "o"],
+    ["search", "--profile", "prof", "g.fa"],
     ["cohort", "--data-devices", "2", "g.fa", "r.fq:o"]])
-def test_cli_rejects_unported(args, capsys, tmp_path):
-    """--profile is still refused; the multi-device options, refused
-    before the multi-device layer was ported, run on a small genome
-    (--device cpu) and write the JAX CLI's bytes."""
-    from quickmer2_tpu_torch.cli import main
+def test_cli_rejects_unported(args, tmp_path):
+    """Options refused by earlier slices now run on a small genome
+    (--device cpu): the multi-device ones write the JAX CLI's bytes, and
+    a profiled run, in a fresh interpreter, writes its trace and loads
+    neither jax nor the JAX package."""
     if "--profile" not in args:
         from tests.test_torch_cli import multi_device_cli_pair
         multi_device_cli_pair(args, tmp_path)
         return
-    with pytest.raises(SystemExit) as exc:
-        main(args + ["--device", "cpu"])
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    from tests import helpers
+    rng = np.random.default_rng(4)
+    g = helpers.random_genome(rng, 3000)
+    helpers.write_fasta(str(tmp_path / "g.fa"), {"c1": g})
+    helpers.write_fastq(str(tmp_path / "r.fq"),
+                        helpers.simulate_reads(rng, g, 100, 100))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _PROFILED_CLI, *args],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout
 
 
 def test_cli_search_quirk_editdist_matches_jax(tmp_path):
