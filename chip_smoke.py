@@ -15,9 +15,12 @@ Phases:
                 runs at P = 1, 4, 8, 32 and 64, each checked; untimed at
                 k = 32 (P = 2), k = 15 (P = 2) and k = 31 (P = 1, the
                 one-pass kernel), the last two on batches that are not a
-                multiple of 64 bases. Then K1 (Hamming join) on the
-                search's own layouts at pads 64/32 (timed, with the card
-                time of building its layouts) and 128/64 (on every 4th
+                multiple of 64 bases. Then i′ (the layout scatter)
+                against its plain version on the search's own layouts at
+                pads 64/32 (timed, its fill and scatter passes by
+                torch.profiler) and 128/64, each also on planted entries
+                at and past the pads, and K1 (Hamming join) on those
+                layouts (timed) and 128/64 (on every 4th
                 distinct k-mer), each also on
                 hand-planted buckets: > 1024 live pairs, 36 pairs, live
                 words without a live query. K6 (per-neighbor sum) on the
@@ -53,7 +56,12 @@ Phases:
                 groups branch on: the mask format (N bases) in all three
                 branches (tier 1, tier 2, point probes), rows of 64 (2
                 lanes a read) and rows of 1024 from segmented 10 kb
-                reads (32 lanes a read); K2r (exact row recount)
+                reads (32 lanes a read), and rows wider than 1,024 (a
+                warp walking tiles of 1,024): 2,048, 3,000 and 16,384
+                from those reads, a few 20 kb reads and reads with
+                substitutions planted across base 1,024, and 65,535
+                from 70 kb reads, tiers 1 and 2, lens and mask, timed
+                at 2,048 and 16,384; K2r (exact row recount)
                 timed on the main path's exact batch, with its
                 wrapper's host time; then untimed at k = 15, 30, 31, 32 on rows of 64, 150 (a
                 38-B pitch), 160 and 1024, lens and mask format, on a
@@ -117,7 +125,8 @@ Phases:
                 tier-2 batches and of the tier-1 batch with 4,000 keys
                 that sit at h2 planted at the anchors (lens and mask
                 formats; at ds = 2 also cut to rows of 150, whose
-                bases and invalid bits K3a loads byte by byte),
+                bases and invalid bits K3a loads byte by byte, and on rows
+                of 2,048 with K3 on the blocks),
                 against its plain version and both rows'
                 ungated probe (block 0 of 2 timed, with its wrapper's
                 host time and h2 reads) and K3 with the
@@ -175,7 +184,10 @@ Phases:
                 after four checkpoints and resumed from them, each .bin
                 equal to the uninterrupted one; a two-sample cohort (the
                 subset twice) in both modes, its .bin, .txt and .CN.bed
-                equal to the single-sample run's; entry()
+                equal to the single-sample run's; `count` and `cohort
+                --mode anchored --read-len 2048` (the CLI's main) on
+                300 10 kb reads of the subset's genome, each .bin the
+                flat count's (K3 must launch on the wide rows); entry()
                 once on the card, equal to the CPU; then the
                 multi-device layer on one card (`check_multi_device`):
                 the subset counted by the flat ShardedDepthCounter at
@@ -356,6 +368,8 @@ PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernel"),
                                      "bin_kernelIy|block_probe_kernel"),
               "count_packed_rows": ("count_mono", "exact_packed_kernel"),
               "anchor_probes": ("anchored", "anchor_probe_kernel"),
+              "anchored_wide": ("anchored", "anchored_wide_kernel"),
+              "bucket_layouts": ("hamming_join", "layout_(fill|scatter)"),
               "kmerize": ("count_flat", "kmerize_kernel"),
               "member_scan": ("emit_member", "bin_kernelIt|member_probe"),
               "window_sums": ("est_windows", "window_sums_kernel")}
@@ -586,16 +600,89 @@ def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
 def join_layouts(uniq, occ, k, cpad, cpad_q, dev):
     """Part 0, word chunk 0 and query chunk 0 of the search's own join
     plan at these pads: its queries (the singletons), its interleaved
-    chunks and its slow-path routing, built by its layout scatter.
-    Returns the layouts, the query count, the bucket count and a
-    function that builds the layouts again."""
+    chunks and its slow-path routing, built by its layout scatter (i').
+    Returns the layouts, the query count, the bucket count and i''s
+    arguments for them (positional, keyword)."""
     from quickmer2_tpu_torch.ops import hamming_join as hj
     plan = hj._JoinPlan(uniq[occ == 1], uniq, occ, k, cpad=cpad,
                         cpad_q=cpad_q, device=dev)
     qsel = plan.query_chunk(0)
     q = plan.queries(qsel)
     lay = plan.layouts(0, 0, q)
-    return lay, len(qsel), plan.n_bkts[0], lambda: plan.layouts(0, 0, q)
+    whi_d, wlo_d, wocc_d = plan._words()
+    c = plan.chunks[0]
+    s, t = plan.ranges[0]
+    args = (whi_d[c], wlo_d[c], wocc_d[c], plan._w_slots(0, 0), q["hi"],
+            q["lo"], q["slots"][0])
+    kw = dict(lo_bit=2 * s, width=2 * (t - s), n_buckets=plan.n_bkts[0],
+              cpad=plan.cpad, cpad_q=plan.cpad_q)
+    return lay, len(qsel), plan.n_bkts[0], (args, kw)
+
+
+def plant_entries(args, kw, rng):
+    """i''s inputs with three buckets planted (their other entries taken
+    out): bucket 0 with cpad + 9 words (slots 0..cpad + 8: at and past
+    the pad) and a dead one (slot 255), bucket 1 with cpad_q + 5 queries
+    (slots at and past the query pad) and 3 words, the last bucket with
+    one word and one query. The word side becomes contiguous."""
+    from quickmer2_tpu_torch.device import words as as_words
+    from quickmer2_tpu_torch.kernels.hamming_join import part_keys
+    whi, wlo, wocc, wslot, qhi, qlo, qslot = args
+    lo_bit, width, B = kw["lo_bit"], kw["width"], kw["n_buckets"]
+    cpad, cpad_q = kw["cpad"], kw["cpad_q"]
+    keys = (0, 1, B - 1)
+    dev = whi.device
+
+    def keep(hi, lo):
+        key = part_keys(hi, lo, lo_bit, width)
+        return ~torch.isin(key, torch.tensor(keys, device=dev))
+
+    def codes(key, n):
+        c = rng.integers(0, 1 << 60, n).astype(np.uint64)
+        m = np.uint64(((1 << width) - 1) << lo_bit)
+        c = (c & ~m) | (np.uint64(key) << np.uint64(lo_bit))
+        return (as_words((c >> np.uint64(32)).astype(np.uint32), dev),
+                as_words((c & np.uint64(0xFFFFFFFF)).astype(np.uint32), dev))
+
+    def u8(a):
+        return torch.tensor(a, dtype=torch.uint8, device=dev)
+    w_keys = [(keys[0], list(range(cpad + 9)) + [255]),
+              (keys[1], [0, 1, 2]), (keys[2], [0])]
+    q_keys = [(keys[1], list(range(cpad_q + 5))), (keys[2], [0])]
+    kw_ = keep(whi, wlo)
+    wparts = [(whi[kw_], wlo[kw_], wocc[kw_], wslot[kw_])]
+    for key, slots in w_keys:
+        h, lo = codes(key, len(slots))
+        occ = u8(rng.integers(1, 256, len(slots)))
+        wparts.append((h, lo, occ, u8(slots)))
+    kq = keep(qhi, qlo)
+    qparts = [(qhi[kq], qlo[kq], qslot[kq])]
+    for key, slots in q_keys:
+        h, lo = codes(key, len(slots))
+        qparts.append((h, lo, u8(slots)))
+    cat = [torch.cat(x) for x in zip(*wparts)] + [torch.cat(x)
+                                                   for x in zip(*qparts)]
+    return tuple(cat)
+
+
+def check_bucket_layouts(args, kw, label):
+    """i' against its plain version (_bucket_layouts) on one call's
+    inputs; returns the largest difference (0, else it raises)."""
+    from quickmer2_tpu_torch.kernels.hamming_join import bucket_layouts
+    from quickmer2_tpu_torch.ops.hamming_join import _bucket_layouts
+    got = bucket_layouts(*args, **kw)
+    want = _bucket_layouts(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    live_w = int((got[5] != args[4].shape[0]).sum())
+    log(f"  bucket_layouts{label}: {args[0].shape[0]} words (stride "
+        f"{args[0].stride(0)}), {args[4].shape[0]} queries, "
+        f"{int((got[2] != 0).sum())} word and {live_w} query lanes live, "
+        f"max |kernel - plain| = {err}")
+    if err != 0:
+        raise AssertionError(f"bucket_layouts{label} disagrees with its "
+                             "plain version")
+    return err
 
 
 def plant_buckets(lay, nq, cpad, cpad_q, rng):
@@ -639,12 +726,49 @@ def plant_buckets(lay, nq, cpad, cpad_q, rng):
     return (dh, dl, docc, qh, ql, qidx), nq + extra
 
 
+def time_bucket_layouts(args, kw, err):
+    """i''s kernel-table row, timed on the search's own layouts (its fill
+    and scatter passes by torch.profiler) beside its plain version (the index_put_ composition that _bucket_layouts
+    is, so it is also the library time). Least traffic: each output lane
+    written once (12 B a word lane and a query lane) and each entry's
+    code (8 B), slot (1 B) and, for a word, occ (1 B) read once; ~10 int
+    ops an entry."""
+    from quickmer2_tpu_torch.kernels.hamming_join import bucket_layouts
+    from quickmer2_tpu_torch.ops.hamming_join import _bucket_layouts
+    ms, queued_ms = kernel_ms(lambda: bucket_layouts(*args, **kw), 10)
+    passes = profile_kernels(lambda: bucket_layouts(*args, **kw), 3,
+                             "bucket_layouts")
+    plain_ms = cuda_ms(lambda: _bucket_layouts(*args, **kw), 3)
+    n_w, nq = args[0].shape[0], args[4].shape[0]
+    lanes = kw["n_buckets"] * (kw["cpad"] + kw["cpad_q"]) + 2
+    n_bytes = 12 * lanes + 10 * n_w + 9 * nq
+    b_ms, b_by = bound_ms(n_bytes, 10 * (n_w + nq))
+    log(f"  bucket_layouts time {ms:.4f} ms (queued {queued_ms:.4f} ms; "
+        f"by torch.profiler {passes}), "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB; {lanes} lanes, {n_w} words, {nq} "
+        f"queries)")
+    return {"name": "bucket_layouts", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/hamming_join.cu",
+            "replaces": "quickmer2_tpu/ops/hamming_join.py:114",
+            "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+            "passes_ms": passes, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": plain_ms}
+
+
 def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
-    """K1 on the search's own layouts, then on hand-planted buckets."""
+    """i' (K1's layouts) and K1 on the search's own layouts, then on
+    hand-planted buckets. Timed: returns K1's and i''s kernel-table
+    rows."""
     from quickmer2_tpu_torch.kernels.hamming_join import (
         join_compare, join_compare_plain)
     from quickmer2_tpu_torch.ops.hamming_join import _part_masks
-    lay, nq, n_buckets, rebuild = join_layouts(uniq, occ, k, cpad, cpad_q, dev)
+    lay, nq, n_buckets, (l_args, l_kw) = join_layouts(uniq, occ, k, cpad,
+                                                     cpad_q, dev)
+    l_err = max(check_bucket_layouts(l_args, l_kw, f" {cpad}/{cpad_q}"),
+                check_bucket_layouts(
+                    plant_entries(l_args, l_kw, np.random.default_rng(cpad)),
+                    l_kw, f" {cpad}/{cpad_q}, planted buckets"))
     kw = dict(e=2, masks=_part_masks(k), n_buckets=n_buckets, cpad=cpad,
               cpad_q=cpad_q)
 
@@ -680,7 +804,7 @@ def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
     plain_ms = cuda_ms(lambda: join_compare_plain(*lay, s_plain, **kw), 1)
     del lay
     torch.cuda.empty_cache()
-    layout_ms = cuda_ms(rebuild, 3)
+    layout = time_bucket_layouts(l_args, l_kw, l_err)
     # least traffic: qidx of every query lane and occ of every word lane
     # of a bucket with a live query (they tell which lanes are live), the
     # (hi, lo) codes of the live words there and of the live queries,
@@ -702,13 +826,13 @@ def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
         f"{20 * pairs / 1e9:.2f} G ops; {n_live_w} live words in "
         f"{int(has_q.sum())} buckets with a live query, {n_live_q} live "
         f"queries; counting occ of every bucket {all_bytes / 1e6:.1f} MB, "
-        f"{all_ms:.4f} ms); layouts {layout_ms:.4f} ms")
+        f"{all_ms:.4f} ms); layouts (i') {layout['ms']:.4f} ms")
     return {"name": "hamming_join", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/hamming_join.cu",
             "replaces": "tools/proto_join2d.py:55",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
-            "plain_ms": plain_ms, "layout_ms": layout_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "plain_ms": plain_ms, "layout_ms": layout["ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}, layout
 
 
 HOST_SLOW_QUERIES = 5_000      # slow queries the host slow path is timed on
@@ -1676,13 +1800,91 @@ def compare_anchored(index, rows, kw, label, dev):
         f"max |kernel - plain| = {err}")
     if err != 0:
         raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+# rows wider than 1,024 bases, which K3 walks a warp a read in tiles of
+# 1,024: widths checked (a multiple of 32 and not), widths timed, and the
+# widest row the kernels take (the lens format's u16 lengths)
+WIDE_WIDTHS = (2048, 3000, 16384)
+WIDE_TIMED = (2048, 16384)
+WIDE_MAX = 65535
+
+
+def planted_long_reads(rng, g, length, n):
+    """n reads of `length` bases of g, error-free but for one to three
+    substitutions at bases 1,000-1,060 (across the first tile boundary,
+    base 1,024, of K3's walk over wide rows); every other one reverse
+    complemented, so that its substitutions sit near its end."""
+    starts = rng.integers(0, len(g) - length, size=n)
+    reads = g[starts[:, None] + np.arange(length)[None, :]]
+    for i in range(n):
+        at = 1000 + rng.choice(61, 1 + i % 3, replace=False)
+        reads[i, at] = (reads[i, at] + 1 + i % 3) % 4
+    reads[1::2] = ((reads[1::2, ::-1] + 2) % 4).astype(np.uint8)
+    return reads
+
+
+def long_rows(read_sets, width, k):
+    """Rows of `width` of each set of read codes (u8[R, length]), cut
+    into k-1-overlap segments as the count cuts long reads."""
+    from quickmer2_tpu_torch.ops import codec
+    from quickmer2_tpu_torch.ops.anchored import rows_from_flat_codes
+    out = []
+    for reads in read_sets:
+        flat = np.concatenate([reads, np.full((len(reads), 1), codec.SEP,
+                                              np.uint8)], 1)
+        out.append(rows_from_flat_codes(flat.reshape(-1), width,
+                                        segment_k=k))
+    return np.concatenate(out)
+
+
+def with_ns(rows, rng):
+    """The rows with N bases (SEP codes) at 0.05 % and one at bases
+    1,000-1,060 of every third row: the mask format."""
+    from quickmer2_tpu_torch.ops import codec
+    out = rows.copy()
+    out[rng.random(out.shape) < 0.0005] = codec.SEP
+    idx = np.arange(0, len(out), 3)
+    out[idx, 1000 + idx % 61] = codec.SEP
+    return out
+
+
+def time_anchored_wide(index, kw, rows, dev):
+    """K3 tier 1 on one batch of wide rows: ms, queued ms, plain ms and
+    the bound anchored_bound gives from the batch's own trace."""
+    from quickmer2_tpu_torch.kernels.anchored import (
+        anchored_count, anchored_count_plain)
+    fmt, pk, aux, in_bytes = packed_on(rows, dev)
+    tab = (index.rows, index.genome_tiles, index.dblock)
+    d = torch.zeros(index.n_kmers + 2, dtype=torch.int32, device=dev)
+    trace = {}
+    anchored_count_plain(pk, aux, *tab, d, fmt=fmt, trace=trace, **kw)
+    ms, queued_ms = kernel_ms(
+        lambda: anchored_count(pk, aux, *tab, d, fmt=fmt, **kw), 10)
+    plain_ms = cuda_ms(lambda: anchored_count_plain(pk, aux, *tab, d,
+                                                    fmt=fmt, **kw), 1, warm=0)
+    b_ms, b_by, n_bytes, n_ops, uniq = anchored_bound(trace, in_bytes, rows)
+    log(f"  anchored tier 1 ({fmt}) on {len(rows)} rows of {rows.shape[1]}: "
+        f"time {ms:.4f} ms (queued {queued_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G ops; {uniq})")
+    return {"rows": len(rows), "width": rows.shape[1], "ms": ms,
+            "queued_ms": queued_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def check_anchored_edges(index, counter, g, reads, dev):
-    """K3 on the shapes its lane-group layout branches on, each against
-    its plain version: the mask format (N bases) in all three branches,
-    rows of 64 (2 lanes a read) and of 1024 (segmented 10 kb reads, 32
-    lanes a read) in both tiers."""
+    """K3 on the shapes its layout branches on, each against its plain
+    version: the mask format (N bases) in all three branches, rows of 64
+    (2 lanes a read) and of 1024 (segmented 10 kb reads, 32 lanes a
+    read) in both tiers; then rows wider than 1,024 (a warp a read over
+    tiles): the 10 kb reads, a few 20 kb reads and reads with
+    substitutions planted across the first tile boundary, cut into rows
+    of 2,048, 3,000 and 16,384 and a few reads of 70 kb into rows of
+    65,535, in tiers 1 and 2, lens and mask format. Returns the
+    kernel-table row of the wide rows (tier 1 timed at 2,048 and, under
+    "w16384", at 16,384) and the batches of 2,048 (lens, mask)."""
     from quickmer2_tpu_torch.ops import codec
     from quickmer2_tpu_torch.ops.anchored import (
         AnchoredDepthCounter, rows_from_flat_codes)
@@ -1715,6 +1917,42 @@ def check_anchored_edges(index, counter, g, reads, dev):
     for tier in (1, 2):
         compare_anchored(index, wide_rows, wide._tier_kw(tier),
                          f"tier {tier}", dev)
+    del narrow, wide
+    sets = [long_reads, simulate_reads(rng, g, 8, 20_000, 0.003)]
+    row, err, batches = {}, 0, None
+    for width in WIDE_WIDTHS:
+        rows = long_rows(sets + [planted_long_reads(rng, g, width + 100, 200)],
+                         width, k)
+        masked = with_ns(rows, rng)
+        counter_w = AnchoredDepthCounter(index, k, width,
+                                         prefetch_puts=False, device=dev)
+        for batch in (rows, masked):
+            for tier in (1, 2):
+                err = max(err, compare_anchored(
+                    index, batch, counter_w._tier_kw(tier), f"tier {tier}",
+                    dev))
+        if width in WIDE_TIMED:
+            row[width] = time_anchored_wide(index, counter_w._tier_kw(1),
+                                            rows, dev)
+        if width == 2048:
+            batches = (rows, masked)
+        del counter_w
+    rows = long_rows([simulate_reads(rng, g, 4, 70_000, 0.001),
+                      planted_long_reads(rng, g, WIDE_MAX + 100, 4)],
+                     WIDE_MAX, k)
+    counter_w = AnchoredDepthCounter(index, k, WIDE_MAX, prefetch_puts=False,
+                                     device=dev)
+    for batch in (rows, with_ns(rows, rng)):
+        for tier in (1, 2):
+            err = max(err, compare_anchored(
+                index, batch, counter_w._tier_kw(tier), f"tier {tier}", dev))
+    del counter_w
+    first, second = (row[w] for w in WIDE_TIMED)
+    return {"name": "anchored_wide", "route": "cuda",
+            "source": "quickmer2_tpu_torch/csrc/anchored.cu",
+            "replaces": "quickmer2_tpu/ops/anchored.py:512",
+            "max_abs_err": err, **first, "library_ms": None,
+            f"w{WIDE_TIMED[1]}": second}, batches
 
 
 def check_anchored_kernels(fa, g, reads, dev):
@@ -1740,12 +1978,13 @@ def check_anchored_kernels(fa, g, reads, dev):
     tier2, exact, first = spill_batches(index, counter, reads, dev)
     log(f"  tier-1 codes 0/1/2 of the first batch: {first.tolist()}")
     rows.append(check_anchored(index, counter, tier2, 2, dev))
-    check_anchored_edges(index, counter, g, reads, dev)
+    row, wide = check_anchored_edges(index, counter, g, reads, dev)
+    rows.append(row)
     rows.append(check_count_mono_rows(counter, exact, dev))
     check_count_mono_rows_edges(counter, g, dev)
     rows.append(check_count_packed_rows(index, exact, k, dev))
     rows += check_anchor_probes(index, counter, rows_of(reads[:B]), tier2,
-                                dev)
+                                wide, dev)
     del stream, dict_kmers, index, counter
     torch.cuda.empty_cache()
     return rows
@@ -2893,6 +3132,51 @@ def check_cohort(fa, sub):
             f".bin, .txt, .CN.bed identical to the single-sample runs")
 
 
+LONG_READS = 300              # 10 kb reads of the small world
+LONG_READ_LEN = 2048          # the anchored row width they are cut to
+
+
+def check_long_reads(world, fa, rng, reset_counts, read_counts):
+    """`count --mode anchored --read-len 2048` and `cohort --mode anchored
+    --read-len 2048` (the CLI's main in this process, its output sent to
+    stderr) on 10 kb reads of the small world, cut into segments of
+    2,048: rows that K3 walks in tiles. Each .bin must equal the flat
+    mono count's of the same reads, byte for byte. Returns K3's launches
+    on those rows in the two runs, which must be nonzero."""
+    import contextlib
+    from quickmer2_tpu_torch.cli import main as cli_main
+    from quickmer2_tpu_torch.pipelines.count import run_count
+    t = time.time()
+    lfq = os.path.join(WORK, "long.fq")
+    write_fastq(lfq, simulate_reads(rng, world["g"][:SMALL_BASES],
+                                    LONG_READS, 10_000, 0.001))
+    run_count(fa + ".qm", lfq, os.path.join(WORK, "long_flat"),
+              verbose=False, device="cuda")
+    reset_counts()
+    outs = (os.path.join(WORK, "long_anchored"),
+            os.path.join(WORK, "long_cohort"))
+    wide = ["--mode", "anchored", "--read-len", str(LONG_READ_LEN)]
+    with contextlib.redirect_stdout(sys.stderr):
+        cli_main(["count", *wide, fa, lfq, outs[0]])
+        cli_main(["cohort", *wide, fa, f"{lfq}:{outs[1]}"])
+    launched = read_counts()["anchored_wide"]
+    with open(os.path.join(WORK, "long_flat.bin"), "rb") as f:
+        want = f.read()
+    for out in outs:
+        with open(out + ".bin", "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"{out}.bin (anchored, --read-len "
+                                     f"{LONG_READ_LEN}) differs from the "
+                                     "flat .bin")
+    if launched == 0:
+        raise AssertionError("K3 never launched on rows wider than 1,024")
+    log(f"phase long reads: {LONG_READS} reads of 10 kb, count and cohort "
+        f"--mode anchored --read-len {LONG_READ_LEN}: .bin identical to "
+        f"the flat count's, {launched} K3 launches on the wide rows, in "
+        f"{time.time() - t:.1f} s")
+    return {"anchored_wide": launched}
+
+
 def check_entry():
     """entry() once on the card, against the same step on the CPU."""
     from quickmer2_tpu_torch.device import to_numpy_u32
@@ -3282,30 +3566,110 @@ def anchor_windows(pk, aux, pkw):
     return chi[:, offs].T, clo[:, offs].T, valid[:, offs].T
 
 
-def check_anchor_probes(index, counter, tier1, tier2, dev):
+def probe_blocks(index, pk, aux, pkw, disp, label, dev):
+    """K3a on each block (len(disp) blocks, disp their bitmaps of
+    displaced keys) against its plain version and both rows' ungated
+    probe (kernels/anchored.py::_anchor_probes); returns found and pos
+    summed over the blocks, found at most 1 a window."""
+    from quickmer2_tpu_torch.device import u32
+    from quickmer2_tpu_torch.kernels import anchored as ka
+    B, ds = index.n_buckets, len(disp)
+    bb = B // ds
+    chi, clo, valid = anchor_windows(pk, aux, pkw)
+    f_sum = p_sum = 0
+    for j in range(ds):
+        rows_j = index.rows[j * bb:(j + 1) * bb]
+        blk = dict(pkw, blk_lo=j * bb, block_buckets=bb)
+        f, p = ka.anchor_probes(pk, aux, rows_j, displaced=disp[j], **blk)
+        fp, pp = ka.anchor_probes_plain(pk, aux, rows_j, displaced=disp[j],
+                                        **blk)
+        fu, pu = ka._anchor_probes(rows_j, chi.T, clo.T, valid.T,
+                                   list(range(len(pkw["anchor_offsets"]))),
+                                   B, j * bb, bb)
+        torch.cuda.synchronize()
+        if max(max_abs_err(f, fp), max_abs_err(p, pp)) != 0:
+            raise AssertionError(f"anchor_probes ({label}, ds {ds}, block "
+                                 f"{j}) disagrees with its plain version")
+        if (max_abs_err(f, fu.to(torch.uint8)) != 0
+                or max_abs_err(p, pu) != 0):
+            raise AssertionError(
+                f"anchor_probes ({label}, ds {ds}, block {j}): the gated h2 "
+                "read drops a hit that both rows' probe finds")
+        f_sum = f_sum + f.long()
+        p_sum = p_sum + u32(p)
+    if int(f_sum.max()) > 1:
+        raise AssertionError("a key was found on two blocks")
+    log(f"  anchor_probes ({label}, {pkw['fmt']}, rows of "
+        f"{pkw['read_len']}) on {ds} blocks: {int(f_sum.sum())} anchors "
+        f"found at offsets {list(pkw['anchor_offsets'])}, equal to the "
+        "plain version and to both rows' ungated probe")
+    return f_sum, p_sum
+
+
+def count_blocks(index, pk, aux, kw, f_sum, p_sum, label, dev):
+    """K3 with the summed anchors on each of DS blocks against its plain
+    version: its codes those of the one-launch K3, its diffs summing to
+    that K3's. Returns (found, pos) as K3 takes them."""
+    from quickmer2_tpu_torch.device import store
+    from quickmer2_tpu_torch.kernels import anchored as ka
+    tab = (index.genome_tiles, index.dblock)
+    bb = index.n_buckets // DS
+    found = (f_sum > 0).to(torch.uint8)
+    pos = store(p_sum, torch.int32)
+    one = torch.zeros(index.n_kmers + 2, dtype=torch.int32, device=dev)
+    c_one = ka.anchored_count(pk, aux, index.rows, *tab, one, **kw)
+    total = torch.zeros_like(one)
+    for j in range(DS):
+        bkw = dict(kw, anchors=(found, pos), blk_lo=j * bb,
+                   block_buckets=bb, ranges=j == 0)
+        rows_j = index.rows[j * bb:(j + 1) * bb]
+        d_k, d_p = torch.zeros_like(one), torch.zeros_like(one)
+        c_k = ka.anchored_count(pk, aux, rows_j, *tab, d_k, **bkw)
+        c_p = ka.anchored_count_plain(pk, aux, rows_j, *tab, d_p, **bkw)
+        torch.cuda.synchronize()
+        if max(max_abs_err(d_k, d_p), max_abs_err(c_k, c_p),
+               max_abs_err(c_k, c_one)) != 0:
+            raise AssertionError(f"anchored_count on blocks ({label}) "
+                                 "disagrees with its plain version or the "
+                                 "one-launch K3")
+        total += d_k
+    if max_abs_err(total, one) != 0:
+        raise AssertionError(f"{label}: the blocks' diffs do not sum to the "
+                             "one-launch K3's")
+    log(f"  anchored_count on {DS} blocks, {label} ({kw['fmt']}, rows of "
+        f"{kw['read_len']}): codes 0/1/2 = "
+        f"{np.bincount(c_one.cpu().numpy(), minlength=3).tolist()} "
+        "as the one-launch K3's, blocks' diffs summing to its diff, equal "
+        "to the plain version")
+    return found, pos
+
+
+def check_anchor_probes(index, counter, tier1, tier2, wide, dev):
     """K3a and K3 on bucket blocks, on the main path's tier-1 and tier-2
     batches and on the tier-1 batch with 4,000 keys that sit at h2
     planted at the anchor offsets (lens and mask format): K3a on each
     block at ds = 2 and 4, with the block's bitmap of displaced keys,
     against its plain version and against a probe of both candidate
-    rows with no gate (kernels/anchored.py::_anchor_probes), its found
-    summed over the blocks at most 1 a window; at ds = 2 K3 with the
-    summed anchors on each block against its plain version, its codes
-    those of the one-launch K3 and its diffs summing to that K3's. The
-    planted batch cut to rows of 150 (lens and mask format: K3a's byte
-    loads) at ds = 2 against the same two. K3a timed on block 0 of the
-    tier-1 batch at ds = 2, with its wrapper's host time and its h2 row
-    reads with the gate and without (both local candidates); K3 on
-    block 0 with the summed anchors timed in tiers 1 and 2, beside its
-    plain version and a bound from the block's own inputs (its local
-    rows, the given anchors, the tiles, dblock rows and diff words its
-    reads need). Returns the kernel-table rows of K3a and of K3 on a
-    block (tier 1; tier 2 under "tier2")."""
-    from quickmer2_tpu_torch.device import store, u32
+    rows with no gate (probe_blocks), its found summed over the blocks
+    at most 1 a window; at ds = 2 K3 with the summed anchors on each
+    block against its plain version, its codes those of the one-launch
+    K3 and its diffs summing to that K3's (count_blocks). The planted
+    batch cut to rows of 150 (lens and mask format: K3a's byte loads)
+    at ds = 2 against the same two, and the rows of 2,048 that
+    check_anchored_edges returns (`wide`, lens and mask: K3's walk over
+    tiles with the summed anchors) at ds = 2 in tiers 1 and 2. K3a timed
+    on block 0 of the tier-1 batch at ds = 2, with its wrapper's host
+    time and its h2 row reads with the gate and without (both local
+    candidates); K3 on block 0 with the summed anchors timed in tiers 1
+    and 2, beside its plain version and a bound from the block's own
+    inputs (its local rows, the given anchors, the tiles, dblock rows
+    and diff words its reads need). Returns the kernel-table rows of
+    K3a and of K3 on a block (tier 1; tier 2 under "tier2")."""
     from quickmer2_tpu_torch.kernels import anchored as ka
     from quickmer2_tpu_torch.kernels.block_probe import (
         block_displaced_filter)
     from quickmer2_tpu_torch.ops import codec, packed_table
+    from quickmer2_tpu_torch.ops.anchored import AnchoredDepthCounter
     from quickmer2_tpu_torch.ops.hash import djb_pair
     B = index.n_buckets
     tab = (index.genome_tiles, index.dblock)
@@ -3317,8 +3681,8 @@ def check_anchor_probes(index, counter, tier1, tier2, dev):
                                          offsets=offs)
     masked = planted.copy()
     masked[::7, offs[1] + 5] = codec.SEP
-    err = 0
     block = {}
+    bb = B // DS
     for tier, label, rows in ((1, "tier 1", tier1), (2, "tier 2", tier2),
                               (1, "planted", planted),
                               (1, "planted, mask format", masked)):
@@ -3326,95 +3690,42 @@ def check_anchor_probes(index, counter, tier1, tier2, dev):
         kw = dict(fmt=fmt, **counter._tier_kw(tier))
         pkw = dict(fmt=fmt, k=kw["k"], read_len=kw["read_len"],
                    n_buckets=B, anchor_offsets=kw["anchor_offsets"])
-        chi, clo, valid = anchor_windows(pk, aux, pkw)
         for ds in (DS, 4):
-            bb = B // ds
-            f_sum = p_sum = 0
-            for j in range(ds):
-                rows_j = index.rows[j * bb:(j + 1) * bb]
-                blk = dict(pkw, blk_lo=j * bb, block_buckets=bb)
-                f, p = ka.anchor_probes(pk, aux, rows_j,
-                                        displaced=disp[ds][j], **blk)
-                fp, pp = ka.anchor_probes_plain(pk, aux, rows_j,
-                                                displaced=disp[ds][j], **blk)
-                fu, pu = ka._anchor_probes(rows_j, chi.T, clo.T, valid.T,
-                                           list(range(len(offs))), B,
-                                           j * bb, bb)
-                torch.cuda.synchronize()
-                err = max(err, max_abs_err(f, fp), max_abs_err(p, pp))
-                if err != 0:
-                    raise AssertionError(f"anchor_probes ({label}, ds {ds}, "
-                                         f"block {j}) disagrees with its "
-                                         "plain version")
-                if (max_abs_err(f, fu.to(torch.uint8)) != 0
-                        or max_abs_err(p, pu) != 0):
-                    raise AssertionError(
-                        f"anchor_probes ({label}, ds {ds}, block {j}): the "
-                        "gated h2 read drops a hit that both rows' probe "
-                        "finds")
-                f_sum = f_sum + f.long()
-                p_sum = p_sum + u32(p)
-            if int(f_sum.max()) > 1:
-                raise AssertionError("a key was found on two blocks")
-            log(f"  anchor_probes ({label}, {fmt}) on {ds} blocks: "
-                f"{int(f_sum.sum())} anchors found, equal to the plain "
-                "version and to both rows' ungated probe")
+            f_sum, p_sum = probe_blocks(index, pk, aux, pkw, disp[ds], label,
+                                        dev)
             if ds != DS or tier == 1 and label != "tier 1":
                 continue
-            found = (f_sum > 0).to(torch.uint8)
-            pos = store(p_sum, torch.int32)
-            one = torch.zeros(index.n_kmers + 2, dtype=torch.int32,
+            found, pos = count_blocks(index, pk, aux, kw, f_sum, p_sum,
+                                      f"tier {tier}", dev)
+            # block 0 with the summed anchors, timed
+            bkw = dict(kw, anchors=(found, pos), blk_lo=0, block_buckets=bb,
+                       ranges=True)
+            rows_j = index.rows[:bb]
+            d_k = torch.zeros(index.n_kmers + 2, dtype=torch.int32,
                               device=dev)
-            c_one = ka.anchored_count(pk, aux, index.rows, *tab, one, **kw)
-            total = torch.zeros_like(one)
-            for j in range(DS):
-                bkw = dict(kw, anchors=(found, pos), blk_lo=j * bb,
-                           block_buckets=bb, ranges=j == 0)
-                rows_j = index.rows[j * bb:(j + 1) * bb]
-                d_k, d_p = torch.zeros_like(one), torch.zeros_like(one)
-                c_k = ka.anchored_count(pk, aux, rows_j, *tab, d_k, **bkw)
-                c_p = ka.anchored_count_plain(pk, aux, rows_j, *tab, d_p,
-                                              **bkw)
-                torch.cuda.synchronize()
-                err = max(err, max_abs_err(d_k, d_p), max_abs_err(c_k, c_p),
-                          max_abs_err(c_k, c_one))
-                total += d_k
-                if j == 0:
-                    tr = {}
-                    ka.anchored_count_plain(pk, aux, rows_j, *tab, d_p,
-                                            trace=tr, **bkw)
-                    ms_b, queued_b = kernel_ms(
-                        lambda: ka.anchored_count(pk, aux, rows_j, *tab,
-                                                  d_k, **bkw), 10)
-                    plain_b = cuda_ms(lambda: ka.anchored_count_plain(
-                        pk, aux, rows_j, *tab, d_p, **bkw), 1, warm=0)
-                    # the given anchors: found (1 B) and pos (4 B) a window
-                    b_ms, b_by, n_bytes, n_ops, uniq = anchored_bound(
-                        tr, in_bytes, rows, 5 * found.numel())
-                    block[tier] = {
-                        "ms": ms_b, "queued_ms": queued_b,
-                        "plain_ms": plain_b, "bound_ms": b_ms,
-                        "bound_by": b_by}
-                    log(f"  anchored_count on block 0 of {DS}, tier {tier} "
-                        f"({fmt}), given anchors: time {ms_b:.4f} ms "
-                        f"(queued {queued_b:.4f} ms), plain {plain_b:.4f} "
-                        f"ms, bound {b_ms:.4f} ms ({b_by}: "
-                        f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.4f} G ops; "
-                        f"{uniq}, {tr['probes']} probes)")
-            if max_abs_err(total, one) != 0:
-                raise AssertionError(f"tier {tier}: the blocks' diffs do "
-                                     "not sum to the one-launch K3's")
-            if err != 0:
-                raise AssertionError(f"anchored_count on blocks (tier "
-                                     f"{tier}) disagrees with its plain "
-                                     "version or the one-launch K3")
-            log(f"  anchored_count on {DS} blocks, tier {tier} ({fmt}): "
-                f"codes 0/1/2 = "
-                f"{np.bincount(c_one.cpu().numpy(), minlength=3).tolist()} "
-                "as the one-launch K3's, blocks' diffs summing to its "
-                "diff, equal to the plain version")
+            d_p = torch.zeros_like(d_k)
+            tr = {}
+            ka.anchored_count_plain(pk, aux, rows_j, *tab, d_p, trace=tr,
+                                    **bkw)
+            ms_b, queued_b = kernel_ms(
+                lambda: ka.anchored_count(pk, aux, rows_j, *tab, d_k, **bkw),
+                10)
+            plain_b = cuda_ms(lambda: ka.anchored_count_plain(
+                pk, aux, rows_j, *tab, d_p, **bkw), 1, warm=0)
+            # the given anchors: found (1 B) and pos (4 B) a window
+            b_ms, b_by, n_bytes, n_ops, uniq = anchored_bound(
+                tr, in_bytes, rows, 5 * found.numel())
+            block[tier] = {"ms": ms_b, "queued_ms": queued_b,
+                           "plain_ms": plain_b, "bound_ms": b_ms,
+                           "bound_by": b_by}
+            log(f"  anchored_count on block 0 of {DS}, tier {tier} "
+                f"({fmt}), given anchors: time {ms_b:.4f} ms "
+                f"(queued {queued_b:.4f} ms), plain {plain_b:.4f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}: "
+                f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.4f} G ops; "
+                f"{uniq}, {tr['probes']} probes)")
         if label == "tier 1":
-            timed = (pk, aux, in_bytes, pkw, rows.shape[0], chi, clo, valid)
+            timed = (pk, aux, in_bytes, pkw, rows.shape[0])
     # rows of 150 bases (a --read-len that is no multiple of 32): K3a's
     # byte loads of the packed bases and of the invalid bits
     for label, rows in (("planted, rows of 150", planted[:, :150]),
@@ -3424,38 +3735,23 @@ def check_anchor_probes(index, counter, tier1, tier2, dev):
         L = rows.shape[1]
         pkw = dict(fmt=fmt, k=counter.k, read_len=L, n_buckets=B,
                    anchor_offsets=[a for a in offs if a <= L - counter.k])
-        chi, clo, valid = anchor_windows(pk, aux, pkw)
-        bb = B // DS
-        f_sum = 0
-        for j in range(DS):
-            rows_j = index.rows[j * bb:(j + 1) * bb]
-            blk = dict(pkw, blk_lo=j * bb, block_buckets=bb)
-            f, p = ka.anchor_probes(pk, aux, rows_j, displaced=disp[DS][j],
-                                    **blk)
-            fp, pp = ka.anchor_probes_plain(pk, aux, rows_j,
-                                            displaced=disp[DS][j], **blk)
-            fu, pu = ka._anchor_probes(
-                rows_j, chi.T, clo.T, valid.T,
-                list(range(len(pkw["anchor_offsets"]))), B, j * bb, bb)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(f, fp), max_abs_err(p, pp))
-            if err != 0:
-                raise AssertionError(f"anchor_probes ({label}, block {j}) "
-                                     "disagrees with its plain version")
-            if (max_abs_err(f, fu.to(torch.uint8)) != 0
-                    or max_abs_err(p, pu) != 0):
-                raise AssertionError(
-                    f"anchor_probes ({label}, block {j}) disagrees with "
-                    "both rows' ungated probe")
-            f_sum = f_sum + f.long()
-        if int(f_sum.max()) > 1:
-            raise AssertionError("a key was found on two blocks")
-        log(f"  anchor_probes ({label}, {fmt}) on {DS} blocks: "
-            f"{int(f_sum.sum())} anchors found at offsets "
-            f"{pkw['anchor_offsets']}, equal to the plain version and to "
-            "both rows' ungated probe")
-    pk, aux, in_bytes, pkw, R, chi, clo, valid = timed
-    bb = B // DS
+        probe_blocks(index, pk, aux, pkw, disp[DS], label, dev)
+    # rows of 2,048: K3a, and K3's walk over tiles with the summed anchors
+    wide_counter = AnchoredDepthCounter(index, counter.k, wide[0].shape[1],
+                                        prefetch_puts=False, device=dev)
+    for rows in wide:
+        fmt, pk, aux, _ = packed_on(rows, dev)
+        for tier in (1, 2):
+            kw = dict(fmt=fmt, **wide_counter._tier_kw(tier))
+            pkw = dict(fmt=fmt, k=kw["k"], read_len=kw["read_len"],
+                       n_buckets=B, anchor_offsets=kw["anchor_offsets"])
+            f_sum, p_sum = probe_blocks(index, pk, aux, pkw, disp[DS],
+                                        "wide rows", dev)
+            count_blocks(index, pk, aux, kw, f_sum, p_sum,
+                         f"wide rows, tier {tier}", dev)
+    del wide_counter
+    pk, aux, in_bytes, pkw, R = timed
+    chi, clo, valid = anchor_windows(pk, aux, pkw)
     rows0 = index.rows[:bb]
     pkw = dict(pkw, blk_lo=0, block_buckets=bb)
 
@@ -3487,14 +3783,14 @@ def check_anchor_probes(index, counter, tier1, tier2, dev):
     return [{"name": "anchor_probes", "route": "cuda",
              "source": "quickmer2_tpu_torch/csrc/anchored.cu",
              "replaces": "quickmer2_tpu/ops/anchored.py:575",
-             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
+             "max_abs_err": 0, "ms": ms, "queued_ms": queued_ms,
              "host_ms": wrapper_ms, "plain_ms": plain_ms,
              "probe_counts": dict(reads, ungated_rows_read=ungated),
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
             {"name": "anchored_block", "route": "cuda",
              "source": "quickmer2_tpu_torch/csrc/anchored.cu",
              "replaces": "quickmer2_tpu/ops/anchored.py:548",
-             "max_abs_err": err, **block[1], "library_ms": None,
+             "max_abs_err": 0, **block[1], "library_ms": None,
              "tier2": block[2]}]
 
 
@@ -3627,8 +3923,8 @@ def check_small_world(world, rng, dev, reset_counts, read_counts):
     on the card and on the CPU in both modes (equal .bin), est; its .qai
     by the join against its anchored count's K4 .qai; the auto engine;
     resumed counts; the cohort; entry(); the multi-device layer on one
-    card. Returns the launches of K5, its sort and the multi-device
-    kernels."""
+    card; long reads counted with --read-len 2048. Returns the launches
+    of K5, its sort, K3 on wide rows and the multi-device kernels."""
     from quickmer2_tpu_torch.pipelines.count import run_count
     from quickmer2_tpu_torch.pipelines.est import run_est
     sfa, sub = make_small_world(world, rng)
@@ -3666,6 +3962,8 @@ def check_small_world(world, rng, dev, reset_counts, read_counts):
     # resumed counts, the cohort, entry()
     check_resume(sfa, sub)
     check_cohort(sfa, sub)
+    launches.update(check_long_reads(world, sfa, rng, reset_counts,
+                                     read_counts))
     check_entry()
     # the multi-device layer on one card
     launches.update(check_multi_device(sfa, sub, reset_counts, read_counts))
@@ -3896,7 +4194,7 @@ def main() -> int:
     from quickmer2_tpu_torch.kernels.emit_member import member_scan
     from quickmer2_tpu_torch.kernels.est_windows import window_sums
     from quickmer2_tpu_torch.kernels.hamming_join import (
-        bucket_runs, join_bits, join_compare)
+        bucket_layouts, bucket_runs, join_bits, join_compare)
     from quickmer2_tpu_torch.kernels.neighbor_bits import (
         key_filter, neighbor_bits)
     from quickmer2_tpu_torch.kernels.neighbor_sum import neighbor_sum
@@ -3918,11 +4216,13 @@ def main() -> int:
                    join_bits, bucket_runs, count_linear_step,
                    count_packed_step,
                    kmerize_step, member_scan, window_sums,
-                   count_packed_block_step, count_packed_rows, anchor_probes):
+                   count_packed_block_step, count_packed_rows, anchor_probes,
+                   bucket_layouts):
             fn.launches = 0
         anchored_count.branch_launches = dict.fromkeys(
             anchored_count.branch_launches, 0)
         anchored_count.block_launches = 0
+        anchored_count.wide_launches = 0
 
     def read_counts():
         return {"count_mono": count_mono_step.launches,
@@ -3944,7 +4244,9 @@ def main() -> int:
                 "count_packed_block": count_packed_block_step.launches,
                 "count_packed_rows": count_packed_rows.launches,
                 "anchor_probes": anchor_probes.launches,
-                "anchored_block": anchored_count.block_launches}
+                "anchored_block": anchored_count.block_launches,
+                "anchored_wide": anchored_count.wide_launches,
+                "bucket_layouts": bucket_layouts.launches}
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -3973,7 +4275,7 @@ def main() -> int:
             check_count_mono(np.random.default_rng(k), k, n_keys, n_bases,
                              dev, False)
         uniq, occ, _ = _tabulate_streaming(fasta_io.iter_fasta(world["fa"]), 30)
-        rows.append(check_hamming_join(uniq, occ, 30, 64, 32, dev, True))
+        rows += check_hamming_join(uniq, occ, 30, 64, 32, dev, True)
         # pads 128/64 untimed, on every 4th distinct k-mer (the join plan
         # is host work that scales with the set)
         check_hamming_join(uniq[::4], occ[::4], 30, 128, 64, dev, False)
@@ -4014,9 +4316,10 @@ def main() -> int:
         srch = read_counts()
         log(f"launches in the search: {srch}")
         if not all(srch[k] > 0 for k in ("hamming_join", "neighbor_sum",
-                                          "key_filter")):
+                                          "key_filter", "bucket_layouts")):
             raise AssertionError(f"a kernel never launched: {srch}")
-        launches = {k: srch[k] for k in ("neighbor_sum", "key_filter")}
+        launches = {k: srch[k] for k in ("neighbor_sum", "key_filter",
+                                         "bucket_layouts")}
         if not check_only:
             t = time.time()
             cstats = run_count(world["fa"] + ".qm", fq,

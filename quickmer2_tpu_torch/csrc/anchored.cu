@@ -7,16 +7,34 @@
 // fetch_genome_window inlined), an XLA device function that ran as a chain
 // of whole-batch passes over (R, L) arrays.
 //
-// Layout: a read row of L bases gets a group of G lanes, G the least power
-// of two >= ceil(L / 32) (G = 8 at the 160-wide rows of 150 bp reads, so a
-// warp holds 4 reads; G = 32 at 1024). Lane j owns bases 32j..32j+31: it
-// loads their 2-bit codes as one 8-B word and their lens entry or mask
-// bits, and holds every per-read bit set (invalid bases, valid windows,
-// matches, clean and dirty windows) as one 32-bit register over windows or
-// bases 32j..32j+31. No array is indexed at run time. What a lane needs of
-// its neighbours (the next lane's bits for windows that cross into it, the
-// previous lane's for runs) comes by shuffles within the group; counts are
-// popcounts summed over the group.
+// Layout: a read row of L <= 1,024 bases gets a group of G lanes, G the
+// least power of two >= ceil(L / 32) (G = 8 at the 160-wide rows of 150 bp
+// reads, so a warp holds 4 reads; G = 32 at 1024). Lane j owns bases
+// 32j..32j+31: it loads their 2-bit codes as one 8-B word and their lens
+// entry or mask bits, and holds every per-read bit set (invalid bases,
+// valid windows, matches, clean and dirty windows) as one 32-bit register
+// over windows or bases 32j..32j+31. No array is indexed at run time. What
+// a lane needs of its neighbours (the next lane's bits for windows that
+// cross into it, the previous lane's for runs) comes by shuffles within the
+// group; counts are popcounts summed over the group.
+//
+// A row wider than 1,024 bases (up to 65,535, the lens format's u16
+// lengths) gets a warp (anchored_wide_kernel), which walks it in tiles of
+// 1,024 bases, each laid out as the G = 32 group. What crosses a tile
+// boundary is carried: the next word's bits of the last lane come from the
+// next tile, which the warp loads one tile ahead; the previous word's bits
+// of lane 0 (runs, covered mismatches, substitution pairs) and the last
+// dirty-run start are carried from the last tile. Every count and cap is
+// over the whole read. The anchors' k bases come straight from the packed
+// row (K3a's aligned loads) and the vote is taken before the tiles. The
+// match counts of both strands need the whole read before the chosen
+// strand's windows can be told clean, and the spill decision before any
+// add, so a wide read takes three walks: the strands' match counts, the
+// deciding walk (cut short once the read spills) and the adding walk, each
+// reloading the row and the genome words. Clean runs are added edge by
+// edge (+1 at a run's low rank, -1 at its high one, the lane that holds
+// either edge adding it), and the dirty windows of a tile are dealt round
+// the warp as in a group.
 //
 // Per read (the JAX function's steps, same order of decisions):
 //   1. unpack the 2-bit lanes, in the lens (u16 length) or mask (invalid
@@ -95,7 +113,9 @@
 // thread per read would fill ~10 % of the card's threads at a 26,214-row
 // batch (205 blocks of 128) and keep the bit sets as 34-word arrays in
 // local memory; at 8 lanes a read the batch fills ~6,500 warps, and the
-// lanes of a read issue their accesses together.
+// lanes of a read issue their accesses together. A wide read's three walks
+// read its row and genome words three times (the bound counts them once);
+// its tiles are walked one after another, so its latency grows with L.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,7 +126,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxL = 1024;
+constexpr int kTileL = 1024;          // bases a lane group covers
+constexpr int kMaxRowL = 65535;       // the lens format's u16 lengths
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMaxAnchors = 4;
 constexpr int kNoPos = 0x7FFFFFFF;
 
@@ -272,6 +294,142 @@ __device__ __forceinline__ int next_end_after(unsigned gm, unsigned ends,
   return lane + 1 < n ? after : kNoPos;
 }
 
+// The 2-bit codes of bases 32w..32w+31 of row r as one word (0 past the
+// row).
+__device__ __forceinline__ unsigned long long word_code(const Params& p,
+                                                        int r, int w) {
+  const int sb = (p.L + 3) >> 2;
+  const uint8_t* prow = p.pk + (size_t)r * sb;
+  unsigned long long code = 0;
+  if (p.pk8) {
+    if (8 * w < sb) code = __ldg((const unsigned long long*)prow + w);
+  } else {
+    for (int i = 0; i < 8; ++i) {
+      const int b = 8 * w + i;
+      if (b < sb) code |= (unsigned long long)__ldg(prow + b) << (8 * i);
+    }
+  }
+  return code;
+}
+
+// The invalid bases among 32w..32w+31 of row r (SEP, N; every base from L
+// on).
+template <bool LENS>
+__device__ __forceinline__ unsigned word_bad(const Params& p, int r, int w) {
+  const int t0 = w << 5;
+  unsigned bad;
+  if (LENS) {
+    bad = ~below(__ldg((const uint16_t*)p.aux + r), t0);
+  } else {
+    const int nb = (p.L + 7) >> 3;
+    const uint8_t* arow = p.aux + (size_t)r * nb;
+    if (p.aux4 && 4 * w < nb) {
+      bad = __ldg((const unsigned*)arow + w);
+    } else {
+      bad = 0;
+      for (int i = 0; i < 4; ++i) {
+        const int b = 4 * w + i;
+        bad |= (unsigned)(b < nb ? __ldg(arow + b) : 0xFFu) << (8 * i);
+      }
+    }
+  }
+  return bad | ~below(p.L, t0);
+}
+
+// Anchor window a of row r (a + k <= L): its k bases' codes from at most
+// two aligned 8-B words of the packed row (byte loads where rows are not so
+// aligned); *valid where none of them is invalid (the mask format's bits
+// from two 4-B words, or bytes).
+template <bool LENS>
+__device__ __forceinline__ unsigned long long anchor_window(const Params& p,
+                                                            int r, int a,
+                                                            bool* valid) {
+  const int k = p.k;
+  if (LENS) {
+    *valid = a + k <= (int)__ldg((const uint16_t*)p.aux + r);
+  } else {
+    const int nb = (p.L + 7) >> 3;
+    unsigned long long inval = 0;
+    if (p.aux4) {          // bits a.. of two 4-B words
+      const unsigned* w = (const unsigned*)(p.aux + (size_t)r * nb);
+      const int q = a >> 5, sh = a & 31;
+      const unsigned hi = sh + k > 32 ? __ldg(w + q + 1) : 0u;
+      inval = (((unsigned long long)hi << 32) | __ldg(w + q)) >> sh;
+    } else {
+      const uint8_t* arow = p.aux + (size_t)r * nb;
+      for (int q = 0; q < 5 && (a >> 3) + q < nb; ++q) {
+        inval |= (unsigned long long)__ldg(arow + (a >> 3) + q) << (8 * q);
+      }
+      inval >>= a & 7;
+    }
+    *valid = (inval & ((1ull << k) - 1)) == 0;
+  }
+  const int sb = (p.L + 3) >> 2;
+  if (p.pk8) {             // bases a.. of two 8-B words
+    const unsigned long long* w =
+        (const unsigned long long*)(p.pk + (size_t)r * sb);
+    const int q = a >> 5, sh = 2 * (a & 31);
+    const unsigned long long lo = __ldg(w + q);
+    return sh + 2 * k > 64 ? (lo >> sh) | (__ldg(w + q + 1) << (64 - sh))
+                           : lo >> sh;
+  }
+  const uint8_t* prow = p.pk + (size_t)r * sb;
+  unsigned long long lo = 0, hi = 0;
+  for (int q = 0; q < 9 && (a >> 2) + q < sb; ++q) {
+    const unsigned long long b = __ldg(prow + (a >> 2) + q);
+    if (q < 8) {
+      lo |= b << (8 * q);
+    } else {
+      hi = b;
+    }
+  }
+  const int sh = 2 * (a & 3);
+  return sh ? (lo >> sh) | (hi << (64 - sh)) : lo;
+}
+
+// The majority vote over the anchors (found av[i], position ps[i]): each
+// found anchor scores how many found anchors agree with its implied forward
+// start or reverse end; the first maximum wins. False where no anchor was
+// found.
+__device__ __forceinline__ bool vote(const Params& p,
+                                     const bool (&av)[kMaxAnchors],
+                                     const int (&ps)[kMaxAnchors],
+                                     int* best_pos, int* best_off) {
+  const int k = p.k;
+  int best_score = -1;
+  bool a_found = false;
+  *best_pos = 0;
+  *best_off = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxAnchors; ++i) {
+    if (i < p.n_anchors) {
+      const int ai = anchor_at(p, i);
+      int score = 0;
+      if (av[i]) {
+        a_found = true;
+        const int s_i = ps[i] - (k - 1) - ai;
+        const int g_i = ps[i] + ai;
+        int agree_f = 0, agree_r = 0;
+#pragma unroll
+        for (int j = 0; j < kMaxAnchors; ++j) {
+          if (j < p.n_anchors && av[j]) {
+            const int aj = anchor_at(p, j);
+            agree_f += ps[j] - (k - 1) - aj == s_i;
+            agree_r += ps[j] + aj == g_i;
+          }
+        }
+        score = agree_f > agree_r ? agree_f : agree_r;
+      }
+      if (score > best_score) {
+        best_score = score;
+        *best_pos = ps[i];
+        *best_off = ai;
+      }
+    }
+  }
+  return a_found;
+}
+
 template <int BR, bool LENS, bool GIVEN>
 __global__ void __launch_bounds__(kThreads)
     anchored_kernel(const typename LaunchParams<GIVEN>::type p) {
@@ -289,34 +447,8 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned in_l = below(L, t0), in_w = below(W, t0);
 
   // 1. the lane's codes and invalid bases (SEP, N; every bit from L on)
-  const int sb = (L + 3) >> 2;
-  const uint8_t* prow = p.pk + (size_t)r * sb;
-  unsigned long long code = 0;
-  if (p.pk8) {
-    if (8 * lane < sb) code = __ldg((const unsigned long long*)prow + lane);
-  } else {
-    for (int i = 0; i < 8; ++i) {
-      const int b = 8 * lane + i;
-      if (b < sb) code |= (unsigned long long)__ldg(prow + b) << (8 * i);
-    }
-  }
-  unsigned bad;
-  if (LENS) {
-    bad = ~below(__ldg((const uint16_t*)p.aux + r), t0);
-  } else {
-    const int nb = (L + 7) >> 3;
-    const uint8_t* arow = p.aux + (size_t)r * nb;
-    if (p.aux4 && 4 * lane < nb) {
-      bad = __ldg((const unsigned*)arow + lane);
-    } else {
-      bad = 0;
-      for (int i = 0; i < 4; ++i) {
-        const int b = 4 * lane + i;
-        bad |= (unsigned)(b < nb ? __ldg(arow + b) : 0xFFu) << (8 * i);
-      }
-    }
-  }
-  bad |= ~in_l;
+  const unsigned long long code = word_code(p, r, lane);
+  const unsigned bad = word_bad<LENS>(p, r, lane);
   const unsigned bad_next_x = __shfl_down_sync(gm, bad, 1, n);
   const unsigned bad_next = last ? 0xFFFFFFFFu : bad_next_x;
 
@@ -363,35 +495,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  int best_pos = 0, best_off = 0, best_score = -1;
-  bool a_found = false;
-#pragma unroll
-  for (int i = 0; i < kMaxAnchors; ++i) {
-    if (i < p.n_anchors) {
-      const int ai = anchor_at(p, i);
-      int score = 0;
-      if (av[i]) {
-        a_found = true;
-        const int s_i = ps[i] - (k - 1) - ai;
-        const int g_i = ps[i] + ai;
-        int agree_f = 0, agree_r = 0;
-#pragma unroll
-        for (int j = 0; j < kMaxAnchors; ++j) {
-          if (j < p.n_anchors && av[j]) {
-            const int aj = anchor_at(p, j);
-            agree_f += ps[j] - (k - 1) - aj == s_i;
-            agree_r += ps[j] + aj == g_i;
-          }
-        }
-        score = agree_f > agree_r ? agree_f : agree_r;
-      }
-      if (score > best_score) {
-        best_score = score;
-        best_pos = ps[i];
-        best_off = ai;
-      }
-    }
-  }
+  int best_pos, best_off;
+  const bool a_found = vote(p, av, ps, &best_pos, &best_off);
   if (!a_found) {                       // unanchored: nothing counted here
     if (first) p.code[r] = anyvalid ? 2 : 0;
     return;
@@ -548,12 +653,355 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------- rows wider than 1,024 -----
+
+// The read's word w as a wide walk needs it: codes, invalid bases, and the
+// chosen strand's matches and invalid genome bases (0 where the strand
+// leaves the genome or the word holds no valid base).
+struct WordBits {
+  unsigned long long code;
+  unsigned bad, mt, gbad;
+};
+
+// The chosen strand: forward (genome window from s_f) or reverse
+// complement (ending at ge), and whether its window lies in the genome.
+struct Strand {
+  bool fwd, in;
+  int s_f, ge;
+};
+
+template <bool LENS>
+__device__ __forceinline__ WordBits word_bits(const Params& p, int r, int w,
+                                              const Strand& st) {
+  WordBits x = {0ull, 0xFFFFFFFFu, 0u, 0u};
+  if ((w << 5) >= p.L) return x;        // past the row: all invalid
+  x.code = word_code(p, r, w);
+  x.bad = word_bad<LENS>(p, r, w);
+  if (st.in && ~x.bad) {
+    const unsigned* tw = (const unsigned*)p.tiles;
+    const int t0 = w << 5;
+    if (st.fwd) {
+      strand_bits<false>(tw, p.glen >> 2, st.s_f + t0, x.code, &x.mt,
+                         &x.gbad);
+    } else {
+      strand_bits<true>(tw, p.glen >> 2, st.ge - t0 - 31, x.code, &x.mt,
+                        &x.gbad);
+    }
+    x.mt &= ~x.bad;
+  }
+  return x;
+}
+
+// A lane's window bits over windows t0..t0+31 (vd valid, cl clean, dw
+// dirty; the starts and ends of clean and dirty runs) and the previous
+// word's valid windows (vd_prev).
+struct Windows {
+  unsigned vd, vd_prev, cl, dw, cstart, cend, dstart, dend;
+};
+
+// The previous word's valid, clean and dirty windows: lane 31's of the
+// last tile (0 before the first).
+struct Carry {
+  unsigned vd, cl, dw;
+};
+
+// One tile's window bits. nxt is the next tile's words (the last lane's
+// next word is its lane 0); bit 0 of a word's windows needs only that
+// word's bits 0..k-1, so the next word's first clean and dirty windows come
+// from its bits alone. Updates the carry to this tile's last word.
+__device__ __forceinline__ Windows tile_windows(const WordBits& cur,
+                                                const WordBits& nxt,
+                                                Carry* c, int lane, int t0,
+                                                int W, int k) {
+  const unsigned bad_dn = __shfl_down_sync(kFull, cur.bad, 1);
+  const unsigned mt_dn = __shfl_down_sync(kFull, cur.mt, 1);
+  const unsigned bad_n0 = __shfl_sync(kFull, nxt.bad, 0);
+  const unsigned mt_n0 = __shfl_sync(kFull, nxt.mt, 0);
+  const unsigned bad_next = lane == 31 ? bad_n0 : bad_dn;
+  const unsigned mt_next = lane == 31 ? mt_n0 : mt_dn;
+  Windows x;
+  x.vd = win_and(~cur.bad, ~bad_next, k) & below(W, t0);
+  x.cl = x.vd & win_and(cur.mt, mt_next, k);
+  x.dw = x.vd & ~x.cl;
+  const unsigned vd_n = win_and(~bad_next, 0u, k) & below(W, t0 + 32) & 1u;
+  const unsigned cl_n = vd_n & win_and(mt_next, 0u, k);
+  const unsigned dw_n = vd_n & ~cl_n;
+  const unsigned vd_up = __shfl_up_sync(kFull, x.vd, 1);
+  const unsigned cl_up = __shfl_up_sync(kFull, x.cl, 1);
+  const unsigned dw_up = __shfl_up_sync(kFull, x.dw, 1);
+  x.vd_prev = lane == 0 ? c->vd : vd_up;
+  const unsigned cl_prev = lane == 0 ? c->cl : cl_up;
+  const unsigned dw_prev = lane == 0 ? c->dw : dw_up;
+  x.cstart = x.cl & ~((x.cl << 1) | (cl_prev >> 31));
+  x.cend = x.cl & ~((x.cl >> 1) | (cl_n << 31));
+  x.dstart = x.dw & ~((x.dw << 1) | (dw_prev >> 31));
+  x.dend = x.dw & ~((x.dw >> 1) | (dw_n << 31));
+  c->vd = __shfl_sync(kFull, x.vd, 31);
+  c->cl = __shfl_sync(kFull, x.cl, 31);
+  c->dw = __shfl_sync(kFull, x.dw, 31);
+  return x;
+}
+
+// One edge of a clean run mapped to genome position q: a low edge adds +1
+// at R(q - 1) (0 where q <= 0), a high edge -1 at R(q), q clamped to the
+// genome as the group kernel clamps its pairs.
+__device__ __forceinline__ void run_edge(const Params& p, int q, bool low) {
+  if (low) {
+    const int ql = q - 1 < 0 ? 0 : q - 1 > p.glen - 1 ? p.glen - 1 : q - 1;
+    atomicAdd(p.diff + (q <= 0 ? 0u : rank_at(p.dblock, ql)), 1u);
+  } else {
+    const int qh = q < 0 ? 0 : q > p.glen - 1 ? p.glen - 1 : q;
+    atomicAdd(p.diff + rank_at(p.dblock, qh), 0xFFFFFFFFu);
+  }
+}
+
+__device__ __forceinline__ int warp_sum(unsigned v) {
+  return (int)__reduce_add_sync(kFull, v);
+}
+
+// A read of L > 1,024 bases per warp: steps 1-7 of the group kernel over
+// tiles of 1,024 bases (see the header).
+template <int BR, bool LENS, bool GIVEN>
+__global__ void __launch_bounds__(kThreads)
+    anchored_wide_kernel(const typename LaunchParams<GIVEN>::type p) {
+  const long long gt = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int r = (int)(gt >> 5);
+  if (r >= p.R) return;                 // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const int L = p.L, k = p.k, W = L - k + 1;
+  const int n_tiles = (L + kTileL - 1) / kTileL;
+
+  // 2. anchors (lane i probes anchor i from the packed row) and the vote
+  bool f = false;
+  unsigned pos = 0;
+  if (lane < p.n_anchors) {
+    bool valid;
+    const unsigned long long x =
+        anchor_window<LENS>(p, r, anchor_at(p, lane), &valid);
+    if (valid) {
+      if constexpr (GIVEN) {
+        f = __ldg(p.afound + (size_t)lane * p.R + r) != 0;
+        pos = f ? __ldg(p.apos + (size_t)lane * p.R + r) : 0u;
+      } else {
+        unsigned rk;
+        f = qm2t::packed_probe(p.rows, qm2t::canonical_lsb(x, k),
+                               p.bucket_mask, &rk, &pos);
+      }
+    }
+  }
+  bool av[kMaxAnchors];
+  int ps[kMaxAnchors];
+#pragma unroll
+  for (int i = 0; i < kMaxAnchors; ++i) {
+    av[i] = __shfl_sync(kFull, (int)f, i) != 0 && i < p.n_anchors;
+    ps[i] = __shfl_sync(kFull, (int)pos, i);
+  }
+  int best_pos, best_off;
+  if (!vote(p, av, ps, &best_pos, &best_off)) {
+    // unanchored: code 2 where the read has a valid window, else 0
+    bool any = false;
+    for (int t = 0; t < n_tiles && !any; ++t) {
+      const int w = (t << 5) + lane;
+      const unsigned vd = win_and(~word_bad<LENS>(p, r, w),
+                                  ~word_bad<LENS>(p, r, w + 1), k) &
+                          below(W, w << 5);
+      any = __any_sync(kFull, vd != 0u);
+    }
+    if (lane == 0) p.code[r] = any ? 2 : 0;
+    return;
+  }
+
+  // 3. the strands' match counts over the whole read (walk 1); forward
+  //    wins ties
+  Strand st;
+  st.s_f = best_pos - (k - 1) - best_off;
+  st.ge = best_pos + best_off;
+  const bool fwd_in = st.s_f >= 0 && st.s_f + L <= p.glen;
+  const bool rc_in = st.ge - (L - 1) >= 0 && st.ge < p.glen;
+  int cnt_f = 0, cnt_r = 0;
+  if (fwd_in || rc_in) {
+    const unsigned* tw = (const unsigned*)p.tiles;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int w = (t << 5) + lane, t0 = w << 5;
+      if (t0 >= L) continue;
+      const unsigned long long code = word_code(p, r, w);
+      const unsigned bad = word_bad<LENS>(p, r, w);
+      if (~bad) {
+        unsigned m, gb;
+        if (fwd_in) {
+          strand_bits<false>(tw, p.glen >> 2, st.s_f + t0, code, &m, &gb);
+          cnt_f += __popc(m & ~bad);
+        }
+        if (rc_in) {
+          strand_bits<true>(tw, p.glen >> 2, st.ge - t0 - 31, code, &m, &gb);
+          cnt_r += __popc(m & ~bad);
+        }
+      }
+    }
+    cnt_f = warp_sum(cnt_f);
+    cnt_r = warp_sum(cnt_r);
+  }
+  st.fwd = cnt_f >= cnt_r;
+  st.in = st.fwd ? fwd_in : rc_in;
+  const WordBits past = {0ull, 0xFFFFFFFFu, 0u, 0u};
+
+  // 4-5. the deciding walk: runs, dirty windows and the branch's caps over
+  //      the whole read, cut short once the read spills
+  bool spilled = false, unanch = false;
+  if (BR == kNeighbor && !st.in) {
+    spilled = unanch = true;            // anyvalid holds: an anchor is valid
+  } else {
+    Carry c = {0u, 0u, 0u};
+    unsigned sub_c = 0;                 // the previous word's substitutions
+    int dstart_c = -1;                  // the last dirty-run start so far
+    int n_runs = 0, n_dirty = 0, n_druns = 0;
+    WordBits cur = word_bits<LENS>(p, r, lane, st);
+    for (int t = 0; t < n_tiles && !spilled; ++t) {
+      const int w = (t << 5) + lane, t0 = w << 5;
+      const WordBits nxt =
+          t + 1 < n_tiles ? word_bits<LENS>(p, r, w + 32, st) : past;
+      const Windows x = tile_windows(cur, nxt, &c, lane, t0, W, k);
+      n_runs += warp_sum(__popc(x.cstart));
+      bool over = false;
+      if (BR == kPoint) {
+        n_dirty += warp_sum(__popc(x.dw));
+        over = n_dirty > p.max_dirty;
+      } else if (BR == kRuns) {
+        n_druns += warp_sum(__popc(x.dstart));
+        // a run ending here starts at the last start at or before its end:
+        // in this lane, else in an earlier lane or tile
+        int last = x.dstart ? t0 + 31 - __clz(x.dstart) : -1;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(kFull, last, o);
+          if (lane >= o && y > last) last = y;
+        }
+        const int up = __shfl_up_sync(kFull, last, 1);
+        const int before = lane == 0 || up < dstart_c ? dstart_c : up;
+        bool ok = true;
+        for (unsigned e = x.dend; e; e &= e - 1) {
+          const int b = __ffs(e) - 1;
+          const unsigned s_in = x.dstart & (0xFFFFFFFFu >> (31 - b));
+          const int s = s_in ? t0 + 31 - __clz(s_in) : before;
+          ok = ok && t0 + b - s < p.dirty_run_width;
+        }
+        const int tile_last = __shfl_sync(kFull, last, 31);
+        if (tile_last > dstart_c) dstart_c = tile_last;
+        over = n_druns > p.max_dirty_runs || !__all_sync(kFull, ok);
+      } else {
+        // mismatches covered by a valid window j in [t-k+1, t] within
+        // [0, W); substitutions below W closer than k; neighbor bits
+        const unsigned cmm =
+            ~cur.mt & below(L, t0) &
+            dilate(((unsigned long long)x.vd << 32) | x.vd_prev, k);
+        const unsigned sub = cmm & ~(cur.bad | cur.gbad);
+        const unsigned sub_w = sub & below(W, t0);
+        const unsigned sub_up = __shfl_up_sync(kFull, sub_w, 1);
+        const unsigned long long pair =
+            ((unsigned long long)sub_w << 32) | (lane == 0 ? sub_c : sub_up);
+        bool bad_mm = (cmm & (cur.bad | cur.gbad)) != 0u ||
+                      (k > 1 && (sub_w & dilate(pair << 1, k - 1)) != 0u);
+        for (unsigned s = sub; s && !bad_mm; s &= s - 1) {
+          const int b = __ffs(s) - 1;
+          const unsigned cb = (unsigned)(cur.code >> (2 * b)) & 3u;
+          const unsigned g =
+              __ldg(p.tiles + (st.fwd ? st.s_f + t0 + b : st.ge - t0 - b));
+          bad_mm = (g >> (3 + (st.fwd ? cb : cb ^ 2u))) & 1u;
+        }
+        sub_c = __shfl_sync(kFull, sub_w, 31);
+        over = __any_sync(kFull, bad_mm);
+      }
+      spilled = n_runs > p.max_runs || over;
+      cur = nxt;
+    }
+  }
+  if (lane == 0) p.code[r] = spilled ? (unanch ? 2 : 1) : 0;
+  if (spilled) return;
+
+  // 6. the adding walk: each clean run's edges (GIVEN: on the first block
+  //    only; they come from the replicated dblock) and, in kPoint and
+  //    kRuns, each dirty window probed, dealt round the warp a tile at a
+  //    time
+  bool ranges = true;
+  if constexpr (GIVEN) ranges = p.ranges;
+  if (BR == kNeighbor && !ranges) return;
+  const unsigned trash = (unsigned)p.n_diff - 1;
+  Carry c = {0u, 0u, 0u};
+  WordBits cur = word_bits<LENS>(p, r, lane, st);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int w = (t << 5) + lane, t0 = w << 5;
+    const WordBits nxt =
+        t + 1 < n_tiles ? word_bits<LENS>(p, r, w + 32, st) : past;
+    const Windows x = tile_windows(cur, nxt, &c, lane, t0, W, k);
+    if (ranges) {
+      // forward: a start is the run's low edge at s_f + st + k - 1, an end
+      // its high edge; reverse: an end is the low edge at ge - e, a start
+      // the high edge at ge - st
+      for (unsigned s = x.cstart; s; s &= s - 1) {
+        const int b = t0 + __ffs(s) - 1;
+        run_edge(p, st.fwd ? st.s_f + b + (k - 1) : st.ge - b, st.fwd);
+      }
+      for (unsigned s = x.cend; s; s &= s - 1) {
+        const int b = t0 + __ffs(s) - 1;
+        run_edge(p, st.fwd ? st.s_f + b + (k - 1) : st.ge - b, !st.fwd);
+      }
+    }
+    if (BR != kNeighbor) {
+      const int mine = __popc(x.dw);
+      int incl = mine;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const int excl = incl - mine;
+      const int n_tile = __shfl_sync(kFull, incl, 31);
+      const unsigned long long code_n0 = __shfl_sync(kFull, nxt.code, 0);
+      for (int base = 0; base < n_tile; base += 32) {
+        const int m = base + lane;
+        int o = 0;                      // the last lane whose excl <= m
+        for (int step = 16; step > 0; step >>= 1) {
+          const int ex = __shfl_sync(kFull, excl, o + step);
+          if (ex <= m) o += step;
+        }
+        unsigned d = __shfl_sync(kFull, x.dw, o);
+        const int ex_o = __shfl_sync(kFull, excl, o);
+        const unsigned long long c0 = __shfl_sync(kFull, cur.code, o);
+        const unsigned long long c1x =
+            __shfl_sync(kFull, cur.code, o + 1 < 32 ? o + 1 : o);
+        const unsigned long long c1 = o == 31 ? code_n0 : c1x;
+        if (m < n_tile) {
+          for (int j = m - ex_o; j > 0; --j) d &= d - 1;
+          const int s = 2 * (__ffs(d) - 1);
+          const unsigned long long y = s ? (c0 >> s) | (c1 << (64 - s)) : c0;
+          unsigned rk, at;
+          bool hit;
+          if constexpr (GIVEN) {
+            hit = block_probe(p, qm2t::canonical_lsb(y, k), &rk, &at);
+          } else {
+            hit = qm2t::packed_probe(p.rows, qm2t::canonical_lsb(y, k),
+                                     p.bucket_mask, &rk, &at);
+          }
+          if (hit) {
+            add_range(p.diff, rk, rk + 1 < trash ? rk + 1 : trash);
+          }
+        }
+      }
+    }
+    cur = nxt;
+  }
+}
+
 template <int BR, bool GIVEN>
 cudaError_t launch(const typename LaunchParams<GIVEN>::type& p, bool lens,
                    cudaStream_t stream) {
-  const long long threads = (long long)p.R * p.lanes;
+  const bool wide = p.L > kTileL;       // a warp a read
+  const long long threads = (long long)p.R * (wide ? 32 : p.lanes);
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  if (lens) {
+  if (wide && lens) {
+    anchored_wide_kernel<BR, true, GIVEN><<<blocks, kThreads, 0, stream>>>(p);
+  } else if (wide) {
+    anchored_wide_kernel<BR, false, GIVEN><<<blocks, kThreads, 0, stream>>>(
+        p);
+  } else if (lens) {
     anchored_kernel<BR, true, GIVEN><<<blocks, kThreads, 0, stream>>>(p);
   } else {
     anchored_kernel<BR, false, GIVEN><<<blocks, kThreads, 0, stream>>>(p);
@@ -580,54 +1028,13 @@ anchor_probe_kernel(const Params p, const BlockProbe eng,
   if (t >= (unsigned)(p.R * p.n_anchors)) return;   // < 2^31 (the entry)
   const int r = (int)(t / (unsigned)p.n_anchors);
   const int i = (int)t - r * p.n_anchors;
-  const int a = anchor_at(p, i), k = p.k;   // a + k <= L
+  const int a = anchor_at(p, i);     // a + k <= L
   bool valid;
-  if (LENS) {
-    valid = a + k <= (int)__ldg((const uint16_t*)p.aux + r);
-  } else {
-    const int nb = (p.L + 7) >> 3;
-    unsigned long long inval = 0;
-    if (p.aux4) {          // bits a.. of two 4-B words
-      const unsigned* w = (const unsigned*)(p.aux + (size_t)r * nb);
-      const int q = a >> 5, sh = a & 31;
-      const unsigned hi = sh + k > 32 ? __ldg(w + q + 1) : 0u;
-      inval = (((unsigned long long)hi << 32) | __ldg(w + q)) >> sh;
-    } else {
-      const uint8_t* arow = p.aux + (size_t)r * nb;
-      for (int q = 0; q < 5 && (a >> 3) + q < nb; ++q) {
-        inval |= (unsigned long long)__ldg(arow + (a >> 3) + q) << (8 * q);
-      }
-      inval >>= a & 7;
-    }
-    valid = (inval & ((1ull << k) - 1)) == 0;
-  }
-  const int sb = (p.L + 3) >> 2;
-  unsigned long long x;
-  if (p.pk8) {             // bases a.. of two 8-B words
-    const unsigned long long* w =
-        (const unsigned long long*)(p.pk + (size_t)r * sb);
-    const int q = a >> 5, sh = 2 * (a & 31);
-    const unsigned long long lo = __ldg(w + q);
-    x = sh + 2 * k > 64 ? (lo >> sh) | (__ldg(w + q + 1) << (64 - sh))
-                        : lo >> sh;
-  } else {
-    const uint8_t* prow = p.pk + (size_t)r * sb;
-    unsigned long long lo = 0, hi = 0;
-    for (int q = 0; q < 9 && (a >> 2) + q < sb; ++q) {
-      const unsigned long long b = __ldg(prow + (a >> 2) + q);
-      if (q < 8) {
-        lo |= b << (8 * q);
-      } else {
-        hi = b;
-      }
-    }
-    const int sh = 2 * (a & 3);
-    x = sh ? (lo >> sh) | (hi << (64 - sh)) : lo;
-  }
+  const unsigned long long x = anchor_window<LENS>(p, r, a, &valid);
   unsigned rk, ps = 0;
   bool f = false;
   if (valid) {
-    const unsigned long long canon = qm2t::canonical_lsb(x, k);
+    const unsigned long long canon = qm2t::canonical_lsb(x, p.k);
     f = canon != 0 && eng.probe_pos(canon, &rk, &ps) >= 0;
   }
   found[(size_t)i * p.R + r] = f;
@@ -640,7 +1047,7 @@ int setup(Params* p, const void* pk, const void* aux, const void* rows,
           int a1, int a2, int a3) {
   const int W = L - k + 1;
   const int anchors[kMaxAnchors] = {a0, a1, a2, a3};
-  if (k < 1 || k > 32 || L > kMaxL || W < 1 || R < 1 || n_anchors < 1 ||
+  if (k < 1 || k > 32 || L > kMaxRowL || W < 1 || R < 1 || n_anchors < 1 ||
       n_anchors > kMaxAnchors || n_buckets < 1 || n_buckets > (1LL << 32) ||
       (n_buckets & (n_buckets - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
@@ -655,8 +1062,8 @@ int setup(Params* p, const void* pk, const void* aux, const void* rows,
   p->R = R;
   p->L = L;
   p->k = k;
-  p->lanes = 1;
-  while (32 * p->lanes < L) p->lanes *= 2;
+  p->lanes = 1;           // the group's lanes (a wide row takes a warp)
+  while (32 * p->lanes < L && p->lanes < 32) p->lanes *= 2;
   p->pk8 = (uintptr_t)pk % 8 == 0 && ((L + 3) >> 2) % 8 == 0;
   p->aux4 = (uintptr_t)aux % 4 == 0 && ((L + 7) >> 3) % 4 == 0;
   p->bucket_mask = (unsigned)(n_buckets - 1);

@@ -1,6 +1,7 @@
 // The Hamming joins: K1, the compare chain of the search phase's
-// edit-distance filter, and K5, the anchored index's neighbor bits, with
-// the counting sort that builds K5's inputs.
+// edit-distance filter, with i', the scatter that builds K1's layouts, and
+// K5, the anchored index's neighbor bits, with the counting sort that
+// builds K5's inputs.
 //
 // K1 replaces the slab loop of quickmer2_tpu/ops/hamming_join.py::
 // _part_chunk_join (:151-182) and its fused Pallas form,
@@ -17,8 +18,7 @@
 // m part joins, so each adds 6/m and the caller divides the total by 6).
 // Sums wrap as u32.
 //
-// K1's layouts (built in plain PyTorch by ops/hamming_join.py::
-// _bucket_layouts):
+// K1's layouts (built by qm2t_bucket_layouts below, i'):
 //   dh, dl, docc  u32[B * cpad + 1]    word lanes; bucket b holds
 //                                      [b * cpad, (b + 1) * cpad)
 //   qh, ql        u32[B * cpad_q + 1]  query lanes
@@ -713,6 +713,89 @@ join_runs_kernel(const Runs R) {
   }
 }
 
+// ------------------------------------------ i', K1's bucket layouts -----
+//
+// i' replaces the first half of quickmer2_tpu/ops/hamming_join.py::
+// _part_chunk_join (:114, the key recompute and scatters at :126-149),
+// whose plain version is ops/hamming_join.py::_bucket_layouts: one word
+// chunk and one query chunk scattered into K1's padded layouts. Two
+// launches: a fill of the six arrays (zeros, qidx = nq, the hole lanes
+// too) in 16-B stores, then a thread an entry, which recomputes the
+// entry's part key from its code and, where its slot is below the pad,
+// writes its lane key * pad + slot. The word chunk is read by its stride
+// from the whole word side (the join plan interleaves its chunks), so no
+// chunk is gathered first. Slots are ranks among a chunk's equal keys, so
+// no two entries share a lane; dead entries (palindromic rc words, slot
+// 255) stay out. Bound: bytes, each output lane written once and each
+// entry's code, occ and slot read once.
+
+struct LayoutFill {
+  unsigned* a[6];           // dh, dl, docc, qh, ql, qidx
+  long long n[6];           // lanes of each
+  unsigned v[6];            // fill value of each
+};
+
+__global__ void __launch_bounds__(kThreads)
+    layout_fill_kernel(const LayoutFill f) {
+  const int j = blockIdx.y;
+  unsigned* a = f.a[j];
+  const long long n = f.n[j];
+  const unsigned v = f.v[j];
+  const uint4 q = {v, v, v, v};
+  const long long n4 = n >> 2;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * kThreads) {
+    ((uint4*)a)[i] = q;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < (n & 3)) a[(n4 << 2) + threadIdx.x] = v;
+}
+
+struct LayoutScatter {
+  const unsigned* whi;      // word side, entry i at i * w_stride
+  const unsigned* wlo;
+  const uint8_t* wocc;
+  const uint8_t* wslot;     // u8[n_w], contiguous
+  const unsigned* qhi;      // query chunk, contiguous
+  const unsigned* qlo;
+  const uint8_t* qslot;
+  long long w_stride, n_w, nq;
+  int lo_bit, width, cpad, cpad_q;
+  unsigned* dh;
+  unsigned* dl;
+  unsigned* docc;
+  unsigned* qh;
+  unsigned* ql;
+  int* qidx;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    layout_scatter_kernel(const LayoutScatter s) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i < s.n_w) {
+    const int slot = __ldg(s.wslot + i);
+    if (slot < s.cpad) {
+      const long long j = i * s.w_stride;
+      const unsigned h = __ldg(s.whi + j), l = __ldg(s.wlo + j);
+      const long long lane =
+          (long long)part_key(h, l, s.lo_bit, s.width) * s.cpad + slot;
+      s.dh[lane] = h;
+      s.dl[lane] = l;
+      s.docc[lane] = __ldg(s.wocc + j);
+    }
+  } else if (i < s.n_w + s.nq) {
+    const long long q = i - s.n_w;
+    const int slot = __ldg(s.qslot + q);
+    if (slot < s.cpad_q) {
+      const unsigned h = __ldg(s.qhi + q), l = __ldg(s.qlo + q);
+      const long long lane =
+          (long long)part_key(h, l, s.lo_bit, s.width) * s.cpad_q + slot;
+      s.qh[lane] = h;
+      s.ql[lane] = l;
+      s.qidx[lane] = (int)q;
+    }
+  }
+}
+
 bool bad_pads(long long n_buckets, int cpad, int cpad_q, int nq) {
   return n_buckets < 1 || cpad < 1 || cpad > 255 || cpad_q < 1 ||
          cpad_q > 255 || nq < 0;
@@ -863,5 +946,55 @@ extern "C" int qm2t_hamming_join_bits(const void* words, const void* woff,
                   k};
   const long long blocks = (n_max + kThreads - 1) / kThreads;
   join_runs_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(R);
+  return (int)cudaGetLastError();
+}
+
+// i': K1's layouts of one part (bits [lo_bit, lo_bit + width), 2^width
+// buckets) from a word chunk (whi, wlo u32 and wocc u8, entry i at
+// i * w_stride; wslot u8[n_w]) and a query chunk (qhi, qlo u32[nq], qslot
+// u8[nq]): dh, dl, docc u32[2^width * cpad + 1] and qh, ql, qidx
+// [2^width * cpad_q + 1], each 16-B aligned and written in full.
+extern "C" int qm2t_bucket_layouts(const void* whi, const void* wlo,
+                                   const void* wocc, long long w_stride,
+                                   const void* wslot, long long n_w,
+                                   const void* qhi, const void* qlo,
+                                   const void* qslot, long long nq,
+                                   int lo_bit, int width, int cpad,
+                                   int cpad_q, void* dh, void* dl,
+                                   void* docc, void* qh, void* ql,
+                                   void* qidx, void* stream) {
+  void* outs[6] = {dh, dl, docc, qh, ql, qidx};
+  bool aligned = true;
+  for (void* o : outs) aligned = aligned && (uintptr_t)o % 16 == 0;
+  if (bad_part(lo_bit, width) || width > 24 ||
+      bad_pads(1LL << width, cpad, cpad_q, 0) || n_w < 0 || w_stride < 1 ||
+      nq < 0 || nq > 0x7FFFFFFFLL || !aligned) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long nd = (1LL << width) * cpad + 1;
+  const long long nql = (1LL << width) * cpad_q + 1;
+  LayoutFill f;
+  for (int j = 0; j < 6; ++j) {
+    f.a[j] = (unsigned*)outs[j];
+    f.n[j] = j < 3 ? nd : nql;
+    f.v[j] = j == 5 ? (unsigned)nq : 0u;
+  }
+  const long long quads = (nd > nql ? nd : nql) >> 2;
+  long long fill_blocks = (quads + kThreads - 1) / kThreads;
+  if (fill_blocks > 4096) fill_blocks = 4096;
+  layout_fill_kernel<<<dim3((unsigned)(fill_blocks > 0 ? fill_blocks : 1), 6),
+                       kThreads, 0, st>>>(f);
+  const long long n = n_w + nq;
+  if (n > 0) {
+    const LayoutScatter sc = {
+        (const unsigned*)whi, (const unsigned*)wlo, (const uint8_t*)wocc,
+        (const uint8_t*)wslot, (const unsigned*)qhi, (const unsigned*)qlo,
+        (const uint8_t*)qslot, w_stride, n_w, nq, lo_bit, width, cpad,
+        cpad_q, (unsigned*)dh, (unsigned*)dl, (unsigned*)docc,
+        (unsigned*)qh, (unsigned*)ql, (int*)qidx};
+    layout_scatter_kernel<<<(unsigned)((n + kThreads - 1) / kThreads),
+                            kThreads, 0, st>>>(sc);
+  }
   return (int)cudaGetLastError();
 }

@@ -43,6 +43,10 @@ from quickmer2_tpu_torch.ops.packed_table import (
     ROW_WIDTH, bucket_hashes_t, probe_packed_block)
 
 GBLK = 64          # genome tile width (bases)
+# the widest row the kernels take: the lens format's u16 lengths
+# (ops/rowpack.py) hold no more
+MAX_READ_LEN = 65535
+TILE_L = 1024      # rows wider than this take K3's warp walk over tiles
 DBLK = 64          # prefix-count block size (positions per dblock row)
 BRANCHES = {"neighbor": 0, "point": 1, "runs": 2}
 
@@ -397,6 +401,56 @@ def anchored_count_plain(pk, aux, rows, tiles, dblock, diff, *, fmt: str,
     return code.to(torch.int8)
 
 
+def _check_rows(what: str, fmt: str, k: int, read_len: int, n_rows: int,
+                anchor_offsets) -> None:
+    """The row and anchor checks that K3 and K3a share."""
+    offs = [int(a) for a in anchor_offsets]
+    if read_len > MAX_READ_LEN:
+        raise ValueError(
+            f"{what}: rows of {read_len} bases are wider than "
+            f"{MAX_READ_LEN}, the most that the lens format's u16 row "
+            f"lengths hold")
+    if (fmt not in ("lens", "mask") or not 1 <= k <= 32
+            or read_len - k + 1 < 1 or n_rows < 1 or not 1 <= len(offs) <= 4
+            or not all(0 <= a <= read_len - k for a in offs)):
+        raise ValueError(
+            f"{what}: bad shapes or options (fmt={fmt!r}, k={k}, "
+            f"read_len={read_len}, rows={n_rows}, anchors={offs})")
+
+
+def check_anchored_count(*, fmt: str, k: int, read_len: int, n_rows: int,
+                         anchor_offsets, n_tiles: int, dblock_rows: int,
+                         n_diff: int, n_buckets: int, blk_lo: int = 0,
+                         block_buckets: int = 0) -> None:
+    """Raise ValueError unless K3 takes these shapes and options: rows of
+    1..65,535 bases (MAX_READ_LEN), k in 1..32 with a window a row, 1..4
+    anchors inside it, a dblock row a genome tile, at least two diff
+    words and a bucket block inside the table."""
+    _check_rows("anchored_count", fmt, k, read_len, n_rows, anchor_offsets)
+    block_buckets = block_buckets or n_buckets
+    if (dblock_rows < n_tiles or n_diff < 2
+            or not 0 <= blk_lo <= n_buckets - block_buckets):
+        raise ValueError(
+            f"anchored_count: bad table (dblock of {dblock_rows} rows for "
+            f"{n_tiles} tiles, {n_diff} diff words, block [{blk_lo}, "
+            f"{blk_lo} + {block_buckets}) of {n_buckets})")
+
+
+def check_anchor_probes(*, fmt: str, k: int, read_len: int, n_rows: int,
+                        anchor_offsets, n_buckets: int, blk_lo: int,
+                        block_buckets: int, bitmap_words: int) -> None:
+    """Raise ValueError unless K3a takes these shapes and options: K3's
+    row and anchor checks, a bucket block inside the table and a bitmap
+    of a power of two words, at most 2^27."""
+    _check_rows("anchor_probes", fmt, k, read_len, n_rows, anchor_offsets)
+    if (not 0 <= blk_lo <= n_buckets - block_buckets or bitmap_words < 1
+            or bitmap_words & (bitmap_words - 1) or bitmap_words > 1 << 27):
+        raise ValueError(
+            f"anchor_probes: bad block [{blk_lo}, {blk_lo} + "
+            f"{block_buckets}) of {n_buckets} or bitmap of {bitmap_words} "
+            f"words")
+
+
 def anchored_count(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
                    tiles: torch.Tensor, dblock: torch.Tensor,
                    diff: torch.Tensor, *, fmt: str, k: int, read_len: int,
@@ -410,8 +464,9 @@ def anchored_count(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
     R], summed over the blocks) rows is the block [blk_lo, blk_lo +
     block_buckets) of a dict-sharded table, and the clean runs are added
     only where `ranges` is set. `.launches` counts the kernel's launches,
-    `.branch_launches` the same launches by branch and `.block_launches`
-    those with given anchors."""
+    `.branch_launches` the same launches by branch, `.block_launches`
+    those with given anchors and `.wide_launches` those on rows wider
+    than TILE_L."""
     kw = dict(fmt=fmt, k=k, read_len=read_len, n_buckets=n_buckets,
               anchor_offsets=anchor_offsets, max_runs=max_runs,
               max_dirty=max_dirty, max_dirty_runs=max_dirty_runs,
@@ -423,7 +478,6 @@ def anchored_count(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
                                     block_buckets=block_buckets,
                                     ranges=ranges, **kw)
     R, L = pk.shape[0], read_len
-    W = L - k + 1
     offs = [int(a) for a in anchor_offsets]
     aux_shape, aux_dtype = rowpack.aux_layout(fmt, R, L)
     n_tiles = tiles.shape[0]
@@ -437,15 +491,11 @@ def anchored_count(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
         specs += [("found", anchors[0], torch.uint8, (len(offs), R)),
                   ("pos", anchors[1], torch.int32, (len(offs), R))]
     build.check_tensors("anchored_count", pk.device, specs)
-    if (fmt not in ("lens", "mask") or not 1 <= k <= 32 or not 1 <= W
-            or L > 1024 or R < 1 or not 1 <= len(offs) <= 4
-            or not all(0 <= a < W for a in offs)
-            or dblock.shape[0] < n_tiles or diff.shape[0] < 2
-            or not 0 <= blk_lo <= n_buckets - block_buckets):
-        raise ValueError(
-            f"anchored_count: bad shapes or options (fmt={fmt!r}, k={k}, "
-            f"read_len={read_len}, rows={R}, anchors={offs}, block "
-            f"[{blk_lo}, {blk_lo} + {block_buckets}) of {n_buckets})")
+    check_anchored_count(fmt=fmt, k=k, read_len=L, n_rows=R,
+                         anchor_offsets=offs, n_tiles=n_tiles,
+                         dblock_rows=dblock.shape[0], n_diff=diff.shape[0],
+                         n_buckets=n_buckets, blk_lo=blk_lo,
+                         block_buckets=block_buckets)
     code = torch.empty(R, dtype=torch.int8, device=pk.device)
     padded = offs + [0] * (4 - len(offs))
     branch = branch_of(max_dirty, dirty_run_width, neighbor_mode)
@@ -471,12 +521,15 @@ def anchored_count(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor,
     anchored_count.branch_launches[branch] += 1
     if anchors is not None:
         anchored_count.block_launches += 1
+    if L > TILE_L:
+        anchored_count.wide_launches += 1
     return code
 
 
 anchored_count.launches = 0
 anchored_count.branch_launches = dict.fromkeys(BRANCHES, 0)
 anchored_count.block_launches = 0
+anchored_count.wide_launches = 0
 
 
 def anchor_probes(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor, *,
@@ -517,15 +570,10 @@ def anchor_probes(pk: torch.Tensor, aux: torch.Tensor, rows: torch.Tensor, *,
                 or not t.is_contiguous()):
             build.check_tensors("anchor_probes", dev,
                                 [(name, t, dtype, shape)])
-    if (fmt not in ("lens", "mask") or not 1 <= k <= 32 or L - k < 0
-            or L > 1024 or R < 1 or not 1 <= A <= 4
-            or not all(0 <= a <= L - k for a in offs[:A])
-            or not 0 <= blk_lo <= n_buckets - block_buckets
-            or n_words < 1 or n_words & (n_words - 1) or n_words > 1 << 27):
-        raise ValueError(
-            f"anchor_probes: bad shapes or options (fmt={fmt!r}, k={k}, "
-            f"read_len={read_len}, rows={R}, anchors={offs[:A]}, "
-            f"bitmap of {n_words} words)")
+    check_anchor_probes(fmt=fmt, k=k, read_len=L, n_rows=R,
+                        anchor_offsets=offs[:A], n_buckets=n_buckets,
+                        blk_lo=blk_lo, block_buckets=block_buckets,
+                        bitmap_words=n_words)
     found = torch.empty(A, R, dtype=torch.uint8, device=dev)
     pos = torch.empty(A, R, dtype=torch.int32, device=dev)
     lib = _lib()

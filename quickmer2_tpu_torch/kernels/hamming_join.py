@@ -1,12 +1,15 @@
 """Hamming-join compare chains: the CUDA kernels of csrc/hamming_join.cu
-(K1, and K5 with its counting sort) and their plain PyTorch versions.
+(K1 with the scatter of its layouts, i', and K5 with its counting sort)
+and their plain PyTorch versions.
 
 `join_compare` (K1) replaces the slab loop of quickmer2_tpu/ops/
 hamming_join.py::_part_chunk_join (and the Pallas prototype
 tools/proto_join2d.py::kernel). Given one (part, word chunk)'s bucket
 layouts it adds, for every live query lane, Σ occ(w)·(6/m) over the
 bucket's word lanes w with 1 ≤ H(q, w) ≤ e into scaled[qidx] (u32,
-wrapping).
+wrapping). `bucket_layouts` (i') builds those layouts from one word chunk
+and one query chunk; its plain version is ops/hamming_join.py::
+_bucket_layouts.
 
 `join_bits` (K5) replaces _part_chunk_join_bits: it ORs into
 planes[q, b] the bit j of every substitution (window offset j, base b)
@@ -40,6 +43,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 7
              + [ctypes.c_uint] * 6 + [ctypes.c_void_p])
 _RUNS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8)
+_LAYOUT_ARGTYPES = ([ctypes.c_void_p] * 3
+                    + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7)
 _BITS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong,
                                            ctypes.c_void_p]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -51,6 +58,7 @@ STAGE_BYTES = 192 * 1024   # the place pass's stage in shared memory
 def _lib():
     return build.load("hamming_join",
                       {"qm2t_hamming_join": _ARGTYPES,
+                       "qm2t_bucket_layouts": _LAYOUT_ARGTYPES,
                        "qm2t_bucket_runs": _RUNS_ARGTYPES,
                        "qm2t_hamming_join_bits": _BITS_ARGTYPES})
 
@@ -125,6 +133,63 @@ def join_compare(dh: torch.Tensor, dl: torch.Tensor, docc: torch.Tensor,
 
 
 join_compare.launches = 0
+
+
+def bucket_layouts(whi: torch.Tensor, wlo: torch.Tensor, wocc: torch.Tensor,
+                   wslot: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
+                   qslot: torch.Tensor, *, lo_bit: int, width: int,
+                   n_buckets: int, cpad: int, cpad_q: int):
+    """K1's padded layouts of one part (i'): the word chunk (codes whi,
+    wlo, u8 occ wocc; 1-D views of the word side that may share a
+    stride, as the join plan's interleaved chunks are) and the query
+    chunk (qhi, qlo), each entry at lane key * pad + its in-bucket slot
+    (u8 wslot, qslot) where the slot is below the pad. Returns (dh, dl,
+    docc, qh, ql, qidx), as ops/hamming_join.py::_bucket_layouts, its
+    plain version, does."""
+    if whi.device.type == "cpu":
+        from quickmer2_tpu_torch.ops.hamming_join import _bucket_layouts
+        return _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot,
+                               lo_bit=lo_bit, width=width,
+                               n_buckets=n_buckets, cpad=cpad, cpad_q=cpad_q)
+    dev = whi.device
+    n_w, nq = whi.shape[0], qhi.shape[0]
+    stride = whi.stride(0) if n_w > 1 else 1
+    for name, t, dtype in (("whi", whi, torch.int32),
+                           ("wlo", wlo, torch.int32),
+                           ("wocc", wocc, torch.uint8)):
+        if (t.dtype != dtype or t.dim() != 1 or t.shape[0] != n_w
+                or t.device != dev or (n_w > 1 and t.stride(0) != stride)):
+            raise ValueError(
+                f"bucket_layouts: {name} must be a 1-D {dtype} tensor of "
+                f"{n_w} entries with stride {stride} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} with strides {t.stride()} on {t.device}")
+    build.check_tensors("bucket_layouts", dev, [
+        ("wslot", wslot, torch.uint8, (n_w,)),
+        ("qhi", qhi, torch.int32, (nq,)), ("qlo", qlo, torch.int32, (nq,)),
+        ("qslot", qslot, torch.uint8, (nq,))])
+    if not (1 <= width <= 24 and 0 <= lo_bit <= 64 - width
+            and n_buckets == 1 << width and 1 <= cpad <= 255
+            and 1 <= cpad_q <= 255):
+        raise ValueError(f"bucket_layouts: bad part bits [{lo_bit}, "
+                         f"{lo_bit} + {width}), {n_buckets} buckets or pads "
+                         f"{cpad}/{cpad_q}")
+    nd, nql = n_buckets * cpad + 1, n_buckets * cpad_q + 1
+    out = [torch.empty(n, dtype=torch.int32, device=dev)
+           for n in (nd, nd, nd, nql, nql, nql)]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.qm2t_bucket_layouts(
+            whi.data_ptr(), wlo.data_ptr(), wocc.data_ptr(), stride,
+            wslot.data_ptr(), n_w, qhi.data_ptr(), qlo.data_ptr(),
+            qslot.data_ptr(), nq, lo_bit, width, cpad, cpad_q,
+            *(t.data_ptr() for t in out), stream)
+    build.check(lib, rc, "bucket_layouts")
+    bucket_layouts.launches += 1
+    return tuple(out)
+
+
+bucket_layouts.launches = 0
 
 
 def part_keys(hi: torch.Tensor, lo: torch.Tensor, lo_bit: int,

@@ -14,8 +14,9 @@ probe successfully is such a w, exactly once.
 
 Pigeonhole: split the k bases into 3 contiguous parts; any pair with
 H ≤ 2 agrees exactly on ≥ 1 part. For each part, group W and the
-queries by the part's value into padded bucket layouts (plain PyTorch
-scatter, `_bucket_layouts`) and compare every query against its
+queries by the part's value into padded bucket layouts (the CUDA
+scatter i', kernels.hamming_join.bucket_layouts, whose plain version is
+`_bucket_layouts`) and compare every query against its
 bucket's members (the CUDA kernel csrc/hamming_join.cu through
 kernels.hamming_join.join_compare). A pair with m exact parts is found
 by exactly the m part-joins whose bucket is intact, so each join
@@ -50,7 +51,7 @@ import torch
 from quickmer2_tpu_torch.device import (
     U32, resolve_device, store, to_numpy_u32, u32, word_dtype, words)
 from quickmer2_tpu_torch.kernels.hamming_join import (
-    bucket_runs, join_bits, join_compare)
+    bucket_layouts, bucket_runs, join_bits, join_compare, part_keys)
 from quickmer2_tpu_torch.kernels.neighbor_sum import neighbor_sum
 from quickmer2_tpu_torch.ops import codec
 from quickmer2_tpu_torch.ops.editdist import edit_table
@@ -99,19 +100,13 @@ def _part_masks(k: int):
     return masks
 
 
-def _part_key(hi: torch.Tensor, lo: torch.Tensor, lo_bit: int,
-              width: int) -> torch.Tensor:
-    """Bits [lo_bit, lo_bit+width) of the (hi, lo) code (int64 u32
-    values) as int64."""
-    return (((hi << 32) | lo) >> lo_bit) & ((1 << width) - 1)
-
-
 def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
                     width: int, n_buckets: int, cpad: int, cpad_q: int):
     """Scatter one word chunk and the query chunk into padded bucket
     layouts (the first half of quickmer2_tpu _part_chunk_join,
     hamming_join.py:126-149): word lane key*cpad + slot, query lane
-    key*cpad_q + slot; entries whose slot reaches the pad stay out.
+    key*cpad_q + slot; entries whose slot reaches the pad stay out. The
+    plain version of i' (kernels.hamming_join.bucket_layouts).
     Returns (dh, dl, docc, qh, ql, qidx) — word tensors of B*cpad + 1 /
     B*cpad_q + 1 lanes (the last lane is the hole) and int32 qidx, nq on
     holes."""
@@ -121,7 +116,7 @@ def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
     hole_q = n_buckets * cpad_q
     dev = whi.device
     wsel = wslot.to(torch.int64) < cpad
-    keyw = _part_key(u32(whi[wsel]), u32(wlo[wsel]), lo_bit, width)
+    keyw = part_keys(whi[wsel], wlo[wsel], lo_bit, width)
     wf = keyw * cpad + wslot[wsel].to(torch.int64)
     dh = torch.zeros(hole_d + 1, dtype=dtype, device=dev)
     dl = torch.zeros_like(dh)
@@ -130,7 +125,7 @@ def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
     dl[wf] = wlo[wsel]
     docc[wf] = wocc[wsel].to(dtype)
     qsel = qslot.to(torch.int64) < cpad_q
-    keyq = _part_key(u32(qhi[qsel]), u32(qlo[qsel]), lo_bit, width)
+    keyq = part_keys(qhi[qsel], qlo[qsel], lo_bit, width)
     qf = keyq * cpad_q + qslot[qsel].to(torch.int64)
     qh = torch.zeros(hole_q + 1, dtype=dtype, device=dev)
     ql = torch.zeros_like(qh)
@@ -268,14 +263,15 @@ class _JoinPlan:
     def layouts(self, i: int, ci: int, q: dict):
         """Bucket layouts of part i, word chunk ci and query chunk q
         (from queries()): (dh, dl, docc, qh, ql, qidx), see
-        _bucket_layouts."""
+        _bucket_layouts (i' on the card: kernels.hamming_join.
+        bucket_layouts)."""
         if i not in q["slots"]:
             q["slots"][i] = torch.from_numpy(
                 _slots_u8(self.part_keys_q[i][q["sel"]])).to(self.device)
         whi_d, wlo_d, wocc_d = self._words()
         c = self.chunks[ci]
         s, t = self.ranges[i]
-        return _bucket_layouts(
+        return bucket_layouts(
             whi_d[c], wlo_d[c], wocc_d[c], self._w_slots(i, ci), q["hi"],
             q["lo"], q["slots"][i], lo_bit=2 * s, width=2 * (t - s),
             n_buckets=self.n_bkts[i], cpad=self.cpad, cpad_q=self.cpad_q)

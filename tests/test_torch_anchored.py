@@ -209,14 +209,48 @@ def test_anchored_count_matches_jax(world, branch, n_rate):
     assert (diff.numpy() != 0).sum() > 100
 
 
+def _planted_long_reads(rng, src: str, width: int) -> list[str]:
+    """Reads of width + 100 bases of src with one to three substitutions
+    at bases 1,000-1,060, across the first tile boundary (1,024) of the
+    kernel's walk over rows wider than 1,024; every other one reverse
+    complemented (so its errors sit near its end)."""
+    reads = []
+    for j in range(8):
+        s = int(rng.integers(0, len(src) - width - 100))
+        r = list(src[s:s + width + 100])
+        for p in rng.choice(np.arange(1000, 1061), 1 + j % 3, replace=False):
+            r[p] = "ACGT"[("ACGT".index(r[p]) + 1 + j % 3) % 4]
+        r = "".join(r)
+        reads.append(r if j % 2 == 0 else helpers.revcomp(r))
+    return reads
+
+
 def _rows_of_width(world, width: int, seed: int) -> np.ndarray:
     """Rows of `width` from the world's chromosomes. 64: reads of 64 at
     1 %/bp, reverse complements, garbage, reads over the N gap and the
     repeat. 1024: 10 kb reads at 0.3 %/bp (one reverse complemented)
-    cut into k-1-overlap segments, as the count cuts long reads."""
+    cut into k-1-overlap segments, as the count cuts long reads. Wider
+    (2048, 3000): four 9 kb reads clean and four at 0.1 %/bp, the
+    planted reads of _planted_long_reads and a read over the N gap and
+    the repeat, cut into segments; at widths that are no multiple of 32
+    an N is planted at bases 1,000-1,060 of every fourth planted read
+    (the mask format)."""
     rng = np.random.default_rng(seed)
     chr1, chr2 = world["chr1"], world["chr2"]
-    if width == 1024:
+    if width > 1024:
+        src = chr1[:15000]
+        reads = (helpers.simulate_reads(rng, src, 4, 9000)
+                 + helpers.mutate_reads(
+                     rng, helpers.simulate_reads(rng, src, 4, 9000), 0.001))
+        reads.append(helpers.revcomp(reads[4]))
+        planted = _planted_long_reads(rng, src, width)
+        if width % 32:
+            for j in range(3, len(planted), 4):
+                p = int(rng.integers(1000, 1061))
+                planted[j] = planted[j][:p] + "N" + planted[j][p + 1:]
+        gap = chr1.find("N")
+        reads += planted + [chr1[gap - width: gap + 1600]]
+    elif width == 1024:
         reads = helpers.mutate_reads(
             rng, helpers.simulate_reads(rng, chr1, 4, 10000)
             + helpers.simulate_reads(rng, chr2, 1, 5000), 0.003)
@@ -237,11 +271,12 @@ def _rows_of_width(world, width: int, seed: int) -> np.ndarray:
                                       segment_k=K)
 
 
-@pytest.mark.parametrize("width", [64, 1024])
+@pytest.mark.parametrize("width", [64, 1024, 2048, 3000])
 @pytest.mark.parametrize("branch", ["neighbor", "runs"])
 def test_anchored_count_widths_match_jax(world, width, branch):
-    """K3's plain version at the row widths its lane-group layout
-    branches on (2 and 32 lanes a read), tier 1 and tier 2."""
+    """K3's plain version at the row widths its layout branches on (2
+    and 32 lanes a read; a warp walking tiles of 1,024 bases, at a width
+    that is a multiple of 32 and one that is not), tier 1 and tier 2."""
     jix, tix = world["jindex"], world["tindex"]
     rows = _rows_of_width(world, width, width)
     fmt, pk, aux, pk_t, aux_t = _packed(rows)
@@ -262,6 +297,87 @@ def test_anchored_count_widths_match_jax(world, width, branch):
     np.testing.assert_array_equal(diff.numpy().astype(np.uint32),
                                   np.asarray(jdiff))
     assert (jcode == 0).sum() > 0 and (diff.numpy() != 0).sum() > 50
+
+
+def test_anchor_probes_wide_blocks_match_jax(world):
+    """K3a's plain version on rows of 2,048 under a two-block split: each
+    block's found / pos are the JAX function's per-block anchor probes
+    (probe_packed_block on the block's rows, found only where the window
+    is valid); their sum holds one hit an anchor, and K3 on the blocks
+    with it adds, over the blocks, the one-device diff and codes."""
+    jix, tix = world["jindex"], world["tindex"]
+    L = 2048
+    rows = _rows_of_width(world, L, 7 * L)
+    fmt, pk, aux, pk_t, aux_t = _packed(rows)
+    R, w = len(rows), L - K + 1
+    offs = tuple(sorted({0, w // 3, (2 * w) // 3, w - 1}))
+    chi_f, clo_f, valid_f = jcodec.sliding_kmers(jnp.asarray(rows.reshape(-1)),
+                                                 K)
+    pad = R * L - chi_f.shape[0]
+    chi, clo, valid = (np.pad(np.asarray(a), (0, pad)).reshape(R, L)[:, :w]
+                       for a in (chi_f, clo_f, valid_f))
+    bb = tix.n_buckets // 2
+    kw = dict(fmt=fmt, k=K, read_len=L, n_buckets=tix.n_buckets,
+              anchor_offsets=offs)
+    found = pos = 0
+    for j in range(2):
+        f, p = tkanch.anchor_probes(pk_t, aux_t, tix.rows[j * bb:(j + 1) * bb],
+                                    blk_lo=j * bb, block_buckets=bb, **kw)
+        for i, a in enumerate(offs):
+            jf, _, jp = jpacked.probe_packed_block(
+                jix.rows[j * bb:(j + 1) * bb], jnp.asarray(chi[:, a]),
+                jnp.asarray(clo[:, a]), jix.n_buckets, bb,
+                jnp.uint32(j * bb), jnp.uint32(0))
+            want_f = np.asarray(jf) & valid[:, a]
+            np.testing.assert_array_equal(f[i].numpy(), want_f)
+            np.testing.assert_array_equal(
+                p[i].numpy(), np.where(want_f, np.asarray(jp), 0))
+        found, pos = found + f.long(), pos + p
+    assert int(found.max()) <= 1 and int(found.sum()) > R
+    tier = TIER_KW["runs"]
+    one = torch.zeros(tix.n_kmers + 2, dtype=torch.int64)
+    want_code = tkanch.anchored_count(pk_t, aux_t, tix.rows, tix.genome_tiles,
+                                      tix.dblock, one, **kw, **tier)
+    total = torch.zeros_like(one)
+    for j in range(2):
+        d = torch.zeros_like(one)
+        code = tkanch.anchored_count(
+            pk_t, aux_t, tix.rows[j * bb:(j + 1) * bb], tix.genome_tiles,
+            tix.dblock, d, anchors=(found.to(torch.uint8), pos),
+            blk_lo=j * bb, block_buckets=bb, ranges=j == 0, **kw, **tier)
+        np.testing.assert_array_equal(code.numpy(), want_code.numpy())
+        total = (total + d) & 0xFFFFFFFF
+    np.testing.assert_array_equal(total.numpy(), one.numpy())
+    assert (want_code.numpy() == 0).sum() > 0
+
+
+@pytest.mark.parametrize("read_len,ok", [(2048, True), (65535, True),
+                                         (65536, False)])
+def test_wrapper_checks_take_rows_up_to_u16(read_len, ok):
+    """K3's and K3a's option checks (what their wrappers run on the card)
+    take rows up to 65,535 bases and refuse wider ones, naming the
+    reason: the lens format's u16 lengths, which wrap a full row of
+    65,536 to 0 (the JAX package's rowpack.row_suffix_lens too)."""
+    last = read_len - K
+    checks = [
+        lambda: tkanch.check_anchored_count(
+            fmt="lens", k=K, read_len=read_len, n_rows=3,
+            anchor_offsets=(0, last // 2, last), n_tiles=8, dblock_rows=8,
+            n_diff=10, n_buckets=64),
+        lambda: tkanch.check_anchor_probes(
+            fmt="mask", k=K, read_len=read_len, n_rows=3,
+            anchor_offsets=(0, last), n_buckets=64, blk_lo=32,
+            block_buckets=32, bitmap_words=1024)]
+    for check in checks:
+        if ok:
+            check()
+        else:
+            with pytest.raises(ValueError, match="65535.*u16"):
+                check()
+    if not ok:
+        full = np.zeros((1, read_len), np.uint8)
+        assert int(jrowpack.row_suffix_lens(full)[0]) == 0
+        assert int(jrowpack.row_suffix_lens(full[:, :-1])[0]) == 65535
 
 
 def test_exact_count_rows_mono_matches_jax(world):
@@ -528,6 +644,49 @@ def test_run_count_anchored_matches_jax(tmp_path, lengths):
     if max(lengths) > 1024:
         assert ts["n_long_reads"] == js["n_long_reads"] == 8
         assert ts["n_segments"] == js["n_segments"]
+    assert formats_nonzero(outs["port"][0] + "/s.bin")
+
+
+def test_run_count_anchored_read_len_2048_matches_jax(tmp_path):
+    """run_count(mode="anchored", read_len=2048) writes the JAX
+    package's .bin and .txt, byte for byte, with long reads cut into
+    segments of 2,048 (rows the card walks in tiles of 1,024), and the
+    same n_long_reads and n_segments."""
+    from quickmer2_tpu.pipelines.count import run_count as jrun
+    rng = np.random.default_rng(2048)
+    chrom = helpers.random_genome(rng, 30000)
+    reads = helpers.mutate_reads(
+        rng, helpers.simulate_reads(rng, chrom, 24, 5000)
+        + helpers.simulate_reads(rng, chrom, 100, 150), 0.001)
+    reads += _planted_long_reads(rng, chrom, 2048)
+    outs = {}
+    for pkg in ("jax", "port"):
+        d = tmp_path / pkg
+        d.mkdir()
+        fa = str(d / "g.fa")
+        helpers.write_fasta(fa, {"c1": chrom})
+        with open(d / "ctrl.bed", "w") as f:
+            f.write(f"c1\t0\t{len(chrom)}\nc9\t0\t100\n")
+        _search(fa, str(d / "ctrl.bed"))
+        helpers.write_fastq(str(d / "r.fq"), reads)
+        kw = dict(batch_bases=1 << 16, verbose=False, mode="anchored",
+                  ref_fasta=fa, read_len=2048)
+        if pkg == "jax":
+            stats = jrun(fa + ".qm", str(d / "r.fq"), str(d / "s"), **kw)
+        else:
+            stats = tcount.run_count(fa + ".qm", str(d / "r.fq"),
+                                     str(d / "s"), device="cpu", **kw)
+        outs[pkg] = (str(d), stats)
+    for ext in (".bin", ".txt"):
+        with open(outs["jax"][0] + "/s" + ext, "rb") as f:
+            want = f.read()
+        with open(outs["port"][0] + "/s" + ext, "rb") as f:
+            assert f.read() == want, ext
+    js, ts = outs["jax"][1], outs["port"][1]
+    for key in ("mode", "n_reads", "n_spilled", "n_spilled2", "read_len",
+                "n_long_reads", "n_segments"):
+        assert ts[key] == js[key], key
+    assert ts["read_len"] == 2048 and ts["n_long_reads"] == 32
     assert formats_nonzero(outs["port"][0] + "/s.bin")
 
 

@@ -1,5 +1,6 @@
 """Port Hamming join against the JAX package: the plain compare chain
-on identical bucket layouts equals one _part_chunk_join call, and
+on identical bucket layouts equals one _part_chunk_join call, the
+layouts' wrapper (i') on the CPU gives the plain scatter's tensors, and
 hamming_neighbor_sums equals the JAX one with forced slow paths, small
 query chunks, palindromes and self-pairs. Integer sums: exact."""
 
@@ -11,7 +12,8 @@ import torch
 from quickmer2_tpu.ops import codec as jcodec
 from quickmer2_tpu.ops import hamming_join as jhj
 from quickmer2_tpu_torch.device import to_numpy_u32
-from quickmer2_tpu_torch.kernels.hamming_join import join_compare
+from quickmer2_tpu_torch.kernels.hamming_join import (bucket_layouts,
+                                                      join_compare)
 from quickmer2_tpu_torch.ops import hamming_join as thj
 from tests import helpers
 from tests.torch_threads import few_threads  # noqa: F401
@@ -73,6 +75,76 @@ def test_plain_chain_matches_part_chunk_join(k, e, part, cpad, cpad_q):
     # lane nq is the trash lane: JAX adds hole lanes there, the port not
     np.testing.assert_array_equal(got[:-1], want[:-1])
     assert want[:-1].any()
+
+
+@pytest.mark.parametrize("cpad,cpad_q", [(8, 4), (4, 8)])
+def test_bucket_layouts_cpu_path_matches_plain(cpad, cpad_q):
+    """i' (bucket_layouts) on the CPU returns _bucket_layouts's tensors,
+    exactly, on an interleaved word chunk (a strided view of the word
+    side, as the join plan cuts it): every entry whose slot is below its
+    pad at lane key * pad + slot, entries at and past the pads and the
+    dead slot-255 lanes (palindromes' rc words) out, the hole lanes
+    empty, qidx the query's index in the chunk and nq elsewhere; cpad <
+    cpad_q included."""
+    k, part, n_chunks, c = 16, 0, 3, 1
+    uniq, occ = _world(31, k)
+    # 60 singletons in one part-0 bucket: slots past both pads
+    rng = np.random.default_rng(31)
+    crowd = ((rng.integers(0, 1 << 20, 60).astype(np.uint64) << np.uint64(12))
+             | np.uint64(0x5A5))
+    # and palindromes, whose rc words are dead
+    half = rng.integers(0, 1 << 16, 30).astype(np.uint64)
+    pal = (half << np.uint64(16)) | jhj._rc_np(half, 8)
+    crowd = np.concatenate([crowd, pal[jhj._rc_np(pal, k) == pal]])
+    uniq, first = np.unique(np.concatenate([uniq, crowd]), return_index=True)
+    occ = np.concatenate([occ, np.ones(len(crowd), np.uint8)])[first]
+    rc = jhj._rc_np(uniq, k)
+    w = np.concatenate([uniq, rc])
+    live = np.concatenate([np.ones(len(uniq), bool), rc != uniq])
+    wocc = np.concatenate([occ, occ])
+    whi, wlo = jcodec.split_u64(w)
+    s, t = jhj.part_ranges(k)[part]
+    B = 1 << (2 * (t - s))
+    chunk = slice(c, len(w), n_chunks)
+    keys = jhj._extract_part_np(whi, wlo, s, t)[chunk]
+    wslot = np.full(len(keys), 255, np.uint8)
+    wslot[live[chunk]] = jhj._slots_u8(keys[live[chunk]])
+    queries = uniq[occ == 1][::2]
+    qhi, qlo = jcodec.split_u64(queries)
+    qkeys = jhj._extract_part_np(qhi, qlo, s, t)
+    qslot = jhj._slots_u8(qkeys)
+    assert (wslot == 255).any() and ((wslot >= cpad) & (wslot < 255)).any()
+    assert (qslot >= cpad_q).any()
+
+    def i64(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int64))
+    args = (i64(whi)[chunk], i64(wlo)[chunk], torch.from_numpy(wocc)[chunk],
+            torch.from_numpy(wslot), i64(qhi), i64(qlo),
+            torch.from_numpy(qslot))
+    kw = dict(lo_bit=2 * s, width=2 * (t - s), n_buckets=B, cpad=cpad,
+              cpad_q=cpad_q)
+    got = bucket_layouts(*args, **kw)
+    want = thj._bucket_layouts(*args, **kw)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype
+        np.testing.assert_array_equal(g.numpy(), x.numpy())
+    # the layouts by hand
+    nq = len(queries)
+    lanes = [np.zeros(B * cpad + 1, np.int64) for _ in range(3)]
+    qlanes = [np.zeros(B * cpad_q + 1, np.int64) for _ in range(2)]
+    qidx = np.full(B * cpad_q + 1, nq, np.int64)
+    sel = wslot < cpad
+    lane = keys[sel].astype(np.int64) * cpad + wslot[sel]
+    for a, v in zip(lanes, (whi[chunk], wlo[chunk], wocc[chunk])):
+        a[lane] = v[sel]
+    sel = qslot < cpad_q
+    lane = qkeys[sel].astype(np.int64) * cpad_q + qslot[sel]
+    for a, v in zip(qlanes, (qhi, qlo)):
+        a[lane] = v[sel]
+    qidx[lane] = np.flatnonzero(sel)
+    for g, x in zip(got, lanes + qlanes + [qidx]):
+        np.testing.assert_array_equal(g.numpy(), x)
+    assert got[2][-1] == 0 and got[5][-1] == nq
 
 
 @pytest.mark.parametrize("k,e,cpad,chunk_q,chunk_w", [
