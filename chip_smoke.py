@@ -15,11 +15,17 @@ Phases:
                 runs at P = 1, 4, 8, 32 and 64, each checked; untimed at
                 k = 32 (P = 2), k = 15 (P = 2) and k = 31 (P = 1, the
                 one-pass kernel), the last two on batches that are not a
-                multiple of 64 bases. Then i′ (the layout scatter)
-                against its plain version on the search's own layouts at
-                pads 64/32 (timed, its fill and scatter passes by
-                torch.profiler) and 128/64, each also on planted entries
-                at and past the pads, and K1 (Hamming join) on those
+                multiple of 64 bases. Then i′ (K1's layouts: a stable
+                counting sort of each side and an expand, no slots)
+                against its plain version and, bit for bit, against the
+                layouts of the host's slots (`_slots_u8`), on the
+                search's own layouts at pads 64/32 (timed, its five
+                passes by torch.profiler, beside torch.sort of the keys
+                and the host slots' seconds) and 128/64, each also on
+                entries planted by entry order and spread over the
+                chunk (a word crowd of cpad + 9 with dead words, a query
+                crowd of cpad_q + 5, a one-entry last bucket, strided
+                word views), and K1 (Hamming join) on those
                 layouts (timed) and 128/64 (on every 4th
                 distinct k-mer), each also on
                 hand-planted buckets: > 1024 live pairs, 36 pairs, live
@@ -369,7 +375,8 @@ PTXAS_ROWS = {"hamming_join": ("hamming_join", "hamming_join_kernel"),
               "count_packed_rows": ("count_mono", "exact_packed_kernel"),
               "anchor_probes": ("anchored", "anchor_probe_kernel"),
               "anchored_wide": ("anchored", "anchored_wide_kernel"),
-              "bucket_layouts": ("hamming_join", "layout_(fill|scatter)"),
+              "bucket_layouts": ("hamming_join",
+                                 "lay_(hist|scan|part|place|expand)"),
               "kmerize": ("count_flat", "kmerize_kernel"),
               "member_scan": ("emit_member", "bin_kernelIt|member_probe"),
               "window_sums": ("est_windows", "window_sums_kernel")}
@@ -600,34 +607,59 @@ def check_count_mono(rng, k, n_keys, n_bases, dev, timed):
 def join_layouts(uniq, occ, k, cpad, cpad_q, dev):
     """Part 0, word chunk 0 and query chunk 0 of the search's own join
     plan at these pads: its queries (the singletons), its interleaved
-    chunks and its slow-path routing, built by its layout scatter (i').
-    Returns the layouts, the query count, the bucket count and i''s
-    arguments for them (positional, keyword)."""
+    chunks and its slow-path routing, built by i'. Returns the layouts,
+    the query count, the bucket count and i''s arguments for them
+    (positional: the word chunk's codes, occ and live flags as strided
+    views, the query chunk's codes; keyword)."""
     from quickmer2_tpu_torch.ops import hamming_join as hj
     plan = hj._JoinPlan(uniq[occ == 1], uniq, occ, k, cpad=cpad,
                         cpad_q=cpad_q, device=dev)
     qsel = plan.query_chunk(0)
     q = plan.queries(qsel)
     lay = plan.layouts(0, 0, q)
-    whi_d, wlo_d, wocc_d = plan._words()
+    whi_d, wlo_d, wocc_d, wlive_d = plan._words()
     c = plan.chunks[0]
     s, t = plan.ranges[0]
-    args = (whi_d[c], wlo_d[c], wocc_d[c], plan._w_slots(0, 0), q["hi"],
-            q["lo"], q["slots"][0])
+    args = (whi_d[c], wlo_d[c], wocc_d[c], wlive_d[c], q["hi"], q["lo"])
     kw = dict(lo_bit=2 * s, width=2 * (t - s), n_buckets=plan.n_bkts[0],
               cpad=plan.cpad, cpad_q=plan.cpad_q)
     return lay, len(qsel), plan.n_bkts[0], (args, kw)
 
 
+def host_slots(args, kw):
+    """The in-bucket slots the host computed for the sums join before
+    i' ranked entries itself: _slots_u8 (np.argsort) of each side's part
+    keys, 255 for a dead word. Returns (word slots, query slots) as u8
+    tensors on the card and the host seconds they took."""
+    from quickmer2_tpu_torch.kernels.hamming_join import part_keys
+    from quickmer2_tpu_torch.ops.hamming_join import _slots_u8
+    whi, wlo, _, wlive, qhi, qlo = args
+    bits = dict(lo_bit=kw["lo_bit"], width=kw["width"])
+    wkeys = part_keys(whi, wlo, **bits).cpu().numpy()
+    qkeys = part_keys(qhi, qlo, **bits).cpu().numpy()
+    live = wlive.cpu().numpy()
+    t = time.perf_counter()
+    wslot = np.full(len(wkeys), 255, np.uint8)
+    wslot[live] = _slots_u8(wkeys[live])
+    qslot = _slots_u8(qkeys)
+    host_s = time.perf_counter() - t
+    dev = whi.device
+    return (torch.from_numpy(wslot).to(dev), torch.from_numpy(qslot).to(dev),
+            host_s)
+
+
 def plant_entries(args, kw, rng):
-    """i''s inputs with three buckets planted (their other entries taken
-    out): bucket 0 with cpad + 9 words (slots 0..cpad + 8: at and past
-    the pad) and a dead one (slot 255), bucket 1 with cpad_q + 5 queries
-    (slots at and past the query pad) and 3 words, the last bucket with
-    one word and one query. The word side becomes contiguous."""
+    """i''s inputs with buckets planted by entry order (their keys' other
+    entries taken out), each spread over the whole chunk, so that the
+    sort's tiles and bins must keep entry order for the layouts to be
+    right: key 0 with cpad + 9 live words and 3 dead ones among them (a
+    palindrome's rc word), key 1 with cpad_q + 5 queries and 3 words,
+    the last key with one word and one query. The word side comes back
+    as strided views (every other entry of a buffer), as the join plan's
+    interleaved chunks are."""
     from quickmer2_tpu_torch.device import words as as_words
     from quickmer2_tpu_torch.kernels.hamming_join import part_keys
-    whi, wlo, wocc, wslot, qhi, qlo, qslot = args
+    whi, wlo, wocc, wlive, qhi, qlo = args
     lo_bit, width, B = kw["lo_bit"], kw["width"], kw["n_buckets"]
     cpad, cpad_q = kw["cpad"], kw["cpad_q"]
     keys = (0, 1, B - 1)
@@ -637,51 +669,70 @@ def plant_entries(args, kw, rng):
         key = part_keys(hi, lo, lo_bit, width)
         return ~torch.isin(key, torch.tensor(keys, device=dev))
 
-    def codes(key, n):
-        c = rng.integers(0, 1 << 60, n).astype(np.uint64)
+    def codes(key_list):
+        key = np.asarray(key_list, np.uint64)
+        c = rng.integers(0, 1 << 60, len(key)).astype(np.uint64)
         m = np.uint64(((1 << width) - 1) << lo_bit)
-        c = (c & ~m) | (np.uint64(key) << np.uint64(lo_bit))
+        c = (c & ~m) | (key << np.uint64(lo_bit))
         return (as_words((c >> np.uint64(32)).astype(np.uint32), dev),
                 as_words((c & np.uint64(0xFFFFFFFF)).astype(np.uint32), dev))
 
-    def u8(a):
-        return torch.tensor(a, dtype=torch.uint8, device=dev)
-    w_keys = [(keys[0], list(range(cpad + 9)) + [255]),
-              (keys[1], [0, 1, 2]), (keys[2], [0])]
-    q_keys = [(keys[1], list(range(cpad_q + 5))), (keys[2], [0])]
-    kw_ = keep(whi, wlo)
-    wparts = [(whi[kw_], wlo[kw_], wocc[kw_], wslot[kw_])]
-    for key, slots in w_keys:
-        h, lo = codes(key, len(slots))
-        occ = u8(rng.integers(1, 256, len(slots)))
-        wparts.append((h, lo, occ, u8(slots)))
-    kq = keep(qhi, qlo)
-    qparts = [(qhi[kq], qlo[kq], qslot[kq])]
-    for key, slots in q_keys:
-        h, lo = codes(key, len(slots))
-        qparts.append((h, lo, u8(slots)))
-    cat = [torch.cat(x) for x in zip(*wparts)] + [torch.cat(x)
-                                                   for x in zip(*qparts)]
-    return tuple(cat)
+    def spread(kept, planted, stride):
+        """kept and planted entries interleaved, the planted ones at
+        random places over the whole side; every stride-th entry of a
+        buffer."""
+        n = kept[0].shape[0] + planted[0].shape[0]
+        at = torch.zeros(n, dtype=torch.bool, device=dev)
+        at[torch.from_numpy(np.sort(rng.choice(
+            n, planted[0].shape[0], replace=False))).to(dev)] = True
+        out = []
+        for k_, p_ in zip(kept, planted):
+            buf = torch.zeros((n, stride), dtype=k_.dtype, device=dev)
+            buf[~at, 0] = k_
+            buf[at, 0] = p_
+            out.append(buf[:, 0])
+        return out
+
+    w_keys = [keys[0]] * (cpad + 12) + [keys[1]] * 3 + [keys[2]]
+    w_live = np.ones(len(w_keys), bool)
+    w_live[rng.choice(cpad + 12, 3, replace=False)] = False
+    wk = keep(whi, wlo)
+    wh, wl = codes(w_keys)
+    words_ = spread([whi[wk], wlo[wk], wocc[wk], wlive[wk]],
+                    [wh, wl, torch.from_numpy(rng.integers(
+                        1, 256, len(w_keys)).astype(np.uint8)).to(dev),
+                     torch.from_numpy(w_live).to(dev)], 2)
+    qk = keep(qhi, qlo)
+    qh, ql = codes([keys[1]] * (cpad_q + 5) + [keys[2]])
+    queries = spread([qhi[qk], qlo[qk]], [qh, ql], 1)
+    return tuple(words_) + tuple(queries)
 
 
 def check_bucket_layouts(args, kw, label):
-    """i' against its plain version (_bucket_layouts) on one call's
-    inputs; returns the largest difference (0, else it raises)."""
-    from quickmer2_tpu_torch.kernels.hamming_join import bucket_layouts
+    """i' against its plain version (bucket_layouts_plain: torch's stable
+    sort for the ranks) and, bit for bit, against _bucket_layouts fed the
+    host's slots (host_slots) on one call's inputs; returns the largest
+    difference (0, else it raises)."""
+    from quickmer2_tpu_torch.kernels.hamming_join import (
+        bucket_layouts, bucket_layouts_plain)
     from quickmer2_tpu_torch.ops.hamming_join import _bucket_layouts
     got = bucket_layouts(*args, **kw)
-    want = _bucket_layouts(*args, **kw)
+    want = bucket_layouts_plain(*args, **kw)
+    wslot, qslot, _ = host_slots(args, kw)
+    whi, wlo, wocc, _, qhi, qlo = args
+    host = _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, **kw)
     torch.cuda.synchronize()
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    err_host = max(max_abs_err(g, h) for g, h in zip(got, host))
     live_w = int((got[5] != args[4].shape[0]).sum())
     log(f"  bucket_layouts{label}: {args[0].shape[0]} words (stride "
-        f"{args[0].stride(0)}), {args[4].shape[0]} queries, "
-        f"{int((got[2] != 0).sum())} word and {live_w} query lanes live, "
-        f"max |kernel - plain| = {err}")
-    if err != 0:
+        f"{args[0].stride(0)}, {int((~args[3]).sum())} dead), "
+        f"{args[4].shape[0]} queries, {int((got[2] != 0).sum())} word and "
+        f"{live_w} query lanes live, max |kernel - plain| = {err}, max "
+        f"|kernel - host slots' layouts| = {err_host}")
+    if err != 0 or err_host != 0:
         raise AssertionError(f"bucket_layouts{label} disagrees with its "
-                             "plain version")
+                             "plain version or the host slots' layouts")
     return err
 
 
@@ -727,33 +778,46 @@ def plant_buckets(lay, nq, cpad, cpad_q, rng):
 
 
 def time_bucket_layouts(args, kw, err):
-    """i''s kernel-table row, timed on the search's own layouts (its fill
-    and scatter passes by torch.profiler) beside its plain version (the index_put_ composition that _bucket_layouts
-    is, so it is also the library time). Least traffic: each output lane
-    written once (12 B a word lane and a query lane) and each entry's
-    code (8 B), slot (1 B) and, for a word, occ (1 B) read once; ~10 int
-    ops an entry."""
-    from quickmer2_tpu_torch.kernels.hamming_join import bucket_layouts
-    from quickmer2_tpu_torch.ops.hamming_join import _bucket_layouts
+    """i''s kernel-table row, timed on the search's own layouts (its
+    passes by torch.profiler, each summed over both sides) beside its
+    plain version, one torch.sort of each side's part keys (stable: the
+    order only, no layouts) and the host slots that the sums join no
+    longer computes (host seconds for this call's two sides). Least
+    traffic: each output lane written once (12 B a word lane and a query
+    lane) and each entry's code (8 B) and, for a word, occ and live flag
+    (1 B each) read once; ~10 int ops an entry. The count of the slot
+    design (a slot byte read for every entry) beside it."""
+    from quickmer2_tpu_torch.kernels.hamming_join import (
+        bucket_layouts, bucket_layouts_plain, part_keys)
     ms, queued_ms = kernel_ms(lambda: bucket_layouts(*args, **kw), 10)
     passes = profile_kernels(lambda: bucket_layouts(*args, **kw), 3,
                              "bucket_layouts")
-    plain_ms = cuda_ms(lambda: _bucket_layouts(*args, **kw), 3)
+    plain_ms = cuda_ms(lambda: bucket_layouts_plain(*args, **kw), 3)
+    bits = dict(lo_bit=kw["lo_bit"], width=kw["width"])
+    keys = [part_keys(args[0], args[1], **bits),
+            part_keys(args[4], args[5], **bits)]
+    lib_ms = cuda_ms(lambda: [torch.sort(x, stable=True) for x in keys], 3)
+    host_s = host_slots(args, kw)[2]
     n_w, nq = args[0].shape[0], args[4].shape[0]
     lanes = kw["n_buckets"] * (kw["cpad"] + kw["cpad_q"]) + 2
-    n_bytes = 12 * lanes + 10 * n_w + 9 * nq
+    n_bytes = 12 * lanes + 10 * n_w + 8 * nq
     b_ms, b_by = bound_ms(n_bytes, 10 * (n_w + nq))
+    old_bytes = 12 * lanes + 10 * n_w + 9 * nq
+    old_ms, _ = bound_ms(old_bytes, 10 * (n_w + nq))
     log(f"  bucket_layouts time {ms:.4f} ms (queued {queued_ms:.4f} ms; "
         f"by torch.profiler {passes}), "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{n_bytes / 1e6:.1f} MB; {lanes} lanes, {n_w} words, {nq} "
-        f"queries)")
+        f"plain {plain_ms:.4f} ms, torch.sort of both sides' keys "
+        f"{lib_ms:.4f} ms, the host slots of this call {host_s:.3f} s; "
+        f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB; {lanes} "
+        f"lanes, {n_w} words, {nq} queries; with a slot byte an entry "
+        f"{old_bytes / 1e6:.1f} MB, {old_ms:.4f} ms)")
     return {"name": "bucket_layouts", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/hamming_join.cu",
             "replaces": "quickmer2_tpu/ops/hamming_join.py:114",
             "max_abs_err": err, "ms": ms, "queued_ms": queued_ms,
             "passes_ms": passes, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": plain_ms}
+            "bound_by": b_by, "slot_design_bound_ms": old_ms,
+            "host_slots_s": host_s, "library_ms": lib_ms}
 
 
 def check_hamming_join(uniq, occ, k, cpad, cpad_q, dev, timed):
@@ -4313,6 +4377,11 @@ def main() -> int:
             window_size=1000, control_bed=world["ctrl"]),
             verbose=False, stats=sstats, device="cuda")
         log(f"phase search: {time.time() - t:.1f} s {json.dumps(sstats)}")
+        log(f"  search join_s {sstats['phases']['join_s']:.2f} s (the join "
+            f"plan's host routing plan_s {sstats['filter']['plan_s']:.2f} s, "
+            f"{sstats['filter']['join_calls']} join calls), slow_table_s "
+            f"{sstats['phases']['slow_table_s']:.2f} s, slow_s "
+            f"{sstats['phases']['slow_s']:.2f} s")
         srch = read_counts()
         log(f"launches in the search: {srch}")
         if not all(srch[k] > 0 for k in ("hamming_join", "neighbor_sum",

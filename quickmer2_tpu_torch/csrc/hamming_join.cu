@@ -1,7 +1,7 @@
 // The Hamming joins: K1, the compare chain of the search phase's
-// edit-distance filter, with i', the scatter that builds K1's layouts, and
-// K5, the anchored index's neighbor bits, with the counting sort that
-// builds K5's inputs.
+// edit-distance filter, with i', the stable counting sort and expand that
+// build K1's layouts, and K5, the anchored index's neighbor bits, with the
+// counting sort that builds K5's inputs.
 //
 // K1 replaces the slab loop of quickmer2_tpu/ops/hamming_join.py::
 // _part_chunk_join (:151-182) and its fused Pallas form,
@@ -717,81 +717,576 @@ join_runs_kernel(const Runs R) {
 //
 // i' replaces the first half of quickmer2_tpu/ops/hamming_join.py::
 // _part_chunk_join (:114, the key recompute and scatters at :126-149),
-// whose plain version is ops/hamming_join.py::_bucket_layouts: one word
-// chunk and one query chunk scattered into K1's padded layouts. Two
-// launches: a fill of the six arrays (zeros, qidx = nq, the hole lanes
-// too) in 16-B stores, then a thread an entry, which recomputes the
-// entry's part key from its code and, where its slot is below the pad,
-// writes its lane key * pad + slot. The word chunk is read by its stride
-// from the whole word side (the join plan interleaves its chunks), so no
-// chunk is gathered first. Slots are ranks among a chunk's equal keys, so
-// no two entries share a lane; dead entries (palindromic rc words, slot
-// 255) stay out. Bound: bytes, each output lane written once and each
-// entry's code, occ and slot read once.
+// whose plain version is kernels/hamming_join.py::bucket_layouts_plain:
+// one word chunk and one query chunk placed into K1's padded layouts,
+// each entry at lane key * pad + its rank among the live entries of its
+// key in entry order, where that rank is below the pad. The JAX package
+// takes those ranks (slots) from the host, a stable argsort per part and
+// chunk; i' takes none. Each side is sorted by part key with a counting
+// sort that keeps entry order within a key, into bucket runs (entries in
+// key order, u32 offsets a key), and then one expand pass writes every
+// lane of the six arrays once: lane b * pad + s takes run entry
+// off[b] + s where s < min(count_b, pad), else the hole value (0; nq for
+// qidx). An entry's place in its run is its slot, so no slot is computed.
+// Scattering each entry's lanes instead (after a fill) writes every lane
+// twice, the second time as a random partial sector in arrays of up to
+// 268 MB that the fill has pushed out of the L2: 1.9x this design's time
+// on the smoke's search (PERF.md).
+//
+// The sort is K5's two-level design (bins, then keys inside a bin) made
+// stable; it runs four passes a side:
+//   hist  - block t counts tile t's live entries (8,192 entries) by coarse
+//           bin (the part key's top bits, at most 2,048 bins) and writes
+//           its row of counts[tile][bin];
+//   scan  - turns each bin's column of counts into its exclusive scan
+//           over the tiles, and the bin's total;
+//   part  - block t stages tile t's codes in shared memory, orders the
+//           tile by bin keeping tile order (stable_order) and writes each
+//           bin's share, 16 B an entry, at the bin's start (a scan of the
+//           totals) + its tile's prefix: each bin's range then holds its
+//           entries in entry order, with no atomics in global memory;
+//   place - a block a bin stages its range (8,192 entries at most),
+//           counts it by key (the offsets), orders it by key keeping
+//           range order and writes it out coalesced as its keys' runs; a
+//           skewed bin past the stage is counted from the partition and
+//           then taken in rounds of 8,192 entries in order, each appended
+//           to the keys' runs.
+// A thread issues all its loads of a pass before it uses the first.
+// stable_order is a counting sort of a staged tile by a small digit: W
+// warps each take a contiguous segment of it and walk it 32 entries at a
+// time (an entry's rank is the count of equal digits on lower lanes plus
+// those seen before in the segment), then every thread places its
+// entries: the order of equal digits is the staged order, with no
+// block-wide sort and no per-thread counters. Equal digits of a chunk are
+// grouped by one ballot a digit bit (match_digit), and only in a chunk
+// that a bitmap test finds a repeat in: on the H100 a ballot costs ~4
+// cycles of an SM's issue, __match_any_sync ~600-1,400 cycles where the
+// digits are distinct, and most of a tile's chunks hold 32 distinct bins.
+// Words whose live flag is 0 (palindromes' rc words) take a dead digit
+// and stay out. Nothing is kept between calls and no scratch needs
+// clearing: the wrapper passes one buffer a call.
+// The expand is a thread per four lanes with 16-B stores, coalesced, and
+// reads the runs in lane order. Bound: bytes, each lane written once and
+// each entry's code, occ and live flag read once (chip_smoke.py).
 
-struct LayoutFill {
-  unsigned* a[6];           // dh, dl, docc, qh, ql, qidx
-  long long n[6];           // lanes of each
-  unsigned v[6];            // fill value of each
+constexpr int kLayTile = 8192;          // entries a tile of hist and part
+constexpr int kLayMaxBins = 2048;       // coarse bins, at most
+constexpr int kLayHistThreads = 512;
+constexpr int kLayPartThreads = 1024;
+constexpr int kLayPartWarps = 16;       // part's ranking warps
+constexpr int kLayPlaceThreads = 1024;
+constexpr int kLayRound = 8192;         // entries place stages at once
+// dynamic shared memory a block may take: 227 KB less the static kind
+constexpr int kLaySmemMax = 227 * 1024 - 1024;
+constexpr int kLayExpandThreads = 256;
+constexpr int kDigitBits = 14;          // digits (bins, keys) < 2^14 - 1
+constexpr unsigned kNoDigit = (1u << kDigitBits) - 1u;
+
+// One side of a layouts call: its entries (codes hi, lo and, for the word
+// side, u8 occ and live flags, entry i at i * stride; on the query side
+// occ and live are null, every entry is live and its tag is its index),
+// its part bits, its coarse bins (key >> shift) and its share of the
+// call's scratch.
+struct LaySide {
+  const unsigned* hi;
+  const unsigned* lo;
+  const uint8_t* occ;
+  const uint8_t* live;
+  long long stride, n;
+  int lo_bit, width, shift, n_bins, n_tiles;
+  unsigned* counts;         // u32[n_tiles][n_bins]: counts, then prefixes
+  unsigned* total;          // u32[n_bins]
+  unsigned* bin_start;      // u32[n_bins + 1]
+  uint4* mid;               // the partition: each bin's entries in order,
+                            // (hi, lo, tag, 0)
+  uint2* run_code;          // the runs: entries in key order
+  unsigned* run_tag;        // occ (words) or the entry's index (queries)
+  unsigned* off;            // u32[2^width + 1] the runs' offsets
+
+  __device__ __forceinline__ bool is_live(long long i) const {
+    return live == nullptr || __ldg(live + i * stride) != 0;
+  }
+  // entry i's part key, reading only the code words that hold its bits
+  __device__ __forceinline__ unsigned key(long long i) const {
+    const long long j = i * stride;
+    if (lo_bit + width <= 32) return part_key(0u, __ldg(lo + j), lo_bit, width);
+    if (lo_bit >= 32) return part_key(__ldg(hi + j), 0u, lo_bit, width);
+    return part_key(__ldg(hi + j), __ldg(lo + j), lo_bit, width);
+  }
+  __device__ __forceinline__ unsigned key_of(uint2 c) const {
+    return part_key(c.x, c.y, lo_bit, width);
+  }
 };
 
-__global__ void __launch_bounds__(kThreads)
-    layout_fill_kernel(const LayoutFill f) {
-  const int j = blockIdx.y;
-  unsigned* a = f.a[j];
-  const long long n = f.n[j];
-  const unsigned v = f.v[j];
-  const uint4 q = {v, v, v, v};
-  const long long n4 = n >> 2;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * kThreads) {
-    ((uint4*)a)[i] = q;
-  }
-  if (blockIdx.x == 0 && threadIdx.x < (n & 3)) a[(n4 << 2) + threadIdx.x] = v;
+__device__ __forceinline__ int leader_of(unsigned peers) {
+  return 31 - __clz(peers);
 }
 
-struct LayoutScatter {
-  const unsigned* whi;      // word side, entry i at i * w_stride
-  const unsigned* wlo;
-  const uint8_t* wocc;
-  const uint8_t* wslot;     // u8[n_w], contiguous
-  const unsigned* qhi;      // query chunk, contiguous
-  const unsigned* qlo;
-  const uint8_t* qslot;
-  long long w_stride, n_w, nq;
-  int lo_bit, width, cpad, cpad_q;
-  unsigned* dh;
-  unsigned* dl;
-  unsigned* docc;
-  unsigned* qh;
-  unsigned* ql;
-  int* qidx;
+// The lanes of the warp whose digit equals this lane's, for digits below
+// 2^bits - 1 (kNoDigit, none, matches none of them): one ballot a bit,
+// where __match_any_sync costs more (see above).
+__device__ __forceinline__ unsigned match_digit(unsigned d, int bits) {
+  unsigned peers = kFull;
+#pragma unroll
+  for (int b = 0; b < kDigitBits; ++b) {
+    if (b < bits) {
+      const unsigned on = __ballot_sync(kFull, (d >> b) & 1u);
+      peers &= (d >> b) & 1u ? on : ~on;
+    }
+  }
+  return peers;
+}
+
+// Bits that tell apart the digits below n (and kNoDigit from them).
+__device__ __forceinline__ int digit_bits(int n) { return 32 - __clz(n); }
+
+// Orders the `len` staged entries by digit (u16 digit[j] < n_dig, or
+// kNoDigit for none), keeping staged order among equal digits: perm[p]
+// is the stage position of the p-th entry and first[d] the place of
+// digit d's first entry (first[n_dig] the entries with a digit). W warps
+// rank, each a contiguous segment of the stage, 32 entries at a time:
+// rank[j] counts the equal digits before j in its segment and cnt[w][d]
+// (W x n_dig u16) the segment's digits; then every thread places its
+// entries. A chunk of 32 whose digits are distinct (each lane sets its
+// digit's bit in the warp's bitmap, bits[w] of (n_dig + 31) / 32 words,
+// and none finds it set) needs no match; the others group equal digits
+// by match_digit. Called by every thread of the block (NT of them); ends
+// synchronized.
+template <int NT>
+__device__ void stable_order(int len, int n_dig, int W,
+                             const unsigned short* digit,
+                             unsigned short* cnt, unsigned short* rank,
+                             unsigned* bits, unsigned* first,
+                             unsigned short* perm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int words = (n_dig + 31) >> 5;
+  for (int i = threadIdx.x; i < W * n_dig; i += NT) cnt[i] = 0;
+  for (int i = threadIdx.x; i < W * words; i += NT) bits[i] = 0u;
+  __syncthreads();
+  const int seg = ((len + W - 1) / W + 31) & ~31;
+  const int n_bits = digit_bits(n_dig);
+  if (warp < W) {
+    unsigned short* c = cnt + warp * n_dig;
+    unsigned* bm = bits + warp * words;
+    const unsigned below = (1u << lane) - 1u;
+    const int lo = warp * seg, hi = min(len, lo + seg);
+    for (int j0 = lo; j0 < hi; j0 += 32) {
+      const int j = j0 + lane;
+      const unsigned d = j < hi ? digit[j] : kNoDigit;
+      const bool ok = d != kNoDigit;
+      const unsigned seen = ok ? c[d] : 0u;
+      const unsigned bit = 1u << (d & 31u);
+      const bool dup = ok && (atomicOr(&bm[d >> 5], bit) & bit);
+      const unsigned peers = __any_sync(kFull, dup) ? match_digit(d, n_bits)
+                                                     : 1u << lane;
+      if (ok) bm[d >> 5] = 0u;
+      if (ok) {
+        rank[j] = (unsigned short)(seen + __popc(peers & below));
+        if (lane == leader_of(peers)) c[d] = (unsigned short)(seen + __popc(peers));
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < n_dig; d += NT) {
+    unsigned run = 0;                   // each warp's offset in digit d
+    for (int w = 0; w < W; ++w) {
+      const unsigned v = cnt[w * n_dig + d];
+      cnt[w * n_dig + d] = (unsigned short)run;
+      run += v;
+    }
+    first[d] = run;
+  }
+  __syncthreads();
+  const int per = (n_dig + NT - 1) / NT;
+  const int d0 = threadIdx.x * per;
+  unsigned v = 0;
+  for (int d = d0; d < d0 + per && d < n_dig; ++d) v += first[d];
+  unsigned sum;
+  unsigned run = block_scan<NT>(v, &sum);
+  for (int d = d0; d < d0 + per && d < n_dig; ++d) {
+    const unsigned t = first[d];
+    first[d] = run;
+    run += t;
+  }
+  if (threadIdx.x == 0) first[n_dig] = sum;
+  __syncthreads();
+  for (int j = threadIdx.x; j < len; j += NT) {
+    const unsigned d = digit[j];
+    if (d != kNoDigit) {
+      perm[first[d] + cnt[(j / seg) * n_dig + d] + rank[j]] = (unsigned short)j;
+    }
+  }
+  __syncthreads();
+}
+
+// Pass 1: tile t's live entries by bin into counts[t][*]; a thread's
+// loads are all issued before the first is used.
+__global__ void __launch_bounds__(kLayHistThreads)
+    lay_hist_kernel(const LaySide S) {
+  constexpr int kItems = kLayTile / kLayHistThreads;
+  __shared__ unsigned hist[kLayMaxBins];
+  const long long base = (long long)blockIdx.x * kLayTile;
+  const long long rest = S.n - base;
+  const int len = rest < kLayTile ? (int)(rest > 0 ? rest : 0) : kLayTile;
+  for (int b = threadIdx.x; b < S.n_bins; b += kLayHistThreads) hist[b] = 0u;
+  unsigned bin[kItems];
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int j = r * kLayHistThreads + threadIdx.x;
+    bool ok = false;
+    unsigned key = 0u;
+    if (j < len) {
+      ok = S.is_live(base + j);
+      key = S.key(base + j);
+    }
+    bin[r] = ok ? key >> S.shift : kNoDigit;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    if (bin[r] != kNoDigit) atomicAdd(&hist[bin[r]], 1u);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < S.n_bins; b += kLayHistThreads) {
+    S.counts[(long long)blockIdx.x * S.n_bins + b] = hist[b];
+  }
+}
+
+// Pass 2: a block per 32 bins, lane = bin, warp = a segment of tiles;
+// each bin's counts over the tiles become their exclusive scan in place,
+// and its total.
+__global__ void __launch_bounds__(1024) lay_scan_kernel(const LaySide S) {
+  __shared__ unsigned seg[32][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * 32 + lane;
+  const int per = (S.n_tiles + 31) / 32;
+  const int t0 = warp * per, t1 = min(S.n_tiles, t0 + per);
+  unsigned* col = S.counts + b;
+  unsigned s = 0;
+  if (b < S.n_bins) {
+    for (int t = t0; t < t1; ++t) s += col[(long long)t * S.n_bins];
+  }
+  seg[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned run = 0;
+    for (int w = 0; w < 32; ++w) {
+      const unsigned v = seg[w][lane];
+      seg[w][lane] = run;
+      run += v;
+    }
+    if (b < S.n_bins) S.total[b] = run;
+  }
+  __syncthreads();
+  if (b < S.n_bins) {
+    unsigned run = seg[warp][lane];
+    for (int t = t0; t < t1; ++t) {
+      const unsigned v = col[(long long)t * S.n_bins];
+      col[(long long)t * S.n_bins] = run;
+      run += v;
+    }
+  }
+}
+
+// part's dynamic shared memory: the staged tile (code, digit, perm,
+// rank), the bins' bases and firsts, the ranking counters and bitmaps
+constexpr int kLayPartSmem =
+    kLayTile * (8 + 2 + 2 + 2) + (kLayMaxBins + 1) * 4 +
+    (kLayMaxBins + 2) * 4 + kLayPartWarps * (kLayMaxBins + 1) * 2 +
+    kLayPartWarps * ((kLayMaxBins + 32) / 32) * 4;
+static_assert(kLayPartSmem <= kLaySmemMax, "part's stage fits a block");
+
+// Pass 3: block t stages tile t (a dead word takes the digit n_bins),
+// orders it by bin keeping tile order, and writes bin b's share at
+// bin_start[b] + its prefix in counts + its place among them. Block 0
+// writes bin_start for the place pass.
+__global__ void __launch_bounds__(kLayPartThreads)
+    lay_part_kernel(const LaySide S) {
+  extern __shared__ uint4 lay_smem[];
+  uint2* s_code = (uint2*)lay_smem;                          // [kLayTile]
+  unsigned* s_base = (unsigned*)(s_code + kLayTile);         // [bins + 1]
+  unsigned* s_first = s_base + kLayMaxBins + 1;              // [bins + 2]
+  unsigned short* s_digit = (unsigned short*)(s_first + kLayMaxBins + 2);
+  unsigned short* s_perm = s_digit + kLayTile;               // [kLayTile]
+  unsigned short* s_rank = s_perm + kLayTile;                // [kLayTile]
+  unsigned short* s_cnt = s_rank + kLayTile;       // [W][kLayMaxBins + 1]
+  unsigned* s_bits =                               // [W][(bins + 32) / 32]
+      (unsigned*)(s_cnt + kLayPartWarps * (kLayMaxBins + 1));
+  constexpr int kItems = kLayTile / kLayPartThreads;
+  const int nb = S.n_bins;
+  const long long base = (long long)blockIdx.x * kLayTile;
+  const long long rest = S.n - base;
+  const int len = rest < kLayTile ? (int)(rest > 0 ? rest : 0) : kLayTile;
+  uint2 code[kItems];               // the thread's entries, loads issued
+  bool live[kItems];                // before the first is used
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int j = r * kLayPartThreads + threadIdx.x;
+    if (j < len) {
+      const long long i = base + j;
+      const long long o = i * S.stride;
+      code[r] = make_uint2(__ldg(S.hi + o), __ldg(S.lo + o));
+      live[r] = S.is_live(i);
+    }
+  }
+  const int per = (nb + kLayPartThreads - 1) / kLayPartThreads;
+  const int b0 = threadIdx.x * per;
+  unsigned v = 0;
+  for (int b = b0; b < b0 + per && b < nb; ++b) v += __ldcg(S.total + b);
+  unsigned sum;
+  unsigned run = block_scan<kLayPartThreads>(v, &sum);
+  const unsigned* row = S.counts + (long long)blockIdx.x * nb;
+  for (int b = b0; b < b0 + per && b < nb; ++b) {
+    s_base[b] = run + __ldcg(row + b);
+    if (blockIdx.x == 0) S.bin_start[b] = run;
+    run += __ldcg(S.total + b);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) S.bin_start[nb] = sum;
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int j = r * kLayPartThreads + threadIdx.x;
+    if (j < len) {
+      s_code[j] = code[r];
+      s_digit[j] = live[r] ? (unsigned short)(S.key_of(code[r]) >> S.shift)
+                           : (unsigned short)nb;
+    }
+  }
+  __syncthreads();
+  stable_order<kLayPartThreads>(len, nb + 1, kLayPartWarps, s_digit, s_cnt,
+                                s_rank, s_bits, s_first, s_perm);
+  const unsigned n_live = s_first[nb];
+  for (unsigned p = threadIdx.x; p < n_live; p += kLayPartThreads) {
+    const unsigned j = s_perm[p];
+    const unsigned b = s_digit[j];
+    const unsigned d = s_base[b] + (p - s_first[b]);
+    const long long i = base + j;   // a word's occ is read again (L2)
+    const unsigned tag =
+        S.occ ? (unsigned)__ldg(S.occ + i * S.stride) : (unsigned)i;
+    S.mid[d] = make_uint4(s_code[j].x, s_code[j].y, tag, 0u);
+  }
+}
+
+// place's ranking warps and dynamic shared memory for bins of n_keys keys:
+// the staged round (code, tag, digit, perm, rank), the keys' run ends and
+// firsts, and the ranking counters and bitmaps, as many warps' as the rest
+// leaves room for (32 at 512 keys a bin, 1 at 8,192)
+int lay_place_fixed(int n_keys) {
+  return kLayRound * (8 + 4 + 2 + 2 + 2) + n_keys * 4 + (n_keys + 2) * 4;
+}
+
+// one ranking warp's counters and bitmap
+int lay_place_per_warp(int n_keys) {
+  return 2 * n_keys + 4 * ((n_keys + 31) / 32);
+}
+
+int lay_place_warps(int n_keys) {
+  const int w = (kLaySmemMax - lay_place_fixed(n_keys)) /
+                lay_place_per_warp(n_keys);
+  return w < 1 ? 1 : (w > kLayPlaceThreads / 32 ? kLayPlaceThreads / 32 : w);
+}
+
+int lay_place_smem(int n_keys) {
+  return lay_place_fixed(n_keys) +
+         lay_place_warps(n_keys) * lay_place_per_warp(n_keys);
+}
+
+// Stages place's `len` (at most kLayRound) partition entries from r0:
+// codes, tags and each one's key in its bin; a thread's loads are all
+// issued before the first is used. Ends synchronized.
+__device__ __forceinline__ void lay_stage(const LaySide& S, unsigned r0,
+                                          int len, unsigned mask,
+                                          uint2* s_code, unsigned* s_tag,
+                                          unsigned short* s_digit) {
+  constexpr int kItems = kLayRound / kLayPlaceThreads;
+  uint2 c[kItems];
+  unsigned t[kItems];
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int j = r * kLayPlaceThreads + threadIdx.x;
+    if (j < len) {
+      const uint4 m = __ldcg(S.mid + r0 + j);
+      c[r] = make_uint2(m.x, m.y);
+      t[r] = m.z;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int j = r * kLayPlaceThreads + threadIdx.x;
+    if (j < len) {
+      s_code[j] = c[r];
+      s_tag[j] = t[r];
+      s_digit[j] = (unsigned short)(S.key_of(c[r]) & mask);
+    }
+  }
+  __syncthreads();
+}
+
+// Adds each key's count among kItems keys a thread (kNoDigit: none) to
+// s_count.
+template <int kItems>
+__device__ __forceinline__ void lay_count(const unsigned (&k)[kItems],
+                                          unsigned* s_count) {
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    if (k[r] != kNoDigit) atomicAdd(&s_count[k[r]], 1u);
+  }
+}
+
+// Pass 4: block b takes bin b's range [start, end) of the partition (in
+// entry order), counts it by key, writes its keys' offsets, and appends
+// each round of the range to the keys' runs in range order. A range of
+// one round is staged once and counted in shared memory; a longer one is
+// counted from the partition first.
+__global__ void __launch_bounds__(kLayPlaceThreads)
+    lay_place_kernel(const LaySide S, int W) {
+  constexpr int kItems = kLayRound / kLayPlaceThreads;
+  extern __shared__ uint4 lay_smem[];
+  const int n_keys = 1 << S.shift;
+  uint2* s_code = (uint2*)lay_smem;                          // [kLayRound]
+  unsigned* s_tag = (unsigned*)(s_code + kLayRound);         // [kLayRound]
+  unsigned* s_end = s_tag + kLayRound;                       // [n_keys]
+  unsigned* s_first = s_end + n_keys;                        // [n_keys + 1]
+  unsigned short* s_digit = (unsigned short*)(s_first + n_keys + 1);
+  unsigned short* s_perm = s_digit + kLayRound;              // [kLayRound]
+  unsigned short* s_rank = s_perm + kLayRound;               // [kLayRound]
+  unsigned* s_bits = (unsigned*)(s_rank + kLayRound);  // [W][n_keys / 32]
+  unsigned short* s_cnt =                                    // [W][n_keys]
+      (unsigned short*)(s_bits + W * ((n_keys + 31) / 32));
+  const unsigned b = blockIdx.x;
+  const long long k0 = (long long)b << S.shift;
+  const unsigned s = __ldcg(S.bin_start + b);
+  const unsigned e = __ldcg(S.bin_start + b + 1);
+  const bool one = e - s <= (unsigned)kLayRound;
+  const unsigned mask = (unsigned)n_keys - 1u;
+  for (int i = threadIdx.x; i < n_keys; i += kLayPlaceThreads) s_end[i] = 0u;
+  __syncthreads();
+  if (one) {
+    lay_stage(S, s, (int)(e - s), mask, s_code, s_tag, s_digit);
+    unsigned k[kItems];
+#pragma unroll
+    for (int r = 0; r < kItems; ++r) {
+      const unsigned j = r * kLayPlaceThreads + threadIdx.x;
+      k[r] = j < e - s ? s_digit[j] : kNoDigit;
+    }
+    lay_count<kItems>(k, s_end);
+  } else {
+    for (unsigned j0 = s; j0 < e; j0 += kLayRound) {
+      unsigned k[kItems];
+#pragma unroll
+      for (int r = 0; r < kItems; ++r) {
+        const unsigned j = j0 + r * kLayPlaceThreads + threadIdx.x;
+        const uint4 m = j < e ? __ldcg(S.mid + j) : make_uint4(0u, 0u, 0u, 0u);
+        k[r] = j < e ? S.key_of(make_uint2(m.x, m.y)) & mask : kNoDigit;
+      }
+      lay_count<kItems>(k, s_end);
+    }
+  }
+  __syncthreads();
+  const int per = (n_keys + kLayPlaceThreads - 1) / kLayPlaceThreads;
+  const int i0 = threadIdx.x * per;
+  unsigned v = 0;
+  for (int i = i0; i < i0 + per && i < n_keys; ++i) v += s_end[i];
+  unsigned sum;
+  unsigned run = block_scan<kLayPlaceThreads>(v, &sum);
+  for (int i = i0; i < i0 + per && i < n_keys; ++i) {
+    const unsigned c = s_end[i];
+    s_end[i] = s + run;               // where key i's next entry goes
+    S.off[k0 + i] = s + run;
+    run += c;
+  }
+  if (b == gridDim.x - 1 && threadIdx.x == 0) S.off[k0 + n_keys] = e;
+  __syncthreads();
+  for (unsigned r0 = s; r0 < e; r0 += kLayRound) {
+    const int len = (int)min(e - r0, (unsigned)kLayRound);
+    if (!one) lay_stage(S, r0, len, mask, s_code, s_tag, s_digit);
+    stable_order<kLayPlaceThreads>(len, n_keys, W, s_digit, s_cnt, s_rank,
+                                   s_bits, s_first, s_perm);
+    for (int p = threadIdx.x; p < len; p += kLayPlaceThreads) {
+      const unsigned j = s_perm[p];
+      const unsigned k = s_digit[j];
+      const unsigned d = s_end[k] + (p - s_first[k]);
+      S.run_code[d] = s_code[j];
+      S.run_tag[d] = s_tag[j];
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < n_keys; k += kLayPlaceThreads) {
+      s_end[k] += s_first[k + 1] - s_first[k];
+    }
+    __syncthreads();
+  }
+}
+
+// One side's padded arrays from its runs: a0, a1, a2 u32[n_lanes] (code
+// hi, lo, tag), n_lanes = n_buckets * pad + 1 (the last lane a hole);
+// magic = ceil(2^64 / pad) for pad >= 2, so that L / pad is
+// __umul64hi(L, magic) for every lane L < 2^56.
+struct LayExpand {
+  const uint2* code;
+  const unsigned* tag;
+  const unsigned* off;
+  unsigned* a0;
+  unsigned* a1;
+  unsigned* a2;
+  unsigned long long n_lanes, n_buckets, magic;
+  unsigned pad, hole;
 };
 
-__global__ void __launch_bounds__(kThreads)
-    layout_scatter_kernel(const LayoutScatter s) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i < s.n_w) {
-    const int slot = __ldg(s.wslot + i);
-    if (slot < s.cpad) {
-      const long long j = i * s.w_stride;
-      const unsigned h = __ldg(s.whi + j), l = __ldg(s.wlo + j);
-      const long long lane =
-          (long long)part_key(h, l, s.lo_bit, s.width) * s.cpad + slot;
-      s.dh[lane] = h;
-      s.dl[lane] = l;
-      s.docc[lane] = __ldg(s.wocc + j);
+__device__ __forceinline__ void lay_bucket(const LayExpand& X,
+                                           unsigned long long b, unsigned* o,
+                                           unsigned* c) {
+  if (b < X.n_buckets) {
+    *o = __ldg(X.off + b);
+    *c = min(__ldg(X.off + b + 1) - *o, X.pad);
+  } else {
+    *o = 0u;
+    *c = 0u;
+  }
+}
+
+// Pass 5, both sides (blockIdx.y: 0 words, 1 queries): a thread per four
+// lanes; lane b * pad + s takes run entry off[b] + s where s is below
+// min(count_b, pad), else the hole value.
+__global__ void __launch_bounds__(kLayExpandThreads)
+    lay_expand_kernel(const LayExpand w, const LayExpand q) {
+  const LayExpand X = blockIdx.y ? q : w;
+  const unsigned long long quads = (X.n_lanes + 3) >> 2;
+  for (unsigned long long t = (unsigned long long)blockIdx.x *
+                                  kLayExpandThreads + threadIdx.x;
+       t < quads; t += (unsigned long long)gridDim.x * kLayExpandThreads) {
+    const unsigned long long L0 = t << 2;
+    unsigned long long b = X.pad == 1u ? L0 : __umul64hi(L0, X.magic);
+    unsigned s = (unsigned)(L0 - b * X.pad);
+    unsigned o, c;
+    lay_bucket(X, b, &o, &c);
+    unsigned h[4], l[4], g[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (s < c) {
+        const uint2 v = __ldg(X.code + o + s);
+        h[u] = v.x;
+        l[u] = v.y;
+        g[u] = __ldg(X.tag + o + s);
+      } else {
+        h[u] = 0u;
+        l[u] = 0u;
+        g[u] = X.hole;
+      }
+      if (++s == X.pad) {
+        s = 0u;
+        lay_bucket(X, ++b, &o, &c);
+      }
     }
-  } else if (i < s.n_w + s.nq) {
-    const long long q = i - s.n_w;
-    const int slot = __ldg(s.qslot + q);
-    if (slot < s.cpad_q) {
-      const unsigned h = __ldg(s.qhi + q), l = __ldg(s.qlo + q);
-      const long long lane =
-          (long long)part_key(h, l, s.lo_bit, s.width) * s.cpad_q + slot;
-      s.qh[lane] = h;
-      s.ql[lane] = l;
-      s.qidx[lane] = (int)q;
+    if (L0 + 4 <= X.n_lanes) {
+      ((uint4*)X.a0)[t] = make_uint4(h[0], h[1], h[2], h[3]);
+      ((uint4*)X.a1)[t] = make_uint4(l[0], l[1], l[2], l[3]);
+      ((uint4*)X.a2)[t] = make_uint4(g[0], g[1], g[2], g[3]);
+    } else {
+      for (int u = 0; L0 + u < X.n_lanes; ++u) {
+        X.a0[L0 + u] = h[u];
+        X.a1[L0 + u] = l[u];
+        X.a2[L0 + u] = g[u];
+      }
     }
   }
 }
@@ -848,6 +1343,90 @@ cudaError_t allow_dynamic_smem() {
 
 bool bad_part(int lo_bit, int width) {
   return width < 1 || width > 32 || lo_bit < 0 || lo_bit + width > 64;
+}
+
+// i''s plan for one side: coarse bins of the part key's top bits (2,048,
+// or a key a bin below 11 bits; at most 8,192 keys a bin at width 24)
+// and tiles of kLayTile entries, one at least.
+struct LayPlan {
+  int shift, n_bins, n_tiles;
+};
+
+LayPlan lay_plan(long long n, int width) {
+  const int bits = width < 11 ? width : 11;
+  const long long tiles = (n + kLayTile - 1) / kLayTile;
+  return {width - bits, 1 << bits, (int)(tiles > 0 ? tiles : 1)};
+}
+
+// One side's scratch at p (16-B aligned): counts, totals, bin starts, the
+// partition, the runs, the offsets. Returns its bytes; with S, points S's
+// scratch into it.
+long long lay_scratch(LaySide* S, uint8_t* p, long long n, int width) {
+  const LayPlan P = lay_plan(n, width);
+  long long at = 0;
+  auto take = [&](long long bytes) {
+    uint8_t* q = p ? p + at : nullptr;
+    at += (bytes + 15) & ~15LL;
+    return q;
+  };
+  uint8_t* counts = take(4LL * P.n_tiles * P.n_bins);
+  uint8_t* total = take(4LL * P.n_bins);
+  uint8_t* bin_start = take(4LL * (P.n_bins + 1));
+  uint8_t* mid = take(16 * n);
+  uint8_t* run_code = take(8 * n);
+  uint8_t* run_tag = take(4 * n);
+  uint8_t* off = take(4 * ((1LL << width) + 1));
+  if (S) {
+    S->shift = P.shift;
+    S->n_bins = P.n_bins;
+    S->n_tiles = P.n_tiles;
+    S->counts = (unsigned*)counts;
+    S->total = (unsigned*)total;
+    S->bin_start = (unsigned*)bin_start;
+    S->mid = (uint4*)mid;
+    S->run_code = (uint2*)run_code;
+    S->run_tag = (unsigned*)run_tag;
+    S->off = (unsigned*)off;
+  }
+  return at;
+}
+
+// part and place stage more than 48 KB in shared memory: allowed once on
+// each device (place at its largest, 8,192 keys a bin).
+cudaError_t allow_layout_smem() {
+  static bool done[64] = {};
+  int d = 0;
+  cudaError_t rc = cudaGetDevice(&d);
+  if (rc != cudaSuccess || (d < 64 && done[d])) return rc;
+  int place = 0;
+  for (int keys = 1; keys <= 8192; keys <<= 1) {
+    place = lay_place_smem(keys) > place ? lay_place_smem(keys) : place;
+  }
+  rc = cudaFuncSetAttribute(lay_part_kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            kLayPartSmem);
+  if (rc == cudaSuccess) {
+    rc = cudaFuncSetAttribute(lay_place_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              place);
+  }
+  if (rc == cudaSuccess && d < 64) done[d] = true;
+  return rc;
+}
+
+// One side's bucket runs: hist, scan, part, place.
+void lay_sort(const LaySide& S, cudaStream_t st) {
+  lay_hist_kernel<<<S.n_tiles, kLayHistThreads, 0, st>>>(S);
+  lay_scan_kernel<<<(S.n_bins + 31) / 32, 1024, 0, st>>>(S);
+  lay_part_kernel<<<S.n_tiles, kLayPartThreads, kLayPartSmem, st>>>(S);
+  const int n_keys = 1 << S.shift;
+  lay_place_kernel<<<S.n_bins, kLayPlaceThreads, lay_place_smem(n_keys),
+                     st>>>(S, lay_place_warps(n_keys));
+}
+
+// ceil(2^64 / pad) for pad >= 2 (see LayExpand), 0 for pad 1.
+unsigned long long lay_magic(int pad) {
+  return pad >= 2 ? ~0ULL / (unsigned long long)pad + 1ULL : 0ULL;
 }
 
 }  // namespace
@@ -949,52 +1528,65 @@ extern "C" int qm2t_hamming_join_bits(const void* words, const void* woff,
   return (int)cudaGetLastError();
 }
 
+// i''s scratch for a call: bytes, or -1 for a bad width.
+extern "C" long long qm2t_layout_scratch_bytes(long long n_w, long long nq,
+                                               int width) {
+  if (width < 1 || width > 24 || n_w < 0 || nq < 0) return -1;
+  return lay_scratch(nullptr, nullptr, n_w, width) +
+         lay_scratch(nullptr, nullptr, nq, width);
+}
+
 // i': K1's layouts of one part (bits [lo_bit, lo_bit + width), 2^width
-// buckets) from a word chunk (whi, wlo u32 and wocc u8, entry i at
-// i * w_stride; wslot u8[n_w]) and a query chunk (qhi, qlo u32[nq], qslot
-// u8[nq]): dh, dl, docc u32[2^width * cpad + 1] and qh, ql, qidx
-// [2^width * cpad_q + 1], each 16-B aligned and written in full.
+// buckets) from a word chunk (whi, wlo u32 and wocc, wlive u8, entry i at
+// i * w_stride; a word whose live flag is 0 stays out) and a query chunk
+// (qhi, qlo u32[nq]): dh, dl, docc u32[2^width * cpad + 1] and qh, ql,
+// qidx [2^width * cpad_q + 1], each 16-B aligned and written in full;
+// scratch of qm2t_layout_scratch_bytes(n_w, nq, width) bytes, 16-B aligned,
+// nothing in it read before it is written.
 extern "C" int qm2t_bucket_layouts(const void* whi, const void* wlo,
-                                   const void* wocc, long long w_stride,
-                                   const void* wslot, long long n_w,
+                                   const void* wocc, const void* wlive,
+                                   long long w_stride, long long n_w,
                                    const void* qhi, const void* qlo,
-                                   const void* qslot, long long nq,
-                                   int lo_bit, int width, int cpad,
-                                   int cpad_q, void* dh, void* dl,
-                                   void* docc, void* qh, void* ql,
+                                   long long nq, int lo_bit, int width,
+                                   int cpad, int cpad_q, void* scratch,
+                                   long long scratch_bytes, void* dh,
+                                   void* dl, void* docc, void* qh, void* ql,
                                    void* qidx, void* stream) {
-  void* outs[6] = {dh, dl, docc, qh, ql, qidx};
+  void* outs[7] = {dh, dl, docc, qh, ql, qidx, scratch};
   bool aligned = true;
   for (void* o : outs) aligned = aligned && (uintptr_t)o % 16 == 0;
   if (bad_part(lo_bit, width) || width > 24 ||
-      bad_pads(1LL << width, cpad, cpad_q, 0) || n_w < 0 || w_stride < 1 ||
-      nq < 0 || nq > 0x7FFFFFFFLL || !aligned) {
+      bad_pads(1LL << width, cpad, cpad_q, 0) || n_w < 0 ||
+      n_w > 0x7FFFFFFFLL || w_stride < 1 || nq < 0 || nq > 0x7FFFFFFFLL ||
+      !aligned ||
+      scratch_bytes < qm2t_layout_scratch_bytes(n_w, nq, width)) {
     return (int)cudaErrorInvalidValue;
   }
+  const cudaError_t attr = allow_layout_smem();
+  if (attr != cudaSuccess) return (int)attr;
   cudaStream_t st = (cudaStream_t)stream;
-  const long long nd = (1LL << width) * cpad + 1;
-  const long long nql = (1LL << width) * cpad_q + 1;
-  LayoutFill f;
-  for (int j = 0; j < 6; ++j) {
-    f.a[j] = (unsigned*)outs[j];
-    f.n[j] = j < 3 ? nd : nql;
-    f.v[j] = j == 5 ? (unsigned)nq : 0u;
-  }
-  const long long quads = (nd > nql ? nd : nql) >> 2;
-  long long fill_blocks = (quads + kThreads - 1) / kThreads;
-  if (fill_blocks > 4096) fill_blocks = 4096;
-  layout_fill_kernel<<<dim3((unsigned)(fill_blocks > 0 ? fill_blocks : 1), 6),
-                       kThreads, 0, st>>>(f);
-  const long long n = n_w + nq;
-  if (n > 0) {
-    const LayoutScatter sc = {
-        (const unsigned*)whi, (const unsigned*)wlo, (const uint8_t*)wocc,
-        (const uint8_t*)wslot, (const unsigned*)qhi, (const unsigned*)qlo,
-        (const uint8_t*)qslot, w_stride, n_w, nq, lo_bit, width, cpad,
-        cpad_q, (unsigned*)dh, (unsigned*)dl, (unsigned*)docc,
-        (unsigned*)qh, (unsigned*)ql, (int*)qidx};
-    layout_scatter_kernel<<<(unsigned)((n + kThreads - 1) / kThreads),
-                            kThreads, 0, st>>>(sc);
-  }
+  LaySide W = {(const unsigned*)whi, (const unsigned*)wlo,
+               (const uint8_t*)wocc, (const uint8_t*)wlive, w_stride, n_w,
+               lo_bit, width};
+  LaySide Q = {(const unsigned*)qhi, (const unsigned*)qlo, nullptr, nullptr,
+               1, nq, lo_bit, width};
+  const long long w_bytes = lay_scratch(&W, (uint8_t*)scratch, n_w, width);
+  lay_scratch(&Q, (uint8_t*)scratch + w_bytes, nq, width);
+  lay_sort(W, st);
+  lay_sort(Q, st);
+  const unsigned long long B = 1ULL << width;
+  const LayExpand xw = {W.run_code, W.run_tag, W.off, (unsigned*)dh,
+                        (unsigned*)dl, (unsigned*)docc, B * cpad + 1, B,
+                        lay_magic(cpad), (unsigned)cpad, 0u};
+  const LayExpand xq = {Q.run_code, Q.run_tag, Q.off, (unsigned*)qh,
+                        (unsigned*)ql, (unsigned*)qidx, B * cpad_q + 1, B,
+                        lay_magic(cpad_q), (unsigned)cpad_q, (unsigned)nq};
+  const unsigned long long quads =
+      ((cpad > cpad_q ? xw.n_lanes : xq.n_lanes) + 3) / 4;
+  unsigned long long blocks =
+      (quads + kLayExpandThreads - 1) / kLayExpandThreads;
+  if (blocks > 2112) blocks = 2112;     // 16 a streaming multiprocessor
+  lay_expand_kernel<<<dim3((unsigned)blocks, 2), kLayExpandThreads, 0, st>>>(
+      xw, xq);
   return (int)cudaGetLastError();
 }

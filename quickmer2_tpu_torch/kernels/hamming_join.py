@@ -1,5 +1,5 @@
 """Hamming-join compare chains: the CUDA kernels of csrc/hamming_join.cu
-(K1 with the scatter of its layouts, i', and K5 with its counting sort)
+(K1 with i', which builds its layouts, and K5 with its counting sort)
 and their plain PyTorch versions.
 
 `join_compare` (K1) replaces the slab loop of quickmer2_tpu/ops/
@@ -8,8 +8,12 @@ tools/proto_join2d.py::kernel). Given one (part, word chunk)'s bucket
 layouts it adds, for every live query lane, Σ occ(w)·(6/m) over the
 bucket's word lanes w with 1 ≤ H(q, w) ≤ e into scaled[qidx] (u32,
 wrapping). `bucket_layouts` (i') builds those layouts from one word chunk
-and one query chunk; its plain version is ops/hamming_join.py::
-_bucket_layouts.
+and one query chunk, each entry at its rank among the live entries of
+its key in entry order: on the card a stable counting sort of each side
+into bucket runs and an expand of the runs into the padded lanes, so no
+caller computes slots; its plain version `bucket_layouts_plain` ranks by
+a stable torch sort (`rank_slots`) and scatters with ops/
+hamming_join.py::_bucket_layouts.
 
 `join_bits` (K5) replaces _part_chunk_join_bits: it ORs into
 planes[q, b] the bit j of every substitution (window offset j, base b)
@@ -43,10 +47,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 7
              + [ctypes.c_uint] * 6 + [ctypes.c_void_p])
 _RUNS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8)
-_LAYOUT_ARGTYPES = ([ctypes.c_void_p] * 3
-                    + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
-                    + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7)
+_LAYOUT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p, ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 7)
 _BITS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong,
                                            ctypes.c_void_p]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -56,11 +61,16 @@ STAGE_BYTES = 192 * 1024   # the place pass's stage in shared memory
 
 
 def _lib():
-    return build.load("hamming_join",
-                      {"qm2t_hamming_join": _ARGTYPES,
-                       "qm2t_bucket_layouts": _LAYOUT_ARGTYPES,
-                       "qm2t_bucket_runs": _RUNS_ARGTYPES,
-                       "qm2t_hamming_join_bits": _BITS_ARGTYPES})
+    lib = build.load("hamming_join",
+                     {"qm2t_hamming_join": _ARGTYPES,
+                      "qm2t_bucket_layouts": _LAYOUT_ARGTYPES,
+                      "qm2t_layout_scratch_bytes": [ctypes.c_longlong,
+                                                    ctypes.c_longlong,
+                                                    ctypes.c_int],
+                      "qm2t_bucket_runs": _RUNS_ARGTYPES,
+                      "qm2t_hamming_join_bits": _BITS_ARGTYPES})
+    lib.qm2t_layout_scratch_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 def join_compare_plain(dh, dl, docc, qh, ql, qidx, scaled, *, e: int, masks,
@@ -135,28 +145,64 @@ def join_compare(dh: torch.Tensor, dl: torch.Tensor, docc: torch.Tensor,
 join_compare.launches = 0
 
 
+def rank_slots(keys: torch.Tensor, live=None) -> torch.Tensor:
+    """u8 in-bucket slots: each entry's rank among the live entries of
+    its key (int64 keys), in entry order, saturated to 255; 255 for an
+    entry whose live flag is False. A stable sort by key, as the host's
+    ops/hamming_join.py::_slots_u8 does with np.argsort."""
+    n = keys.shape[0]
+    slot = torch.full((n,), 255, dtype=torch.int64, device=keys.device)
+    sel = (torch.arange(n, device=keys.device) if live is None
+           else torch.nonzero(live).flatten())
+    order = torch.sort(keys[sel], stable=True).indices
+    ks = keys[sel][order]
+    pos = torch.arange(ks.shape[0], device=keys.device)
+    head = torch.ones_like(ks, dtype=torch.bool)
+    head[1:] = ks[1:] != ks[:-1]
+    start = torch.cummax(torch.where(head, pos, 0), 0).values
+    slot[sel[order]] = torch.clamp(pos - start, max=255)
+    return slot.to(torch.uint8)
+
+
+def bucket_layouts_plain(whi, wlo, wocc, wlive, qhi, qlo, *, lo_bit: int,
+                         width: int, n_buckets: int, cpad: int,
+                         cpad_q: int):
+    """Plain PyTorch version of i': each side's in-bucket slots by a
+    stable sort (rank_slots), then the scatter of ops/hamming_join.py::
+    _bucket_layouts."""
+    from quickmer2_tpu_torch.ops.hamming_join import _bucket_layouts
+    wslot = rank_slots(part_keys(whi, wlo, lo_bit, width), wlive)
+    qslot = rank_slots(part_keys(qhi, qlo, lo_bit, width))
+    return _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot,
+                           lo_bit=lo_bit, width=width, n_buckets=n_buckets,
+                           cpad=cpad, cpad_q=cpad_q)
+
+
 def bucket_layouts(whi: torch.Tensor, wlo: torch.Tensor, wocc: torch.Tensor,
-                   wslot: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
-                   qslot: torch.Tensor, *, lo_bit: int, width: int,
-                   n_buckets: int, cpad: int, cpad_q: int):
+                   wlive: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
+                   *, lo_bit: int, width: int, n_buckets: int, cpad: int,
+                   cpad_q: int):
     """K1's padded layouts of one part (i'): the word chunk (codes whi,
-    wlo, u8 occ wocc; 1-D views of the word side that may share a
-    stride, as the join plan's interleaved chunks are) and the query
-    chunk (qhi, qlo), each entry at lane key * pad + its in-bucket slot
-    (u8 wslot, qslot) where the slot is below the pad. Returns (dh, dl,
-    docc, qh, ql, qidx), as ops/hamming_join.py::_bucket_layouts, its
-    plain version, does."""
+    wlo, u8 occ wocc and bool live flags wlive, False for a word that
+    stays out; 1-D views of the word side that share a stride, as the
+    join plan's interleaved chunks are) and the query chunk (qhi, qlo),
+    each live entry at lane key * pad + its rank among the live entries
+    of its key in entry order, where that rank is below the pad. Returns
+    (dh, dl, docc, qh, ql, qidx), as bucket_layouts_plain does. The
+    kernel's scratch needs no clearing: it comes from torch's caching
+    allocator each call, and nothing is held between calls."""
     if whi.device.type == "cpu":
-        from quickmer2_tpu_torch.ops.hamming_join import _bucket_layouts
-        return _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot,
-                               lo_bit=lo_bit, width=width,
-                               n_buckets=n_buckets, cpad=cpad, cpad_q=cpad_q)
+        return bucket_layouts_plain(whi, wlo, wocc, wlive, qhi, qlo,
+                                    lo_bit=lo_bit, width=width,
+                                    n_buckets=n_buckets, cpad=cpad,
+                                    cpad_q=cpad_q)
     dev = whi.device
     n_w, nq = whi.shape[0], qhi.shape[0]
     stride = whi.stride(0) if n_w > 1 else 1
     for name, t, dtype in (("whi", whi, torch.int32),
                            ("wlo", wlo, torch.int32),
-                           ("wocc", wocc, torch.uint8)):
+                           ("wocc", wocc, torch.uint8),
+                           ("wlive", wlive, torch.bool)):
         if (t.dtype != dtype or t.dim() != 1 or t.shape[0] != n_w
                 or t.device != dev or (n_w > 1 and t.stride(0) != stride)):
             raise ValueError(
@@ -164,9 +210,7 @@ def bucket_layouts(whi: torch.Tensor, wlo: torch.Tensor, wocc: torch.Tensor,
                 f"{n_w} entries with stride {stride} on {dev}, got {t.dtype} "
                 f"{tuple(t.shape)} with strides {t.stride()} on {t.device}")
     build.check_tensors("bucket_layouts", dev, [
-        ("wslot", wslot, torch.uint8, (n_w,)),
-        ("qhi", qhi, torch.int32, (nq,)), ("qlo", qlo, torch.int32, (nq,)),
-        ("qslot", qslot, torch.uint8, (nq,))])
+        ("qhi", qhi, torch.int32, (nq,)), ("qlo", qlo, torch.int32, (nq,))])
     if not (1 <= width <= 24 and 0 <= lo_bit <= 64 - width
             and n_buckets == 1 << width and 1 <= cpad <= 255
             and 1 <= cpad_q <= 255):
@@ -177,12 +221,14 @@ def bucket_layouts(whi: torch.Tensor, wlo: torch.Tensor, wocc: torch.Tensor,
     out = [torch.empty(n, dtype=torch.int32, device=dev)
            for n in (nd, nd, nd, nql, nql, nql)]
     lib = _lib()
+    n_scratch = lib.qm2t_layout_scratch_bytes(n_w, nq, width)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.qm2t_bucket_layouts(
-            whi.data_ptr(), wlo.data_ptr(), wocc.data_ptr(), stride,
-            wslot.data_ptr(), n_w, qhi.data_ptr(), qlo.data_ptr(),
-            qslot.data_ptr(), nq, lo_bit, width, cpad, cpad_q,
+            whi.data_ptr(), wlo.data_ptr(), wocc.data_ptr(),
+            wlive.data_ptr(), stride, n_w, qhi.data_ptr(), qlo.data_ptr(),
+            nq, lo_bit, width, cpad, cpad_q, scratch.data_ptr(), n_scratch,
             *(t.data_ptr() for t in out), stream)
     build.check(lib, rc, "bucket_layouts")
     bucket_layouts.launches += 1

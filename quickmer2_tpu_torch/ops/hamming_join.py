@@ -14,9 +14,11 @@ probe successfully is such a w, exactly once.
 
 Pigeonhole: split the k bases into 3 contiguous parts; any pair with
 H ≤ 2 agrees exactly on ≥ 1 part. For each part, group W and the
-queries by the part's value into padded bucket layouts (the CUDA
-scatter i', kernels.hamming_join.bucket_layouts, whose plain version is
-`_bucket_layouts`) and compare every query against its
+queries by the part's value into padded bucket layouts (i',
+kernels.hamming_join.bucket_layouts: a stable counting sort and an
+expand on the card; its plain version ranks each entry by a stable torch
+sort and scatters with `_bucket_layouts`) and compare every query
+against its
 bucket's members (the CUDA kernel csrc/hamming_join.cu through
 kernels.hamming_join.join_compare). A pair with m exact parts is found
 by exactly the m part-joins whose bucket is intact, so each join
@@ -106,7 +108,8 @@ def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
     layouts (the first half of quickmer2_tpu _part_chunk_join,
     hamming_join.py:126-149): word lane key*cpad + slot, query lane
     key*cpad_q + slot; entries whose slot reaches the pad stay out. The
-    plain version of i' (kernels.hamming_join.bucket_layouts).
+    scatter of i''s plain version (kernels.hamming_join.
+    bucket_layouts_plain).
     Returns (dh, dl, docc, qh, ql, qidx) — word tensors of B*cpad + 1 /
     B*cpad_q + 1 lanes (the last lane is the hole) and int32 qidx, nq on
     holes."""
@@ -138,7 +141,8 @@ def _bucket_layouts(whi, wlo, wocc, wslot, qhi, qlo, qslot, *, lo_bit: int,
 
 def _slots_u8(keys: np.ndarray) -> np.ndarray:
     """Per-entry in-bucket slot (rank among equal keys), in ORIGINAL
-    entry order, saturated to u8."""
+    entry order, saturated to u8: the bits join's slots (_BitsWords); the
+    sums join takes none (i' ranks on the card)."""
     order = np.argsort(keys, kind="stable")
     ks = keys[order]
     first = np.ones(len(ks), bool)
@@ -156,8 +160,9 @@ class _JoinPlan:
     joins.
 
     The word side W = [uniq, rc(uniq)] goes to the device once, on first
-    use, and the rc half is computed there (_build_w_device); per
-    (part, word chunk) only 1-byte in-bucket slots follow. W is cut into
+    use, with its live flags (a palindrome's rc word is dead), and the
+    rc half is computed there (_build_w_device); no slot is computed for
+    it: i' ranks each entry within its bucket on the device. W is cut into
     chunks of at most `chunk_w` words and the queries into chunks of at
     most `chunk_q`, so bucket loads stay under the pads at any genome
     size (a pair is found in exactly the (query chunk, word chunk) cell
@@ -190,7 +195,7 @@ class _JoinPlan:
         self.device = device
         self.uniq, self.occ = uniq, occ
         # database W = [uniq, rc(uniq)] (static 2n shape), palindromic rc
-        # lanes DEAD via slot 255
+        # lanes DEAD by their live flag
         rc_db = _rc_np(uniq, k)
         self.w_live = np.concatenate([np.ones(len(uniq), bool),
                                       rc_db != uniq])
@@ -220,7 +225,6 @@ class _JoinPlan:
         self.fast = np.flatnonzero(~self.slow)
         self.n_qchunks = -(-len(self.fast) // chunk_q)
         self._w_d = None
-        self._wslots: dict = {}
 
     def query_chunk(self, qc: int) -> np.ndarray:
         """Indices of query chunk `qc` (every n_qchunks-th stage-1 fast
@@ -242,44 +246,30 @@ class _JoinPlan:
                                            words(ulo, self.device), k=self.k)
             occ_d = torch.from_numpy(np.asarray(self.occ, np.uint8)).to(
                 self.device)
-            self._w_d = (whi_d, wlo_d, torch.cat([occ_d, occ_d]))
+            self._w_d = (whi_d, wlo_d, torch.cat([occ_d, occ_d]),
+                         torch.from_numpy(self.w_live).to(self.device))
         return self._w_d
 
-    def _w_slots(self, i: int, ci: int) -> torch.Tensor:
-        if (i, ci) not in self._wslots:
-            c = self.chunks[ci]
-            live = self.w_live[c]
-            s8 = np.full(len(live), 255, np.uint8)
-            s8[live] = _slots_u8(self.part_keys_w[i][c][live])
-            self._wslots[(i, ci)] = torch.from_numpy(s8).to(self.device)
-        return self._wslots[(i, ci)]
-
     def queries(self, qsel: np.ndarray) -> dict:
-        """The device side of one query chunk: codes and, per part, the
-        in-bucket slots (built on first use)."""
-        return {"sel": qsel, "hi": words(self.qhi[qsel], self.device),
-                "lo": words(self.qlo[qsel], self.device), "slots": {}}
+        """The device side of one query chunk: its codes."""
+        return {"hi": words(self.qhi[qsel], self.device),
+                "lo": words(self.qlo[qsel], self.device)}
 
     def layouts(self, i: int, ci: int, q: dict):
         """Bucket layouts of part i, word chunk ci and query chunk q
         (from queries()): (dh, dl, docc, qh, ql, qidx), see
-        _bucket_layouts (i' on the card: kernels.hamming_join.
-        bucket_layouts)."""
-        if i not in q["slots"]:
-            q["slots"][i] = torch.from_numpy(
-                _slots_u8(self.part_keys_q[i][q["sel"]])).to(self.device)
-        whi_d, wlo_d, wocc_d = self._words()
+        kernels.hamming_join.bucket_layouts (i')."""
+        whi_d, wlo_d, wocc_d, wlive_d = self._words()
         c = self.chunks[ci]
         s, t = self.ranges[i]
         return bucket_layouts(
-            whi_d[c], wlo_d[c], wocc_d[c], self._w_slots(i, ci), q["hi"],
-            q["lo"], q["slots"][i], lo_bit=2 * s, width=2 * (t - s),
-            n_buckets=self.n_bkts[i], cpad=self.cpad, cpad_q=self.cpad_q)
+            whi_d[c], wlo_d[c], wocc_d[c], wlive_d[c], q["hi"], q["lo"],
+            lo_bit=2 * s, width=2 * (t - s), n_buckets=self.n_bkts[i],
+            cpad=self.cpad, cpad_q=self.cpad_q)
 
     def release(self) -> None:
         """Free the device word side."""
         self._w_d = None
-        self._wslots = {}
 
 
 def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
@@ -312,9 +302,9 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
 
     stats: optional dict filled with the routing counts (queries in
     total, joined on the device, sent to the slow path; join calls), the
-    seconds of the join (`join_s`, re-joins included) and of the slow
-    path (`slow_s`) and, after an escalation, the re-join's own stats
-    (`escalation`).
+    seconds of the join (`join_s`, re-joins included; `plan_s` of it the
+    join plan's host routing) and of the slow path (`slow_s`) and, after
+    an escalation, the re-join's own stats (`escalation`).
     """
     device = resolve_device(device)
     if not 1 <= e <= 2:
@@ -330,6 +320,7 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
     t0 = time.time()
     plan = _JoinPlan(unique_kmers, uniq, occ, k, cpad=cpad, cpad_q=cpad_q,
                      chunk_w=chunk_w, chunk_q=chunk_q, device=device)
+    plan_s = time.time() - t0
     masks = _part_masks(k)
     sums = np.zeros(n, np.uint64)
     join_compare_calls = 0
@@ -361,7 +352,8 @@ def hamming_neighbor_sums(unique_kmers: np.ndarray, uniq: np.ndarray,
         stats.update({"n_queries": n, "n_slow": len(slow_idx),
                       "n_joined": n - len(slow_idx),
                       "join_calls": join_compare_calls,
-                      "join_s": time.time() - t0, "slow_s": 0.0})
+                      "join_s": time.time() - t0, "plan_s": plan_s,
+                      "slow_s": 0.0})
     uk = np.asarray(unique_kmers, np.uint64)
     if (len(slow_idx) > escalate_min and escalate > 0
             and cpad < ESCALATE_PAD):
