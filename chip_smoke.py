@@ -63,11 +63,14 @@ Phases:
                 branches (tier 1, tier 2, point probes), rows of 64 (2
                 lanes a read) and rows of 1024 from segmented 10 kb
                 reads (32 lanes a read), and rows wider than 1,024 (a
-                warp walking tiles of 1,024): 2,048, 3,000 and 16,384
-                from those reads, a few 20 kb reads and reads with
-                substitutions planted across base 1,024, and 65,535
-                from 70 kb reads, tiers 1 and 2, lens and mask, timed
-                at 2,048 and 16,384; K2r (exact row recount)
+                block a read, a warp a tile of 1,024): 2,048, 3,000 and
+                16,384 from those reads, a few 20 kb reads and reads
+                with substitutions planted across base 1,024, 16,384
+                from reads with substitutions planted across every
+                tile boundary, and 65,535 from 70 kb reads and reads
+                planted in its last, partial tile, in all three
+                branches, lens and mask, timed at 2,048 and 16,384,
+                each width's block logged; K2r (exact row recount)
                 timed on the main path's exact batch, with its
                 wrapper's host time; then untimed at k = 15, 30, 31, 32 on rows of 64, 150 (a
                 38-B pitch), 160 and 1024, lens and mask format, on a
@@ -326,7 +329,8 @@ def profile_kernels(fn, reps: int, label: str) -> dict | None:
 
 def ptxas_summary(nvcc_log: str) -> list[str]:
     """One line per kernel of nvcc's -Xptxas -v report: registers,
-    stack frame and spill bytes; warnings as they are."""
+    stack frame and spill bytes, and static shared memory where the
+    kernel has any; warnings as they are."""
     out, name = [], None
     for line in nvcc_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -336,7 +340,9 @@ def ptxas_summary(nvcc_log: str) -> list[str]:
             frame = line.strip()
         elif "Used" in line and "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append(f"{name}: {regs} registers, {frame}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {regs} registers, {frame}"
+                       + (f", {smem.group(1)} bytes smem" if smem else ""))
             name = None
         elif "warning" in line:
             out.append(line.strip())
@@ -344,22 +350,24 @@ def ptxas_summary(nvcc_log: str) -> list[str]:
 
 
 def ptxas_of(nvcc_log: str, match: str) -> dict:
-    """Registers (least and most), stack frame and spill bytes (most)
-    over the kernels of an nvcc -Xptxas -v report whose mangled name
-    the regular expression `match` finds."""
-    regs, stack, spill = [], 0, 0
+    """Registers (least and most), stack frame, spill bytes and static
+    shared memory (most) over the kernels of an nvcc -Xptxas -v report
+    whose mangled name the regular expression `match` finds."""
+    regs, stack, spill, smem = [], 0, 0, 0
     for line in ptxas_summary(nvcc_log):
         name, _, rest = line.partition(": ")
         m = re.match(r"(\d+) registers, (\d+) bytes stack frame, (\d+) "
-                     r"bytes spill stores, (\d+) bytes spill loads", rest)
+                     r"bytes spill stores, (\d+) bytes spill loads"
+                     r"(?:, (\d+) bytes smem)?", rest)
         if m and re.search(match, name):
             regs.append(int(m.group(1)))
             stack = max(stack, int(m.group(2)))
             spill = max(spill, int(m.group(3)), int(m.group(4)))
+            smem = max(smem, int(m.group(5) or 0))
     if not regs:
         raise AssertionError(f"no ptxas report for {match}")
     return {"registers": [min(regs), max(regs)], "stack_bytes": stack,
-            "spill_bytes": spill}
+            "spill_bytes": spill, "smem_bytes": smem}
 
 
 # the kernels whose rows carry their ptxas report: (source, name match)
@@ -1663,14 +1671,17 @@ def anchored_bound(trace, in_bytes, rows, anchor_bytes=0):
     32-B table row (the block's, on a bucket block), 64-B genome tile
     and 16-B dblock row read once; each changed diff word read and
     written once; given anchors (`anchor_bytes`) read once. Least work:
-    ~16 int ops per base (unpack, two strand compares, window bits) and
-    ~60 per probe. Returns (ms, bound by, bytes, ops, unique counts)."""
+    ~16 int ops per valid base of the rows (unpack, two strand compares,
+    window bits; no padding past a read's end, no N base) and ~60 per
+    probe. Returns (ms, bound by, bytes, ops, unique counts)."""
+    from quickmer2_tpu_torch.ops import codec
     uniq = {name: int(torch.unique(trace[name]).numel())
             for name in ("probe_rows", "tiles", "dblock_rows")}
     n_bytes = (in_bytes + len(rows) + anchor_bytes
                + 32 * uniq["probe_rows"] + 64 * uniq["tiles"]
                + 16 * uniq["dblock_rows"] + 8 * trace["diff_words"].numel())
-    n_ops = 16 * rows.size + 60 * trace["probes"]
+    uniq["bases"] = int(np.count_nonzero(rows < codec.SEP))
+    n_ops = 16 * uniq["bases"] + 60 * trace["probes"]
     return (*bound_ms(n_bytes, n_ops), n_bytes, n_ops, uniq)
 
 
@@ -1867,9 +1878,9 @@ def compare_anchored(index, rows, kw, label, dev):
     return err
 
 
-# rows wider than 1,024 bases, which K3 walks a warp a read in tiles of
-# 1,024: widths checked (a multiple of 32 and not), widths timed, and the
-# widest row the kernels take (the lens format's u16 lengths)
+# rows wider than 1,024 bases, which K3 takes a block a read, a warp a
+# tile of 1,024: widths checked (a multiple of 32 and not), widths timed,
+# and the widest row the kernels take (the lens format's u16 lengths)
 WIDE_WIDTHS = (2048, 3000, 16384)
 WIDE_TIMED = (2048, 16384)
 WIDE_MAX = 65535
@@ -1878,7 +1889,7 @@ WIDE_MAX = 65535
 def planted_long_reads(rng, g, length, n):
     """n reads of `length` bases of g, error-free but for one to three
     substitutions at bases 1,000-1,060 (across the first tile boundary,
-    base 1,024, of K3's walk over wide rows); every other one reverse
+    base 1,024, of K3's block over wide rows); every other one reverse
     complemented, so that its substitutions sit near its end."""
     starts = rng.integers(0, len(g) - length, size=n)
     reads = g[starts[:, None] + np.arange(length)[None, :]]
@@ -1886,6 +1897,27 @@ def planted_long_reads(rng, g, length, n):
         at = 1000 + rng.choice(61, 1 + i % 3, replace=False)
         reads[i, at] = (reads[i, at] + 1 + i % 3) % 4
     reads[1::2] = ((reads[1::2, ::-1] + 2) % 4).astype(np.uint8)
+    return reads
+
+
+def planted_tile_reads(rng, g, width, n):
+    """n reads of `width` bases of g (every other one reverse
+    complemented), each with one to three substitutions within 40 bases
+    of one tile boundary of K3's block, read i at the (i mod B + 1)-th of
+    the row's B boundaries (bases 1,024, 2,048, ...), and, where the
+    row's last tile is partial, at its first, middle and last bases."""
+    from quickmer2_tpu_torch.kernels.anchored import TILE_L
+    starts = rng.integers(0, len(g) - width, size=n)
+    reads = g[starts[:, None] + np.arange(width)[None, :]]
+    reads[1::2] = ((reads[1::2, ::-1] + 2) % 4).astype(np.uint8)
+    bounds = np.arange(TILE_L, width, TILE_L)
+    last = width - width % TILE_L
+    for i in range(n):
+        at = bounds[i % len(bounds)] - 40 + rng.choice(80, 1 + i % 3,
+                                                       replace=False)
+        if width % TILE_L:
+            at = np.concatenate([at, [last, (last + width) // 2, width - 1]])
+        reads[i, at] = (reads[i, at] + 1 + i % 3) % 4
     return reads
 
 
@@ -1938,85 +1970,122 @@ def time_anchored_wide(index, kw, rows, dev):
             "bound_by": b_by}
 
 
+def branch_kws(counter):
+    """(label, options) of K3's three branches under the counter's
+    options: tier 1 (its own), tier 2, and tier 1 with point probes in
+    place of the neighbor bits."""
+    t1 = counter._tier_kw(1)
+    return (("tier 1", t1), ("tier 2", counter._tier_kw(2)),
+            ("point probes", dict(t1, max_dirty=8, neighbor_mode=False)))
+
+
+def compare_wide(index, rows, counter_w, dev):
+    """K3 on a batch of wide rows in all three branches against its plain
+    version; returns the largest error."""
+    return max(compare_anchored(index, rows, kw, label, dev)
+               for label, kw in branch_kws(counter_w))
+
+
+def wide_block_threads(width):
+    """The threads of the block K3 gives each row of `width` bases wider
+    than TILE_L: a warp a tile of TILE_L, at most WIDE_WARPS."""
+    from quickmer2_tpu_torch.kernels.anchored import TILE_L, WIDE_WARPS
+    return 32 * min(-(-width // TILE_L), WIDE_WARPS)
+
+
+def edge_inputs(g, k, B):
+    """check_anchored_edges' random inputs, drawn from seed 7 in the order
+    of every run since the wide rows were added (so that its timed
+    batches stay those of PERF.md): the N masks of its narrow batches (B
+    rows of ANCHOR_READ_LEN and of 64 bases), 600 simulated reads of 10
+    kb, and the rows wider than 1,024 (long_rows of the 10 kb reads, 8
+    reads of 20 kb and 200 reads planted across base 1,024 at each of
+    WIDE_WIDTHS; a few reads of 70 kb and planted ones at WIDE_MAX), each
+    with its copy in the mask format (with_ns). The reads planted at
+    every tile boundary of 16,384 and in the last tile of WIDE_MAX draw
+    from a generator of their own (seed 8). Returns (masks, long_reads,
+    wide): wide[width] = (rows, masked rows), wide["tiles"] the planted
+    rows of 16,384."""
+    rng = np.random.default_rng(7)
+    masks = (rng.random((B, ANCHOR_READ_LEN)) < 0.002,
+             rng.random((B, 64)) < 0.002)
+    long_reads = simulate_reads(rng, g, 600, 10_000, 0.003)
+    sets = [long_reads, simulate_reads(rng, g, 8, 20_000, 0.003)]
+    edge_rng = np.random.default_rng(8)
+    wide = {}
+    for width in WIDE_WIDTHS:
+        rows = long_rows(sets + [planted_long_reads(rng, g, width + 100, 200)],
+                         width, k)
+        wide[width] = (rows, with_ns(rows, rng))
+        if width == 16384:
+            tiles = long_rows([planted_tile_reads(edge_rng, g, width, 64)],
+                              width, k)
+            wide["tiles"] = (tiles, with_ns(tiles, edge_rng))
+    rows = long_rows([simulate_reads(rng, g, 4, 70_000, 0.001),
+                      planted_long_reads(rng, g, WIDE_MAX + 100, 4),
+                      planted_tile_reads(edge_rng, g, WIDE_MAX, 8)],
+                     WIDE_MAX, k)
+    wide[WIDE_MAX] = (rows, with_ns(rows, rng))
+    return masks, long_reads, wide
+
+
 def check_anchored_edges(index, counter, g, reads, dev):
     """K3 on the shapes its layout branches on, each against its plain
     version: the mask format (N bases) in all three branches, rows of 64
     (2 lanes a read) and of 1024 (segmented 10 kb reads, 32 lanes a
-    read) in both tiers; then rows wider than 1,024 (a warp a read over
-    tiles): the 10 kb reads, a few 20 kb reads and reads with
-    substitutions planted across the first tile boundary, cut into rows
-    of 2,048, 3,000 and 16,384 and a few reads of 70 kb into rows of
-    65,535, in tiers 1 and 2, lens and mask format. Returns the
-    kernel-table row of the wide rows (tier 1 timed at 2,048 and, under
-    "w16384", at 16,384) and the batches of 2,048 (lens, mask)."""
+    read) in both tiers; then rows wider than 1,024 (a block a read, a
+    warp a tile; edge_inputs) in all three branches, lens and mask
+    format (compare_wide). Returns the kernel-table row of the wide rows
+    (tier 1 timed at 2,048 and, under "w16384", at 16,384, on the inputs
+    of every run since the rows were added) and the batches of 2,048
+    (lens, mask)."""
     from quickmer2_tpu_torch.ops import codec
     from quickmer2_tpu_torch.ops.anchored import (
         AnchoredDepthCounter, rows_from_flat_codes)
-    rng = np.random.default_rng(7)
     B, k = counter.batch_reads, counter.k
-    point = dict(counter._tier_kw(1), max_dirty=8, neighbor_mode=False)
+    masks, long_reads, wide = edge_inputs(g, k, B)
     lens = rows_of(reads[B:2 * B])
     mask = lens.copy()
-    mask[rng.random(mask.shape) < 0.002] = codec.SEP
+    mask[masks[0]] = codec.SEP
     for rows in (lens, mask):
-        for kw, label in ((counter._tier_kw(1), "tier 1"),
-                          (counter._tier_kw(2), "tier 2"),
-                          (point, "point probes")):
+        for label, kw in branch_kws(counter):
             compare_anchored(index, rows, kw, label, dev)
     narrow = AnchoredDepthCounter(index, k, 64, prefetch_puts=False,
                                   device=dev)
     r64 = np.ascontiguousarray(reads[2 * B:3 * B, :64])
     m64 = r64.copy()
-    m64[rng.random(m64.shape) < 0.002] = codec.SEP
+    m64[masks[1]] = codec.SEP
     for rows in (r64, m64):
         for tier in (1, 2):
             compare_anchored(index, rows, narrow._tier_kw(tier),
                              f"tier {tier}", dev)
-    long_reads = simulate_reads(rng, g, 600, 10_000, 0.003)
     flat = np.concatenate([long_reads, np.full((600, 1), codec.SEP,
                                                np.uint8)], 1)
     wide_rows = rows_from_flat_codes(flat.reshape(-1), 1024, segment_k=k)
-    wide = AnchoredDepthCounter(index, k, 1024, prefetch_puts=False,
-                                device=dev)
+    wide_1024 = AnchoredDepthCounter(index, k, 1024, prefetch_puts=False,
+                                     device=dev)
     for tier in (1, 2):
-        compare_anchored(index, wide_rows, wide._tier_kw(tier),
+        compare_anchored(index, wide_rows, wide_1024._tier_kw(tier),
                          f"tier {tier}", dev)
-    del narrow, wide
-    sets = [long_reads, simulate_reads(rng, g, 8, 20_000, 0.003)]
-    row, err, batches = {}, 0, None
-    for width in WIDE_WIDTHS:
-        rows = long_rows(sets + [planted_long_reads(rng, g, width + 100, 200)],
-                         width, k)
-        masked = with_ns(rows, rng)
+    del narrow, wide_1024
+    row, err = {}, 0
+    for width in (*WIDE_WIDTHS, WIDE_MAX):
         counter_w = AnchoredDepthCounter(index, k, width,
                                          prefetch_puts=False, device=dev)
-        for batch in (rows, masked):
-            for tier in (1, 2):
-                err = max(err, compare_anchored(
-                    index, batch, counter_w._tier_kw(tier), f"tier {tier}",
-                    dev))
+        log(f"  rows of {width}: a block of {wide_block_threads(width)} "
+            "threads a row")
+        for batch in wide[width] + (wide["tiles"] if width == 16384 else ()):
+            err = max(err, compare_wide(index, batch, counter_w, dev))
         if width in WIDE_TIMED:
             row[width] = time_anchored_wide(index, counter_w._tier_kw(1),
-                                            rows, dev)
-        if width == 2048:
-            batches = (rows, masked)
+                                            wide[width][0], dev)
         del counter_w
-    rows = long_rows([simulate_reads(rng, g, 4, 70_000, 0.001),
-                      planted_long_reads(rng, g, WIDE_MAX + 100, 4)],
-                     WIDE_MAX, k)
-    counter_w = AnchoredDepthCounter(index, k, WIDE_MAX, prefetch_puts=False,
-                                     device=dev)
-    for batch in (rows, with_ns(rows, rng)):
-        for tier in (1, 2):
-            err = max(err, compare_anchored(
-                index, batch, counter_w._tier_kw(tier), f"tier {tier}", dev))
-    del counter_w
     first, second = (row[w] for w in WIDE_TIMED)
     return {"name": "anchored_wide", "route": "cuda",
             "source": "quickmer2_tpu_torch/csrc/anchored.cu",
             "replaces": "quickmer2_tpu/ops/anchored.py:512",
             "max_abs_err": err, **first, "library_ms": None,
-            f"w{WIDE_TIMED[1]}": second}, batches
+            f"w{WIDE_TIMED[1]}": second}, wide[2048]
 
 
 def check_anchored_kernels(fa, g, reads, dev):
@@ -3204,9 +3273,10 @@ def check_long_reads(world, fa, rng, reset_counts, read_counts):
     """`count --mode anchored --read-len 2048` and `cohort --mode anchored
     --read-len 2048` (the CLI's main in this process, its output sent to
     stderr) on 10 kb reads of the small world, cut into segments of
-    2,048: rows that K3 walks in tiles. Each .bin must equal the flat
-    mono count's of the same reads, byte for byte. Returns K3's launches
-    on those rows in the two runs, which must be nonzero."""
+    2,048: rows that K3 takes a block a row, a warp a tile. Each .bin
+    must equal the flat mono count's of the same reads, byte for byte.
+    Returns K3's launches on those rows in the two runs, which must be
+    nonzero."""
     import contextlib
     from quickmer2_tpu_torch.cli import main as cli_main
     from quickmer2_tpu_torch.pipelines.count import run_count
@@ -3720,8 +3790,9 @@ def check_anchor_probes(index, counter, tier1, tier2, wide, dev):
     K3 and its diffs summing to that K3's (count_blocks). The planted
     batch cut to rows of 150 (lens and mask format: K3a's byte loads)
     at ds = 2 against the same two, and the rows of 2,048 that
-    check_anchored_edges returns (`wide`, lens and mask: K3's walk over
-    tiles with the summed anchors) at ds = 2 in tiers 1 and 2. K3a timed
+    check_anchored_edges returns (`wide`, lens and mask: K3's block over
+    tiles with the summed anchors) at ds = 2 in tiers 1 and 2 and with
+    point probes. K3a timed
     on block 0 of the tier-1 batch at ds = 2, with its wrapper's host
     time and its h2 row reads with the gate and without (both local
     candidates); K3 on block 0 with the summed anchors timed in tiers 1
@@ -3800,19 +3871,20 @@ def check_anchor_probes(index, counter, tier1, tier2, wide, dev):
         pkw = dict(fmt=fmt, k=counter.k, read_len=L, n_buckets=B,
                    anchor_offsets=[a for a in offs if a <= L - counter.k])
         probe_blocks(index, pk, aux, pkw, disp[DS], label, dev)
-    # rows of 2,048: K3a, and K3's walk over tiles with the summed anchors
+    # rows of 2,048: K3a, and K3's block over tiles with the summed
+    # anchors in all three branches
     wide_counter = AnchoredDepthCounter(index, counter.k, wide[0].shape[1],
                                         prefetch_puts=False, device=dev)
+    t1 = wide_counter._tier_kw(1)
     for rows in wide:
         fmt, pk, aux, _ = packed_on(rows, dev)
-        for tier in (1, 2):
-            kw = dict(fmt=fmt, **wide_counter._tier_kw(tier))
-            pkw = dict(fmt=fmt, k=kw["k"], read_len=kw["read_len"],
-                       n_buckets=B, anchor_offsets=kw["anchor_offsets"])
-            f_sum, p_sum = probe_blocks(index, pk, aux, pkw, disp[DS],
-                                        "wide rows", dev)
-            count_blocks(index, pk, aux, kw, f_sum, p_sum,
-                         f"wide rows, tier {tier}", dev)
+        pkw = dict(fmt=fmt, k=t1["k"], read_len=t1["read_len"], n_buckets=B,
+                   anchor_offsets=t1["anchor_offsets"])
+        f_sum, p_sum = probe_blocks(index, pk, aux, pkw, disp[DS],
+                                    "wide rows", dev)
+        for label, kw in branch_kws(wide_counter):
+            count_blocks(index, pk, aux, dict(kw, fmt=fmt), f_sum, p_sum,
+                         f"wide rows, {label}", dev)
     del wide_counter
     pk, aux, in_bytes, pkw, R = timed
     chi, clo, valid = anchor_windows(pk, aux, pkw)

@@ -18,23 +18,29 @@
 // cross into it, the previous lane's for runs) comes by shuffles within the
 // group; counts are popcounts summed over the group.
 //
-// A row wider than 1,024 bases (up to 65,535, the lens format's u16
-// lengths) gets a warp (anchored_wide_kernel), which walks it in tiles of
-// 1,024 bases, each laid out as the G = 32 group. What crosses a tile
-// boundary is carried: the next word's bits of the last lane come from the
-// next tile, which the warp loads one tile ahead; the previous word's bits
-// of lane 0 (runs, covered mismatches, substitution pairs) and the last
-// dirty-run start are carried from the last tile. Every count and cap is
-// over the whole read. The anchors' k bases come straight from the packed
-// row (K3a's aligned loads) and the vote is taken before the tiles. The
-// match counts of both strands need the whole read before the chosen
-// strand's windows can be told clean, and the spill decision before any
-// add, so a wide read takes three walks: the strands' match counts, the
-// deciding walk (cut short once the read spills) and the adding walk, each
-// reloading the row and the genome words. Clean runs are added edge by
-// edge (+1 at a run's low rank, -1 at its high one, the lane that holds
-// either edge adding it), and the dirty windows of a tile are dealt round
-// the warp as in a group.
+// A row wider than 1,024 bases (up to 65,535, the lens format's u16 lengths)
+// gets a block (anchored_wide_kernel): its T = ceil(L / 1,024) tiles, each
+// laid out as the G = 32 group, on min(T, 16) warps, warp w holding tiles w,
+// w + 16, ... (at most four). A warp loads its tiles' code and invalid
+// words, and both strands' genome words, once, and keeps them in registers;
+// the steps below run over them as phases of one pass, separated by block
+// barriers (in the lens format a warp whose tiles lie past the read's length
+// keeps only the barriers). Warp 0 probes the anchors (their k bases
+// straight from the packed row, K3a's aligned loads) and votes while the
+// other warps load; then both strands' matches (the genome bytes packed to
+// 2-bit codes and compared 32 bases at a time), summed over the block; then
+// the chosen strand's clean and dirty windows; then the runs' starts and the
+// spill decision, its counts summed and its checks or-ed over the block;
+// then the adds. What crosses a tile boundary goes through shared memory, an
+// entry a tile: lane 0 publishes its codes, invalid bases and both strands'
+// matches (the previous tile's next word), lane 31 its valid, clean and
+// dirty windows and substitutions (the next tile's previous word). In tier 2
+// a dirty run starts after the last window before its end that is not dirty:
+// in the lane, an earlier lane (a scan) or an earlier tile (a maximum over
+// the tiles' published last ones). Every count and cap is over the whole
+// read. Clean runs are added edge by edge (+1 at a run's low rank, -1 at its
+// high one, the lane that holds either edge adding it), and the dirty
+// windows of a tile are dealt round its warp as in a group.
 //
 // Per read (the JAX function's steps, same order of decisions):
 //   1. unpack the 2-bit lanes, in the lens (u16 length) or mask (invalid
@@ -113,9 +119,12 @@
 // thread per read would fill ~10 % of the card's threads at a 26,214-row
 // batch (205 blocks of 128) and keep the bit sets as 34-word arrays in
 // local memory; at 8 lanes a read the batch fills ~6,500 warps, and the
-// lanes of a read issue their accesses together. A wide read's three walks
-// read its row and genome words three times (the bound counts them once);
-// its tiles are walked one after another, so its latency grows with L.
+// lanes of a read issue their accesses together. A wide read's row and
+// genome words are read once, as the bound counts them, and its tiles run
+// on separate warps, so its latency is a tile's and four barriers', not
+// T tiles'; the card keeps up to 32 blocks and 64 warps an SM, so the
+// 2-warp blocks of rows of 2,048 fill it as the 16-warp ones of 16,384
+// do. What is left is integer work (~16 operations a base).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -655,91 +664,109 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------- rows wider than 1,024 -----
 
-// The read's word w as a wide walk needs it: codes, invalid bases, and the
-// chosen strand's matches and invalid genome bases (0 where the strand
-// leaves the genome or the word holds no valid base).
-struct WordBits {
-  unsigned long long code;
-  unsigned bad, mt, gbad;
+// A read of L > 1,024 bases, T = ceil(L / 1,024) tiles, takes a block of
+// nw = min(T, kWideWarps) warps; warp w holds tiles w, w + nw, ... (at most
+// TPW of them, in registers). kernels/anchored.py::WIDE_WARPS names the
+// same cap.
+constexpr int kWideWarps = 16;
+constexpr int kMaxTiles = (kMaxRowL + kTileL - 1) / kTileL;
+constexpr int kWideTPW = (kMaxTiles + kWideWarps - 1) / kWideWarps;
+
+// What a tile's edge lanes publish for the tiles beside it (dynamic shared
+// memory, an entry a tile): lane 0's codes, invalid bases and both
+// strands' matches (the previous tile's lane 31 reads them as its next
+// word), lane 31's valid, clean and dirty windows and substitutions below
+// W (the next tile's lane 0 reads them as its previous word), and in kRuns
+// the tile's last window that is not dirty (-1 if none).
+struct TileEdge {
+  unsigned long long code0;
+  unsigned bad0, mf0, mr0;
+  unsigned vd31, cl31, dw31, sub31;
+  int clear;
 };
 
-// The chosen strand: forward (genome window from s_f) or reverse
-// complement (ending at ge), and whether its window lies in the genome.
-struct Strand {
-  bool fwd, in;
-  int s_f, ge;
+// The read's vote, sums and flags, one a block.
+struct WideSums {
+  int found, best_pos, best_off;
+  int cnt_f, cnt_r, n_runs, n_dirty, n_druns, over;
 };
 
-template <bool LENS>
-__device__ __forceinline__ WordBits word_bits(const Params& p, int r, int w,
-                                              const Strand& st) {
-  WordBits x = {0ull, 0xFFFFFFFFu, 0u, 0u};
-  if ((w << 5) >= p.L) return x;        // past the row: all invalid
-  x.code = word_code(p, r, w);
-  x.bad = word_bad<LENS>(p, r, w);
-  if (st.in && ~x.bad) {
-    const unsigned* tw = (const unsigned*)p.tiles;
-    const int t0 = w << 5;
-    if (st.fwd) {
-      strand_bits<false>(tw, p.glen >> 2, st.s_f + t0, x.code, &x.mt,
-                         &x.gbad);
-    } else {
-      strand_bits<true>(tw, p.glen >> 2, st.ge - t0 - 31, x.code, &x.mt,
-                        &x.gbad);
-    }
-    x.mt &= ~x.bad;
-  }
-  return x;
+// The 32 bases of x (2-bit codes, base m at bits 2m) in reverse order,
+// each complemented (base ^ 2).
+__device__ __forceinline__ unsigned long long revcomp32(unsigned long long x) {
+  unsigned long long r = __brevll(x);
+  r = ((r >> 1) & 0x5555555555555555ull) | ((r & 0x5555555555555555ull) << 1);
+  return r ^ 0xAAAAAAAAAAAAAAAAull;
 }
 
-// A lane's window bits over windows t0..t0+31 (vd valid, cl clean, dw
-// dirty; the starts and ends of clean and dirty runs) and the previous
-// word's valid windows (vd_prev).
-struct Windows {
-  unsigned vd, vd_prev, cl, dw, cstart, cend, dstart, dend;
-};
+// Bits 0, 2, ..., 30 of x as bits 0..15.
+__device__ __forceinline__ unsigned even_bits(unsigned x) {
+  x = (x | (x >> 1)) & 0x33333333u;
+  x = (x | (x >> 2)) & 0x0F0F0F0Fu;
+  x = (x | (x >> 4)) & 0x00FF00FFu;
+  return (x | (x >> 8)) & 0x0000FFFFu;
+}
 
-// The previous word's valid, clean and dirty windows: lane 31's of the
-// last tile (0 before the first).
-struct Carry {
-  unsigned vd, cl, dw;
-};
+// Genome bytes [a, a + 32) against 32 bases x (2-bit codes, base m at bits
+// 2m): bit m of the result is set where byte a + m holds base m of x, bit m
+// of *gbad where that byte holds no base. Each 4-byte word's codes are
+// packed into one byte by a multiply, the bytes gathered by byte permutes,
+// and the 32 bases compared at once. Words outside the genome are clamped
+// to its ends; they only meet positions the caller masks.
+__device__ __forceinline__ unsigned genome_match(
+    const unsigned* __restrict__ tw, int n_words, int a,
+    unsigned long long x, unsigned* gbad) {
+  const int w = a >> 2;
+  const unsigned sh = 8u * (unsigned)(a & 3);
+  unsigned wd[9];
+  if (w >= 0 && w + 8 < n_words) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) wd[i] = __ldg(tw + w + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const int q = w + i < 0 ? 0 : w + i >= n_words ? n_words - 1 : w + i;
+      wd[i] = __ldg(tw + q);
+    }
+  }
+  unsigned top[8], any_n = 0;           // top byte: the word's four codes
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const unsigned g = __funnelshift_r(wd[i], wd[i + 1], sh);
+    top[i] = (g & 0x03030303u) * 0x01041040u;
+    any_n |= g & 0x04040404u;
+  }
+  const unsigned lo = __byte_perm(__byte_perm(top[0], top[1], 0x73),
+                                  __byte_perm(top[2], top[3], 0x73), 0x5410);
+  const unsigned hi = __byte_perm(__byte_perm(top[4], top[5], 0x73),
+                                  __byte_perm(top[6], top[7], 0x73), 0x5410);
+  const unsigned long long d = (((unsigned long long)hi << 32) | lo) ^ x;
+  const unsigned long long e = ~(d | (d >> 1)) & 0x5555555555555555ull;
+  const unsigned m =
+      even_bits((unsigned)e) | (even_bits((unsigned)(e >> 32)) << 16);
+  unsigned gb = 0;
+  if (any_n) {                          // bit 2 of each byte, by a multiply
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const unsigned g = __funnelshift_r(wd[i], wd[i + 1], sh);
+      gb |= (((g & 0x04040404u) * 0x04081020u) >> 28) << (4 * i);
+    }
+  }
+  *gbad = gb;
+  return m & ~gb;
+}
 
-// One tile's window bits. nxt is the next tile's words (the last lane's
-// next word is its lane 0); bit 0 of a word's windows needs only that
-// word's bits 0..k-1, so the next word's first clean and dirty windows come
-// from its bits alone. Updates the carry to this tile's last word.
-__device__ __forceinline__ Windows tile_windows(const WordBits& cur,
-                                                const WordBits& nxt,
-                                                Carry* c, int lane, int t0,
-                                                int W, int k) {
-  const unsigned bad_dn = __shfl_down_sync(kFull, cur.bad, 1);
-  const unsigned mt_dn = __shfl_down_sync(kFull, cur.mt, 1);
-  const unsigned bad_n0 = __shfl_sync(kFull, nxt.bad, 0);
-  const unsigned mt_n0 = __shfl_sync(kFull, nxt.mt, 0);
-  const unsigned bad_next = lane == 31 ? bad_n0 : bad_dn;
-  const unsigned mt_next = lane == 31 ? mt_n0 : mt_dn;
-  Windows x;
-  x.vd = win_and(~cur.bad, ~bad_next, k) & below(W, t0);
-  x.cl = x.vd & win_and(cur.mt, mt_next, k);
-  x.dw = x.vd & ~x.cl;
-  const unsigned vd_n = win_and(~bad_next, 0u, k) & below(W, t0 + 32) & 1u;
-  const unsigned cl_n = vd_n & win_and(mt_next, 0u, k);
-  const unsigned dw_n = vd_n & ~cl_n;
-  const unsigned vd_up = __shfl_up_sync(kFull, x.vd, 1);
-  const unsigned cl_up = __shfl_up_sync(kFull, x.cl, 1);
-  const unsigned dw_up = __shfl_up_sync(kFull, x.dw, 1);
-  x.vd_prev = lane == 0 ? c->vd : vd_up;
-  const unsigned cl_prev = lane == 0 ? c->cl : cl_up;
-  const unsigned dw_prev = lane == 0 ? c->dw : dw_up;
-  x.cstart = x.cl & ~((x.cl << 1) | (cl_prev >> 31));
-  x.cend = x.cl & ~((x.cl >> 1) | (cl_n << 31));
-  x.dstart = x.dw & ~((x.dw << 1) | (dw_prev >> 31));
-  x.dend = x.dw & ~((x.dw >> 1) | (dw_n << 31));
-  c->vd = __shfl_sync(kFull, x.vd, 31);
-  c->cl = __shfl_sync(kFull, x.cl, 31);
-  c->dw = __shfl_sync(kFull, x.dw, 31);
-  return x;
+// A word's mismatches covered by a valid window j in [t-k+1, t] within
+// [0, W) (*cmm; vd_prev the previous word's valid windows), and of them the
+// substitutions (the read and the genome base both valid).
+__device__ __forceinline__ unsigned substitutions(unsigned mt, unsigned bad,
+                                                  unsigned gbad, unsigned vd,
+                                                  unsigned vd_prev, int L,
+                                                  int t0, int k,
+                                                  unsigned* cmm) {
+  *cmm = ~mt & below(L, t0) &
+         dilate(((unsigned long long)vd << 32) | vd_prev, k);
+  return *cmm & ~(bad | gbad);
 }
 
 // One edge of a clean run mapped to genome position q: a low edge adds +1
@@ -759,194 +786,325 @@ __device__ __forceinline__ int warp_sum(unsigned v) {
   return (int)__reduce_add_sync(kFull, v);
 }
 
-// A read of L > 1,024 bases per warp: steps 1-7 of the group kernel over
-// tiles of 1,024 bases (see the header).
-template <int BR, bool LENS, bool GIVEN>
-__global__ void __launch_bounds__(kThreads)
+// A read of L > 1,024 bases per block: steps 1-7 of the group kernel, each
+// warp on its tiles of 1,024 bases, the tiles' words loaded once and kept
+// in registers, what crosses a tile boundary exchanged through shared
+// memory between the phases (see the header).
+// At most 32 registers a thread where a warp holds one tile, so that 32
+// blocks of 2 warps (rows of 2,048) or 4 of 16 (rows of 16,384) fit an
+// SM's 65,536 registers; at most 64 where it holds four.
+template <int BR, bool LENS, bool GIVEN, int TPW>
+__global__ void __launch_bounds__(32 * kWideWarps, TPW == 1 ? 4 : 2)
     anchored_wide_kernel(const typename LaunchParams<GIVEN>::type p) {
-  const long long gt = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int r = (int)(gt >> 5);
-  if (r >= p.R) return;                 // whole warps leave together
-  const int lane = threadIdx.x & 31;
+  extern __shared__ TileEdge edge[];    // [ceil(L / kTileL)]
+  __shared__ WideSums sums;
+  const int r = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
   const int L = p.L, k = p.k, W = L - k + 1;
-  const int n_tiles = (L + kTileL - 1) / kTileL;
+  // the tiles that hold a base of the read: in the lens format none past
+  // its length, whose warps skip every phase and keep only the barriers
+  int n_live = (L + kTileL - 1) / kTileL;
+  if (LENS) {
+    const int len = __ldg((const uint16_t*)p.aux + r);
+    n_live = min(n_live, (len + kTileL - 1) / kTileL);
+  }
+  if (threadIdx.x == 0) sums = WideSums{};
 
-  // 2. anchors (lane i probes anchor i from the packed row) and the vote
-  bool f = false;
-  unsigned pos = 0;
-  if (lane < p.n_anchors) {
-    bool valid;
-    const unsigned long long x =
-        anchor_window<LENS>(p, r, anchor_at(p, lane), &valid);
-    if (valid) {
-      if constexpr (GIVEN) {
-        f = __ldg(p.afound + (size_t)lane * p.R + r) != 0;
-        pos = f ? __ldg(p.apos + (size_t)lane * p.R + r) : 0u;
-      } else {
-        unsigned rk;
-        f = qm2t::packed_probe(p.rows, qm2t::canonical_lsb(x, k),
-                               p.bucket_mask, &rk, &pos);
+  // 1. the codes and invalid bases of the warp's live tiles (all invalid
+  //    past them); lane 0 publishes its own
+  unsigned long long code[TPW];
+  unsigned bad[TPW];
+#pragma unroll
+  for (int j = 0; j < TPW; ++j) {
+    const int t = warp + j * nw, w = (t << 5) + lane;
+    code[j] = 0ull;
+    bad[j] = 0xFFFFFFFFu;
+    if (t < n_live && (w << 5) < L) {
+      code[j] = word_code(p, r, w);
+      bad[j] = word_bad<LENS>(p, r, w);
+    }
+    if (t < n_live && lane == 0) {
+      edge[t].code0 = code[j];
+      edge[t].bad0 = bad[j];
+    }
+  }
+
+  // 2. anchors (warp 0, lane i anchor i from the packed row) and the vote
+  if (warp == 0) {
+    bool f = false;
+    unsigned pos = 0;
+    if (lane < p.n_anchors) {
+      bool valid;
+      const unsigned long long x =
+          anchor_window<LENS>(p, r, anchor_at(p, lane), &valid);
+      if (valid) {
+        if constexpr (GIVEN) {
+          f = __ldg(p.afound + (size_t)lane * p.R + r) != 0;
+          pos = f ? __ldg(p.apos + (size_t)lane * p.R + r) : 0u;
+        } else {
+          unsigned rk;
+          f = qm2t::packed_probe(p.rows, qm2t::canonical_lsb(x, k),
+                                 p.bucket_mask, &rk, &pos);
+        }
       }
     }
-  }
-  bool av[kMaxAnchors];
-  int ps[kMaxAnchors];
+    bool av[kMaxAnchors];
+    int ps[kMaxAnchors];
 #pragma unroll
-  for (int i = 0; i < kMaxAnchors; ++i) {
-    av[i] = __shfl_sync(kFull, (int)f, i) != 0 && i < p.n_anchors;
-    ps[i] = __shfl_sync(kFull, (int)pos, i);
+    for (int i = 0; i < kMaxAnchors; ++i) {
+      av[i] = __shfl_sync(kFull, (int)f, i) != 0 && i < p.n_anchors;
+      ps[i] = __shfl_sync(kFull, (int)pos, i);
+    }
+    int best_pos, best_off;
+    const bool found = vote(p, av, ps, &best_pos, &best_off);
+    if (lane == 0) {
+      sums.found = found;
+      sums.best_pos = best_pos;
+      sums.best_off = best_off;
+    }
   }
-  int best_pos, best_off;
-  if (!vote(p, av, ps, &best_pos, &best_off)) {
+  __syncthreads();
+
+  if (!sums.found) {
     // unanchored: code 2 where the read has a valid window, else 0
     bool any = false;
-    for (int t = 0; t < n_tiles && !any; ++t) {
-      const int w = (t << 5) + lane;
-      const unsigned vd = win_and(~word_bad<LENS>(p, r, w),
-                                  ~word_bad<LENS>(p, r, w + 1), k) &
-                          below(W, w << 5);
-      any = __any_sync(kFull, vd != 0u);
+#pragma unroll
+    for (int j = 0; j < TPW; ++j) {
+      const int t = warp + j * nw, t0 = ((t << 5) + lane) << 5;
+      if (t < n_live) {
+        const unsigned dn = __shfl_down_sync(kFull, bad[j], 1);
+        const unsigned bn = lane < 31 ? dn
+                            : t + 1 < n_live ? edge[t + 1].bad0
+                                              : 0xFFFFFFFFu;
+        any = any || (win_and(~bad[j], ~bn, k) & below(W, t0)) != 0u;
+      }
     }
-    if (lane == 0) p.code[r] = any ? 2 : 0;
+    any = __syncthreads_or(any);
+    if (threadIdx.x == 0) p.code[r] = any ? 2 : 0;
     return;
   }
 
-  // 3. the strands' match counts over the whole read (walk 1); forward
-  //    wins ties
-  Strand st;
-  st.s_f = best_pos - (k - 1) - best_off;
-  st.ge = best_pos + best_off;
-  const bool fwd_in = st.s_f >= 0 && st.s_f + L <= p.glen;
-  const bool rc_in = st.ge - (L - 1) >= 0 && st.ge < p.glen;
+  // 3. both strands against the genome, each tile's genome words loaded
+  //    once; the match counts summed over the block; forward wins ties
+  const int s_f = sums.best_pos - (k - 1) - sums.best_off;
+  const int ge = sums.best_pos + sums.best_off;
+  const bool fwd_in = s_f >= 0 && s_f + L <= p.glen;
+  const bool rc_in = ge - (L - 1) >= 0 && ge < p.glen;
+  const unsigned* tw = (const unsigned*)p.tiles;
+  unsigned mf[TPW], gbf[TPW], mr[TPW], gbr[TPW];
   int cnt_f = 0, cnt_r = 0;
-  if (fwd_in || rc_in) {
-    const unsigned* tw = (const unsigned*)p.tiles;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int w = (t << 5) + lane, t0 = w << 5;
-      if (t0 >= L) continue;
-      const unsigned long long code = word_code(p, r, w);
-      const unsigned bad = word_bad<LENS>(p, r, w);
-      if (~bad) {
-        unsigned m, gb;
-        if (fwd_in) {
-          strand_bits<false>(tw, p.glen >> 2, st.s_f + t0, code, &m, &gb);
-          cnt_f += __popc(m & ~bad);
-        }
-        if (rc_in) {
-          strand_bits<true>(tw, p.glen >> 2, st.ge - t0 - 31, code, &m, &gb);
-          cnt_r += __popc(m & ~bad);
-        }
+#pragma unroll
+  for (int j = 0; j < TPW; ++j) {
+    const int t = warp + j * nw, t0 = ((t << 5) + lane) << 5;
+    mf[j] = gbf[j] = mr[j] = gbr[j] = 0u;
+    if (t < n_live && ~bad[j]) {
+      if (fwd_in) {
+        mf[j] = genome_match(tw, p.glen >> 2, s_f + t0, code[j], &gbf[j]);
+      }
+      if (rc_in) {                      // bit m there is read base 31 - m
+        unsigned g;
+        mr[j] = __brev(genome_match(tw, p.glen >> 2, ge - t0 - 31,
+                                    revcomp32(code[j]), &g));
+        gbr[j] = __brev(g);
+      }
+      mf[j] &= ~bad[j];
+      mr[j] &= ~bad[j];
+      cnt_f += __popc(mf[j]);
+      cnt_r += __popc(mr[j]);
+    }
+    if (t < n_live && lane == 0) {
+      edge[t].mf0 = mf[j];
+      edge[t].mr0 = mr[j];
+    }
+  }
+  cnt_f = warp_sum(cnt_f);
+  cnt_r = warp_sum(cnt_r);
+  if (lane == 0) {
+    atomicAdd(&sums.cnt_f, cnt_f);
+    atomicAdd(&sums.cnt_r, cnt_r);
+  }
+  __syncthreads();
+  const bool fwd = sums.cnt_f >= sums.cnt_r;
+  if (BR == kNeighbor && !(fwd ? fwd_in : rc_in)) {
+    // spilled, unanchorable (anyvalid holds: an anchor is valid)
+    if (threadIdx.x == 0) p.code[r] = 2;
+    return;
+  }
+
+  // 4. the chosen strand's clean and dirty windows and their run ends
+  //    (the next word of lane 31 is the next tile's lane 0); lane 31
+  //    publishes its words, and in kRuns each tile its last window that is
+  //    not dirty
+  const unsigned kmask = k == 32 ? 0xFFFFFFFFu : (1u << k) - 1u;
+  unsigned mt[TPW], gbad[TPW], vd[TPW], cl[TPW], dw[TPW], cend[TPW],
+      dend[TPW];
+#pragma unroll
+  for (int j = 0; j < TPW; ++j) {
+    const int t = warp + j * nw, t0 = ((t << 5) + lane) << 5;
+    mt[j] = fwd ? mf[j] : mr[j];        // 0 when out of range
+    gbad[j] = fwd ? gbf[j] : gbr[j];
+    vd[j] = cl[j] = dw[j] = cend[j] = dend[j] = 0u;
+    if (t < n_live) {
+      const unsigned bad_dn = __shfl_down_sync(kFull, bad[j], 1);
+      const unsigned mt_dn = __shfl_down_sync(kFull, mt[j], 1);
+      unsigned bad_next = bad_dn, mt_next = mt_dn;
+      if (lane == 31) {
+        const bool last = t + 1 == n_live;
+        bad_next = last ? 0xFFFFFFFFu : edge[t + 1].bad0;
+        mt_next = last ? 0u : fwd ? edge[t + 1].mf0 : edge[t + 1].mr0;
+      }
+      vd[j] = win_and(~bad[j], ~bad_next, k) & below(W, t0);
+      cl[j] = vd[j] & win_and(mt[j], mt_next, k);
+      dw[j] = vd[j] & ~cl[j];
+      // the next word's first window: that word's bits 0..k-1
+      const unsigned vd_n = t0 + 32 < W && (~bad_next & kmask) == kmask;
+      const unsigned cl_n = vd_n & ((mt_next & kmask) == kmask);
+      const unsigned dw_n = vd_n & ~cl_n;
+      cend[j] = cl[j] & ~((cl[j] >> 1) | (cl_n << 31));
+      dend[j] = dw[j] & ~((dw[j] >> 1) | (dw_n << 31));
+      unsigned sub31 = 0u;
+      if (BR == kNeighbor) {            // lane 31's previous word: lane 30
+        const unsigned vd_up = __shfl_up_sync(kFull, vd[j], 1);
+        unsigned cmm;
+        sub31 = substitutions(mt[j], bad[j], gbad[j], vd[j], vd_up, L, t0,
+                              k, &cmm) &
+                below(W, t0);
+      }
+      int clear = -1;
+      if (BR == kRuns) {
+        const unsigned nd = ~dw[j];
+        clear = __reduce_max_sync(kFull, nd ? t0 + 31 - __clz(nd) : -1);
+      }
+      if (lane == 31) {
+        edge[t].vd31 = vd[j];
+        edge[t].cl31 = cl[j];
+        edge[t].dw31 = dw[j];
+        edge[t].sub31 = sub31;
+        edge[t].clear = clear;
       }
     }
-    cnt_f = warp_sum(cnt_f);
-    cnt_r = warp_sum(cnt_r);
   }
-  st.fwd = cnt_f >= cnt_r;
-  st.in = st.fwd ? fwd_in : rc_in;
-  const WordBits past = {0ull, 0xFFFFFFFFu, 0u, 0u};
+  __syncthreads();
 
-  // 4-5. the deciding walk: runs, dirty windows and the branch's caps over
-  //      the whole read, cut short once the read spills
-  bool spilled = false, unanch = false;
-  if (BR == kNeighbor && !st.in) {
-    spilled = unanch = true;            // anyvalid holds: an anchor is valid
-  } else {
-    Carry c = {0u, 0u, 0u};
-    unsigned sub_c = 0;                 // the previous word's substitutions
-    int dstart_c = -1;                  // the last dirty-run start so far
-    int n_runs = 0, n_dirty = 0, n_druns = 0;
-    WordBits cur = word_bits<LENS>(p, r, lane, st);
-    for (int t = 0; t < n_tiles && !spilled; ++t) {
-      const int w = (t << 5) + lane, t0 = w << 5;
-      const WordBits nxt =
-          t + 1 < n_tiles ? word_bits<LENS>(p, r, w + 32, st) : past;
-      const Windows x = tile_windows(cur, nxt, &c, lane, t0, W, k);
-      n_runs += warp_sum(__popc(x.cstart));
-      bool over = false;
+  // 5. the spill decision over the whole read: the runs' starts (lane 0's
+  //    previous word is the previous tile's lane 31), the branch's counts
+  //    and checks summed and or-ed over the block
+  unsigned cstart[TPW];
+  int n_runs = 0, n_dirty = 0, n_druns = 0;
+  bool over = false;
+#pragma unroll
+  for (int j = 0; j < TPW; ++j) {
+    const int t = warp + j * nw, t0 = ((t << 5) + lane) << 5;
+    cstart[j] = 0u;
+    if (t < n_live) {
+      const unsigned vd_up = __shfl_up_sync(kFull, vd[j], 1);
+      const unsigned cl_up = __shfl_up_sync(kFull, cl[j], 1);
+      const unsigned dw_up = __shfl_up_sync(kFull, dw[j], 1);
+      unsigned vd_prev = vd_up, cl_prev = cl_up, dw_prev = dw_up;
+      if (lane == 0) {
+        vd_prev = t == 0 ? 0u : edge[t - 1].vd31;
+        cl_prev = t == 0 ? 0u : edge[t - 1].cl31;
+        dw_prev = t == 0 ? 0u : edge[t - 1].dw31;
+      }
+      cstart[j] = cl[j] & ~((cl[j] << 1) | (cl_prev >> 31));
+      n_runs += __popc(cstart[j]);
       if (BR == kPoint) {
-        n_dirty += warp_sum(__popc(x.dw));
-        over = n_dirty > p.max_dirty;
+        n_dirty += __popc(dw[j]);
       } else if (BR == kRuns) {
-        n_druns += warp_sum(__popc(x.dstart));
-        // a run ending here starts at the last start at or before its end:
-        // in this lane, else in an earlier lane or tile
-        int last = x.dstart ? t0 + 31 - __clz(x.dstart) : -1;
+        const unsigned dstart = dw[j] & ~((dw[j] << 1) | (dw_prev >> 31));
+        n_druns += __popc(dstart);
+        // a dirty run ending at e starts after the last window at or
+        // before e that is not dirty: in this lane, an earlier lane or an
+        // earlier tile
+        int before = -1;
+        for (int i = lane; i < t; i += 32) {
+          before = max(before, edge[i].clear);
+        }
+        before = __reduce_max_sync(kFull, before);
+        const unsigned nd = ~dw[j];
+        int last = nd ? t0 + 31 - __clz(nd) : -1;
         for (int o = 1; o < 32; o <<= 1) {
           const int y = __shfl_up_sync(kFull, last, o);
           if (lane >= o && y > last) last = y;
         }
         const int up = __shfl_up_sync(kFull, last, 1);
-        const int before = lane == 0 || up < dstart_c ? dstart_c : up;
-        bool ok = true;
-        for (unsigned e = x.dend; e; e &= e - 1) {
+        const int prior = lane > 0 && up > before ? up : before;
+        for (unsigned e = dend[j]; e; e &= e - 1) {
           const int b = __ffs(e) - 1;
-          const unsigned s_in = x.dstart & (0xFFFFFFFFu >> (31 - b));
-          const int s = s_in ? t0 + 31 - __clz(s_in) : before;
-          ok = ok && t0 + b - s < p.dirty_run_width;
+          const unsigned m = nd & ((1u << b) - 1u);
+          const int q = m ? t0 + 31 - __clz(m) : prior;
+          over = over || t0 + b - q > p.dirty_run_width;
         }
-        const int tile_last = __shfl_sync(kFull, last, 31);
-        if (tile_last > dstart_c) dstart_c = tile_last;
-        over = n_druns > p.max_dirty_runs || !__all_sync(kFull, ok);
       } else {
-        // mismatches covered by a valid window j in [t-k+1, t] within
-        // [0, W); substitutions below W closer than k; neighbor bits
-        const unsigned cmm =
-            ~cur.mt & below(L, t0) &
-            dilate(((unsigned long long)x.vd << 32) | x.vd_prev, k);
-        const unsigned sub = cmm & ~(cur.bad | cur.gbad);
+        // a mismatch that is no substitution, two substitutions closer
+        // than k (positions below W, as the JAX prefix counts clip them),
+        // or a set neighbor bit
+        unsigned cmm;
+        const unsigned sub = substitutions(mt[j], bad[j], gbad[j], vd[j],
+                                           vd_prev, L, t0, k, &cmm);
         const unsigned sub_w = sub & below(W, t0);
         const unsigned sub_up = __shfl_up_sync(kFull, sub_w, 1);
+        const unsigned sub_prev =
+            lane > 0 ? sub_up : t == 0 ? 0u : edge[t - 1].sub31;
         const unsigned long long pair =
-            ((unsigned long long)sub_w << 32) | (lane == 0 ? sub_c : sub_up);
-        bool bad_mm = (cmm & (cur.bad | cur.gbad)) != 0u ||
+            ((unsigned long long)sub_w << 32) | sub_prev;
+        bool bad_mm = (cmm & (bad[j] | gbad[j])) != 0u ||
                       (k > 1 && (sub_w & dilate(pair << 1, k - 1)) != 0u);
         for (unsigned s = sub; s && !bad_mm; s &= s - 1) {
           const int b = __ffs(s) - 1;
-          const unsigned cb = (unsigned)(cur.code >> (2 * b)) & 3u;
+          const unsigned cb = (unsigned)(code[j] >> (2 * b)) & 3u;
           const unsigned g =
-              __ldg(p.tiles + (st.fwd ? st.s_f + t0 + b : st.ge - t0 - b));
-          bad_mm = (g >> (3 + (st.fwd ? cb : cb ^ 2u))) & 1u;
+              __ldg(p.tiles + (fwd ? s_f + t0 + b : ge - t0 - b));
+          bad_mm = (g >> (3 + (fwd ? cb : cb ^ 2u))) & 1u;
         }
-        sub_c = __shfl_sync(kFull, sub_w, 31);
-        over = __any_sync(kFull, bad_mm);
+        over = over || bad_mm;
       }
-      spilled = n_runs > p.max_runs || over;
-      cur = nxt;
     }
   }
-  if (lane == 0) p.code[r] = spilled ? (unanch ? 2 : 1) : 0;
+  n_runs = warp_sum(n_runs);
+  if (BR == kPoint) n_dirty = warp_sum(n_dirty);
+  if (BR == kRuns) n_druns = warp_sum(n_druns);
+  over = __any_sync(kFull, over);
+  if (lane == 0) {
+    atomicAdd(&sums.n_runs, n_runs);
+    if (BR == kPoint) atomicAdd(&sums.n_dirty, n_dirty);
+    if (BR == kRuns) atomicAdd(&sums.n_druns, n_druns);
+    if (over) sums.over = 1;
+  }
+  __syncthreads();
+  bool spilled = sums.n_runs > p.max_runs || sums.over != 0;
+  if (BR == kPoint) spilled = spilled || sums.n_dirty > p.max_dirty;
+  if (BR == kRuns) spilled = spilled || sums.n_druns > p.max_dirty_runs;
+  if (threadIdx.x == 0) p.code[r] = spilled ? 1 : 0;
   if (spilled) return;
 
-  // 6. the adding walk: each clean run's edges (GIVEN: on the first block
-  //    only; they come from the replicated dblock) and, in kPoint and
-  //    kRuns, each dirty window probed, dealt round the warp a tile at a
-  //    time
+  // 6. the adds: each clean run's edges (GIVEN: on the first block only;
+  //    they come from the replicated dblock) and, in kPoint and kRuns,
+  //    each dirty window probed, a tile's dealt round its warp
   bool ranges = true;
   if constexpr (GIVEN) ranges = p.ranges;
   if (BR == kNeighbor && !ranges) return;
   const unsigned trash = (unsigned)p.n_diff - 1;
-  Carry c = {0u, 0u, 0u};
-  WordBits cur = word_bits<LENS>(p, r, lane, st);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int w = (t << 5) + lane, t0 = w << 5;
-    const WordBits nxt =
-        t + 1 < n_tiles ? word_bits<LENS>(p, r, w + 32, st) : past;
-    const Windows x = tile_windows(cur, nxt, &c, lane, t0, W, k);
+#pragma unroll
+  for (int j = 0; j < TPW; ++j) {
+    const int t = warp + j * nw, t0 = ((t << 5) + lane) << 5;
+    if (t >= n_live) continue;
     if (ranges) {
       // forward: a start is the run's low edge at s_f + st + k - 1, an end
       // its high edge; reverse: an end is the low edge at ge - e, a start
       // the high edge at ge - st
-      for (unsigned s = x.cstart; s; s &= s - 1) {
+      for (unsigned s = cstart[j]; s; s &= s - 1) {
         const int b = t0 + __ffs(s) - 1;
-        run_edge(p, st.fwd ? st.s_f + b + (k - 1) : st.ge - b, st.fwd);
+        run_edge(p, fwd ? s_f + b + (k - 1) : ge - b, fwd);
       }
-      for (unsigned s = x.cend; s; s &= s - 1) {
+      for (unsigned s = cend[j]; s; s &= s - 1) {
         const int b = t0 + __ffs(s) - 1;
-        run_edge(p, st.fwd ? st.s_f + b + (k - 1) : st.ge - b, !st.fwd);
+        run_edge(p, fwd ? s_f + b + (k - 1) : ge - b, !fwd);
       }
     }
     if (BR != kNeighbor) {
-      const int mine = __popc(x.dw);
+      const int mine = __popc(dw[j]);
       int incl = mine;
       for (int o = 1; o < 32; o <<= 1) {
         const int y = __shfl_up_sync(kFull, incl, o);
@@ -954,7 +1112,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       const int excl = incl - mine;
       const int n_tile = __shfl_sync(kFull, incl, 31);
-      const unsigned long long code_n0 = __shfl_sync(kFull, nxt.code, 0);
+      const unsigned long long code_n0 =
+          t + 1 < n_live ? edge[t + 1].code0 : 0ull;
       for (int base = 0; base < n_tile; base += 32) {
         const int m = base + lane;
         int o = 0;                      // the last lane whose excl <= m
@@ -962,14 +1121,14 @@ __global__ void __launch_bounds__(kThreads)
           const int ex = __shfl_sync(kFull, excl, o + step);
           if (ex <= m) o += step;
         }
-        unsigned d = __shfl_sync(kFull, x.dw, o);
+        unsigned d = __shfl_sync(kFull, dw[j], o);
         const int ex_o = __shfl_sync(kFull, excl, o);
-        const unsigned long long c0 = __shfl_sync(kFull, cur.code, o);
+        const unsigned long long c0 = __shfl_sync(kFull, code[j], o);
         const unsigned long long c1x =
-            __shfl_sync(kFull, cur.code, o + 1 < 32 ? o + 1 : o);
+            __shfl_sync(kFull, code[j], o + 1 < 32 ? o + 1 : o);
         const unsigned long long c1 = o == 31 ? code_n0 : c1x;
         if (m < n_tile) {
-          for (int j = m - ex_o; j > 0; --j) d &= d - 1;
+          for (int i = m - ex_o; i > 0; --i) d &= d - 1;
           const int s = 2 * (__ffs(d) - 1);
           const unsigned long long y = s ? (c0 >> s) | (c1 << (64 - s)) : c0;
           unsigned rk, at;
@@ -986,22 +1145,43 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    cur = nxt;
+  }
+}
+
+// The threads of a wide row's block: a warp a tile, at most kWideWarps.
+inline int wide_threads(int L) {
+  const int n_tiles = (L + kTileL - 1) / kTileL;
+  return 32 * (n_tiles < kWideWarps ? n_tiles : kWideWarps);
+}
+
+template <int BR, bool LENS, bool GIVEN>
+void launch_wide(const typename LaunchParams<GIVEN>::type& p,
+                 cudaStream_t stream) {
+  const int n_tiles = (p.L + kTileL - 1) / kTileL;
+  const size_t smem = n_tiles * sizeof(TileEdge);
+  if (n_tiles <= kWideWarps) {
+    anchored_wide_kernel<BR, LENS, GIVEN, 1>
+        <<<p.R, wide_threads(p.L), smem, stream>>>(p);
+  } else {
+    anchored_wide_kernel<BR, LENS, GIVEN, kWideTPW>
+        <<<p.R, wide_threads(p.L), smem, stream>>>(p);
   }
 }
 
 template <int BR, bool GIVEN>
 cudaError_t launch(const typename LaunchParams<GIVEN>::type& p, bool lens,
                    cudaStream_t stream) {
-  const bool wide = p.L > kTileL;       // a warp a read
-  const long long threads = (long long)p.R * (wide ? 32 : p.lanes);
+  if (p.L > kTileL) {                   // a block a read
+    if (lens) {
+      launch_wide<BR, true, GIVEN>(p, stream);
+    } else {
+      launch_wide<BR, false, GIVEN>(p, stream);
+    }
+    return cudaGetLastError();
+  }
+  const long long threads = (long long)p.R * p.lanes;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  if (wide && lens) {
-    anchored_wide_kernel<BR, true, GIVEN><<<blocks, kThreads, 0, stream>>>(p);
-  } else if (wide) {
-    anchored_wide_kernel<BR, false, GIVEN><<<blocks, kThreads, 0, stream>>>(
-        p);
-  } else if (lens) {
+  if (lens) {
     anchored_kernel<BR, true, GIVEN><<<blocks, kThreads, 0, stream>>>(p);
   } else {
     anchored_kernel<BR, false, GIVEN><<<blocks, kThreads, 0, stream>>>(p);

@@ -46,7 +46,8 @@ GBLK = 64          # genome tile width (bases)
 # the widest row the kernels take: the lens format's u16 lengths
 # (ops/rowpack.py) hold no more
 MAX_READ_LEN = 65535
-TILE_L = 1024      # rows wider than this take K3's warp walk over tiles
+TILE_L = 1024      # rows wider than this take a block of K3, a warp a tile
+WIDE_WARPS = 16    # at most, a warp holding several tiles past it
 DBLK = 64          # prefix-count block size (positions per dblock row)
 BRANCHES = {"neighbor": 0, "point": 1, "runs": 2}
 

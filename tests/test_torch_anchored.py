@@ -271,14 +271,11 @@ def _rows_of_width(world, width: int, seed: int) -> np.ndarray:
                                       segment_k=K)
 
 
-@pytest.mark.parametrize("width", [64, 1024, 2048, 3000])
-@pytest.mark.parametrize("branch", ["neighbor", "runs"])
-def test_anchored_count_widths_match_jax(world, width, branch):
-    """K3's plain version at the row widths its layout branches on (2
-    and 32 lanes a read; a warp walking tiles of 1,024 bases, at a width
-    that is a multiple of 32 and one that is not), tier 1 and tier 2."""
+def _wide_match_jax(world, rows, width, branch):
+    """K3's plain version against the JAX function on rows of `width`
+    (anchors spread over the row's windows), diff words and spill codes
+    exactly; returns (codes, diff)."""
     jix, tix = world["jindex"], world["tindex"]
-    rows = _rows_of_width(world, width, width)
     fmt, pk, aux, pk_t, aux_t = _packed(rows)
     w = width - K + 1
     kw = dict(k=K, read_len=width,
@@ -296,7 +293,65 @@ def test_anchored_count_widths_match_jax(world, width, branch):
     np.testing.assert_array_equal(code.numpy(), jcode)
     np.testing.assert_array_equal(diff.numpy().astype(np.uint32),
                                   np.asarray(jdiff))
-    assert (jcode == 0).sum() > 0 and (diff.numpy() != 0).sum() > 50
+    return jcode, diff.numpy()
+
+
+@pytest.mark.parametrize("width", [64, 1024, 2048, 3000])
+@pytest.mark.parametrize("branch", ["neighbor", "runs", "point"])
+def test_anchored_count_widths_match_jax(world, width, branch):
+    """K3's plain version at the row widths its layout branches on (2
+    and 32 lanes a read; a block of a warp a tile of 1,024 bases, at a
+    width that is a multiple of 32 and one that is not), in tier 1 (with
+    the neighbor bits or point probes) and tier 2."""
+    jcode, diff = _wide_match_jax(world, _rows_of_width(world, width, width),
+                                  width, branch)
+    # point probes spill most reads (a substitution dirties k windows)
+    assert (jcode == 0).sum() > 0
+    assert (diff != 0).sum() > (4 if branch == "point" else 50)
+
+
+def _tile_edge_reads(rng, src: str, width: int) -> list[str]:
+    """Reads of `width` bases of src (every other one reverse
+    complemented) with one to three substitutions within 40 bases of each
+    tile boundary of K3's block past the first (bases 2,048, 3,072, ...);
+    and two error-free reads, each one clean run over all of its
+    tiles."""
+    reads = []
+    for j in range(12):
+        s = int(rng.integers(0, len(src) - width))
+        r = src[s:s + width]
+        r = list(r if j % 2 == 0 else helpers.revcomp(r))
+        for b in range(2048, width, 1024):
+            for p in rng.choice(np.arange(b - 40, min(b + 40, width)),
+                                1 + j % 3, replace=False):
+                r[p] = "ACGT"[("ACGT".index(r[p]) + 1 + j % 3) % 4]
+        reads.append("".join(r))
+    for s in (200, 6000):
+        reads.append(src[s:s + width])
+    return reads
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+@pytest.mark.parametrize("branch", ["neighbor", "point", "runs"])
+def test_anchored_count_tile_edges_match_jax(world, branch, with_n):
+    """K3's plain version on rows of 3,000 whose substitutions (with_n:
+    and N bases, the mask format) sit across the second tile boundary
+    (base 2,048) of the block that takes rows wider than 1,024, and on
+    reads that are one clean run over all three tiles."""
+    width = 3000
+    reads = _tile_edge_reads(np.random.default_rng(3), world["chr1"][:15000],
+                             width)
+    stream = np.concatenate([np.append(jcodec.encode_bases(r.encode()),
+                                       jcodec.SEP) for r in reads])
+    rows = janch.rows_from_flat_codes(stream.astype(np.uint8), width,
+                                      segment_k=K)
+    assert rows.shape == (len(reads), width)
+    if with_n:                          # an N by base 2,048, every other row
+        rows[1:-2:2, 2047:2050] = jcodec.SEP
+    jcode, diff = _wide_match_jax(world, rows, width, branch)
+    # the clean reads add their runs; the planted ones spill or count
+    assert (jcode[-2:] == 0).all() and (jcode[:-2] == 1).any()
+    assert (diff != 0).sum() >= 4
 
 
 def test_anchor_probes_wide_blocks_match_jax(world):
