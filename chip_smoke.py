@@ -4178,25 +4178,48 @@ def profiled_runs(runs):
 
 
 def check_trace(label, events, regions):
-    """The trace's pipeline regions: exactly `regions` in order, none
-    overlapping the next; the kernels of PROFILE_KERNELS inside their
-    region's device span (its gpu_user_annotation). Returns ({region:
+    """The trace's pipeline regions (`search.*`, `count.*`): exactly
+    `regions` in order, none overlapping the next; the flat counter's
+    phases (`counter.*`) each inside `count.stream` or `count.finish`,
+    and no other annotation; the kernels of PROFILE_KERNELS inside their
+    region's device span: from the first to the last device operation
+    whose launch (the runtime call of its correlation id) lies inside
+    the region. (The profiler's gpu_user_annotation spans only the
+    innermost range, now a counter phase.) Returns ({region:
     {"kernels": {name: n} inside its device span, "busy": the
     device-busy share of that span}}, {kernel name: n} over the whole
     trace)."""
-    host = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                  if e.get("cat") == "user_annotation")
+    notes = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation")
+    host = [h for h in notes if h[2].startswith(("search.", "count."))]
+    phases = [h for h in notes if h[2].startswith("counter.")]
+    other = sorted({h[2] for h in notes} - {h[2] for h in host + phases})
+    if other:
+        raise AssertionError(f"{label}: annotations {other} are neither "
+                             f"pipeline regions nor counter phases")
     names = tuple(n for _, _, n in host)
     if names != regions:
         raise AssertionError(f"{label}: the trace's regions {names}, not "
                              f"{regions}")
     if any(a[1] > b[0] for a, b in zip(host, host[1:])):
         raise AssertionError(f"{label}: overlapping regions {host}")
+    count = [h for h in host if h[2] in ("count.stream", "count.finish")]
+    for s, t, n in phases:
+        if not any(a <= s and t <= b for a, b, _ in count):
+            raise AssertionError(f"{label}: {n} at {s}-{t} lies outside "
+                                 f"count.stream and count.finish")
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
     dev = {}
     for e in events:
-        if e.get("cat") == "gpu_user_annotation":      # one a stream
-            a, b = dev.get(e["name"], (e["ts"], e["ts"] + e["dur"]))
-            dev[e["name"]] = (min(a, e["ts"]), max(b, e["ts"] + e["dur"]))
+        t = launched.get(e.get("args", {}).get("correlation"))
+        if e.get("cat") not in DEVICE_BUSY or t is None:
+            continue
+        for lo, hi, name in host:
+            if lo <= t <= hi:
+                a, b = dev.get(name, (e["ts"], e["ts"] + e["dur"]))
+                dev[name] = (min(a, e["ts"]), max(b, e["ts"] + e["dur"]))
     kernels = [e for e in events if e.get("cat") == "kernel"]
     by_name = {}
     for e in kernels:

@@ -42,7 +42,6 @@ import collections
 import concurrent.futures
 import dataclasses
 import os
-import time
 
 import numpy as np
 import torch
@@ -58,6 +57,7 @@ from quickmer2_tpu_torch.kernels.neighbor_bits import (
 from quickmer2_tpu_torch.ops import codec, rowpack
 from quickmer2_tpu_torch.ops.monotable import MonoTable
 from quickmer2_tpu_torch.ops.packed_table import PackedTable, probe_packed_np
+from quickmer2_tpu_torch.utils.profiling import Phases
 
 __all__ = ["GBLK", "DBLK", "AnchoredIndex", "AnchoredDepthCounter",
            "RowStreamer", "build_dblock", "build_neighbor_bits",
@@ -513,7 +513,7 @@ class AnchoredDepthCounter:
         self.n_reads = 0
         self.n_spilled = 0
         self.n_spilled2 = 0
-        self.phase_s: dict = collections.defaultdict(float)
+        self.phases = Phases("anchored.")
 
     def feed_reads(self, reads_rows: np.ndarray) -> None:
         """reads_rows: u8[R, read_len] code rows (SEP-padded)."""
@@ -604,13 +604,12 @@ class AnchoredDepthCounter:
     def _pack_put(self, batch: np.ndarray):
         """Pack a host batch and start its copy to the device (on the
         transfer thread when prefetching)."""
-        t0 = time.time()
-        fmt, pk, aux = rowpack.pack_batch(batch)
-        pk_t, aux_t = torch.from_numpy(pk), rowpack.aux_tensor(fmt, aux)
-        if self.device.type == "cuda":
-            pk_t = pk_t.pin_memory().to(self.device, non_blocking=True)
-            aux_t = aux_t.pin_memory().to(self.device, non_blocking=True)
-        self.phase_s["pack_put"] += time.time() - t0
+        with self.phases("pack_put"):
+            fmt, pk, aux = rowpack.pack_batch(batch)
+            pk_t, aux_t = torch.from_numpy(pk), rowpack.aux_tensor(fmt, aux)
+            if self.device.type == "cuda":
+                pk_t = pk_t.pin_memory().to(self.device, non_blocking=True)
+                aux_t = aux_t.pin_memory().to(self.device, non_blocking=True)
         return fmt, pk_t, aux_t
 
     def _enqueue(self, kind, batch: np.ndarray) -> None:
@@ -627,17 +626,15 @@ class AnchoredDepthCounter:
 
     def _dispatch_oldest(self) -> None:
         kind, batch, payload = self._put_q.popleft()
-        t0 = time.time()
-        put = payload.result() if hasattr(payload, "result") else payload
-        t1 = time.time()
-        self.phase_s["put_wait"] += t1 - t0
-        if kind == "exact":
-            outs = self._exact_step(put)
-            kind_out = "exactmask"
-        else:
-            outs = self._kernel_step(put, kind)
-            kind_out = kind
-        self.phase_s[f"dispatch_{kind}"] += time.time() - t1
+        with self.phases("put_wait"):
+            put = payload.result() if hasattr(payload, "result") else payload
+        with self.phases(f"dispatch_{kind}"):
+            if kind == "exact":
+                outs = self._exact_step(put)
+                kind_out = "exactmask"
+            else:
+                outs = self._kernel_step(put, kind)
+                kind_out = kind
         if not outs:
             return
         self._inflight.append((batch, [start_fetch(o) for o in outs],
@@ -650,11 +647,10 @@ class AnchoredDepthCounter:
         route the batches in order."""
         if not self._inflight:
             return
-        t0 = time.time()
-        items = [(batch, [fetched(h) for h in hs], kind)
-                 for batch, hs, kind in self._inflight]
+        with self.phases("drain"):
+            items = [(batch, [fetched(h) for h in hs], kind)
+                     for batch, hs, kind in self._inflight]
         self._inflight.clear()
-        self.phase_s["drain"] += time.time() - t0
         for batch, outs, kind in items:
             if kind == "exactmask":
                 self._drain_exact_mask(batch, to_numpy_u32(outs[0]))
@@ -756,10 +752,10 @@ class AnchoredDepthCounter:
         if self._xfer is not None:
             self._xfer.shutdown(wait=True)
             self._xfer = None   # later feeds pack inline
-        t0 = time.time()
-        diff, acc = self._merged_accumulators()
-        slots = to_numpy_u32(self.exact_slot)[:-1] if self.mono_spill else None
-        self.phase_s["finish_sync"] += time.time() - t0
+        with self.phases("finish_sync"):
+            diff, acc = self._merged_accumulators()
+            slots = (to_numpy_u32(self.exact_slot)[:-1] if self.mono_spill
+                     else None)
         n = self.index.n_kmers
         depth = np.cumsum(diff, dtype=np.uint32)[:n]
         if acc is not None:

@@ -35,8 +35,6 @@ and the exact path run sharded as in the one-device counter.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -103,17 +101,16 @@ class ShardedAnchoredCounter(AnchoredDepthCounter):
     def _pack_put(self, batch: np.ndarray):
         """Pack a batch, cut it into dp contiguous row slices and copy
         slice i to the devices of row i (None for an empty slice)."""
-        t0 = time.time()
-        fmt, pk, aux = rowpack.pack_batch(batch)
-        per = -(-len(batch) // self.dp)
-        shards = []
-        for i in range(self.dp):
-            lo, hi = i * per, min(len(batch), (i + 1) * per)
-            shards.append(None if lo >= hi else put_on(
-                self.mesh.devices[i],
-                (torch.from_numpy(np.ascontiguousarray(pk[lo:hi])),
-                 rowpack.aux_tensor(fmt, aux[lo:hi]))))
-        self.phase_s["pack_put"] += time.time() - t0
+        with self.phases("pack_put"):
+            fmt, pk, aux = rowpack.pack_batch(batch)
+            per = -(-len(batch) // self.dp)
+            shards = []
+            for i in range(self.dp):
+                lo, hi = i * per, min(len(batch), (i + 1) * per)
+                shards.append(None if lo >= hi else put_on(
+                    self.mesh.devices[i],
+                    (torch.from_numpy(np.ascontiguousarray(pk[lo:hi])),
+                     rowpack.aux_tensor(fmt, aux[lo:hi]))))
         return fmt, shards
 
     def _kernel_step(self, put, tier) -> list:

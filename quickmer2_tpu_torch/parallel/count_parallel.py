@@ -34,6 +34,7 @@ from quickmer2_tpu_torch.ops import rowpack
 from quickmer2_tpu_torch.ops.codec import SEP
 from quickmer2_tpu_torch.ops.packed_table import ROW_WIDTH, PackedTable
 from quickmer2_tpu_torch.pipelines.count import DepthCounter
+from quickmer2_tpu_torch.utils.profiling import Phases
 
 
 def split_codes_overlap(batch: np.ndarray, dp: int, k: int) -> np.ndarray:
@@ -104,6 +105,7 @@ class ShardedDepthCounter(DepthCounter):
         self._pending: list[np.ndarray] = []
         self._pending_len = 0
         self.total_kmer_windows = 0
+        self.phases = Phases("counter.")
 
     def _zero_partials(self) -> None:
         self.depth = [[torch.zeros(2 * self.block_buckets + 1,

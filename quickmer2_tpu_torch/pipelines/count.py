@@ -38,7 +38,6 @@ kernels' plain PyTorch versions.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import os
 import struct
@@ -62,7 +61,7 @@ from quickmer2_tpu_torch.ops.monotable import MonoTable
 from quickmer2_tpu_torch.ops.packed_table import PackedTable
 from quickmer2_tpu_torch.ops.sortjoin import SortJoinEngine
 from quickmer2_tpu_torch.utils import checkpoint, native
-from quickmer2_tpu_torch.utils.profiling import annotate
+from quickmer2_tpu_torch.utils.profiling import Phases, annotate
 
 
 _SEP_ARR = np.array([SEP], np.uint8)
@@ -264,39 +263,42 @@ class DepthCounter:
         self._pending: list[np.ndarray] = []
         self._pending_len = 0
         self.total_kmer_windows = 0
-        self.phase_s: dict = collections.defaultdict(float)
+        # the host side's phases per batch (PERF.md §3 has their tree)
+        self.phases = Phases("counter.")
 
     def feed_codes(self, chunk: np.ndarray) -> None:
         self._pending.append(chunk)
         self._pending_len += len(chunk)
         while self._pending_len + len(self._carry) >= self.batch_bases:
-            buf = np.concatenate([self._carry] + self._pending)
+            with self.phases("concat"):
+                buf = np.concatenate([self._carry] + self._pending)
             self._pending = [buf[self.batch_bases :]]
             self._pending_len = len(self._pending[0])
             self._run(buf[: self.batch_bases])
 
     def _run(self, batch: np.ndarray) -> None:
         assert len(batch) == self.batch_bases
-        t0 = time.time()
-        pk, bits = rowpack.pack_rows(batch[None, :])
-        pk_d = torch.from_numpy(pk[0]).to(self.device)
-        bits_d = torch.from_numpy(bits[0]).to(self.device)
-        t1 = time.time()
-        self.phase_s["pack_put"] += t1 - t0
+        self.phases.add("batches", 1)
+        with self.phases("pack_put"):
+            with self.phases("pack"):
+                pk, bits = rowpack.pack_rows(batch[None, :])
+            with self.phases("put"):
+                pk_d = torch.from_numpy(pk[0]).to(self.device)
+                bits_d = torch.from_numpy(bits[0]).to(self.device)
         kw = dict(k=self.k, n_bases=self.batch_bases)
-        if self.layout == "mono":
-            ub = count_mono_step(pk_d, bits_d, self.rows, self.depth,
-                                 n_buckets=self._mono.n_buckets, **kw)
-            self._pending_masks.append((batch, start_fetch(ub)))
-        elif self.layout == "packed":
-            count_packed_step(pk_d, bits_d, self.rows, self.depth,
-                              n_buckets=self._packed.n_buckets, **kw)
-        elif self.layout == "linear":
-            count_linear_step(pk_d, bits_d, self.table, self.depth,
-                              hash_size=self.dict.hash_size, **kw)
-        else:
-            self._engine.count_codes(*kmerize_step(pk_d, bits_d, **kw))
-        self.phase_s["dispatch"] += time.time() - t1
+        with self.phases("dispatch"):
+            if self.layout == "mono":
+                ub = count_mono_step(pk_d, bits_d, self.rows, self.depth,
+                                     n_buckets=self._mono.n_buckets, **kw)
+                self._pending_masks.append((batch, start_fetch(ub)))
+            elif self.layout == "packed":
+                count_packed_step(pk_d, bits_d, self.rows, self.depth,
+                                  n_buckets=self._packed.n_buckets, **kw)
+            elif self.layout == "linear":
+                count_linear_step(pk_d, bits_d, self.table, self.depth,
+                                  hash_size=self.dict.hash_size, **kw)
+            else:
+                self._engine.count_codes(*kmerize_step(pk_d, bits_d, **kw))
         # drain masks one batch behind so the D2H never stalls the next
         # launch; ~0.1% of lanes at load 0.5 end up unresolved
         if self.layout == "mono" and len(self._pending_masks) > 1:
@@ -308,12 +310,14 @@ class DepthCounter:
         """Flush the tail (padded to full batch shape with separators) and
         return host depth u32[n_kmers] in rank order."""
         if self._pending_len:
-            buf = np.concatenate([self._carry] + self._pending)
-            pad = np.full(self.batch_bases - len(buf) % self.batch_bases, SEP, np.uint8)
-            buf = np.concatenate([buf, pad])
-            for off in range(0, len(buf), self.batch_bases):
-                self._run(buf[off : off + self.batch_bases])
-            self._pending, self._pending_len = [], 0
+            with self.phases("finish_tail"):
+                with self.phases("concat"):
+                    buf = np.concatenate([self._carry] + self._pending)
+                    pad = np.full(self.batch_bases - len(buf) % self.batch_bases, SEP, np.uint8)
+                    buf = np.concatenate([buf, pad])
+                for off in range(0, len(buf), self.batch_bases):
+                    self._run(buf[off : off + self.batch_bases])
+                self._pending, self._pending_len = [], 0
         return self._final_depth()
 
     def _final_depth(self) -> np.ndarray:
@@ -321,16 +325,19 @@ class DepthCounter:
         if self.layout == "sortjoin":
             return self._engine.finish()
         if self.layout != "mono":
-            return to_numpy_u32(self._rank_depth())[:-1]
+            with self.phases("depth_fetch"):
+                return to_numpy_u32(self._rank_depth())[:-1]
         for pend in self._pending_masks:
             self._drain_mask(*pend)
         self._pending_masks = []
-        slots = to_numpy_u32(self.depth)[:-1]
-        out = np.zeros(self.dict.n_kmers, np.uint64)
-        live = self._mono.slot_rank < self.dict.n_kmers
-        out[self._mono.slot_rank[live]] = slots[live]
-        out += self._side_counts
-        return out.astype(np.uint32)          # u32 wrap (Q8 parity)
+        with self.phases("depth_fetch"):
+            slots = to_numpy_u32(self.depth)[:-1]
+        with self.phases("depth_rank"):
+            out = np.zeros(self.dict.n_kmers, np.uint64)
+            live = self._mono.slot_rank < self.dict.n_kmers
+            out[self._mono.slot_rank[live]] = slots[live]
+            out += self._side_counts
+            return out.astype(np.uint32)      # u32 wrap (Q8 parity)
 
     def _rank_depth(self) -> torch.Tensor:
         """The packed or linear layout's depth in rank order, u32[n_kmers
@@ -345,24 +352,30 @@ class DepthCounter:
         into a SEP-separated strip and run through the exact host
         codec). The mask is LSB-first u32 words (lane i = bit i&31 of
         word i>>5)."""
-        t0 = time.time()
-        mask = np.unpackbits(to_numpy_u32(fetched(handle)).view(np.uint8),
-                             bitorder="little")
-        self.phase_s["drain"] += time.time() - t0
-        lanes = np.flatnonzero(mask)
-        lanes = lanes[lanes < len(batch) - self.k + 1]
-        if len(lanes) == 0:
-            return
-        m = len(lanes)
-        strip = np.full((m, self.k + 1), SEP, np.uint8)
-        strip[:, :self.k] = batch[lanes[:, None] + np.arange(self.k)]
-        canon, _ = codec.sliding_kmers_np(strip.reshape(-1), self.k)
-        km = canon[:: self.k + 1][:m]
-        hi = (km >> np.uint64(32)).astype(np.uint32)
-        lo = km.astype(np.uint32)
-        found, rank = self._mono.side_lookup_np(hi, lo)
-        if found.any():
-            np.add.at(self._side_counts, rank[found], 1)
+        with self.phases("drain"):
+            with self.phases("mask_wait"):
+                host = fetched(handle)
+            with self.phases("mask_scan"):
+                mask = np.unpackbits(to_numpy_u32(host).view(np.uint8),
+                                     bitorder="little")
+                lanes = np.flatnonzero(mask)
+                lanes = lanes[lanes < len(batch) - self.k + 1]
+            m = len(lanes)
+            self.phases.add("recount_lanes", m)
+            if m == 0:
+                return
+            with self.phases("recount"):
+                strip = np.full((m, self.k + 1), SEP, np.uint8)
+                strip[:, :self.k] = batch[lanes[:, None] + np.arange(self.k)]
+                canon, _ = codec.sliding_kmers_np(strip.reshape(-1), self.k)
+                km = canon[:: self.k + 1][:m]
+                hi = (km >> np.uint64(32)).astype(np.uint32)
+                lo = km.astype(np.uint32)
+                found, rank = self._mono.side_lookup_np(hi, lo)
+                hits = np.count_nonzero(found)
+                self.phases.add("side_hits", hits)
+                if hits:
+                    np.add.at(self._side_counts, rank[found], 1)
 
     # -- state carried across (same dict keys as the JAX DepthCounter) --
 
@@ -573,8 +586,9 @@ class StreamCounter:
             s["n_spilled2"] = self.counter.n_spilled2
             s["read_len"] = self.read_len
             s.update(self.row_streamer.stats)      # n_long_reads, n_segments
-        for key, val in getattr(self.counter, "phase_s", {}).items():
-            s["phase_" + key + "_s"] = round(val, 4)
+        phases = getattr(self.counter, "phases", None)
+        if phases is not None:
+            s.update(phases.stats())
         return s
 
     # -- checkpoint/resume (the JAX StreamCounter's arrays and meta) -----

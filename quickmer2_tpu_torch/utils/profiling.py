@@ -10,11 +10,19 @@ with its time. `annotate(name)` names a pipeline region (search.tabulate
 `user_annotation` on the host's timeline and a `gpu_user_annotation`
 over the device work launched inside it. Outside a trace both cost next
 to nothing, so the hot paths carry them always.
+
+`Phases` is a counter's own account of its host side: each phase a
+profiler range under the counter's prefix (`counter.drain`,
+`anchored.put_wait`, ...) and its summed seconds, beside plain counts.
+Its prefixes are not the pipeline regions' (`count.`), so filters on
+those still see only the pipeline regions.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
+import time
 
 import torch
 
@@ -48,3 +56,45 @@ def trace(trace_dir: str | None, device: str | torch.device = "cuda"):
 def annotate(name: str):
     """Named region for the profiler's timelines (a context manager)."""
     return torch.profiler.record_function(name)
+
+
+class Phases:
+    """Seconds and calls of a counter's phases, and its plain counts.
+
+    `with phases("drain"):` is the profiler range `<prefix>drain` (on the
+    trace's clock, beside the device's kernels and copies) and adds its
+    perf_counter seconds to the phase; `phases.add("recount_lanes", m)`
+    adds to a count. Phases nest: a phase opened inside another is its
+    child, and the parent's self time is its seconds less its children's.
+    The sums take a lock, so a transfer thread may time its phases too.
+    No synchronize and no device work: the seconds are the host's."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+        self.seconds: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
+        self.counts: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t = time.perf_counter()
+        with torch.profiler.record_function(self.prefix + name):
+            yield
+        dt = time.perf_counter() - t
+        with self._lock:
+            self.seconds[name] = self.seconds.get(name, 0.0) + dt
+            self.calls[name] = self.calls.get(name, 0) + 1
+
+    def add(self, name: str, n: int) -> None:
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + int(n)
+
+    def stats(self) -> dict:
+        """`phase_<name>_s` for each phase (rounded to 0.1 ms) and
+        `n_<name>` for each count."""
+        with self._lock:
+            out = {f"phase_{n}_s": round(v, 4)
+                   for n, v in self.seconds.items()}
+            out.update((f"n_{n}", v) for n, v in self.counts.items())
+        return out
