@@ -88,8 +88,9 @@ def summarize(events: list[dict]) -> dict | None:
             for e in events if e.get("cat") == "user_annotation"
             and e.get("name", "").startswith(SPAN_PREFIX)
             and e["name"] != WINDOW]
-    program = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-               if e.get("cat") == "user_annotation"
+    # "/counter.<phase>", to follow the host span in a gap's name
+    program = [(e["ts"], e["ts"] + e["dur"], "/" + e["name"])
+               for e in events if e.get("cat") == "user_annotation"
                and e.get("name", "").startswith(PROGRAM_PREFIX)]
     gaps = sorted(_gaps(dev, lo, hi), key=lambda g: g[0] - g[1])[:TOP]
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
@@ -97,8 +98,8 @@ def summarize(events: list[dict]) -> dict | None:
             "busy_s": busy_share(dev, lo, hi) * window_s,
             "kernels": kernels,
             "device_ops": [[n, s] for n, s in ops],
-            "idle_gaps": [[f"{_label(a, b, host)}{_inner(a, b, program)} "
-                           f"+{(a - lo) / 1e6:.3f}s", (b - a) / 1e6]
+            "idle_gaps": [[f"{_label(a, b, host)}{_label(a, b, program, '')}"
+                           f" +{(a - lo) / 1e6:.3f}s", (b - a) / 1e6]
                           for a, b in gaps]}
 
 
@@ -113,23 +114,12 @@ def _gaps(dev: list[dict], lo: float, hi: float):
         yield end, hi
 
 
-def _label(a: float, b: float, host) -> str:
-    """The host span that covers most of [a, b], or "other"."""
-    best, name = 0.0, "other"
-    for s, t, n in host:
-        cover = min(b, t) - max(a, s)
-        if cover > best:
-            best, name = cover, n
-    return name
-
-
-def _inner(a: float, b: float, spans) -> str:
-    """"/<span>" for the program span that covers most of [a, b], the
-    innermost (shortest) of those that cover as much; "" where none
-    covers any of it."""
+def _label(a: float, b: float, spans, default: str = "other") -> str:
+    """The span that covers most of [a, b], the innermost (shortest) of
+    those that cover as much; `default` where none covers any of it."""
     best = None
     for s, t, n in spans:
         cover = min(b, t) - max(a, s)
-        if cover > 0 and (best is None or (cover, s - t) > best[:2]):
-            best = (cover, s - t, n)
-    return "" if best is None else "/" + best[2]
+        if cover > 0 and (best is None or (cover, s - t) > best[0]):
+            best = ((cover, s - t), n)
+    return default if best is None else best[1]

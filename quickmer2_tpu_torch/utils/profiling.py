@@ -59,7 +59,7 @@ def annotate(name: str):
 
 
 class Phases:
-    """Seconds and calls of a counter's phases, and its plain counts.
+    """Seconds of a counter's phases, and its plain counts.
 
     `with phases("drain"):` is the profiler range `<prefix>drain` (on the
     trace's clock, beside the device's kernels and copies) and adds its
@@ -72,7 +72,6 @@ class Phases:
     def __init__(self, prefix: str):
         self.prefix = prefix
         self.seconds: dict[str, float] = {}
-        self.calls: dict[str, int] = {}
         self.counts: dict[str, int] = {}
         self._lock = threading.Lock()
 
@@ -84,7 +83,6 @@ class Phases:
         dt = time.perf_counter() - t
         with self._lock:
             self.seconds[name] = self.seconds.get(name, 0.0) + dt
-            self.calls[name] = self.calls.get(name, 0) + 1
 
     def add(self, name: str, n: int) -> None:
         with self._lock:

@@ -9,10 +9,17 @@ from qmbench import run, trace
 
 WINDOW_S = 20.0
 START = {"total_windows": 1000, "phase_concat_s": 0.5, "phase_put_s": 0.25,
-         "phase_drain_s": 1.0, "n_recount_lanes": 10}
+         "phase_drain_s": 1.0, "phase_mask_scan_s": 0.5,
+         "n_recount_lanes": 10}
 END = {"total_windows": 5000, "phase_concat_s": 1.5, "phase_put_s": 2.25,
-       "phase_drain_s": 5.0, "n_recount_lanes": 50,
+       "phase_drain_s": 5.0, "phase_mask_scan_s": 2.0, "n_recount_lanes": 50,
        "phase_depth_fetch_s": 0.75, "phase_depth_rank_s": 4.5}
+# a counter's stats before its phases were split: pack_put, dispatch and
+# a drain that timed the mask's fetch and unpack alone
+OLDER = ({"total_windows": 1000, "phase_pack_put_s": 0.5,
+          "phase_dispatch_s": 0.25, "phase_drain_s": 0.125},
+         {"total_windows": 5000, "phase_pack_put_s": 2.5,
+          "phase_dispatch_s": 1.25, "phase_drain_s": 0.625})
 # each reader's value on START -> END over WINDOW_S
 WANT = {"batch_concat_pct": 100.0 * 1.0 / WINDOW_S,
         "h2d_put_pct": 100.0 * 2.0 / WINDOW_S,
@@ -33,6 +40,13 @@ def test_reader_reads_its_delta(name):
     # a program without the phase (the parent's) gives no value
     assert mod.read(_run({"total_windows": 1000},
                          {"total_windows": 5000})) is None
+
+
+@pytest.mark.parametrize("name", sorted(WANT))
+def test_reader_silent_on_older_stats(name):
+    """A counter's stats from before the split (its phase_drain_s the
+    narrow one) give none of the readers a value."""
+    assert run.Registry().metric(name).read(_run(*OLDER)) is None
 
 
 def _ev(cat, name, ts, dur):
