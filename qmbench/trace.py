@@ -3,9 +3,7 @@
 kernel_name and busy_share are copies of chip_smoke.py's at commit
 0be96d5. The window is the benchmark's `qmbench.window` annotation; its
 host spans (`qmbench.parse`, `qmbench.feed`, `qmbench.finish`) name what
-the host was doing in each gap of the device's timeline, and the
-program's own spans inside them (`counter.*`, where the program has
-them) what it was doing there.
+the host was doing in each gap of the device's timeline.
 """
 
 from __future__ import annotations
@@ -19,7 +17,6 @@ import torch
 DEVICE_BUSY = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "qmbench.window"
 SPAN_PREFIX = "qmbench."
-PROGRAM_PREFIX = "counter."
 TOP = 10
 
 
@@ -65,9 +62,7 @@ def summarize(events: list[dict]) -> dict | None:
     """What the metrics and the breakdown read from the window's trace:
     window_s, busy_s, kernel seconds by name, the device operations that
     took the most time and the longest idle gaps, each named by the host
-    span open over most of it and, after a "/", by the program's span
-    that covers most of it where one does. None without the window's
-    annotation."""
+    span open over most of it. None without the window's annotation."""
     win = [e for e in events if e.get("cat") == "user_annotation"
            and e.get("name") == WINDOW]
     if not win:
@@ -88,19 +83,14 @@ def summarize(events: list[dict]) -> dict | None:
             for e in events if e.get("cat") == "user_annotation"
             and e.get("name", "").startswith(SPAN_PREFIX)
             and e["name"] != WINDOW]
-    # "/counter.<phase>", to follow the host span in a gap's name
-    program = [(e["ts"], e["ts"] + e["dur"], "/" + e["name"])
-               for e in events if e.get("cat") == "user_annotation"
-               and e.get("name", "").startswith(PROGRAM_PREFIX)]
     gaps = sorted(_gaps(dev, lo, hi), key=lambda g: g[0] - g[1])[:TOP]
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
     return {"window_s": window_s,
             "busy_s": busy_share(dev, lo, hi) * window_s,
             "kernels": kernels,
             "device_ops": [[n, s] for n, s in ops],
-            "idle_gaps": [[f"{_label(a, b, host)}{_label(a, b, program, '')}"
-                           f" +{(a - lo) / 1e6:.3f}s", (b - a) / 1e6]
-                          for a, b in gaps]}
+            "idle_gaps": [[f"{_label(a, b, host)} +{(a - lo) / 1e6:.3f}s",
+                           (b - a) / 1e6] for a, b in gaps]}
 
 
 def _gaps(dev: list[dict], lo: float, hi: float):
@@ -114,12 +104,11 @@ def _gaps(dev: list[dict], lo: float, hi: float):
         yield end, hi
 
 
-def _label(a: float, b: float, spans, default: str = "other") -> str:
-    """The span that covers most of [a, b], the innermost (shortest) of
-    those that cover as much; `default` where none covers any of it."""
-    best = None
-    for s, t, n in spans:
+def _label(a: float, b: float, host) -> str:
+    """The host span that covers most of [a, b], or "other"."""
+    best, name = 0.0, "other"
+    for s, t, n in host:
         cover = min(b, t) - max(a, s)
-        if cover > 0 and (best is None or (cover, s - t) > best[0]):
-            best = ((cover, s - t), n)
-    return default if best is None else best[1]
+        if cover > best:
+            best, name = cover, n
+    return name

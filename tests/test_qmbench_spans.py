@@ -1,7 +1,6 @@
 """The benchmark's readers of the flat counter's phases and counts, on a
-synthetic run, and the idle gaps of a synthetic trace named by the
-program's `counter.*` spans, with every other value of the summary as it
-is without them."""
+synthetic run, and the summary of a synthetic trace, which the
+program's `counter.*` spans leave as it is without them."""
 
 import pytest
 
@@ -71,7 +70,7 @@ def _events():
 def _counter_spans():
     """The program's spans: a drain with a recount inside (20-55, 25-50),
     a pack beside it (55-60), a finish's depth fetch (70-88) and rank
-    (92-100), and an anchored span that labels nothing."""
+    (92-100), and an anchored span over the whole window."""
     return [_ev("user_annotation", "counter.drain", 20, 35),
             _ev("user_annotation", "counter.recount", 25, 25),
             _ev("user_annotation", "counter.pack", 55, 5),
@@ -80,32 +79,16 @@ def _counter_spans():
             _ev("user_annotation", "anchored.drain", 0, 100)]
 
 
-@pytest.mark.parametrize("spans", [False, True], ids=["outside", "inside"])
-def test_summary_gaps_named_by_counter_spans(spans):
-    plain = trace.summarize(_events())
-    got = trace.summarize(_events() + (_counter_spans() if spans else []))
-    for key in ("window_s", "busy_s", "kernels", "device_ops"):
-        assert got[key] == plain[key], key
-    assert [s for _, s in got["idle_gaps"]] == \
-        [s for _, s in plain["idle_gaps"]]
-    labels = {round(s): n for n, s in got["idle_gaps"]}
-    if not spans:
-        assert labels == {40: "feed +20.000s", 25: "finish +65.000s",
-                          10: "parse +0.000s", 8: "finish +92.000s"}
-        return
-    # 20-60: the drain covers 35, its recount 25, the pack 5; 65-90: the
-    # depth fetch covers 18 of 25; 92-100: the rank all of it; 0-10: no
-    # counter span
-    assert labels == {40: "feed/counter.drain +20.000s",
-                      25: "finish/counter.depth_fetch +65.000s",
-                      10: "parse +0.000s",
-                      8: "finish/counter.depth_rank +92.000s"}
-
-
-def test_innermost_span_of_equal_cover_names_the_gap():
-    """A parent and its child that cover a gap alike: the child names it."""
-    ev = _events() + [_ev("user_annotation", "counter.drain", 15, 50),
-                      _ev("user_annotation", "counter.mask_scan", 20, 40)]
-    got = trace.summarize(ev)
-    assert "feed/counter.mask_scan +20.000s" in [n for n, _ in
-                                                 got["idle_gaps"]]
+@pytest.mark.parametrize("spans", [[], _counter_spans(), [
+    _ev("user_annotation", "counter.drain", 15, 50),
+    _ev("user_annotation", "counter.mask_scan", 20, 40)]],
+    ids=["none", "phases", "nested"])
+def test_summary_unmoved_by_counter_spans(spans):
+    """The program's spans inside the benchmark's change nothing that
+    the summary reads: every value, the gaps' names included, is the
+    one without them."""
+    got = trace.summarize(_events() + spans)
+    assert got == trace.summarize(_events())
+    assert {round(s): n for n, s in got["idle_gaps"]} == {
+        40: "feed +20.000s", 25: "finish +65.000s",
+        10: "parse +0.000s", 8: "finish +92.000s"}
